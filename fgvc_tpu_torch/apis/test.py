@@ -1,0 +1,104 @@
+"""Evaluation harness of the port (fgvc_tpu/apis/test.py, TAP-Vid-DAVIS).
+
+    run_task('davis', data_root, checkpoint=None, device=None)
+
+builds the ResNet-18-d1 tracker on the card (or on the device the caller
+names), evaluates every per-video pickle of `data_root` and returns the
+TAP-Vid metrics.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Union
+
+import torch
+
+from fgvc_tpu_torch.config import DAVIS_TEST_CFG, TestConfig
+from fgvc_tpu_torch.device import resolve_device
+from fgvc_tpu_torch.models.resnet import init_random, resnet18_d1
+from fgvc_tpu_torch.models.tracker import Tracker
+from fgvc_tpu_torch.models.weights import load_reference_pth, load_weights
+
+TASK_CONFIGS: Dict[str, TestConfig] = {"davis": DAVIS_TEST_CFG}
+
+# tasks of fgvc_tpu's CLI that later slices of ROADMAP.md port
+_LATER = {
+    "kinetics": "slice 2 (Kinetics and multi-GPU eval)",
+    "vos": "slice 3 (DAVIS VOS)",
+    "jhmdb": "slice 4 (JHMDB and BADJA)",
+    "badja": "slice 4 (JHMDB and BADJA)",
+}
+
+
+def build_tracker(
+    test_cfg: TestConfig = DAVIS_TEST_CFG,
+    checkpoint: Optional[str] = None,
+    seed: int = 0,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Tracker:
+    """ResNet-18-d1 tracker with weights from a reference ``.pth``, or
+    seeded random weights.  Runs on the CUDA card unless `device` names
+    another; raises where there is no card and none was named."""
+    dev = resolve_device(device)
+    model = resnet18_d1()
+    if checkpoint is None:
+        init_random(model, seed)
+    elif checkpoint.endswith(".pth"):
+        load_weights(model, load_reference_pth(checkpoint))
+    else:
+        raise NotImplementedError(
+            f"{checkpoint}: only reference .pth checkpoints are read by "
+            "fgvc_tpu_torch yet (orbax checkpoints come with slice 7)"
+        )
+    return Tracker(model, test_cfg, dev)
+
+
+def eval_tapvid(tracker: Tracker, dataset, max_videos=None, output_dir=None) -> Dict[str, float]:
+    """Track every video of `dataset` (a TapVidDataset) and score the
+    results."""
+    n = len(dataset) if max_videos is None else min(len(dataset), max_videos)
+    results = []
+    for i in range(n):
+        sample = dataset[i]
+        t0 = time.time()
+        out = tracker.track_points(sample["video"], sample["query_points"])
+        print(
+            f"[{i}] T={len(sample['video'])} P={sample['query_points'].shape[0]}"
+            f" {time.time() - t0:.2f}s",
+            flush=True,
+        )
+        results.append({
+            "trajectories_gt": sample["trajectories"],
+            "visibilities_gt": sample["visibilities"],
+            "trajectories_pred": out["trajectories"],
+            "visibilities_pred": out["visibilities"],
+            "query_points": sample["query_points"],
+        })
+    return dataset.evaluate(results, output_dir=output_dir, indices=range(n))
+
+
+def run_task(
+    task: str,
+    data_root: str,
+    checkpoint: Optional[str] = None,
+    max_videos: Optional[int] = None,
+    output_dir: Optional[str] = None,
+    test_cfg: Optional[TestConfig] = None,
+    device: Optional[Union[str, torch.device]] = None,
+    seed: int = 0,
+) -> Dict[str, float]:
+    """Mirror of `tools/test.py --task davis`."""
+    if task in _LATER:
+        raise NotImplementedError(
+            f"task {task!r} is not ported to fgvc_tpu_torch yet; it comes "
+            f"with {_LATER[task]}"
+        )
+    if task not in TASK_CONFIGS:
+        raise ValueError(f"unknown task {task!r}")
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+
+    cfg = test_cfg or TASK_CONFIGS[task]
+    tracker = build_tracker(cfg, checkpoint, seed=seed, device=device)
+    ds = TapVidDataset(data_root, subset_name=task, input_size=cfg.input_size)
+    return eval_tapvid(tracker, ds, max_videos, output_dir=output_dir)

@@ -1,0 +1,30 @@
+"""Device and precision policy of the port's entry points."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another.  Raises where no card is present and none was named."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the port "
+            "on the CPU"
+        )
+    return dev
+
+
+def set_matmul_precision(precision: str) -> None:
+    """'highest' is full float32: TF32 off for matrix products AND for cuDNN
+    convolutions (PyTorch's cuDNN default is TF32)."""
+    if precision != "highest":
+        raise NotImplementedError(
+            f"matmul_precision={precision!r} is not ported yet (slice 5)"
+        )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,289 @@
+"""Windowed top-k attention over a halo-padded key bank (kernel K1).
+
+Counterpart of fgvc_tpu/ops/pallas/topk_attention.py in its main-path
+configuration: banked keys, float32, circle mask.  ``topk_attention_banked``
+launches the hand-written CUDA kernel of csrc/topk_attention.cu for CUDA
+tensors and runs ``topk_attention_banked_plain``, a straightforward PyTorch
+version of the same function, for CPU tensors.  See the kernel source for
+what bounds it on an H100 and how its design handles the Pallas kernel's
+VMEM-resident affinity.
+
+Semantics (the Pallas kernel's, tie rule included): every query pixel attends
+over the win x win halo window (win = tile + 2 * halo) of T key slots, masked
+to the strict circle dy^2 + dx^2 < radius^2, to keys inside the image and to
+valid slots; the k largest affinities are softmaxed and mix the slot values.
+Candidates tied at the k-th value share the remaining (k - n_above) slots
+equally; rows with fewer than k live keys take every live key once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from fgvc_tpu_torch.ops.attention import build_padded_bank
+
+NEG = -1e30
+MAX_T = 16      # key slots the kernel's parameter block holds
+MAX_TOPK = 31   # largest k the kernel's per-lane lists hold
+
+# Kernel launches since the last reset (one per call that runs the kernel).
+launches = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def bank_geometry(H: int, W: int, radius: float, tile: int):
+    """(halo, Hp, Wp, rows_total, cols_total) of pad_key_bank_pallas."""
+    halo = int(radius)
+    win = tile + 2 * halo
+    Hp, Wp = _round_up(H, tile), _round_up(W, tile)
+    pad8 = _round_up(win, 8) - win
+    return halo, Hp, Wp, H + 2 * halo + (Hp - H) + pad8, W + 2 * halo + (Wp - W) + pad8
+
+
+def pad_key_bank(
+    bank: torch.Tensor, radius: float, tile: int = 16, normalize: bool = True
+) -> torch.Tensor:
+    """Normalise and halo-pad a (Tb, H, W, C) feature bank once, in the
+    geometry of pad_key_bank_pallas (float32 mode)."""
+    H, W = bank.shape[1:3]
+    halo, _, _, rows_total, cols_total = bank_geometry(H, W, radius, tile)
+    return build_padded_bank(
+        bank, halo=halo, rows_total=rows_total, cols_total=cols_total,
+        normalize=normalize, dtype=torch.float32,
+    )
+
+
+def _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile):
+    halo, Hp, Wp, rows_total, cols_total = bank_geometry(H, W, radius, tile)
+    T = value.shape[0]
+    if qpad.shape[:2] != (Hp, Wp) or qpad.dim() != 3:
+        raise ValueError(f"qpad must be ({Hp}, {Wp}, C), got {tuple(qpad.shape)}")
+    C = qpad.shape[2]
+    if kpad.dim() != 4 or kpad.shape[1:] != (rows_total, cols_total, C):
+        raise ValueError(
+            f"kpad must be (Tb, {rows_total}, {cols_total}, {C}) from "
+            f"pad_key_bank, got {tuple(kpad.shape)}"
+        )
+    if value.dim() != 4 or value.shape[1:3] != (H, W):
+        raise ValueError(f"value must be (T, {H}, {W}, Cv), got {tuple(value.shape)}")
+    if len(frame_idx) != T or len(key_valid) != T:
+        raise ValueError(f"frame_idx and key_valid need {T} entries")
+    if not all(0 <= int(i) < kpad.shape[0] for i in frame_idx):
+        raise ValueError(f"frame_idx {list(frame_idx)} outside the bank")
+    if not 1 <= topk:
+        raise ValueError(f"topk must be positive, got {topk}")
+
+
+def topk_attention_banked(
+    qpad: torch.Tensor,    # (Hp, Wp, C) normalised padded query
+    kpad: torch.Tensor,    # (Tb, rows_total, cols_total, C) from pad_key_bank
+    value: torch.Tensor,   # (T, H, W, Cv) value maps of the T key slots
+    *,
+    frame_idx: Sequence[int],   # (T,) bank frame of each key slot
+    key_valid: Sequence[bool],  # (T,) slot validity
+    H: int,
+    W: int,
+    radius: float,
+    temperature: float = 1.0,
+    topk: int = 10,
+    tile: int = 16,
+) -> torch.Tensor:
+    """(H, W, Cv) float32 propagated values.  CPU tensors take the plain
+    version; CUDA tensors take the kernel, or raise."""
+    _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile)
+    if qpad.device.type == "cpu" and kpad.device.type == "cpu" and value.device.type == "cpu":
+        return topk_attention_banked_plain(
+            qpad, kpad, value, frame_idx=frame_idx, key_valid=key_valid,
+            H=H, W=W, radius=radius, temperature=temperature, topk=topk,
+            tile=tile,
+        )
+    return _launch(
+        qpad, kpad, value, frame_idx, key_valid, H, W, radius, temperature,
+        topk, tile,
+    )
+
+
+class _Params(ctypes.Structure):
+    # field for field the TopkAttnParams struct of csrc/topk_attention.cu
+    _fields_ = [
+        *[(n, ctypes.c_int) for n in (
+            "H", "W", "Hp", "Wp", "C", "Cv", "T", "tile", "halo", "win",
+            "rows_total", "cols_total", "topk",
+        )],
+        ("inv_temp", ctypes.c_float),
+        ("rr", ctypes.c_float),
+        ("frame_idx", ctypes.c_int * MAX_T),
+        ("frame_bias", ctypes.c_float * MAX_T),
+    ]
+
+
+def _library():
+    from fgvc_tpu_torch.ops.cuda.build import load
+
+    lib = load("topk_attention")
+    fn = lib.fgvc_topk_attention_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [_Params, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(qpad, kpad, value, frame_idx, key_valid, H, W, radius,
+            temperature, topk, tile):
+    global launches
+    tensors = {"qpad": qpad, "kpad": kpad, "value": value}
+    for name, x in tensors.items():
+        if x.device.type != "cuda" or x.device != qpad.device:
+            raise ValueError(
+                f"{name} must lie on the CUDA device of qpad ({qpad.device}), "
+                f"got {x.device}"
+            )
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    T, Cv, C = value.shape[0], value.shape[3], qpad.shape[2]
+    if C % 16:
+        raise ValueError(f"the kernel needs C % 16 == 0, got C={C}")
+    if T > MAX_T:
+        raise ValueError(f"the kernel takes at most {MAX_T} key slots, got {T}")
+    if topk > MAX_TOPK:
+        raise ValueError(f"the kernel takes topk <= {MAX_TOPK}, got {topk}")
+    halo, Hp, Wp, rows_total, cols_total = bank_geometry(H, W, radius, tile)
+    win = tile + 2 * halo
+    ntiles = (Hp // tile) * (Wp // tile)
+    if ntiles * T > 65535:
+        raise ValueError(f"{ntiles} tiles x {T} slots exceed the launch grid")
+    p = _Params(
+        H, W, Hp, Wp, C, Cv, T, tile, halo, win, rows_total, cols_total, topk,
+        1.0 / temperature, float(radius) * float(radius),
+    )
+    for t in range(T):
+        p.frame_idx[t] = int(frame_idx[t])
+        p.frame_bias[t] = 0.0 if key_valid[t] else NEG
+    out = torch.empty((H, W, Cv), dtype=torch.float32, device=qpad.device)
+    scratch = torch.empty(
+        ntiles * tile * tile * T * win * win, dtype=torch.float32,
+        device=qpad.device,
+    )
+    fn = _library()
+    with torch.cuda.device(qpad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(qpad.data_ptr(), kpad.data_ptr(), value.data_ptr(),
+                 out.data_ptr(), scratch.data_ptr(), p, stream)
+    if err:
+        raise RuntimeError(f"topk_attention kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+# --------------------------------------------------------------------- #
+# plain version
+# --------------------------------------------------------------------- #
+def _windows(x: torch.Tensor, nth: int, ntw: int, tile: int, win: int):
+    """(R, Cc, D) padded map -> (nth * ntw, win * win, D) halo windows."""
+    sR, sC, sD = x.stride()
+    D = x.shape[-1]
+    w = x.as_strided((nth, ntw, win, win, D), (tile * sR, tile * sC, sR, sC, sD))
+    return w.reshape(nth * ntw, win * win, D)
+
+
+def topk_attention_banked_plain(
+    qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
+    temperature=1.0, topk=10, tile=16,
+):
+    """The kernel's function in plain PyTorch, written from the Pallas
+    kernel's three passes (_make_kernel): masked affinities of every query
+    tile, the top-k statistics by k + 1 distinct-value rounds, and the
+    weighted value sum.  Runs on the device of its inputs."""
+    _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile)
+    dev = qpad.device
+    halo, Hp, Wp, _, _ = bank_geometry(H, W, radius, tile)
+    win = tile + 2 * halo
+    nth, ntw = Hp // tile, Wp // tile
+    N, S, FK = nth * ntw, tile * tile, win * win
+    T, Cv, C = value.shape[0], value.shape[3], qpad.shape[2]
+    inv_temp = 1.0 / temperature
+
+    q = qpad.reshape(nth, tile, ntw, tile, C).permute(0, 2, 1, 3, 4)
+    q = q.reshape(N, S, C)
+
+    # mask bias over one frame window: radius circle (S, FK) + image strip
+    # (N, 1, FK), as the Pallas kernel's rbias + in_img
+    f = torch.arange(FK, device=dev)
+    wi, wj = (f // win).float(), (f % win).float()
+    s = torch.arange(S, device=dev)
+    qi, qj = (s // tile).float()[:, None], (s % tile).float()[:, None]
+    dy, dx = wi[None] - halo - qi, wj[None] - halo - qj
+    rbias = torch.where(dy * dy + dx * dx < float(radius) * float(radius), 0.0, NEG)
+    n = torch.arange(N, device=dev)
+    r0, c0 = ((n // ntw) * tile).float()[:, None], ((n % ntw) * tile).float()[:, None]
+    kgi, kgj = r0 + wi[None] - halo, c0 + wj[None] - halo
+    in_img = (kgi >= 0) & (kgi <= H - 1) & (kgj >= 0) & (kgj <= W - 1)
+    bias = rbias[None] + torch.where(in_img, 0.0, NEG)[:, None, :]  # (N, S, FK)
+
+    # pass A: one product per slot, so a frame in two slots ties exactly
+    vpad = torch.zeros(
+        (T, Hp + 2 * halo, Wp + 2 * halo, Cv), dtype=value.dtype, device=dev
+    )
+    vpad[:, halo : halo + H, halo : halo + W] = value
+    affs, vws = [], []
+    for t in range(T):
+        kw = _windows(kpad[int(frame_idx[t])], nth, ntw, tile, win)  # (N, FK, C)
+        a = torch.bmm(q, kw.transpose(1, 2)) * inv_temp
+        affs.append(a + bias + (0.0 if key_valid[t] else NEG))
+        vws.append(_windows(vpad[t], nth, ntw, tile, win))
+    a = torch.cat(affs, dim=-1)          # (N, S, T * FK)
+    vw = torch.cat(vws, dim=1)           # (N, T * FK, Cv)
+    K = a.shape[-1]
+
+    # pass B: round r finds the largest value strictly below round r-1's and
+    # the count of elements >= round r-1's value
+    vals, cges = [], []
+    prev = torch.full((N, S, 1), 1e30, device=dev)
+    for r in range(topk + 1):
+        lt = a < prev
+        if r > 0:
+            cges.append(K - lt.sum(-1, keepdim=True).float())
+        if r < topk:
+            m = torch.where(lt, a, NEG).amax(-1, keepdim=True)
+            vals.append(m)
+            prev = m
+    vals = torch.cat(vals, -1)
+    cges = torch.cat(cges, -1)
+    live = vals > NEG / 2
+    mmax = vals[..., :1]
+    cge_prev = torch.cat(
+        [torch.zeros_like(cges[..., :1]), torch.where(live, cges, 0.0)[..., :-1]], -1
+    )
+    cnts = torch.clamp_min(cges - cge_prev, 0.0)
+    inf = torch.tensor(float("inf"), device=dev)
+    t1 = torch.where(live & (cges >= topk), vals, -inf).amax(-1, keepdim=True)
+    t2 = torch.where(live, vals, inf).amin(-1, keepdim=True)
+    thresh = torch.where(torch.isfinite(t1), t1, t2)
+    thresh = torch.where(torch.isfinite(thresh), thresh, NEG)
+    at_lane = live & (vals == thresh)
+    n_above = torch.where(at_lane, cge_prev, 0.0).sum(-1, keepdim=True)
+    cnt_at = torch.where(at_lane, cnts, 0.0).sum(-1, keepdim=True)
+    frac = torch.minimum(torch.clamp_min(topk - n_above, 0.0), cnt_at) / torch.clamp_min(cnt_at, 1.0)
+    e_vals = torch.exp(torch.clamp_max(vals - mmax, 0.0))
+    z = torch.where(live & (vals > thresh), e_vals * cnts, 0.0).sum(-1, keepdim=True)
+    z = z + frac * cnt_at * torch.exp(torch.clamp_max(thresh - mmax, 0.0)) * (thresh > NEG / 2)
+    z = torch.clamp_min(z, 1e-30)
+
+    # pass C: weighted value sum
+    d = torch.sign(a - thresh)
+    above = torch.clamp(d, 0.0, 1.0)
+    at = (1.0 - d.abs()) * torch.clamp(torch.sign(a - NEG / 2) + 1.0, 0.0, 1.0)
+    w = torch.exp(torch.clamp_max(a - mmax, 0.0)) * (above + frac * at)
+    out = torch.bmm(w, vw) / z           # (N, S, Cv)
+    out = out.reshape(nth, ntw, tile, tile, Cv).permute(0, 2, 1, 3, 4)
+    return out.reshape(Hp, Wp, Cv)[:H, :W].contiguous()

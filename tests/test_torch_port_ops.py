@@ -1,0 +1,159 @@
+"""The port's host and elementwise ops against the JAX package's, on the same
+numpy inputs (tolerance 1e-5, float32 rounding), plus the port's static
+rules: no import of jax or fgvc_tpu, and entry points that need a card
+unless the CPU is asked for."""
+
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+TOL = 1e-5
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_rgb_to_lab_normalized_matches_jax():
+    import jax.numpy as jnp
+
+    from fgvc_tpu.ops.color import preprocess_rgb_to_lab_normalized as jax_pre
+    from fgvc_tpu_torch.ops.color import preprocess_rgb_to_lab_normalized
+
+    rng = np.random.default_rng(0)
+    rgb = rng.integers(0, 256, (4, 17, 19, 3), dtype=np.uint8)
+    rgb[0, 0, :3] = [[0, 0, 0], [255, 255, 255], [3, 1, 2]]  # both curve branches
+    ref = np.asarray(jax_pre(jnp.asarray(rgb)))
+    out = preprocess_rgb_to_lab_normalized(torch.from_numpy(rgb)).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_draw_gaussian_maps_matches_jax(stride):
+    import jax.numpy as jnp
+
+    from fgvc_tpu.ops.grids import draw_gaussian_maps as jax_draw
+    from fgvc_tpu_torch.ops.grids import draw_gaussian_maps
+
+    rng = np.random.default_rng(1)
+    pts = rng.uniform(0, 31, (5, 2)).astype(np.float32)
+    ref = np.asarray(jax_draw(jnp.asarray(pts), 32, 30, sigma=6.0, stride=stride))
+    out = draw_gaussian_maps(torch.from_numpy(pts), 32, 30, sigma=6.0, stride=stride).numpy()
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("hw", [(16, 20), (96, 96)])
+def test_soft_argmax_topk_matches_jax(hw):
+    import jax.numpy as jnp
+
+    from fgvc_tpu.ops.grids import soft_argmax_topk as jax_decode
+    from fgvc_tpu_torch.ops.grids import soft_argmax_topk
+
+    rng = np.random.default_rng(2)
+    maps = rng.random((4, *hw)).astype(np.float32)
+    maps[2] = 0.0  # empty map decodes to (-1, -1)
+    ref = np.asarray(jax_decode(jnp.asarray(maps), topk=5))
+    out = soft_argmax_topk(torch.from_numpy(maps), topk=5).numpy()
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(out[2], [-1.0, -1.0])
+
+
+@pytest.mark.parametrize("src,dst", [((16, 16), (32, 32)), ((12, 10), (24, 20))])
+def test_bilinear_upsample_matches_jax_resize(src, dst):
+    """jax.image.resize(..., 'bilinear') going up equals F.interpolate with
+    align_corners=False and no antialias."""
+    import jax
+    import jax.numpy as jnp
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((*src, 3)).astype(np.float32)
+    ref = np.asarray(jax.image.resize(jnp.asarray(x), (*dst, 3), method="bilinear"))
+    out = F.interpolate(
+        torch.from_numpy(x).permute(2, 0, 1)[None], size=dst, mode="bilinear",
+        align_corners=False, antialias=False,
+    )[0].permute(1, 2, 0).numpy()
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+
+
+def test_l2_normalize_matches_jax():
+    import jax.numpy as jnp
+
+    from fgvc_tpu.ops.attention import l2_normalize as jax_norm
+    from fgvc_tpu_torch.ops.attention import l2_normalize
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 5, 7, 16)).astype(np.float32)
+    x[0, 0, 0] = 0.0  # eps clamp: zero vectors stay zero
+    ref = np.asarray(jax_norm(jnp.asarray(x)))
+    out = l2_normalize(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=1e-7)
+    assert not out[0, 0, 0].any()
+
+
+def test_tapvid_metrics_copy_matches_jax():
+    from fgvc_tpu.core.metrics import tapvid as jax_metrics
+    from fgvc_tpu_torch.core.metrics import tapvid as port_metrics
+
+    rng = np.random.default_rng(5)
+    T = 12
+    summaries = {"jax": [], "port": []}
+    for n in range(6):
+        gt = rng.uniform(0, 256, (T, 2)).astype(np.float32)
+        pred = gt + rng.normal(0, 4, (T, 2)).astype(np.float32)
+        vis = rng.random(T) > 0.3
+        vis[n % 4] = True
+        qp = np.array([n % 4, *gt[n % 4]], np.float32)
+        pvis = rng.random(T) > 0.5
+        for name, mod in (("jax", jax_metrics), ("port", port_metrics)):
+            summaries[name].append(mod.compute_point_summary(
+                gt, pred, vis, pvis, qp, idx=f"{n % 2}--{n}"))
+    assert summaries["port"] == summaries["jax"]
+    assert (port_metrics.aggregate_summaries(summaries["port"])
+            == jax_metrics.aggregate_summaries(summaries["jax"]))
+
+
+def test_port_imports_neither_jax_nor_fgvc_tpu():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|fgvc_tpu(?!_torch))\b", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "fgvc_tpu_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        offenders += [f"{path}: {m.group(0).strip()}" for m in pattern.finditer(src)]
+        if re.search(r"fgvc_tpu(?!_torch)[.\w]*\s+import", src):
+            offenders.append(f"{path}: imports from fgvc_tpu")
+    assert not offenders, offenders
+
+
+def test_build_tracker_without_device_needs_a_card(monkeypatch):
+    from fgvc_tpu_torch.apis.test import build_tracker, run_task
+    from fgvc_tpu_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_tracker()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_task("davis", ROOT)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_unported_knobs_raise():
+    import dataclasses
+
+    from fgvc_tpu_torch.apis.test import build_tracker, run_task
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+
+    for knob, value in [("save_mem", True), ("matmul_precision", "high"),
+                        ("attention_impl", "tiled"), ("decode_impl", "coarse"),
+                        ("upload_format", "yuv420"), ("visibility_mode", "heatmap"),
+                        ("hard_prop", True)]:
+        cfg = dataclasses.replace(DAVIS_TEST_CFG, **{knob: value})
+        with pytest.raises(NotImplementedError, match="slice"):
+            build_tracker(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        run_task("kinetics", ROOT, device="cpu")
