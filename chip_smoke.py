@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (fgvc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases card,build,kernel,e2e,plain]
+    python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,vos,vos_plain]
 
 Phases, each of which raises on failure (exit code != 0):
-  card    the card's name and power limit (nvidia-smi);
-  build   every CUDA source of fgvc_tpu_torch/csrc, one nvcc each, in parallel;
-  kernel  K1 (top-k attention) against its plain PyTorch version on the card
-          at DAVIS shapes (128 x 128 x 256 features, 6 key slots, radius 15,
-          top-10, 32 values): distinct key frames, and the first step's tie
-          case (frame 0 in two valid slots).  max |diff| <= 1e-4: outputs are
-          convex mixes of values in [0, 1] and the sums run in another order;
-  e2e     run_task('davis') (the CLI's path) on two synthetic TAP-Vid pickles
-          (48 frames, 256 x 256, 32 tracks) with seeded random weights at the
-          full width of ResNet-18-d1; K1's launches must equal the frames
-          propagated;
-  plain   one of those videos again with the propagation forced through the
-          plain version on the card: median trajectory |diff| <= 1e-3 px and
-          <D within 0.1.
+  card      the card's name and power limit (nvidia-smi);
+  build     every CUDA source of fgvc_tpu_torch/csrc, one nvcc each, in
+            parallel;
+  kernel    each kernel against its plain PyTorch version on the card, for
+            distinct key frames and for the first step's tie case (frame 0 in
+            two valid slots): K1 with the circle window at TAP-Vid shapes
+            (128 x 128 x 256 features, 6 key slots, radius 15, top-10, 32
+            values), and K1 with the square window and K2 (the unbanked entry)
+            at DAVIS VOS shapes (240 x 440 x 256, 5 values).  max |diff| <=
+            1e-4: outputs are convex mixes of values in [0, 1] and the sums
+            run in another order;
+  e2e       run_task('davis') (the CLI's path) on two synthetic TAP-Vid
+            pickles (48 frames, 256 x 256, 32 tracks) with seeded random
+            weights at the full width of ResNet-18-d1; K1's launches must
+            equal the frames propagated, K2's must be 0;
+  plain     one of those videos again with the propagation forced through
+            the plain version on the card: median trajectory |diff| <= 1e-3
+            px and <D within 0.1;
+  vos       eval_vos (the path of `--task vos`) on two synthetic DAVIS-like
+            videos (24 frames, 480 x 854 resized to 480 x 880 as the reader
+            does, three moving objects) with seeded random weights, once
+            banked and once with save_mem: K1 (square) launches must equal the
+            frames propagated on the banked run and K2's on the save_mem run,
+            the other kernel 0; J&F finite; the two runs' label maps agree on
+            >= 99.99% of pixels;
+  vos_plain one of those videos cut to 8 frames, banked and save_mem, again
+            with the propagation forced through the plain versions on the
+            card: label maps agree with the kernels' on >= 99.999% of pixels
+            and J&F-Mean within 1e-4.
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -47,16 +62,27 @@ PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-4
 TRAJ_TOL_PX = 1e-3
 DELTA_D_TOL = 0.1
+# share of pixels on which two label maps must agree: banked against save_mem
+# (features at batch 16 and at batch 1), and kernels against plain versions
+# (logits within 2e-7, so a label flips only at a near tie)
+MASK_AGREE = 0.9999
+PLAIN_MASK_AGREE = 0.99999
+JF_TOL = 1e-4
 
-# DAVIS main-path shapes (DAVIS_TEST_CFG, ResNet-18-d1 at 256 x 256)
-H = W = 128
+# propagation settings of DAVIS_TEST_CFG (ResNet-18-d1 features, C = 256)
 C = 256
 SLOTS = 6
 RADIUS = 15.0
 TOPK = 10
 TILE = 16
 TEMPERATURE = 0.07
+# TAP-Vid-DAVIS shapes (256 x 256 input), 32 point maps
+H = W = 128
 CV = 32
+# DAVIS VOS shapes (480 x 880 input), 4 objects + background
+VOS_H, VOS_W = 240, 440
+VOS_CV = 5
+VOS_T, VOS_ORIG, VOS_OBJECTS = 24, (480, 854), 3
 
 
 def phase(name):
@@ -128,77 +154,126 @@ def _top(ms_by_name, n=6):
     return ", ".join(f"{name[:60]} {ms:.2f} ms" for name, ms in items)
 
 
-def k1_bound(frame_idx, key_valid, Cv, rows_total, cols_total, Hp, Wp):
-    """Least time for one K1 call on these inputs: the larger of the live
-    affinity products (in-circle, in-image, valid-slot pairs, 2 * C flops
-    each, over the fp32 peak) and the bytes (query, the distinct key frames
-    of the padded bank, values, output; each once, over the HBM rate)."""
-    r2 = RADIUS * RADIUS
-    halo = int(RADIUS)
-    pairs_per_slot = 0
+def live_pairs(h, w, mask_shape):
+    """(query, key) pairs of one key slot inside the radius window and the
+    image, over an h x w grid."""
+    halo, r = int(RADIUS), RADIUS
+    n = 0
     for dy in range(-halo, halo + 1):
         for dx in range(-halo, halo + 1):
-            if dy * dy + dx * dx < r2:
-                pairs_per_slot += (H - abs(dy)) * (W - abs(dx))
-    flops = 2.0 * C * pairs_per_slot * sum(bool(v) for v in key_valid)
-    frames = {int(i) for i, v in zip(frame_idx, key_valid) if v}
-    nbytes = 4.0 * (Hp * Wp * C + len(frames) * rows_total * cols_total * C
-                    + len(frame_idx) * H * W * Cv + H * W * Cv)
+            inside = (abs(dy) <= r and abs(dx) <= r) if mask_shape == "square" \
+                else dy * dy + dx * dx < r * r
+            if inside:
+                n += max(h - abs(dy), 0) * max(w - abs(dx), 0)
+    return n
+
+
+def attention_bound(h, w, mask_shape, key_valid, nbytes):
+    """Least time for one top-k attention call on these inputs: the larger
+    of the live affinity products (in-window, in-image, valid-slot pairs,
+    2 * C flops each, over the fp32 peak) and `nbytes` (each input read
+    once, the output written once) over the HBM rate."""
+    flops = 2.0 * C * live_pairs(h, w, mask_shape) * sum(bool(v) for v in key_valid)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
-def check_kernel(record):
+def kernel_record(name, replaces):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "fgvc_tpu_torch/csrc/topk_attention.cu",
+        "replaces": replaces,
+        "launches": None, "max_abs_err": None, "ms": None, "plain_ms": None,
+        "bound_ms": None, "bound_by": None,
+        "library_ms": None,  # no single PyTorch call computes this function
+    }
+
+
+def check_entry(label, record, kernel_fn, plain_fn, cases, h, w, mask_shape, nbytes):
+    """Kernel against plain on each case {name: (kwargs, key_valid)}; the
+    first case is timed and bounded."""
     import torch
 
-    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
-
-    rng = np.random.default_rng(0)
-    feats = torch.from_numpy(rng.standard_normal((SLOTS + 1, H, W, C), dtype=np.float32)).cuda()
-    kpad = k1.pad_key_bank(feats, RADIUS, tile=TILE)
-    halo, Hp, Wp, rows_total, cols_total = k1.bank_geometry(H, W, RADIUS, TILE)
-    value = rng.random((SLOTS, H, W, CV), dtype=np.float32)
-    tie_value = value.copy()
-    tie_value[-1] = tie_value[0]
-    cases = {
-        # distinct key frames 0..5, query frame 6
-        "distinct": (list(range(SLOTS)), [True] * SLOTS, SLOTS, value),
-        # step t = 1: frame 0 in slot 0 and slot 5, the rest before the video
-        "t1_tie": ([0] * SLOTS, [True] + [False] * (SLOTS - 2) + [True], 1, tie_value),
-    }
     errs = []
-    for name, (fidx, valid, qf, val) in cases.items():
-        qpad = kpad[qf, halo:halo + Hp, halo:halo + Wp].contiguous()
-        v = torch.from_numpy(val).cuda()
-        kw = dict(frame_idx=fidx, key_valid=valid, H=H, W=W, radius=RADIUS,
-                  temperature=TEMPERATURE, topk=TOPK, tile=TILE)
-        out = k1.topk_attention_banked(qpad, kpad, v, **kw)
-        ref = k1.topk_attention_banked_plain(qpad, kpad, v, **kw)
+    for i, (name, (kw, valid)) in enumerate(cases.items()):
+        out = kernel_fn(**kw)
+        ref = plain_fn(**kw)
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
-            raise AssertionError(f"K1 {name}: non-finite output")
+            raise AssertionError(f"{label} {name}: non-finite output")
         err = (out - ref).abs().max().item()
         errs.append(err)
-        print(f"K1 {name}: max |kernel - plain| = {err:.3e} (tolerance {KERNEL_TOL})")
+        print(f"{label} {name}: max |kernel - plain| = {err:.3e} (tolerance {KERNEL_TOL})")
         if not err <= KERNEL_TOL:
-            raise AssertionError(f"K1 {name}: kernel disagrees with plain version ({err})")
-        if name == "distinct":
-            ms = _events_ms(lambda: k1.topk_attention_banked(qpad, kpad, v, **kw), 20)
-            plain_ms = _events_ms(lambda: k1.topk_attention_banked_plain(qpad, kpad, v, **kw), 3)
-            bound_ms, bound_by, flops = k1_bound(fidx, valid, CV, rows_total, cols_total, Hp, Wp)
-            win = TILE + 2 * halo
-            dense = 2.0 * C * Hp * Wp * SLOTS * win * win  # the halo windows the kernel computes
-            print(f"K1 distinct: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP live, "
-                  f"{dense / 1e9:.2f} GFLOP in dense halo windows), "
-                  f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of live work", flush=True)
-            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-            reps = 5
-            by_kernel, _ = device_ms_by_kernel(
-                lambda: [k1.topk_attention_banked(qpad, kpad, v, **kw) for _ in range(reps)])
-            print("K1 device ms per launch by CUDA kernel (torch.profiler): " + (
-                _top({n: t / reps for n, t in by_kernel.items()}) or "not measured"))
+            raise AssertionError(f"{label} {name}: kernel disagrees with plain version ({err})")
+        if i:
+            continue
+        del out, ref
+        ms = _events_ms(lambda: kernel_fn(**kw), 20)
+        plain_ms = _events_ms(lambda: plain_fn(**kw), 3)
+        bound_ms, bound_by, flops = attention_bound(h, w, mask_shape, valid, nbytes)
+        halo = int(RADIUS)
+        win = TILE + 2 * halo
+        hp, wp = -(-h // TILE) * TILE, -(-w // TILE) * TILE
+        dense = 2.0 * C * hp * wp * len(valid) * win * win  # the halo windows computed
+        print(f"{label} {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP live, "
+              f"{dense / 1e9:.2f} GFLOP in dense halo windows, {nbytes / 1e9:.3f} GB), "
+              f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of live work", flush=True)
+        record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        reps = 5
+        by_kernel, _ = device_ms_by_kernel(lambda: [kernel_fn(**kw) for _ in range(reps)])
+        print(f"{label} device ms per launch by CUDA kernel (torch.profiler): " + (
+            _top({n: t / reps for n, t in by_kernel.items()}) or "not measured"))
     record["max_abs_err"] = max(errs)
+
+
+def check_kernels(records):
+    """K1 circle at TAP-Vid shapes, K1 square and K2 at DAVIS VOS shapes,
+    each for distinct key frames (query frame 6) and the step t = 1 (frame 0
+    in slot 0 and slot 5, the rest before the video)."""
+    import torch
+
+    from fgvc_tpu_torch.ops.attention import l2_normalize
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    fidx = {"distinct": list(range(SLOTS)), "t1_tie": [0] * SLOTS}
+    valid = {"distinct": [True] * SLOTS,
+             "t1_tie": [True] + [False] * (SLOTS - 2) + [True]}
+    qframe = {"distinct": SLOTS, "t1_tie": 1}
+    rng = np.random.default_rng(0)
+    for h, w, cv, shapes in ((H, W, CV, ("circle",)), (VOS_H, VOS_W, VOS_CV, ("square", "unbanked"))):
+        feats = torch.from_numpy(rng.standard_normal((SLOTS + 1, h, w, C), dtype=np.float32)).cuda()
+        value = rng.random((SLOTS, h, w, cv), dtype=np.float32)
+        values = {"distinct": torch.from_numpy(value).cuda(),
+                  "t1_tie": torch.from_numpy(np.concatenate([value[:-1], value[:1]])).cuda()}
+        halo, hp, wp, rows_total, cols_total = k1.bank_geometry(h, w, RADIUS, TILE)
+        kpad = k1.pad_key_bank(feats, RADIUS, tile=TILE)
+        for shape in shapes:
+            if shape == "unbanked":
+                # the save_mem scan's call: pre-normalised features, raw keys
+                nf = l2_normalize(feats)
+                cases = {c: (dict(query=nf[qframe[c]], key=nf[fidx[c]], value=values[c],
+                                  radius=RADIUS, temperature=TEMPERATURE, topk=TOPK,
+                                  normalize=False, tile=TILE, mask_shape="square",
+                                  key_valid=valid[c]), valid[c]) for c in fidx}
+                nbytes = 4.0 * (h * w * C + SLOTS * h * w * C + SLOTS * h * w * cv + h * w * cv)
+                check_entry("K2 square", records["K2"], k1.topk_attention,
+                            k1.topk_attention_plain, cases, h, w, "square", nbytes)
+                del nf
+                continue
+            cases = {c: (dict(qpad=kpad[qframe[c], halo:halo + hp, halo:halo + wp].contiguous(),
+                              kpad=kpad, value=values[c], frame_idx=fidx[c], key_valid=valid[c],
+                              H=h, W=w, radius=RADIUS, temperature=TEMPERATURE, topk=TOPK,
+                              tile=TILE, mask_shape=shape), valid[c]) for c in fidx}
+            # query, the distinct key frames of the padded bank, values, output
+            nbytes = 4.0 * (hp * wp * C + SLOTS * rows_total * cols_total * C
+                            + SLOTS * h * w * cv + h * w * cv)
+            check_entry(f"K1 {shape}", records[f"K1_{shape}"], k1.topk_attention_banked,
+                        k1.topk_attention_banked_plain, cases, h, w, shape, nbytes)
+        del feats, kpad, values
+        torch.cuda.empty_cache()
 
 
 def _texture(rng, size):
@@ -261,12 +336,12 @@ def run_e2e(data_root, record):
     expect = frames_propagated(ds)
     n_frames = sum(len(ds[i]["video"]) for i in range(len(ds)))
 
-    k1.launches = 0
+    k1.launches = k1.unbanked_launches = 0
     t0 = time.time()
     metrics = run_task("davis", data_root, device="cuda", seed=0)
     torch.cuda.synchronize()
     dt = time.time() - t0
-    launches = k1.launches
+    launches, k2_launches = k1.launches, k1.unbanked_launches
     check_metrics(metrics)
     print("TAP-Vid metrics (random weights): " + json.dumps(
         {k: metrics[k] for k in ("average_pts_within_thresh", "average_jaccard",
@@ -275,8 +350,9 @@ def run_e2e(data_root, record):
     print(f"e2e: {len(ds)} videos, {n_frames} frames in {dt:.2f} s = "
           f"{n_frames / dt:.2f} frames/s (model build and data reading included)")
     print(f"K1 launches on the main path: {launches} (frames propagated: {expect})", flush=True)
-    if launches != expect:
-        raise AssertionError(f"K1 launched {launches} times, expected {expect}")
+    if launches != expect or k2_launches:
+        raise AssertionError(f"K1 launched {launches} times, expected {expect}; "
+                             f"K2 {k2_launches} times, expected 0")
     record["launches"] = launches
 
 
@@ -338,9 +414,165 @@ def run_plain_comparison(data_root):
         raise AssertionError(f"<D differs by {abs(res[0] - res[1])} > {DELTA_D_TOL}")
 
 
+class SyntheticDavis:
+    """DAVIS-like videos made in numpy: a panning texture at the original
+    size with VOS_OBJECTS textured ellipses moving over it (a later object
+    hides an earlier one), resized to 480 x 880 as the DAVIS reader does.
+    The reader's interface: __len__, __getitem__ and score_video, which
+    also keeps each video's predicted label maps."""
+
+    def __init__(self, n_videos=2, T=VOS_T, orig=VOS_ORIG, seed=0):
+        from fgvc_tpu_torch.datasets.davis_vos import INPUT_SIZE, resize_frames
+
+        rng = np.random.default_rng(seed)
+        h0, w0 = orig
+        orig = np.array(orig, dtype=np.float64)
+        margin = 2 * T
+        yy, xx = np.mgrid[:h0, :w0]
+        self.videos, self.gt, self.preds = [], [], {}
+        for _ in range(n_videos):
+            tex = _texture(rng, max(h0, w0) + 2 * margin)
+            vel = rng.uniform(-1.5, 1.5, 2)
+            off = np.round(np.arange(T)[:, None] * vel[None]).astype(int) + margin
+            frames = np.stack([tex[oy:oy + h0, ox:ox + w0] for ox, oy in off])
+            labels = np.zeros((T, h0, w0), np.uint8)
+            for k in range(1, VOS_OBJECTS + 1):
+                sprite = _texture(rng, 256)
+                c0 = rng.uniform(0.3, 0.7, 2) * orig
+                v = rng.uniform(-0.2, 0.2, 2) * orig / T
+                ry, rx = rng.uniform(0.08, 0.18, 2) * orig
+                for t in range(T):
+                    cy, cx = c0 + t * v
+                    inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+                    frames[t][inside] = sprite[(yy[inside] - int(cy)) % 256,
+                                               (xx[inside] - int(cx)) % 256]
+                    labels[t][inside] = k
+            self.videos.append(resize_frames(frames, INPUT_SIZE))
+            self.gt.append(labels)
+
+    def __len__(self):
+        return len(self.videos)
+
+    def __getitem__(self, i):
+        return {"sequence": f"synthetic_{i}", "video": self.videos[i],
+                "first_mask": self.gt[i][0], "original_shape": self.gt[i].shape[1:],
+                "num_objects": int(self.gt[i][0].max())}
+
+    def score_video(self, i, pred):
+        from fgvc_tpu_torch.datasets.davis_vos import score_masks
+
+        self.preds[i] = pred
+        return score_masks(self.gt[i], pred)
+
+
+def _agreement(a, b):
+    return float(np.mean(np.concatenate([x.ravel() for x in a]) ==
+                         np.concatenate([x.ravel() for x in b])))
+
+
+def run_vos(ds, records):
+    """eval_vos banked (K1, square) and with save_mem (K2) on `ds`."""
+    import dataclasses
+
+    import torch
+
+    from fgvc_tpu_torch.apis.test import build_tracker, eval_vos
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    expect = sum(len(v) - 1 for v in ds.videos)
+    n_frames = sum(len(v) for v in ds.videos)
+    preds = {}
+    for mode, save_mem, rec in (("banked", False, records["K1_square"]),
+                                ("save_mem", True, records["K2"])):
+        tracker = build_tracker(dataclasses.replace(DAVIS_TEST_CFG, save_mem=save_mem),
+                                seed=0, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = k1.unbanked_launches = 0
+        t0 = time.time()
+        res = eval_vos(tracker, ds)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        counts = {"K1": k1.launches, "K2": k1.unbanked_launches}
+        print(f"vos {mode}: J&F (random weights) " + json.dumps(res))
+        print(f"vos {mode}: {len(ds)} videos, {n_frames} frames at 480 x 880 in {dt:.2f} s "
+              f"= {n_frames / dt:.2f} frames/s (model build excluded, scoring included); "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+              f"launches {counts} (frames propagated: {expect})", flush=True)
+        if not np.isfinite(res["J&F-Mean"]):
+            raise AssertionError(f"vos {mode}: J&F-Mean is not finite: {res}")
+        want = {"K1": expect if not save_mem else 0, "K2": expect if save_mem else 0}
+        if counts != want:
+            raise AssertionError(f"vos {mode}: launches {counts}, expected {want}")
+        rec["launches"] = counts["K2" if save_mem else "K1"]
+        preds[mode] = [ds.preds[i] for i in range(len(ds))]
+        if mode == "banked":
+            s = ds[0]
+            by_kernel, wall_ms = device_ms_by_kernel(lambda: tracker.track_masks(
+                s["video"], s["first_mask"], tuple(s["original_shape"]), s["num_objects"]))
+            busy = sum(by_kernel.values())
+            print(f"vos video 0 profiled (features + propagation + decode, {len(s['video'])} "
+                  f"frames): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+                  f"({100 * busy / wall_ms:.1f}%); top kernels: " + (_top(by_kernel) or "not measured"))
+        del tracker
+        torch.cuda.empty_cache()
+    agree = _agreement(preds["banked"], preds["save_mem"])
+    print(f"vos banked vs save_mem label maps: {100 * agree:.5f}% of pixels agree "
+          f"(limit {100 * MASK_AGREE}%)", flush=True)
+    if not agree >= MASK_AGREE:
+        raise AssertionError(f"banked and save_mem masks agree on {agree} < {MASK_AGREE}")
+
+
+def run_vos_plain(ds, n_frames=8):
+    """Video 0 cut to n_frames, banked and save_mem, through the kernels
+    and through the plain versions on the card."""
+    import dataclasses
+
+    import torch
+
+    import fgvc_tpu_torch.models.tracker as tracker_mod
+    from fgvc_tpu_torch.apis.test import build_tracker
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+    from fgvc_tpu_torch.core.metrics.vos import aggregate_jf
+    from fgvc_tpu_torch.datasets.davis_vos import score_masks
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    s = ds[0]
+    video, gt = s["video"][:n_frames], ds.gt[0][:n_frames]
+    args = (video, s["first_mask"], tuple(s["original_shape"]), s["num_objects"])
+    for save_mem in (False, True):
+        tracker = build_tracker(dataclasses.replace(DAVIS_TEST_CFG, save_mem=save_mem),
+                                seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out_k = tracker.track_masks(*args)
+        t_k = time.time() - t0
+        tracker_mod.topk_attention_banked = k1.topk_attention_banked_plain
+        tracker_mod.topk_attention = k1.topk_attention_plain
+        try:
+            t0 = time.time()
+            out_p = tracker.track_masks(*args)
+            t_p = time.time() - t0
+        finally:
+            tracker_mod.topk_attention_banked = k1.topk_attention_banked
+            tracker_mod.topk_attention = k1.topk_attention
+        agree = _agreement([out_k], [out_p])
+        jf = [aggregate_jf([score_masks(gt, o)])["J&F-Mean"] for o in (out_k, out_p)]
+        mode = "save_mem" if save_mem else "banked"
+        print(f"vos_plain {mode} ({n_frames} frames): kernel {1e3 * t_k:.1f} ms, plain "
+              f"{1e3 * t_p:.1f} ms; label maps agree on {100 * agree:.5f}% of pixels; "
+              f"J&F-Mean {jf[0]:.6f} vs {jf[1]:.6f} (|diff| {abs(jf[0] - jf[1]):.3e})", flush=True)
+        if not agree >= PLAIN_MASK_AGREE:
+            raise AssertionError(f"vos_plain {mode}: masks agree on {agree} < {PLAIN_MASK_AGREE}")
+        if not abs(jf[0] - jf[1]) <= JF_TOL:
+            raise AssertionError(f"vos_plain {mode}: J&F-Mean differs by {abs(jf[0] - jf[1])}")
+        del tracker
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="card,build,kernel,e2e,plain")
+    ap.add_argument("--phases", default="card,build,kernel,e2e,plain,vos,vos_plain")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -357,14 +589,13 @@ def main():
               file=sys.stderr)
         return 1
 
-    record = {
-        "name": "topk_attention",
-        "route": "cuda",
-        "source": "fgvc_tpu_torch/csrc/topk_attention.cu",
-        "replaces": "fgvc_tpu/ops/pallas/topk_attention.py:597",
-        "launches": None, "max_abs_err": None, "ms": None, "plain_ms": None,
-        "bound_ms": None, "bound_by": None,
-        "library_ms": None,  # no single PyTorch call computes this function
+    pallas = "fgvc_tpu/ops/pallas/topk_attention.py"
+    records = {
+        # _call_fused_kernel, through fused_topk_attention_banked (K1) and
+        # fused_topk_attention (K2)
+        "K1_circle": kernel_record("K1 topk_attention_banked, circle", f"{pallas}:597"),
+        "K1_square": kernel_record("K1 topk_attention_banked, square", f"{pallas}:597"),
+        "K2": kernel_record("K2 topk_attention (unbanked), square", f"{pallas}:424"),
     }
     t_start = time.time()
     phase("card")
@@ -374,18 +605,26 @@ def main():
         build_kernels()
     if "kernel" in phases:
         phase("kernel")
-        check_kernel(record)
+        check_kernels(records)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_root:
         if "e2e" in phases or "plain" in phases:
             make_tapvid_pickles(data_root)
         if "e2e" in phases:
             phase("e2e")
-            run_e2e(data_root, record)
+            run_e2e(data_root, records["K1_circle"])
         if "plain" in phases:
             phase("plain")
             run_plain_comparison(data_root)
+    if "vos" in phases or "vos_plain" in phases:
+        ds = SyntheticDavis()
+        if "vos" in phases:
+            phase("vos")
+            run_vos(ds, records)
+        if "vos_plain" in phases:
+            phase("vos_plain")
+            run_vos_plain(ds)
     print(f"total {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
-"""Evaluation harness of the port (fgvc_tpu/apis/test.py, TAP-Vid-DAVIS).
+"""Evaluation harness of the port (fgvc_tpu/apis/test.py): TAP-Vid-DAVIS
+point tracking and DAVIS-2017 VOS.
 
     run_task('davis', data_root, checkpoint=None, device=None)
+    run_task('vos', data_root, list_path=None, test_cfg=None, device=None)
 
 builds the ResNet-18-d1 tracker on the card (or on the device the caller
-names), evaluates every per-video pickle of `data_root` and returns the
-TAP-Vid metrics.
+names), evaluates every video of `data_root` and returns the task's metrics
+(TAP-Vid's, or DAVIS J&F).
 """
 
 from __future__ import annotations
@@ -20,12 +22,11 @@ from fgvc_tpu_torch.models.resnet import init_random, resnet18_d1
 from fgvc_tpu_torch.models.tracker import Tracker
 from fgvc_tpu_torch.models.weights import load_reference_pth, load_weights
 
-TASK_CONFIGS: Dict[str, TestConfig] = {"davis": DAVIS_TEST_CFG}
+TASK_CONFIGS: Dict[str, TestConfig] = {"davis": DAVIS_TEST_CFG, "vos": DAVIS_TEST_CFG}
 
 # tasks of fgvc_tpu's CLI that later slices of ROADMAP.md port
 _LATER = {
     "kinetics": "slice 2 (Kinetics and multi-GPU eval)",
-    "vos": "slice 3 (DAVIS VOS)",
     "jhmdb": "slice 4 (JHMDB and BADJA)",
     "badja": "slice 4 (JHMDB and BADJA)",
 }
@@ -78,17 +79,47 @@ def eval_tapvid(tracker: Tracker, dataset, max_videos=None, output_dir=None) -> 
     return dataset.evaluate(results, output_dir=output_dir, indices=range(n))
 
 
+def eval_vos(tracker: Tracker, dataset, max_videos=None, output_dir=None) -> Dict[str, float]:
+    """Propagate the first mask of every video of `dataset` (a
+    DavisVosDataset, or anything with its __len__, __getitem__ and
+    score_video), score each video as it finishes and pool the J&F stats;
+    appends them to output_dir/result.txt."""
+    from fgvc_tpu_torch.core.metrics.vos import aggregate_jf
+    from fgvc_tpu_torch.datasets.davis_vos import write_results
+
+    n = len(dataset) if max_videos is None else min(len(dataset), max_videos)
+    stats = []
+    for i in range(n):
+        sample = dataset[i]
+        t0 = time.time()
+        masks = tracker.track_masks(
+            sample["video"], sample["first_mask"],
+            tuple(sample["original_shape"]), sample["num_objects"],
+        )
+        print(f"[{i}] T={len(sample['video'])} objects={sample['num_objects']}"
+              f" {time.time() - t0:.2f}s", flush=True)
+        s = dataset.score_video(i, masks)
+        if s is not None:
+            stats.append(s)
+    results = aggregate_jf(stats)
+    if output_dir:
+        write_results(results, output_dir)
+    return results
+
+
 def run_task(
     task: str,
     data_root: str,
     checkpoint: Optional[str] = None,
+    list_path: Optional[str] = None,
     max_videos: Optional[int] = None,
     output_dir: Optional[str] = None,
     test_cfg: Optional[TestConfig] = None,
     device: Optional[Union[str, torch.device]] = None,
     seed: int = 0,
 ) -> Dict[str, float]:
-    """Mirror of `tools/test.py --task davis`."""
+    """Mirror of `tools/test.py --task davis|vos`.  VOS reads every video
+    at 480 x 880 whatever cfg.input_size says, as the JAX harness does."""
     if task in _LATER:
         raise NotImplementedError(
             f"task {task!r} is not ported to fgvc_tpu_torch yet; it comes "
@@ -96,9 +127,14 @@ def run_task(
         )
     if task not in TASK_CONFIGS:
         raise ValueError(f"unknown task {task!r}")
-    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
-
     cfg = test_cfg or TASK_CONFIGS[task]
     tracker = build_tracker(cfg, checkpoint, seed=seed, device=device)
+    if task == "vos":
+        from fgvc_tpu_torch.datasets import davis_vos
+
+        ds = davis_vos.DavisVosDataset(data_root, split_list=list_path)
+        return eval_vos(tracker, ds, max_videos, output_dir=output_dir)
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+
     ds = TapVidDataset(data_root, subset_name=task, input_size=cfg.input_size)
     return eval_tapvid(tracker, ds, max_videos, output_dir=output_dir)

@@ -1,12 +1,15 @@
 #!/usr/bin/env python
-"""Evaluation CLI of the port (fgvc_tpu/cli/test.py, TAP-Vid-DAVIS):
+"""Evaluation CLI of the port (fgvc_tpu/cli/test.py): TAP-Vid-DAVIS point
+tracking and DAVIS-2017 VOS.
 
     python -m fgvc_tpu_torch.cli.test --task davis --data-root <pkls> \
         [--checkpoint ckpt.pth] [--max-videos N] [--output-dir DIR] \
         [--device cuda|cpu]
+    python -m fgvc_tpu_torch.cli.test --task vos --data-root <DAVIS tree> \
+        [--list-path val.txt] [--save-mem] [--hard-prop] [...]
 
-Prints the TAP-Vid metrics as JSON.  Runs on the CUDA card unless
---device cpu is given.
+Prints the task's metrics as JSON.  Runs on the CUDA card unless --device
+cpu is given.
 """
 
 import argparse
@@ -15,25 +18,49 @@ import json
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="fgvc_tpu_torch evaluation")
-    parser.add_argument("--task", required=True, choices=["davis"])
+    parser.add_argument("--task", required=True, choices=["davis", "vos"])
     parser.add_argument("--data-root", required=True)
+    parser.add_argument("--list-path", default=None,
+                        help="VOS: sequence list (.txt, one per line, or .json)")
     parser.add_argument("--checkpoint", default=None,
                         help="reference .pth (mmcv or torchvision naming)")
     parser.add_argument("--max-videos", type=int, default=None)
     parser.add_argument("--output-dir", default="eval_results")
+    parser.add_argument(
+        "--save-mem",
+        action=argparse.BooleanOptionalAction,
+        default=None,
+        help="stream features inside the propagation loop (full-res VOS, "
+             "long videos)",
+    )
+    parser.add_argument(
+        "--hard-prop",
+        action=argparse.BooleanOptionalAction,
+        default=None,
+        help="VOS: argmax->one-hot re-encode the value bank each step",
+    )
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where the tracker runs (the counterpart of "
                              "fgvc_tpu's --platform)")
     args = parser.parse_args(argv)
 
-    from fgvc_tpu_torch.apis.test import run_task
+    import dataclasses
 
+    from fgvc_tpu_torch.apis.test import TASK_CONFIGS, run_task
+
+    overrides = {}
+    if args.save_mem is not None:
+        overrides["save_mem"] = args.save_mem
+    if args.hard_prop is not None:
+        overrides["hard_prop"] = args.hard_prop
     results = run_task(
         args.task,
         args.data_root,
         checkpoint=args.checkpoint,
+        list_path=args.list_path,
         max_videos=args.max_videos,
         output_dir=args.output_dir,
+        test_cfg=dataclasses.replace(TASK_CONFIGS[args.task], **overrides),
         device=args.device,
     )
     print(json.dumps(results, indent=2, default=float))

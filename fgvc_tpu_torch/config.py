@@ -40,8 +40,6 @@ DAVIS_TEST_CFG = TestConfig()
 _NOT_PORTED = {
     "attention_impl": ("pallas", "slice 6 (other propagation modes)"),
     "with_first_neighbor": (True, "slice 6 (other propagation modes)"),
-    "save_mem": (False, "slice 3 (DAVIS VOS)"),
-    "hard_prop": (False, "slice 3 (DAVIS VOS)"),
     "matmul_precision": ("highest", "slice 5 (modes and reproduce)"),
     "decode_impl": ("upsample", "slice 5 (modes and reproduce)"),
     "upload_format": ("rgb", "slice 5 (modes and reproduce)"),

@@ -1,29 +1,41 @@
-// Windowed top-k attention for label propagation (K1), float32, for sm_90a.
+// Windowed top-k attention for label propagation (K1 and K2), float32, for
+// sm_90a.
 //
 // Replaces the Pallas TPU kernel fgvc_tpu/ops/pallas/topk_attention.py
-// (_make_kernel, launched by _call_fused_kernel through
-// fused_topk_attention_banked) in its main-path configuration: banked keys,
-// 'float32' mode, circle mask, no row block.
+// (_make_kernel, launched by _call_fused_kernel) in 'float32' mode without a
+// row block, behind both of its entries, as there: one kernel, two entries.
+//   K1  fused_topk_attention_banked: keys come from a bank normalised and
+//       halo-padded once per video (TAP-Vid points: circle mask; DAVIS VOS
+//       masks: square mask).
+//   K2  fused_topk_attention: the caller hands raw (T, H, W, C) keys that
+//       the wrapper normalises and halo-pads into the same bank geometry on
+//       every call (the save_mem streaming scan of DAVIS VOS, square mask).
+// The wrappers (fgvc_tpu_torch/ops/cuda/topk_attention.py) do the padding;
+// this file sees a padded bank either way.
 //
 // What it computes, for every query pixel of a (Hp, Wp) grid cut into
 // tile x tile query tiles:
 //   a[t, wi, wj] = (q . k[frame_idx[t], r0 + wi, c0 + wj]) / temperature
-//                  + NEG * [outside the radius circle]
+//                  + NEG * [outside the radius window]
 //                  + NEG * [key outside the image] + frame_bias[t]
 // over the win x win halo window (win = tile + 2 * halo) of each of the T key
 // slots, then the exact top-k statistics of the Pallas kernel (threshold =
 // k-th largest element, count above, count at the threshold, fractional
 // share of the tied candidates, max, normaliser z) and
 //   out = sum_keys exp(min(a - max, 0)) * ([a > thr] + frac * [a == thr]) * v / z.
-// Rows with fewer than k live keys take every live key once; an all-masked
-// row gives 0.  NEG = -1e30 marks a masked key; values <= NEG / 2 are dead.
+// The radius window is the strict circle dy^2 + dx^2 < r^2, or with
+// `square` set the inclusive square |dy| <= r && |dx| <= r, the Pallas rule
+// in the same float arithmetic.  Rows with fewer than k live keys take every
+// live key once; an all-masked row gives 0.  NEG = -1e30 marks a masked key;
+// values <= NEG / 2 are dead.
 //
 // Design.  The Pallas kernel keeps the whole (tile^2, T * win^2) affinity of a
 // query tile in VMEM (14 MB at the DAVIS shapes).  A Hopper block has at most
 // 227 KB of shared memory, so this port writes the masked affinities of all
 // query tiles to a global scratch buffer that the wrapper allocates
-// (ntiles * tile^2 * T * win^2 floats, 832 MB at DAVIS shapes), then runs
-// one warp per query row over it:
+// (ntiles * tile^2 * T * win^2 floats: 832 MB for 128 x 128 TAP-Vid
+// features, 5.46 GB for 240 x 440 DAVIS VOS features), then runs one warp per
+// query row over it:
 //   1. affinity_kernel: a tiled f32 SIMT matrix product (64 queries x 64 keys
 //      per block, 4 x 4 outputs per thread, channels staged through shared
 //      memory in chunks of 16), with the masks computed from coordinates in
@@ -38,13 +50,15 @@
 //      the warp rescans its row for the keys at or above the threshold and
 //      gathers their value vectors, one channel per lane.
 //
-// What bounds it on an H100: the affinity product.  At DAVIS shapes
-// (128 x 128 queries, T = 6, radius 15, C = 256) the live (in-circle,
-// in-image, valid-slot) pairs need about 35 GFLOP per call; the dense halo
-// windows computed here are about 106 GFLOP, against 67 TFLOP/s of fp32
-// outside the tensor cores.  The scratch round trip moves 2.5 GB (written
-// once, read twice).  Tensor cores (3xTF32), skipping the dead window
-// corners and keeping the affinities on chip are later work.
+// What bounds it on an H100: the affinity product.  At the TAP-Vid shapes
+// (128 x 128 queries, T = 6, radius 15, circle, C = 256) the live
+// (in-window, in-image, valid-slot) pairs need 31.69 GFLOP per call; the
+// dense halo windows computed here are 106.5 GFLOP, against 67 TFLOP/s of
+// fp32 outside the tensor cores.  The scratch round trip moves 2.5 GB
+// (written once, read twice).  At the DAVIS VOS shapes (240 x 440 queries,
+// square) the live pairs need 296 GFLOP and the dense windows 699 GFLOP.
+// Tensor cores (3xTF32), skipping the dead window corners and keeping the
+// affinities on chip are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,8 +87,10 @@ struct TopkAttnParams {
   int tile, halo, win;     // query tile edge, halo, window edge
   int rows_total, cols_total;  // padded bank geometry
   int topk;
+  int square;              // 1: square radius window, 0: circle
   float inv_temp;          // 1 / temperature
   float rr;                // radius * radius
+  float radius;
   int frame_idx[FGVC_MAX_T];     // bank frame of each key slot
   float frame_bias[FGVC_MAX_T];  // 0 for a valid slot, NEG otherwise
 };
@@ -167,10 +183,12 @@ affinity_kernel(const float* __restrict__ q, const float* __restrict__ bank,
       if (f >= FK) continue;
       const int wi = f / p.win, wj = f % p.win;
       // the Pallas kernel's masks, in the same float arithmetic: strict
-      // circle test, image-border strip, per-slot validity bias
+      // circle or inclusive square, image-border strip, per-slot validity
       const float dy = (float)(wi - p.halo - qi);
       const float dx = (float)(wj - p.halo - qj);
-      const bool in_range = __fadd_rn(__fmul_rn(dy, dy), __fmul_rn(dx, dx)) < p.rr;
+      const bool in_range =
+          p.square ? (fabsf(dy) <= p.radius && fabsf(dx) <= p.radius)
+                   : __fadd_rn(__fmul_rn(dy, dy), __fmul_rn(dx, dx)) < p.rr;
       const int kgi = r0 + wi - p.halo, kgj = c0 + wj - p.halo;
       const bool in_img = kgi >= 0 && kgi < p.H && kgj >= 0 && kgj < p.W;
       const float bias = __fadd_rn(in_range ? 0.f : NEG, in_img ? 0.f : NEG);

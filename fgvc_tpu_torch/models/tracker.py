@@ -1,22 +1,33 @@
-"""Label-propagation point tracker (fgvc_tpu/models/tracker.py, main path).
+"""Label-propagation tracker (fgvc_tpu/models/tracker.py, attention_impl
+'pallas').
 
-TAP-Vid point tracking as the JAX Tracker runs it with attention_impl
-'pallas': uint8 frames -> Lab -> ResNet features (16-frame chunks, on the
-device) -> one normalised, halo-padded key bank per video -> for each group
-of points sharing a query frame, a loop over the following frames, each
-attending over frame 0 of the group plus the `precede_frames` preceding
-frames through the top-k attention kernel -> bilinear upsample to the input
-size and top-5 soft-argmax.
+Two protocols share one propagation loop:
+
+* TAP-Vid point tracking: uint8 frames -> Lab -> ResNet features (16-frame
+  chunks, on the device) -> one normalised, halo-padded key bank per video
+  -> for each group of points sharing a query frame, a loop over the
+  following frames, each attending over frame 0 of the group plus the
+  `precede_frames` preceding frames through the banked top-k attention
+  kernel (K1, circle window) -> bilinear upsample to the input size and
+  top-5 soft-argmax.
+* DAVIS VOS mask propagation: the first frame's label map, nearest-resized
+  to feature resolution and one-hot encoded, propagates through K1 with the
+  square window over the whole video's bank; with `save_mem` the features
+  are instead computed one frame at a time inside the loop and the keys go
+  through the unbanked entry (K2), so no bank of the whole video exists.
+  Each frame decodes by bilinear upsampling to the original size and an
+  argmax; frame 0 is the given mask.  `hard_prop` re-encodes each propagated
+  frame as a one-hot before it enters the value buffer.
 
 Differences from the JAX Tracker that leave the results unchanged: frames
 and points are not padded to buckets (PyTorch runs eagerly; bucketing exists
-for jit's static shapes), the bank is built once per video instead of once
-per group, and the scan is a Python loop.
+for jit's static shapes, and windows only look backward), the bank is built
+once per video instead of once per group, and the scan is a Python loop.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,15 +36,47 @@ from torch import nn
 
 from fgvc_tpu_torch.config import TestConfig, check_ported
 from fgvc_tpu_torch.device import set_matmul_precision
+from fgvc_tpu_torch.ops.attention import l2_normalize
 from fgvc_tpu_torch.ops.color import preprocess_rgb_to_lab_normalized
 from fgvc_tpu_torch.ops.cuda.topk_attention import (
     bank_geometry,
     pad_key_bank,
+    topk_attention,
     topk_attention_banked,
 )
 from fgvc_tpu_torch.ops.grids import draw_gaussian_maps, soft_argmax_topk
 
 EXTRACT_CHUNK = 16  # frames per backbone call
+
+
+def hard_onehot(seg_logit: torch.Tensor) -> torch.Tensor:
+    """hard_prop re-encoding: argmax -> one-hot over the channel axis (the
+    first maximal channel wins, as in jnp.argmax)."""
+    P = seg_logit.shape[-1]
+    return F.one_hot(seg_logit.argmax(-1), P).to(seg_logit.dtype)
+
+
+def resize_labels(labels: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of an (h0, w0) integer label map: source index
+    floor((i + 0.5) * scale), which is jax.image.resize's 'nearest' and
+    torch's 'nearest-exact' (torch's 'nearest' floors i * scale)."""
+    x = labels.to(torch.float32)[None, None]
+    return F.interpolate(x, size=hw, mode="nearest-exact")[0, 0].to(torch.int32)
+
+
+def upsample(logits: torch.Tensor, full_hw: Tuple[int, int]) -> torch.Tensor:
+    """(h, w, K) -> (K, H, W) by bilinear interpolation with half-pixel
+    centres (jax.image.resize's 'bilinear' going up)."""
+    return F.interpolate(
+        logits.permute(2, 0, 1)[None], size=full_hw, mode="bilinear",
+        align_corners=False,
+    )[0]
+
+
+def decode_labels(logits: torch.Tensor, full_hw: Tuple[int, int]) -> torch.Tensor:
+    """(h, w, K) logits -> (H, W) int32 labels: upsample and argmax (the
+    first maximal channel wins, so an all-zero pixel gives label 0)."""
+    return upsample(logits, full_hw).argmax(0).to(torch.int32)
 
 
 class Tracker:
@@ -96,27 +139,29 @@ class Tracker:
         upsampling and top-5 soft-argmax.  (The JAX decode's third column,
         the peak that visibility_mode 'heatmap' reads, comes with that
         mode.)"""
-        up = F.interpolate(
-            logits.permute(2, 0, 1)[None], size=full_hw, mode="bilinear",
-            align_corners=False,
-        )[0]
-        return soft_argmax_topk(up, topk=5)
+        return soft_argmax_topk(upsample(logits, full_hw), topk=5)
+
+    def bank_entry(self, seg_logit: torch.Tensor) -> torch.Tensor:
+        """What a propagated frame leaves in the value buffer (the emitted
+        decode always reads the soft logits)."""
+        return hard_onehot(seg_logit) if self.cfg.hard_prop else seg_logit
 
     def propagate(
         self,
         bank: torch.Tensor,       # padded bank of the whole video
-        t0: int,                  # query frame of the group
+        t0: int,                  # first frame of the group
         length: int,              # frames t0 .. t0 + length - 1
-        init_maps: torch.Tensor,  # (P, h, w) value maps at feature resolution
-        full_hw: Tuple[int, int],
-    ) -> torch.Tensor:
-        """(length, P, 2) decoded points; row 0 decodes init_maps."""
+        first: torch.Tensor,      # (h, w, P) value map of frame t0
+        emit: Callable[[torch.Tensor], torch.Tensor],
+        mask_shape: str = "circle",
+    ) -> List[torch.Tensor]:
+        """Banked propagation (K1) over frames 1 .. length - 1 of the group;
+        returns emit(logits) of each."""
         cfg = self.cfg
-        h, w = init_maps.shape[1:]
+        h, w = first.shape[:2]
         halo, Hp, Wp, _, _ = bank_geometry(h, w, self.radius, self.tile)
-        first = init_maps.permute(1, 2, 0).contiguous()   # (h, w, P)
         buf = [first] * cfg.precede_frames                # value ring buffer
-        rows = [self.decode(first, full_hw)]
+        outs = []
         for t in range(1, length):
             idx, valid = self.window_indices(t, length)
             qpad = bank[t0 + t, halo : halo + Hp, halo : halo + Wp].contiguous()
@@ -124,11 +169,42 @@ class Tracker:
                 qpad, bank, torch.stack([first, *buf]),
                 frame_idx=[t0 + i for i in idx], key_valid=valid, H=h, W=w,
                 radius=float(self.radius), temperature=cfg.temperature,
-                topk=cfg.topk, tile=self.tile,
+                topk=cfg.topk, tile=self.tile, mask_shape=mask_shape,
             )
-            buf = buf[1:] + [seg]
-            rows.append(self.decode(seg, full_hw))
-        return torch.stack(rows)
+            buf = buf[1:] + [self.bank_entry(seg)]
+            outs.append(emit(seg))
+        return outs
+
+    def propagate_streaming(
+        self,
+        video: np.ndarray,        # (T, H, W, 3) uint8
+        f0: torch.Tensor,         # (h, w, C) features of frame 0
+        first: torch.Tensor,      # (h, w, P) value map of frame 0
+        emit: Callable[[torch.Tensor], torch.Tensor],
+        mask_shape: str = "square",
+    ) -> List[torch.Tensor]:
+        """save_mem propagation (K2): each frame's features are computed
+        once, at batch 1, when it becomes the query, and roll through a
+        `precede_frames`-deep key buffer; no bank of the whole video."""
+        cfg = self.cfg
+        P = cfg.precede_frames
+        norm = l2_normalize if cfg.with_norm else (lambda x: x)
+        f0 = norm(f0)
+        feat_buf, value_buf = [f0] * P, [first] * P
+        outs = []
+        for t in range(1, video.shape[0]):
+            q = norm(self.extract_features(video[t : t + 1])[0])
+            valid = [cfg.with_first] + [t - P + i >= 0 for i in range(P)]
+            seg = topk_attention(
+                q, torch.stack([f0, *feat_buf]), torch.stack([first, *value_buf]),
+                radius=float(self.radius), temperature=cfg.temperature,
+                topk=cfg.topk, normalize=False, tile=self.tile,
+                mask_shape=mask_shape, key_valid=valid,
+            )
+            feat_buf = feat_buf[1:] + [q]
+            value_buf = value_buf[1:] + [self.bank_entry(seg)]
+            outs.append(emit(seg))
+        return outs
 
     def track_group(
         self, bank: torch.Tensor, t0: int, length: int, pts: torch.Tensor,
@@ -139,9 +215,12 @@ class Tracker:
         H, W = full_hw
         stride = H // feat_hw[0]
         init_maps = draw_gaussian_maps(pts, H, W, sigma=self.cfg.sigma, stride=stride)
-        rows = self.propagate(bank, t0, length, init_maps, full_hw)
+        rows = self.propagate(
+            bank, t0, length, init_maps.permute(1, 2, 0).contiguous(),
+            lambda seg: self.decode(seg, full_hw),
+        )
         full_maps = draw_gaussian_maps(pts, H, W, sigma=self.cfg.sigma, stride=1)
-        return torch.cat([soft_argmax_topk(full_maps, topk=5)[None], rows[1:]])
+        return torch.stack([soft_argmax_topk(full_maps, topk=5), *rows])
 
     # ------------------------------------------------------------------ #
     # TAP-Vid protocol
@@ -187,4 +266,51 @@ class Tracker:
     ) -> Dict[str, np.ndarray]:
         return self.track_points_collect(
             self.track_points_dispatch(video, query_points, feats=feats)
+        )
+
+    # ------------------------------------------------------------------ #
+    # DAVIS VOS protocol
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def track_masks_dispatch(
+        self,
+        video: np.ndarray,        # (T, H, W, 3) uint8 RGB
+        ref_mask: np.ndarray,     # (h0, w0) integer label map of frame 0
+        decode_hw: Tuple[int, int],
+        num_objects: int,
+    ) -> Dict:
+        """Queue VOS mask propagation on the device (square window; K1, or
+        K2 with save_mem); `track_masks_collect` reads the label maps."""
+        if self.cfg.save_mem:
+            f0 = self.extract_features(video[:1])[0]   # frame 0 at batch 1
+            h, w = f0.shape[:2]
+        else:
+            feats = self.extract_features(video)
+            h, w = feats.shape[1:3]
+            bank = self.build_bank(feats)
+            del feats  # the bank holds every frame; free the unpadded copy
+        labels = torch.from_numpy(np.asarray(ref_mask, np.int32)).to(self.device)
+        small = resize_labels(labels, (h, w))
+        # one-hot as jax.nn.one_hot: a label above num_objects maps to zeros
+        classes = torch.arange(num_objects + 1, device=self.device, dtype=torch.int32)
+        onehot = (small[..., None] == classes).to(torch.float32)
+        emit = lambda seg: decode_labels(seg, tuple(decode_hw))  # noqa: E731
+        if self.cfg.save_mem:
+            masks = self.propagate_streaming(video, f0, onehot, emit)
+        else:
+            masks = self.propagate(bank, 0, video.shape[0], onehot, emit,
+                                   mask_shape="square")
+        # frame 0 is the given mask at decode resolution
+        return {"masks": [resize_labels(labels, tuple(decode_hw)), *masks]}
+
+    def track_masks_collect(self, disp: Dict) -> np.ndarray:
+        """(T, H, W) int32 label maps at decode_hw."""
+        return torch.stack(disp["masks"]).cpu().numpy()
+
+    def track_masks(
+        self, video: np.ndarray, ref_mask: np.ndarray,
+        decode_hw: Tuple[int, int], num_objects: int,
+    ) -> np.ndarray:
+        return self.track_masks_collect(
+            self.track_masks_dispatch(video, ref_mask, decode_hw, num_objects)
         )

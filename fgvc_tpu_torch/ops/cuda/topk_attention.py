@@ -1,36 +1,48 @@
-"""Windowed top-k attention over a halo-padded key bank (kernel K1).
+"""Windowed top-k attention over a halo-padded key bank (kernels K1 and K2).
 
-Counterpart of fgvc_tpu/ops/pallas/topk_attention.py in its main-path
-configuration: banked keys, float32, circle mask.  ``topk_attention_banked``
-launches the hand-written CUDA kernel of csrc/topk_attention.cu for CUDA
-tensors and runs ``topk_attention_banked_plain``, a straightforward PyTorch
-version of the same function, for CPU tensors.  See the kernel source for
-what bounds it on an H100 and how its design handles the Pallas kernel's
-VMEM-resident affinity.
+Counterpart of fgvc_tpu/ops/pallas/topk_attention.py in 'float32' mode, with
+its two entries over one kernel body:
+
+* ``topk_attention_banked`` (K1, ``fused_topk_attention_banked``): keys come
+  from a bank that ``pad_key_bank`` normalised and halo-padded once;
+* ``topk_attention`` (K2, ``fused_topk_attention``): raw (Tb, H, W, C) keys,
+  normalised and halo-padded into the same geometry on every call.
+
+Both launch the hand-written CUDA kernel of csrc/topk_attention.cu for CUDA
+tensors, and run a straightforward PyTorch version of the same function
+(``topk_attention_banked_plain``, ``topk_attention_plain``) for CPU tensors.
+See the kernel source for what bounds it on an H100 and how its design
+handles the Pallas kernel's VMEM-resident affinity.
 
 Semantics (the Pallas kernel's, tie rule included): every query pixel attends
 over the win x win halo window (win = tile + 2 * halo) of T key slots, masked
-to the strict circle dy^2 + dx^2 < radius^2, to keys inside the image and to
-valid slots; the k largest affinities are softmaxed and mix the slot values.
-Candidates tied at the k-th value share the remaining (k - n_above) slots
-equally; rows with fewer than k live keys take every live key once.
+to the radius window (mask_shape 'circle': the strict dy^2 + dx^2 < radius^2;
+'square': the inclusive |dy| <= radius and |dx| <= radius), to keys inside
+the image and to valid slots; the k largest affinities are softmaxed and mix
+the slot values.  Candidates tied at the k-th value share the remaining
+(k - n_above) slots equally; rows with fewer than k live keys take every live
+key once.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
-from fgvc_tpu_torch.ops.attention import build_padded_bank
+from fgvc_tpu_torch.ops.attention import build_padded_bank, l2_normalize
 
 NEG = -1e30
 MAX_T = 16      # key slots the kernel's parameter block holds
 MAX_TOPK = 31   # largest k the kernel's per-lane lists hold
+MASK_SHAPES = ("circle", "square")
+PLAIN_CHUNK_TILES = 64  # query tiles per step of the plain version
 
-# Kernel launches since the last reset (one per call that runs the kernel).
+# Kernel launches since the last reset, one count per entry: K1 (banked) and
+# K2 (unbanked).
 launches = 0
+unbanked_launches = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,7 +71,8 @@ def pad_key_bank(
     )
 
 
-def _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile):
+def _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
+           mask_shape):
     halo, Hp, Wp, rows_total, cols_total = bank_geometry(H, W, radius, tile)
     T = value.shape[0]
     if qpad.shape[:2] != (Hp, Wp) or qpad.dim() != 3:
@@ -78,6 +91,12 @@ def _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile):
         raise ValueError(f"frame_idx {list(frame_idx)} outside the bank")
     if not 1 <= topk:
         raise ValueError(f"topk must be positive, got {topk}")
+    if mask_shape not in MASK_SHAPES:
+        raise ValueError(f"mask_shape must be one of {MASK_SHAPES}, got {mask_shape!r}")
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(x.device.type == "cpu" for x in tensors)
 
 
 def topk_attention_banked(
@@ -93,20 +112,67 @@ def topk_attention_banked(
     temperature: float = 1.0,
     topk: int = 10,
     tile: int = 16,
+    mask_shape: str = "circle",
 ) -> torch.Tensor:
-    """(H, W, Cv) float32 propagated values.  CPU tensors take the plain
+    """K1: (H, W, Cv) float32 propagated values.  CPU tensors take the plain
     version; CUDA tensors take the kernel, or raise."""
-    _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile)
-    if qpad.device.type == "cpu" and kpad.device.type == "cpu" and value.device.type == "cpu":
-        return topk_attention_banked_plain(
-            qpad, kpad, value, frame_idx=frame_idx, key_valid=key_valid,
-            H=H, W=W, radius=radius, temperature=temperature, topk=topk,
-            tile=tile,
-        )
-    return _launch(
-        qpad, kpad, value, frame_idx, key_valid, H, W, radius, temperature,
-        topk, tile,
+    global launches
+    kw = dict(frame_idx=frame_idx, key_valid=key_valid, H=H, W=W, radius=radius,
+              temperature=temperature, topk=topk, tile=tile, mask_shape=mask_shape)
+    if _on_cpu(qpad, kpad, value):
+        return topk_attention_banked_plain(qpad, kpad, value, **kw)
+    out = _launch(qpad, kpad, value, **kw)
+    launches += 1
+    return out
+
+
+def _prepare_unbanked(query, key, value, key_valid, radius, temperature, topk,
+                      tile, normalize, mask_shape):
+    """fused_topk_attention's per-call preparation: optional l2 norm, the
+    query zero-padded to (Hp, Wp), the keys halo-padded into the bank
+    geometry; returns (qpad, kpad, the banked entry's keyword arguments)."""
+    H, W, C = query.shape
+    if key.dim() != 4 or key.shape[1:] != query.shape:
+        raise ValueError(f"key must be (Tb, {H}, {W}, {C}), got {tuple(key.shape)}")
+    halo, Hp, Wp, rows_total, cols_total = bank_geometry(H, W, radius, tile)
+    qpad = torch.zeros((Hp, Wp, C), dtype=torch.float32, device=query.device)
+    qpad[:H, :W] = l2_normalize(query) if normalize else query
+    kpad = build_padded_bank(
+        key, halo=halo, rows_total=rows_total, cols_total=cols_total,
+        normalize=normalize, dtype=torch.float32,
     )
+    T = value.shape[0]
+    valid = [True] * T if key_valid is None else [bool(v) for v in key_valid]
+    kw = dict(frame_idx=list(range(T)), key_valid=valid, H=H, W=W, radius=radius,
+              temperature=temperature, topk=topk, tile=tile, mask_shape=mask_shape)
+    return qpad, kpad, kw
+
+
+def topk_attention(
+    query: torch.Tensor,   # (H, W, C)
+    key: torch.Tensor,     # (Tb, H, W, C), Tb >= T; slot t reads frame t
+    value: torch.Tensor,   # (T, H, W, Cv)
+    *,
+    radius: float,
+    temperature: float = 1.0,
+    topk: int = 10,
+    normalize: bool = True,
+    tile: int = 16,
+    mask_shape: str = "circle",
+    key_valid: Optional[Sequence[bool]] = None,
+) -> torch.Tensor:
+    """K2: the unbanked entry.  Normalises (if asked) and pads query and
+    keys on every call, then runs the same kernel as K1 with frame_idx
+    0..T-1.  CPU tensors take the plain version; CUDA tensors take the
+    kernel, or raise."""
+    global unbanked_launches
+    qpad, kpad, kw = _prepare_unbanked(query, key, value, key_valid, radius,
+                                       temperature, topk, tile, normalize, mask_shape)
+    if _on_cpu(qpad, kpad, value):
+        return topk_attention_banked_plain(qpad, kpad, value, **kw)
+    out = _launch(qpad, kpad, value, **kw)
+    unbanked_launches += 1
+    return out
 
 
 class _Params(ctypes.Structure):
@@ -114,10 +180,11 @@ class _Params(ctypes.Structure):
     _fields_ = [
         *[(n, ctypes.c_int) for n in (
             "H", "W", "Hp", "Wp", "C", "Cv", "T", "tile", "halo", "win",
-            "rows_total", "cols_total", "topk",
+            "rows_total", "cols_total", "topk", "square",
         )],
         ("inv_temp", ctypes.c_float),
         ("rr", ctypes.c_float),
+        ("radius", ctypes.c_float),
         ("frame_idx", ctypes.c_int * MAX_T),
         ("frame_bias", ctypes.c_float * MAX_T),
     ]
@@ -134,9 +201,10 @@ def _library():
     return fn
 
 
-def _launch(qpad, kpad, value, frame_idx, key_valid, H, W, radius,
-            temperature, topk, tile):
-    global launches
+def _launch(qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
+            temperature, topk, tile, mask_shape):
+    _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
+           mask_shape)
     tensors = {"qpad": qpad, "kpad": kpad, "value": value}
     for name, x in tensors.items():
         if x.device.type != "cuda" or x.device != qpad.device:
@@ -164,7 +232,8 @@ def _launch(qpad, kpad, value, frame_idx, key_valid, H, W, radius,
         raise ValueError(f"{ntiles} tiles x {T} slots exceed the launch grid")
     p = _Params(
         H, W, Hp, Wp, C, Cv, T, tile, halo, win, rows_total, cols_total, topk,
-        1.0 / temperature, float(radius) * float(radius),
+        int(mask_shape == "square"), 1.0 / temperature,
+        float(radius) * float(radius), float(radius),
     )
     for t in range(T):
         p.frame_idx[t] = int(frame_idx[t])
@@ -181,15 +250,15 @@ def _launch(qpad, kpad, value, frame_idx, key_valid, H, W, radius,
                  out.data_ptr(), scratch.data_ptr(), p, stream)
     if err:
         raise RuntimeError(f"topk_attention kernel launch failed: CUDA error {err}")
-    launches += 1
     return out
 
 
 # --------------------------------------------------------------------- #
-# plain version
+# plain versions
 # --------------------------------------------------------------------- #
 def _windows(x: torch.Tensor, nth: int, ntw: int, tile: int, win: int):
-    """(R, Cc, D) padded map -> (nth * ntw, win * win, D) halo windows."""
+    """(R, Cc, D) padded map -> (nth * ntw, win * win, D) halo windows of
+    the first nth tile rows."""
     sR, sC, sD = x.stride()
     D = x.shape[-1]
     w = x.as_strided((nth, ntw, win, win, D), (tile * sR, tile * sC, sR, sC, sD))
@@ -198,52 +267,78 @@ def _windows(x: torch.Tensor, nth: int, ntw: int, tile: int, win: int):
 
 def topk_attention_banked_plain(
     qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
-    temperature=1.0, topk=10, tile=16,
+    temperature=1.0, topk=10, tile=16, mask_shape="circle",
 ):
-    """The kernel's function in plain PyTorch, written from the Pallas
-    kernel's three passes (_make_kernel): masked affinities of every query
-    tile, the top-k statistics by k + 1 distinct-value rounds, and the
-    weighted value sum.  Runs on the device of its inputs."""
-    _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile)
+    """K1's function in plain PyTorch, written from the Pallas kernel's
+    three passes (_make_kernel): masked affinities of every query tile, the
+    top-k statistics by k + 1 distinct-value rounds, and the weighted value
+    sum.  Runs on the device of its inputs, over rows of query tiles at most
+    PLAIN_CHUNK_TILES tiles at a time (tiles are independent), so its
+    temporaries stay near 1 GB each at the DAVIS VOS shapes."""
+    _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
+           mask_shape)
     dev = qpad.device
     halo, Hp, Wp, _, _ = bank_geometry(H, W, radius, tile)
     win = tile + 2 * halo
     nth, ntw = Hp // tile, Wp // tile
-    N, S, FK = nth * ntw, tile * tile, win * win
+    S, FK = tile * tile, win * win
     T, Cv, C = value.shape[0], value.shape[3], qpad.shape[2]
-    inv_temp = 1.0 / temperature
 
     q = qpad.reshape(nth, tile, ntw, tile, C).permute(0, 2, 1, 3, 4)
-    q = q.reshape(N, S, C)
+    q = q.reshape(nth * ntw, S, C)
 
-    # mask bias over one frame window: radius circle (S, FK) + image strip
-    # (N, 1, FK), as the Pallas kernel's rbias + in_img
+    # radius window over one frame window (S, FK), as the Pallas rbias
     f = torch.arange(FK, device=dev)
     wi, wj = (f // win).float(), (f % win).float()
     s = torch.arange(S, device=dev)
     qi, qj = (s // tile).float()[:, None], (s % tile).float()[:, None]
     dy, dx = wi[None] - halo - qi, wj[None] - halo - qj
-    rbias = torch.where(dy * dy + dx * dx < float(radius) * float(radius), 0.0, NEG)
-    n = torch.arange(N, device=dev)
-    r0, c0 = ((n // ntw) * tile).float()[:, None], ((n % ntw) * tile).float()[:, None]
-    kgi, kgj = r0 + wi[None] - halo, c0 + wj[None] - halo
-    in_img = (kgi >= 0) & (kgi <= H - 1) & (kgj >= 0) & (kgj <= W - 1)
-    bias = rbias[None] + torch.where(in_img, 0.0, NEG)[:, None, :]  # (N, S, FK)
+    r = float(radius)
+    if mask_shape == "square":
+        in_range = (dy.abs() <= r) & (dx.abs() <= r)
+    else:
+        in_range = dy * dy + dx * dx < r * r
+    rbias = torch.where(in_range, 0.0, NEG)
 
-    # pass A: one product per slot, so a frame in two slots ties exactly
     vpad = torch.zeros(
         (T, Hp + 2 * halo, Wp + 2 * halo, Cv), dtype=value.dtype, device=dev
     )
     vpad[:, halo : halo + H, halo : halo + W] = value
-    affs, vws = [], []
-    for t in range(T):
-        kw = _windows(kpad[int(frame_idx[t])], nth, ntw, tile, win)  # (N, FK, C)
+
+    out = torch.empty((nth * ntw, S, Cv), dtype=torch.float32, device=dev)
+    rows = max(1, PLAIN_CHUNK_TILES // ntw)
+    for i0 in range(0, nth, rows):
+        i1 = min(nth, i0 + rows)
+        n = torch.arange(i0 * ntw, i1 * ntw, device=dev)
+        # image strip (N, 1, FK), as the Pallas kernel's in_img
+        r0 = ((n // ntw) * tile).float()[:, None]
+        c0 = ((n % ntw) * tile).float()[:, None]
+        kgi, kgj = r0 + wi[None] - halo, c0 + wj[None] - halo
+        in_img = (kgi >= 0) & (kgi <= H - 1) & (kgj >= 0) & (kgj <= W - 1)
+        bias = rbias[None] + torch.where(in_img, 0.0, NEG)[:, None, :]
+        kws = [_windows(kpad[int(frame_idx[t]), i0 * tile :], i1 - i0, ntw, tile, win)
+               for t in range(T)]
+        vws = [_windows(vpad[t, i0 * tile :], i1 - i0, ntw, tile, win) for t in range(T)]
+        out[i0 * ntw : i1 * ntw] = _plain_tiles(
+            q[i0 * ntw : i1 * ntw], kws, vws, bias, key_valid, 1.0 / temperature, topk
+        )
+    out = out.reshape(nth, ntw, tile, tile, Cv).permute(0, 2, 1, 3, 4)
+    return out.reshape(Hp, Wp, Cv)[:H, :W].contiguous()
+
+
+def _plain_tiles(q, kws, vws, bias, key_valid, inv_temp, topk):
+    """The three passes over N query tiles: q (N, S, C); per slot, key
+    windows (N, FK, C) and value windows (N, FK, Cv); bias (N, S, FK)."""
+    dev = q.device
+    # pass A: one product per slot, so a frame in two slots ties exactly
+    affs = []
+    for t, kw in enumerate(kws):
         a = torch.bmm(q, kw.transpose(1, 2)) * inv_temp
         affs.append(a + bias + (0.0 if key_valid[t] else NEG))
-        vws.append(_windows(vpad[t], nth, ntw, tile, win))
     a = torch.cat(affs, dim=-1)          # (N, S, T * FK)
     vw = torch.cat(vws, dim=1)           # (N, T * FK, Cv)
-    K = a.shape[-1]
+    del affs
+    N, S, K = a.shape
 
     # pass B: round r finds the largest value strictly below round r-1's and
     # the count of elements >= round r-1's value
@@ -284,6 +379,15 @@ def topk_attention_banked_plain(
     above = torch.clamp(d, 0.0, 1.0)
     at = (1.0 - d.abs()) * torch.clamp(torch.sign(a - NEG / 2) + 1.0, 0.0, 1.0)
     w = torch.exp(torch.clamp_max(a - mmax, 0.0)) * (above + frac * at)
-    out = torch.bmm(w, vw) / z           # (N, S, Cv)
-    out = out.reshape(nth, ntw, tile, tile, Cv).permute(0, 2, 1, 3, 4)
-    return out.reshape(Hp, Wp, Cv)[:H, :W].contiguous()
+    return torch.bmm(w, vw) / z          # (N, S, Cv)
+
+
+def topk_attention_plain(
+    query, key, value, *, radius, temperature=1.0, topk=10, normalize=True,
+    tile=16, mask_shape="circle", key_valid=None,
+):
+    """K2's function in plain PyTorch: the same per-call preparation as
+    ``topk_attention``, then ``topk_attention_banked_plain``."""
+    qpad, kpad, kw = _prepare_unbanked(query, key, value, key_valid, radius,
+                                       temperature, topk, tile, normalize, mask_shape)
+    return topk_attention_banked_plain(qpad, kpad, value, **kw)

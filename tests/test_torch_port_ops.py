@@ -148,10 +148,10 @@ def test_unported_knobs_raise():
     from fgvc_tpu_torch.apis.test import build_tracker, run_task
     from fgvc_tpu_torch.config import DAVIS_TEST_CFG
 
-    for knob, value in [("save_mem", True), ("matmul_precision", "high"),
+    for knob, value in [("matmul_precision", "high"),
                         ("attention_impl", "tiled"), ("decode_impl", "coarse"),
                         ("upload_format", "yuv420"), ("visibility_mode", "heatmap"),
-                        ("hard_prop", True)]:
+                        ("with_first_neighbor", False), ("preprocess", "imagenet")]:
         cfg = dataclasses.replace(DAVIS_TEST_CFG, **{knob: value})
         with pytest.raises(NotImplementedError, match="slice"):
             build_tracker(cfg, device="cpu")
