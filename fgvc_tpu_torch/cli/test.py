@@ -4,7 +4,7 @@ tracking and DAVIS-2017 VOS.
 
     python -m fgvc_tpu_torch.cli.test --task davis --data-root <pkls> \
         [--checkpoint ckpt.pth] [--max-videos N] [--output-dir DIR] \
-        [--device cuda|cpu]
+        [--precision highest|high|default] [--device cuda|cpu]
     python -m fgvc_tpu_torch.cli.test --task vos --data-root <DAVIS tree> \
         [--list-path val.txt] [--save-mem] [--hard-prop] [...]
 
@@ -26,6 +26,13 @@ def main(argv=None):
                         help="reference .pth (mmcv or torchvision naming)")
     parser.add_argument("--max-videos", type=int, default=None)
     parser.add_argument("--output-dir", default="eval_results")
+    parser.add_argument(
+        "--precision",
+        default=None,
+        choices=["highest", "high", "default"],
+        help="affinity matmul precision (task preset: highest; "
+             "default = bf16 multiplies)",
+    )
     parser.add_argument(
         "--save-mem",
         action=argparse.BooleanOptionalAction,
@@ -49,6 +56,8 @@ def main(argv=None):
     from fgvc_tpu_torch.apis.test import TASK_CONFIGS, run_task
 
     overrides = {}
+    if args.precision:
+        overrides["matmul_precision"] = args.precision
     if args.save_mem is not None:
         overrides["save_mem"] = args.save_mem
     if args.hard_prop is not None:

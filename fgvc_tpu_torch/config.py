@@ -40,16 +40,24 @@ DAVIS_TEST_CFG = TestConfig()
 _NOT_PORTED = {
     "attention_impl": ("pallas", "slice 6 (other propagation modes)"),
     "with_first_neighbor": (True, "slice 6 (other propagation modes)"),
-    "matmul_precision": ("highest", "slice 5 (modes and reproduce)"),
-    "decode_impl": ("upsample", "slice 5 (modes and reproduce)"),
-    "upload_format": ("rgb", "slice 5 (modes and reproduce)"),
-    "visibility_mode": ("none", "slice 5 (modes and reproduce)"),
+    "decode_impl": ("upsample", "slice 5b (reproduce and host modes)"),
+    "upload_format": ("rgb", "slice 5b (reproduce and host modes)"),
+    "visibility_mode": ("none", "slice 5b (reproduce and host modes)"),
     "preprocess": ("lab", "slice 9 (zoo and RAFT)"),
 }
 
 
+MATMUL_PRECISIONS = ("highest", "high", "default")
+
+
 def check_ported(cfg: TestConfig) -> None:
-    """Raise NotImplementedError for a knob set off the ported main path."""
+    """Raise NotImplementedError for a knob set off the ported main path,
+    and ValueError for a matmul_precision outside the three modes."""
+    if cfg.matmul_precision not in MATMUL_PRECISIONS:
+        raise ValueError(
+            f"matmul_precision must be one of {MATMUL_PRECISIONS}, "
+            f"got {cfg.matmul_precision!r}"
+        )
     for name, (value, slice_name) in _NOT_PORTED.items():
         if getattr(cfg, name) != value:
             raise NotImplementedError(

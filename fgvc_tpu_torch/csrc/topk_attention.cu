@@ -1,9 +1,9 @@
-// Windowed top-k attention for label propagation (K1 and K2), float32, for
+// Windowed top-k attention for label propagation (K1, K2 and K3), for
 // sm_90a.
 //
 // Replaces the Pallas TPU kernel fgvc_tpu/ops/pallas/topk_attention.py
-// (_make_kernel, launched by _call_fused_kernel) in 'float32' mode without a
-// row block, behind both of its entries, as there: one kernel, two entries.
+// (_make_kernel, launched by _call_fused_kernel) without a row block, behind
+// both of its entries, as there: one kernel, two entries.
 //   K1  fused_topk_attention_banked: keys come from a bank normalised and
 //       halo-padded once per video (TAP-Vid points: circle mask; DAVIS VOS
 //       masks: square mask).
@@ -12,6 +12,30 @@
 //       every call (the save_mem streaming scan of DAVIS VOS, square mask).
 // The wrappers (fgvc_tpu_torch/ops/cuda/topk_attention.py) do the padding;
 // this file sees a padded bank either way.
+//
+// K3 is the kernel's compute mode (`compute_dtype` of the Pallas kernel, a
+// template parameter here, one extern "C" entry per mode):
+//   'float32'   (fgvc_topk_attention_f32) f32 query, bank and values, f32
+//               products: the Pallas Precision.HIGHEST matmuls.
+//   'high'      (fgvc_topk_attention_high) f32 operands, each split as
+//               x = hi + lo with hi = bf16(x), lo = bf16(x - hi), both rounded
+//               to nearest even; q.k = sum hi.hi + hi.lo + lo.hi (no lo.lo),
+//               and the value mix sum w_hi.v_hi + w_hi.v_lo + w_lo.v_hi: the
+//               Pallas manual bf16x3 (_make_kernel :114-121, :192-199,
+//               :366-391).  Three products per channel instead of one.
+//   'bfloat16'  (fgvc_topk_attention_bf16) the query and the bank are bf16
+//               (normalised in f32, then rounded by the wrapper); q.k sums
+//               bf16 x bf16 products in f32, and the value mix sums bf16(w) x
+//               bf16(v) in f32, with w computed in f32 and the values handed
+//               over in f32 and rounded here (:201-214, :353-365, :611-614).
+// A product of two bf16 values is exact in f32, so in 'high' and 'bfloat16'
+// only the order of the f32 sums can differ from another implementation;
+// this kernel sums each (query, key) pair's products channel by channel from
+// 0 (hi.hi, hi.lo, lo.hi within a channel), which the plain PyTorch version
+// of those modes repeats, so the two give the same affinities bit for bit:
+// the same top-k members near a tie, and in 'bfloat16' the same bf16
+// rounding of each weight w (one f32 ulp could flip it). Masks, the top-k
+// statistics and the tie split are the same in every mode.
 //
 // What it computes, for every query pixel of a (Hp, Wp) grid cut into
 // tile x tile query tiles:
@@ -59,7 +83,18 @@
 // square) the live pairs need 296 GFLOP and the dense windows 699 GFLOP.
 // Tensor cores (3xTF32), skipping the dead window corners and keeping the
 // affinities on chip are later work.
+//
+// K3's bounds: 'bfloat16' is the same live work at 989 TFLOP/s of bf16 tensor
+// cores with the query and the bank at 2 bytes an element (0.032 ms at the
+// TAP-Vid shapes, 0.300 ms at the VOS shapes); 'high' is three times the
+// products at that rate (0.096 and 0.899 ms).  This first K3 runs its
+// products as SIMT FMAs on bf16-rounded operands, so it is bound by the same
+// f32 SIMT rate as 'float32': 'high' does three times the affinity work of
+// 'float32', 'bfloat16' the same work from half the bytes.  mma.sync or wgmma
+// with bf16 operands is later work; it must keep one summation order per
+// (query, key) pair for the tie case.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -74,6 +109,53 @@ constexpr int BN = 64;   // keys per affinity block
 constexpr int BK = 16;   // channels per shared-memory stage
 constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
+
+// compute modes (K3)
+constexpr int MODE_F32 = 0;
+constexpr int MODE_HIGH = 1;
+constexpr int MODE_BF16 = 2;
+
+// the query and bank element type of a mode
+template <int MODE>
+struct Operand {
+  using T = float;
+};
+template <>
+struct Operand<MODE_BF16> {
+  using T = __nv_bfloat16;
+};
+
+// bf16(x) back in f32, rounded to nearest even (jnp's astype(bfloat16))
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// four consecutive channels of an operand row as f32 (zeros where !ok)
+__device__ __forceinline__ float4 load4(const float* row, int c, bool ok) {
+  return ok ? *reinterpret_cast<const float4*>(row + c)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* row, int c, bool ok) {
+  if (!ok) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(row + c);
+  const float2 a = __bfloat1622float2(p[0]);
+  const float2 b = __bfloat1622float2(p[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// one weighted value added to an accumulator in the mode's arithmetic
+template <int MODE>
+__device__ __forceinline__ float mix(float w, float v, float acc) {
+  if (MODE == MODE_BF16) return fmaf(bf16_round(w), bf16_round(v), acc);
+  if (MODE == MODE_HIGH) {
+    const float wh = bf16_round(w), wl = bf16_round(w - wh);
+    const float vh = bf16_round(v), vl = bf16_round(v - vh);
+    acc = fmaf(wh, vh, acc);
+    acc = fmaf(wh, vl, acc);
+    return fmaf(wl, vh, acc);
+  }
+  return fmaf(w, v, acc);
+}
 
 }  // namespace
 
@@ -95,11 +177,20 @@ struct TopkAttnParams {
   float frame_bias[FGVC_MAX_T];  // 0 for a valid slot, NEG otherwise
 };
 
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
-affinity_kernel(const float* __restrict__ q, const float* __restrict__ bank,
+affinity_kernel(const typename Operand<MODE>::T* __restrict__ q,
+                const typename Operand<MODE>::T* __restrict__ bank,
                 float* __restrict__ aff, const TopkAttnParams p) {
+  using T = typename Operand<MODE>::T;
+  constexpr bool HIGH = MODE == MODE_HIGH;
+  // As/Bs hold the operands ('high': their bf16 hi halves), Al/Bl the lo
+  // halves of 'high' (one unused row otherwise)
+  constexpr int LO = HIGH ? BK : 1;
   __shared__ __align__(16) float As[BK][BM + 4];
   __shared__ __align__(16) float Bs[BK][BN + 4];
+  __shared__ __align__(16) float Al[LO][BM + 4];
+  __shared__ __align__(16) float Bl[LO][BN + 4];
 
   const int S = p.tile * p.tile;
   const int FK = p.win * p.win;
@@ -122,12 +213,12 @@ affinity_kernel(const float* __restrict__ q, const float* __restrict__ bank,
   const int f_ld = f0 + lrow;
   const bool s_ok = s_ld < S;
   const bool f_ok = f_ld < FK;
-  const float* qrow = q;
+  const T* qrow = q;
   if (s_ok) {
     const int qi = s_ld / p.tile, qj = s_ld % p.tile;
     qrow = q + ((size_t)(r0 + qi) * p.Wp + (c0 + qj)) * p.C;
   }
-  const float* krow = bank;
+  const T* krow = bank;
   if (f_ok) {
     const int wi = f_ld / p.win, wj = f_ld % p.win;
     krow = bank + (((size_t)p.frame_idx[t] * p.rows_total + (r0 + wi)) *
@@ -142,19 +233,26 @@ affinity_kernel(const float* __restrict__ q, const float* __restrict__ bank,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
+  // Each output sums its channels in order 0 .. C-1 (per channel: hi.hi,
+  // hi.lo, lo.hi in 'high'), whichever block computes it.
   for (int k0 = 0; k0 < p.C; k0 += BK) {
-    const float4 a = s_ok ? *reinterpret_cast<const float4*>(qrow + k0 + lc)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 b = f_ok ? *reinterpret_cast<const float4*>(krow + k0 + lc)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-    As[lc + 0][lrow] = a.x;
-    As[lc + 1][lrow] = a.y;
-    As[lc + 2][lrow] = a.z;
-    As[lc + 3][lrow] = a.w;
-    Bs[lc + 0][lrow] = b.x;
-    Bs[lc + 1][lrow] = b.y;
-    Bs[lc + 2][lrow] = b.z;
-    Bs[lc + 3][lrow] = b.w;
+    const float4 a4 = load4(qrow, k0 + lc, s_ok);
+    const float4 b4 = load4(krow, k0 + lc, f_ok);
+    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (HIGH) {
+        const float ah = bf16_round(a[c]), bh = bf16_round(b[c]);
+        As[lc + c][lrow] = ah;
+        Bs[lc + c][lrow] = bh;
+        Al[(lc + c) % LO][lrow] = bf16_round(a[c] - ah);
+        Bl[(lc + c) % LO][lrow] = bf16_round(b[c] - bh);
+      } else {
+        As[lc + c][lrow] = a[c];
+        Bs[lc + c][lrow] = b[c];
+      }
+    }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
@@ -162,10 +260,25 @@ affinity_kernel(const float* __restrict__ q, const float* __restrict__ bank,
       const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
       const float ar[4] = {av.x, av.y, av.z, av.w};
       const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+      if (HIGH) {
+        const float4 alv = *reinterpret_cast<const float4*>(&Al[kk % LO][ty * 4]);
+        const float4 blv = *reinterpret_cast<const float4*>(&Bl[kk % LO][tx * 4]);
+        const float al[4] = {alv.x, alv.y, alv.z, alv.w};
+        const float bl[4] = {blv.x, blv.y, blv.z, blv.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+            acc[i][j] = fmaf(ar[i], bl[j], acc[i][j]);
+            acc[i][j] = fmaf(al[i], br[j], acc[i][j]);
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+      }
     }
     __syncthreads();
   }
@@ -240,7 +353,7 @@ __device__ __forceinline__ void list_insert(float (&lv)[KMAX], int (&lc)[KMAX],
   }
 }
 
-template <int KMAX>
+template <int KMAX, int MODE>
 __global__ void __launch_bounds__(THREADS)
 select_kernel(const float* __restrict__ aff, const float* __restrict__ v,
               float* __restrict__ out, const TopkAttnParams p) {
@@ -322,7 +435,8 @@ select_kernel(const float* __restrict__ aff, const float* __restrict__ v,
   if (any) z += frac * cnt_at * expf(fminf(thresh - mmax, 0.f));
   z = fmaxf(z, 1e-30f);
 
-  // ---- value mix over the selected keys (k-sparse) ----
+  // ---- value mix over the selected keys (k-sparse), in the mode's
+  // arithmetic: w is computed in f32 and rounded per mode with v ----
   for (int cb = 0; cb < p.Cv; cb += 32 * NCH) {
     float acc[NCH];
 #pragma unroll
@@ -345,7 +459,7 @@ select_kernel(const float* __restrict__ aff, const float* __restrict__ v,
 #pragma unroll
           for (int n = 0; n < NCH; ++n) {
             const int ch = cb + n * 32 + lane;
-            if (ch < p.Cv) acc[n] = fmaf(w, vp[ch], acc[n]);
+            if (ch < p.Cv) acc[n] = mix<MODE>(w, vp[ch], acc[n]);
           }
         }
       }
@@ -360,25 +474,48 @@ select_kernel(const float* __restrict__ aff, const float* __restrict__ v,
 }
 
 // Launches both kernels on `stream`; returns the CUDA error of the launches
-// (0 on success).  q: (Hp, Wp, C); bank: (Tb, rows_total, cols_total, C);
-// v: (T, H, W, Cv); out: (H, W, Cv); scratch: ntiles * tile^2 * T * win^2.
-extern "C" int fgvc_topk_attention_f32(const float* q, const float* bank,
-                                       const float* v, float* out,
-                                       float* scratch, TopkAttnParams p,
-                                       cudaStream_t stream) {
+// (0 on success).  q: (Hp, Wp, C); bank: (Tb, rows_total, cols_total, C),
+// both f32, or bf16 in 'bfloat16'; v: (T, H, W, Cv) f32; out: (H, W, Cv)
+// f32; scratch: ntiles * tile^2 * T * win^2 f32.
+template <int MODE>
+int launch(const void* q, const void* bank, const float* v, float* out,
+           float* scratch, const TopkAttnParams& p, cudaStream_t stream) {
+  using T = typename Operand<MODE>::T;
   const int S = p.tile * p.tile;
   const int FK = p.win * p.win;
   const int ntiles = (p.Hp / p.tile) * (p.Wp / p.tile);
   const dim3 grid_a((FK + BN - 1) / BN, (S + BM - 1) / BM, ntiles * p.T);
-  affinity_kernel<<<grid_a, THREADS, 0, stream>>>(q, bank, scratch, p);
+  affinity_kernel<MODE><<<grid_a, THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(bank), scratch, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long nq = (long long)ntiles * S;
   const int grid_b = (int)((nq + THREADS / 32 - 1) / (THREADS / 32));
   if (p.topk < 16) {
-    select_kernel<16><<<grid_b, THREADS, 0, stream>>>(scratch, v, out, p);
+    select_kernel<16, MODE><<<grid_b, THREADS, 0, stream>>>(scratch, v, out, p);
   } else {
-    select_kernel<32><<<grid_b, THREADS, 0, stream>>>(scratch, v, out, p);
+    select_kernel<32, MODE><<<grid_b, THREADS, 0, stream>>>(scratch, v, out, p);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int fgvc_topk_attention_f32(const void* q, const void* bank,
+                                       const float* v, float* out,
+                                       float* scratch, TopkAttnParams p,
+                                       cudaStream_t stream) {
+  return launch<MODE_F32>(q, bank, v, out, scratch, p, stream);
+}
+
+extern "C" int fgvc_topk_attention_high(const void* q, const void* bank,
+                                        const float* v, float* out,
+                                        float* scratch, TopkAttnParams p,
+                                        cudaStream_t stream) {
+  return launch<MODE_HIGH>(q, bank, v, out, scratch, p, stream);
+}
+
+extern "C" int fgvc_topk_attention_bf16(const void* q, const void* bank,
+                                        const float* v, float* out,
+                                        float* scratch, TopkAttnParams p,
+                                        cudaStream_t stream) {
+  return launch<MODE_BF16>(q, bank, v, out, scratch, p, stream);
 }

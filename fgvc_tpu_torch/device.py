@@ -6,6 +6,8 @@ from typing import Optional, Union
 
 import torch
 
+from fgvc_tpu_torch.config import MATMUL_PRECISIONS
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
     """The device an entry point runs on: the CUDA card unless the caller
@@ -20,11 +22,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 
 def set_matmul_precision(precision: str) -> None:
-    """'highest' is full float32: TF32 off for matrix products AND for cuDNN
+    """TestConfig.matmul_precision reaches only the top-k attention kernel
+    (its compute_dtype), as in fgvc_tpu, where it never reaches the
+    backbone: in every mode the backbone and every other float32 product run
+    in full float32, with TF32 off for matrix products AND for cuDNN
     convolutions (PyTorch's cuDNN default is TF32)."""
-    if precision != "highest":
-        raise NotImplementedError(
-            f"matmul_precision={precision!r} is not ported yet (slice 5)"
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError(
+            f"matmul_precision must be one of {MATMUL_PRECISIONS}, got {precision!r}"
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

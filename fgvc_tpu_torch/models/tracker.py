@@ -19,6 +19,11 @@ Two protocols share one propagation loop:
   argmax; frame 0 is the given mask.  `hard_prop` re-encodes each propagated
   frame as a one-hot before it enters the value buffer.
 
+cfg.matmul_precision picks the kernel's compute mode (K3), as
+pallas_compute_dtype maps it: 'highest' runs 'float32', 'high' the bf16x3
+'high' and 'default' 'bfloat16', with the bank stored in bfloat16.  It reaches
+only the attention; the backbone runs in full float32 in every mode.
+
 Differences from the JAX Tracker that leave the results unchanged: frames
 and points are not padded to buckets (PyTorch runs eagerly; bucketing exists
 for jit's static shapes, and windows only look backward), the bank is built
@@ -41,6 +46,7 @@ from fgvc_tpu_torch.ops.color import preprocess_rgb_to_lab_normalized
 from fgvc_tpu_torch.ops.cuda.topk_attention import (
     bank_geometry,
     pad_key_bank,
+    pallas_compute_dtype,
     topk_attention,
     topk_attention_banked,
 )
@@ -97,6 +103,7 @@ class Tracker:
         self.radius = cfg.neighbor_range // 2
         # the kernel's query tile (the Pallas kernel capped it at 16 too)
         self.tile = min(cfg.tile, 16)
+        self.compute_dtype = pallas_compute_dtype(cfg.matmul_precision)
 
     # ------------------------------------------------------------------ #
     # features and bank
@@ -118,8 +125,11 @@ class Tracker:
         return torch.cat(parts).contiguous()
 
     def build_bank(self, feats: torch.Tensor) -> torch.Tensor:
+        """The normalised, halo-padded bank, in bfloat16 for compute mode
+        'bfloat16' and float32 otherwise."""
         return pad_key_bank(
-            feats, float(self.radius), tile=self.tile, normalize=self.cfg.with_norm
+            feats, float(self.radius), tile=self.tile, normalize=self.cfg.with_norm,
+            compute_dtype=self.compute_dtype,
         )
 
     # ------------------------------------------------------------------ #
@@ -170,6 +180,7 @@ class Tracker:
                 frame_idx=[t0 + i for i in idx], key_valid=valid, H=h, W=w,
                 radius=float(self.radius), temperature=cfg.temperature,
                 topk=cfg.topk, tile=self.tile, mask_shape=mask_shape,
+                compute_dtype=self.compute_dtype,
             )
             buf = buf[1:] + [self.bank_entry(seg)]
             outs.append(emit(seg))
@@ -185,7 +196,9 @@ class Tracker:
     ) -> List[torch.Tensor]:
         """save_mem propagation (K2): each frame's features are computed
         once, at batch 1, when it becomes the query, and roll through a
-        `precede_frames`-deep key buffer; no bank of the whole video."""
+        `precede_frames`-deep key buffer; no bank of the whole video.  The
+        buffer keeps float32 normalised features in every mode; the entry
+        casts them per call."""
         cfg = self.cfg
         P = cfg.precede_frames
         norm = l2_normalize if cfg.with_norm else (lambda x: x)
@@ -199,7 +212,7 @@ class Tracker:
                 q, torch.stack([f0, *feat_buf]), torch.stack([first, *value_buf]),
                 radius=float(self.radius), temperature=cfg.temperature,
                 topk=cfg.topk, normalize=False, tile=self.tile,
-                mask_shape=mask_shape, key_valid=valid,
+                mask_shape=mask_shape, key_valid=valid, compute_dtype=self.compute_dtype,
             )
             feat_buf = feat_buf[1:] + [q]
             value_buf = value_buf[1:] + [self.bank_entry(seg)]

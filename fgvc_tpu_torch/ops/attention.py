@@ -23,10 +23,12 @@ def build_padded_bank(
     dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """(Tb, rows_total, cols_total, C) zeros with each frame, normalised,
-    written at spatial offset (halo, halo).
+    written at spatial offset (halo, halo), in `dtype` (the bank's own by
+    default).
 
-    Frames are normalised and written one at a time into the output, so no
-    full normalised copy of the bank exists next to it."""
+    Frames are normalised in the bank's dtype and then cast (round to
+    nearest even for bfloat16), one at a time into the output, so no full
+    normalised copy of the bank exists next to it."""
     Tb, H, W, C = bank.shape
     out = torch.zeros(
         (Tb, rows_total, cols_total, C),
@@ -34,6 +36,6 @@ def build_padded_bank(
         device=bank.device,
     )
     for t in range(Tb):
-        f = bank[t]
-        out[t, halo : halo + H, halo : halo + W] = l2_normalize(f) if normalize else f
+        f = l2_normalize(bank[t]) if normalize else bank[t]
+        out[t, halo : halo + H, halo : halo + W] = f.to(out.dtype)
     return out

@@ -1,12 +1,18 @@
-"""Windowed top-k attention over a halo-padded key bank (kernels K1 and K2).
+"""Windowed top-k attention over a halo-padded key bank (kernels K1-K3).
 
-Counterpart of fgvc_tpu/ops/pallas/topk_attention.py in 'float32' mode, with
-its two entries over one kernel body:
+Counterpart of fgvc_tpu/ops/pallas/topk_attention.py, with its two entries
+over one kernel body:
 
 * ``topk_attention_banked`` (K1, ``fused_topk_attention_banked``): keys come
   from a bank that ``pad_key_bank`` normalised and halo-padded once;
 * ``topk_attention`` (K2, ``fused_topk_attention``): raw (Tb, H, W, C) keys,
   normalised and halo-padded into the same geometry on every call.
+
+Both take the Pallas kernel's ``compute_dtype`` (K3): 'float32' (f32
+products), 'high' (f32 operands, each product as the three bf16 products
+hi.hi + hi.lo + lo.hi of its bf16 halves, f32 sums) or 'bfloat16' (a bf16
+query and bank, bf16 products and values, f32 sums); ``pallas_compute_dtype``
+maps TestConfig.matmul_precision onto it.
 
 Both launch the hand-written CUDA kernel of csrc/topk_attention.cu for CUDA
 tensors, and run a straightforward PyTorch version of the same function
@@ -39,10 +45,33 @@ MAX_TOPK = 31   # largest k the kernel's per-lane lists hold
 MASK_SHAPES = ("circle", "square")
 PLAIN_CHUNK_TILES = 64  # query tiles per step of the plain version
 
-# Kernel launches since the last reset, one count per entry: K1 (banked) and
-# K2 (unbanked).
+# compute_dtype -> query and bank dtype (the Pallas _PALLAS_PRECISIONS); the
+# values are float32 at the interface in every mode
+COMPUTE_DTYPES = {
+    "float32": torch.float32,
+    "high": torch.float32,
+    "bfloat16": torch.bfloat16,
+}
+_ENTRY_SUFFIX = {"float32": "f32", "high": "high", "bfloat16": "bf16"}
+
+# Kernel launches since the last reset: one count per entry, K1 (banked) and
+# K2 (unbanked), and one per compute mode over both entries.
 launches = 0
 unbanked_launches = 0
+mode_launches = dict.fromkeys(COMPUTE_DTYPES, 0)
+
+
+def reset_launches() -> None:
+    global launches, unbanked_launches
+    launches = unbanked_launches = 0
+    for mode in mode_launches:
+        mode_launches[mode] = 0
+
+
+def pallas_compute_dtype(matmul_precision: str) -> str:
+    """TestConfig.matmul_precision -> compute_dtype: 'default' runs
+    'bfloat16', 'high' runs 'high', anything else 'float32'."""
+    return {"default": "bfloat16", "high": "high"}.get(matmul_precision, "float32")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,20 +88,44 @@ def bank_geometry(H: int, W: int, radius: float, tile: int):
 
 
 def pad_key_bank(
-    bank: torch.Tensor, radius: float, tile: int = 16, normalize: bool = True
+    bank: torch.Tensor, radius: float, tile: int = 16, normalize: bool = True,
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
-    """Normalise and halo-pad a (Tb, H, W, C) feature bank once, in the
-    geometry of pad_key_bank_pallas (float32 mode)."""
+    """Normalise (in float32) and halo-pad a (Tb, H, W, C) feature bank once,
+    in the geometry and the dtype of pad_key_bank_pallas: bfloat16 for
+    compute_dtype 'bfloat16', float32 otherwise."""
     H, W = bank.shape[1:3]
     halo, _, _, rows_total, cols_total = bank_geometry(H, W, radius, tile)
     return build_padded_bank(
         bank, halo=halo, rows_total=rows_total, cols_total=cols_total,
-        normalize=normalize, dtype=torch.float32,
+        normalize=normalize, dtype=_operand_dtype(compute_dtype),
     )
 
 
+def _operand_dtype(compute_dtype: str) -> torch.dtype:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, got {compute_dtype!r}"
+        )
+    return COMPUTE_DTYPES[compute_dtype]
+
+
 def _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
-           mask_shape):
+           mask_shape, compute_dtype):
+    want = _operand_dtype(compute_dtype)
+    if compute_dtype == "high" and qpad.dtype != torch.float32:
+        # bf16 operands would make the lo halves zero: plain bf16 accuracy
+        # under the name of bf16x3 (the Pallas kernel's rule)
+        raise ValueError(
+            "compute_dtype='high' needs float32 query/key operands; the "
+            f"given bank is {qpad.dtype}"
+        )
+    for name, x, dt in (("qpad", qpad, want), ("kpad", kpad, want),
+                        ("value", value, torch.float32)):
+        if x.dtype != dt:
+            raise TypeError(
+                f"{name} must be {dt} for compute_dtype {compute_dtype!r}, got {x.dtype}"
+            )
     halo, Hp, Wp, rows_total, cols_total = bank_geometry(H, W, radius, tile)
     T = value.shape[0]
     if qpad.shape[:2] != (Hp, Wp) or qpad.dim() != 3:
@@ -113,38 +166,46 @@ def topk_attention_banked(
     topk: int = 10,
     tile: int = 16,
     mask_shape: str = "circle",
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
-    """K1: (H, W, Cv) float32 propagated values.  CPU tensors take the plain
-    version; CUDA tensors take the kernel, or raise."""
+    """K1 (K3 in 'high' and 'bfloat16'): (H, W, Cv) float32 propagated
+    values; qpad and kpad in the mode's dtype (pad_key_bank), value float32.
+    CPU tensors take the plain version; CUDA tensors take the kernel, or
+    raise."""
     global launches
     kw = dict(frame_idx=frame_idx, key_valid=key_valid, H=H, W=W, radius=radius,
-              temperature=temperature, topk=topk, tile=tile, mask_shape=mask_shape)
+              temperature=temperature, topk=topk, tile=tile, mask_shape=mask_shape,
+              compute_dtype=compute_dtype)
     if _on_cpu(qpad, kpad, value):
         return topk_attention_banked_plain(qpad, kpad, value, **kw)
     out = _launch(qpad, kpad, value, **kw)
     launches += 1
+    mode_launches[compute_dtype] += 1
     return out
 
 
 def _prepare_unbanked(query, key, value, key_valid, radius, temperature, topk,
-                      tile, normalize, mask_shape):
-    """fused_topk_attention's per-call preparation: optional l2 norm, the
-    query zero-padded to (Hp, Wp), the keys halo-padded into the bank
-    geometry; returns (qpad, kpad, the banked entry's keyword arguments)."""
+                      tile, normalize, mask_shape, compute_dtype):
+    """fused_topk_attention's per-call preparation: optional l2 norm (in
+    float32), the query zero-padded to (Hp, Wp), the keys halo-padded into the
+    bank geometry, both cast to the mode's dtype; returns (qpad, kpad, the
+    banked entry's keyword arguments)."""
     H, W, C = query.shape
     if key.dim() != 4 or key.shape[1:] != query.shape:
         raise ValueError(f"key must be (Tb, {H}, {W}, {C}), got {tuple(key.shape)}")
+    dtype = _operand_dtype(compute_dtype)
     halo, Hp, Wp, rows_total, cols_total = bank_geometry(H, W, radius, tile)
-    qpad = torch.zeros((Hp, Wp, C), dtype=torch.float32, device=query.device)
-    qpad[:H, :W] = l2_normalize(query) if normalize else query
+    qpad = torch.zeros((Hp, Wp, C), dtype=dtype, device=query.device)
+    qpad[:H, :W] = (l2_normalize(query) if normalize else query).to(dtype)
     kpad = build_padded_bank(
         key, halo=halo, rows_total=rows_total, cols_total=cols_total,
-        normalize=normalize, dtype=torch.float32,
+        normalize=normalize, dtype=dtype,
     )
     T = value.shape[0]
     valid = [True] * T if key_valid is None else [bool(v) for v in key_valid]
     kw = dict(frame_idx=list(range(T)), key_valid=valid, H=H, W=W, radius=radius,
-              temperature=temperature, topk=topk, tile=tile, mask_shape=mask_shape)
+              temperature=temperature, topk=topk, tile=tile, mask_shape=mask_shape,
+              compute_dtype=compute_dtype)
     return qpad, kpad, kw
 
 
@@ -160,18 +221,22 @@ def topk_attention(
     tile: int = 16,
     mask_shape: str = "circle",
     key_valid: Optional[Sequence[bool]] = None,
+    compute_dtype: str = "float32",
 ) -> torch.Tensor:
-    """K2: the unbanked entry.  Normalises (if asked) and pads query and
-    keys on every call, then runs the same kernel as K1 with frame_idx
-    0..T-1.  CPU tensors take the plain version; CUDA tensors take the
-    kernel, or raise."""
+    """K2 (K3 in 'high' and 'bfloat16'): the unbanked entry.  Normalises
+    (if asked) and pads float32 query and keys on every call, casts them to
+    the mode's dtype, then runs the same kernel as K1 with frame_idx 0..T-1.
+    CPU tensors take the plain version; CUDA tensors take the kernel, or
+    raise."""
     global unbanked_launches
     qpad, kpad, kw = _prepare_unbanked(query, key, value, key_valid, radius,
-                                       temperature, topk, tile, normalize, mask_shape)
+                                       temperature, topk, tile, normalize, mask_shape,
+                                       compute_dtype)
     if _on_cpu(qpad, kpad, value):
         return topk_attention_banked_plain(qpad, kpad, value, **kw)
     out = _launch(qpad, kpad, value, **kw)
     unbanked_launches += 1
+    mode_launches[compute_dtype] += 1
     return out
 
 
@@ -190,11 +255,11 @@ class _Params(ctypes.Structure):
     ]
 
 
-def _library():
+def _library(compute_dtype: str):
     from fgvc_tpu_torch.ops.cuda.build import load
 
     lib = load("topk_attention")
-    fn = lib.fgvc_topk_attention_f32
+    fn = getattr(lib, f"fgvc_topk_attention_{_ENTRY_SUFFIX[compute_dtype]}")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [_Params, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -202,9 +267,9 @@ def _library():
 
 
 def _launch(qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
-            temperature, topk, tile, mask_shape):
+            temperature, topk, tile, mask_shape, compute_dtype):
     _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
-           mask_shape)
+           mask_shape, compute_dtype)
     tensors = {"qpad": qpad, "kpad": kpad, "value": value}
     for name, x in tensors.items():
         if x.device.type != "cuda" or x.device != qpad.device:
@@ -212,8 +277,6 @@ def _launch(qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
                 f"{name} must lie on the CUDA device of qpad ({qpad.device}), "
                 f"got {x.device}"
             )
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % 16:
@@ -243,7 +306,7 @@ def _launch(qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
         ntiles * tile * tile * T * win * win, dtype=torch.float32,
         device=qpad.device,
     )
-    fn = _library()
+    fn = _library(compute_dtype)
     with torch.cuda.device(qpad.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(qpad.data_ptr(), kpad.data_ptr(), value.data_ptr(),
@@ -267,16 +330,17 @@ def _windows(x: torch.Tensor, nth: int, ntw: int, tile: int, win: int):
 
 def topk_attention_banked_plain(
     qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
-    temperature=1.0, topk=10, tile=16, mask_shape="circle",
+    temperature=1.0, topk=10, tile=16, mask_shape="circle", compute_dtype="float32",
 ):
-    """K1's function in plain PyTorch, written from the Pallas kernel's
-    three passes (_make_kernel): masked affinities of every query tile, the
-    top-k statistics by k + 1 distinct-value rounds, and the weighted value
-    sum.  Runs on the device of its inputs, over rows of query tiles at most
-    PLAIN_CHUNK_TILES tiles at a time (tiles are independent), so its
-    temporaries stay near 1 GB each at the DAVIS VOS shapes."""
+    """K1's function (K3's in 'high' and 'bfloat16') in plain PyTorch,
+    written from the Pallas kernel's three passes (_make_kernel): masked
+    affinities of every query tile, the top-k statistics by k + 1
+    distinct-value rounds, and the weighted value sum.  Runs on the device of
+    its inputs, over rows of query tiles at most PLAIN_CHUNK_TILES tiles at a
+    time (tiles are independent), so its temporaries stay near 1 GB each at
+    the DAVIS VOS shapes."""
     _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
-           mask_shape)
+           mask_shape, compute_dtype)
     dev = qpad.device
     halo, Hp, Wp, _, _ = bank_geometry(H, W, radius, tile)
     win = tile + 2 * halo
@@ -320,21 +384,68 @@ def topk_attention_banked_plain(
                for t in range(T)]
         vws = [_windows(vpad[t, i0 * tile :], i1 - i0, ntw, tile, win) for t in range(T)]
         out[i0 * ntw : i1 * ntw] = _plain_tiles(
-            q[i0 * ntw : i1 * ntw], kws, vws, bias, key_valid, 1.0 / temperature, topk
+            q[i0 * ntw : i1 * ntw], kws, vws, bias, key_valid, 1.0 / temperature, topk,
+            compute_dtype,
         )
     out = out.reshape(nth, ntw, tile, tile, Cv).permute(0, 2, 1, 3, 4)
     return out.reshape(Hp, Wp, Cv)[:H, :W].contiguous()
 
 
-def _plain_tiles(q, kws, vws, bias, key_valid, inv_temp, topk):
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """bf16(x) back in float32, rounded to nearest even."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    """x = hi + lo to about 2^-16: hi = bf16(x), lo = bf16(x - hi)."""
+    hi = _bf16_round(x)
+    return hi, _bf16_round(x - hi)
+
+
+def _products(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """a @ b of (N, M, K) and (N, K, P) in the mode's arithmetic."""
+    if mode == "float32":
+        return torch.bmm(a, b)
+    if mode == "bfloat16":
+        return torch.bmm(_bf16_round(a), _bf16_round(b))
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return torch.bmm(ah, bh) + torch.bmm(ah, bl) + torch.bmm(al, bh)
+
+
+def _affinity_in_order(q: torch.Tensor, kw: torch.Tensor, mode: str) -> torch.Tensor:
+    """q (N, S, C) . kw (N, FK, C) in mode 'bfloat16' (bf16 operands) or
+    'high' (per channel hi.hi, hi.lo, lo.hi of the float32 operands), summed
+    in float32 channel by channel from 0: the kernel's order.  Products of
+    bf16 values are exact in float32, so the sums equal the kernel's bit for
+    bit, and so do the top-k selections near a tie and, in 'bfloat16', the
+    rounding of each weight to bf16 (a weight one float32 ulp off could round
+    to the neighbouring bf16 value)."""
+    qt = q.to(torch.float32).transpose(1, 2).contiguous()   # (N, C, S)
+    kt = kw.to(torch.float32).transpose(1, 2).contiguous()  # (N, C, FK)
+    if mode == "high":
+        (qh, ql), (kh, kl) = _split(qt), _split(kt)
+        pairs = ((qh, kh), (qh, kl), (ql, kh))
+    else:
+        pairs = ((qt, kt),)
+    acc = torch.zeros((q.shape[0], q.shape[1], kw.shape[1]), device=q.device)
+    for c in range(q.shape[2]):
+        for a, b in pairs:
+            acc.addcmul_(a[:, c, :, None], b[:, c, None, :])
+    return acc
+
+
+def _plain_tiles(q, kws, vws, bias, key_valid, inv_temp, topk, mode):
     """The three passes over N query tiles: q (N, S, C); per slot, key
     windows (N, FK, C) and value windows (N, FK, Cv); bias (N, S, FK)."""
     dev = q.device
-    # pass A: one product per slot, so a frame in two slots ties exactly
-    affs = []
-    for t, kw in enumerate(kws):
-        a = torch.bmm(q, kw.transpose(1, 2)) * inv_temp
-        affs.append(a + bias + (0.0 if key_valid[t] else NEG))
+    # pass A.  float32: one product per slot, so a frame in two slots ties
+    # exactly.  'high' and 'bfloat16': every slot in one elementwise sum,
+    # which gives each pair the same bits whichever slot it lies in.
+    if mode == "float32":
+        raw = [torch.bmm(q, kw.transpose(1, 2)) for kw in kws]
+    else:
+        raw = _affinity_in_order(q, torch.cat(kws, dim=1), mode).split(kws[0].shape[1], dim=-1)
+    affs = [r * inv_temp + bias + (0.0 if key_valid[t] else NEG) for t, r in enumerate(raw)]
     a = torch.cat(affs, dim=-1)          # (N, S, T * FK)
     vw = torch.cat(vws, dim=1)           # (N, T * FK, Cv)
     del affs
@@ -374,20 +485,22 @@ def _plain_tiles(q, kws, vws, bias, key_valid, inv_temp, topk):
     z = z + frac * cnt_at * torch.exp(torch.clamp_max(thresh - mmax, 0.0)) * (thresh > NEG / 2)
     z = torch.clamp_min(z, 1e-30)
 
-    # pass C: weighted value sum
+    # pass C: weighted value sum, w computed in float32 and rounded with the
+    # values per mode
     d = torch.sign(a - thresh)
     above = torch.clamp(d, 0.0, 1.0)
     at = (1.0 - d.abs()) * torch.clamp(torch.sign(a - NEG / 2) + 1.0, 0.0, 1.0)
     w = torch.exp(torch.clamp_max(a - mmax, 0.0)) * (above + frac * at)
-    return torch.bmm(w, vw) / z          # (N, S, Cv)
+    return _products(w, vw, mode) / z    # (N, S, Cv)
 
 
 def topk_attention_plain(
     query, key, value, *, radius, temperature=1.0, topk=10, normalize=True,
-    tile=16, mask_shape="circle", key_valid=None,
+    tile=16, mask_shape="circle", key_valid=None, compute_dtype="float32",
 ):
     """K2's function in plain PyTorch: the same per-call preparation as
     ``topk_attention``, then ``topk_attention_banked_plain``."""
     qpad, kpad, kw = _prepare_unbanked(query, key, value, key_valid, radius,
-                                       temperature, topk, tile, normalize, mask_shape)
+                                       temperature, topk, tile, normalize, mask_shape,
+                                       compute_dtype)
     return topk_attention_banked_plain(qpad, kpad, value, **kw)

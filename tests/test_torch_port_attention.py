@@ -1,10 +1,22 @@
-"""The port's top-k attention (kernels K1 and K2) against the JAX package's
-Pallas kernel, which runs here in interpret mode.
+"""The port's top-k attention (kernels K1 and K2, and K3: their 'high' and
+'bfloat16' compute modes) against the JAX package's Pallas kernel, which runs
+here in interpret mode in the same mode.
 
 The plain PyTorch version is what a CPU tensor runs; the CUDA kernel is held
-against it on the card (marked `cuda`, skipped without one).  Tolerance 1e-4,
-as tests/test_pallas_attention.py: outputs are convex mixes of the values and
-the affinity sums run in another order.
+against it on the card (marked `cuda`, skipped without one).
+
+Tolerances.  'float32' and 'high': 1e-4, as tests/test_pallas_attention.py:
+outputs are convex mixes of the values and the affinity sums run in another
+order ('high' keeps about 16 bits of each operand and drops only the lo.lo
+term on both sides).  'bfloat16': max |diff| <= 2^-7 max|v| and mean |diff| <=
+1e-4 max|v|.  There the weight w of a selected key is computed in float32 and
+rounded to bfloat16 before it multiplies its value; the two sides sum the
+affinities (and the bank's norms, before its rounding to bfloat16) in another
+order, so a w can land one float32 ulp apart and round to the neighbouring
+bfloat16 value, which moves an output by up to 2^-8 w |v| / z <= 2^-8 max|v|
+(w <= 1 <= z).  Such flips are rare, hence the mean.  On the card the kernel
+and the plain version sum the 'high' and 'bfloat16' affinities in the same
+order, so they are held to 1e-4 in every mode.
 """
 
 import numpy as np
@@ -14,10 +26,27 @@ import torch
 from fgvc_tpu_torch.ops.cuda import topk_attention as k1
 
 TOL = 1e-4
+MODES = ("float32", "high", "bfloat16")
+
+
+def _mode_params(names, modes=MODES):
+    """(name, mode) cases; the float32 cases keep their bare names as ids."""
+    return [pytest.param(n, m, id=n if m == "float32" else f"{n}-{m}")
+            for m in modes for n in sorted(names)]
+
+
+def _assert_close(out, ref, value, mode):
+    if mode != "bfloat16":
+        np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+        return
+    vmax = float(np.abs(value).max())
+    diff = np.abs(out - ref)
+    assert diff.max() <= 2.0 ** -7 * vmax, diff.max()
+    assert diff.mean() <= 1e-4 * vmax, diff.mean()
 
 
 def _pallas(bank, value, frame_idx, key_valid, *, H, W, radius, topk, tile,
-            temperature=0.07, mask_shape="circle"):
+            temperature=0.07, mask_shape="circle", compute_dtype="float32"):
     import jax.numpy as jnp
 
     from fgvc_tpu.ops.pallas.topk_attention import (
@@ -25,7 +54,8 @@ def _pallas(bank, value, frame_idx, key_valid, *, H, W, radius, topk, tile,
         pad_key_bank_pallas,
     )
 
-    kpad = pad_key_bank_pallas(jnp.asarray(bank), radius, tile=tile)
+    kpad = pad_key_bank_pallas(jnp.asarray(bank), radius, tile=tile,
+                               compute_dtype=compute_dtype)
     halo, Hp, Wp = int(radius), -(-H // tile) * tile, -(-W // tile) * tile
     return np.asarray(
         fused_topk_attention_banked(
@@ -34,20 +64,21 @@ def _pallas(bank, value, frame_idx, key_valid, *, H, W, radius, topk, tile,
             frame_idx=jnp.asarray(frame_idx, jnp.int32),
             key_valid=jnp.asarray(key_valid), H=H, W=W, radius=radius,
             temperature=temperature, topk=topk, tile=tile, mask_shape=mask_shape,
-            interpret=True,
+            compute_dtype=compute_dtype, interpret=True,
         )
     )
 
 
 def _port(bank, value, frame_idx, key_valid, *, H, W, radius, topk, tile,
-          temperature=0.07, device="cpu", mask_shape="circle"):
+          temperature=0.07, device="cpu", mask_shape="circle", compute_dtype="float32"):
     halo, Hp, Wp, _, _ = k1.bank_geometry(H, W, radius, tile)
-    kpad = k1.pad_key_bank(torch.from_numpy(bank).to(device), radius, tile=tile)
+    kpad = k1.pad_key_bank(torch.from_numpy(bank).to(device), radius, tile=tile,
+                           compute_dtype=compute_dtype)
     qpad = kpad[int(frame_idx[-1]) + 1, halo:halo + Hp, halo:halo + Wp].contiguous()
     return k1.topk_attention_banked(
         qpad, kpad, torch.from_numpy(value).to(device), frame_idx=frame_idx,
         key_valid=key_valid, H=H, W=W, radius=radius, temperature=temperature,
-        topk=topk, tile=tile, mask_shape=mask_shape,
+        topk=topk, tile=tile, mask_shape=mask_shape, compute_dtype=compute_dtype,
     )
 
 
@@ -63,20 +94,13 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_plain_matches_pallas(name):
-    H, W, tile, radius, topk, fidx, valid, dup = CASES[name]
-    rng = np.random.default_rng(sorted(CASES).index(name))
-    C, Cv, T = 8, 5, len(fidx)
-    bank = rng.standard_normal((max(fidx) + 2, H, W, C)).astype(np.float32)
-    value = rng.random((T, H, W, Cv)).astype(np.float32)
-    if dup:
-        value[-1] = value[0]
-    kw = dict(H=H, W=W, radius=radius, topk=topk, tile=tile)
-    ref = _pallas(bank, value, fidx, valid, **kw)
-    out = _port(bank, value, fidx, valid, **kw).numpy()
-    assert out.shape == (H, W, Cv)
-    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+@pytest.mark.parametrize("name,mode", _mode_params(CASES))
+def test_plain_matches_pallas(name, mode):
+    bank, value, fidx, valid, kw = _case_inputs(name, CASES, C=8, Cv=5)
+    ref = _pallas(bank, value, fidx, valid, compute_dtype=mode, **kw)
+    out = _port(bank, value, fidx, valid, compute_dtype=mode, **kw).numpy()
+    assert out.shape == (kw["H"], kw["W"], 5)
+    _assert_close(out, ref, value, mode)
 
 
 def _case_inputs(name, cases, C, Cv):
@@ -89,14 +113,15 @@ def _case_inputs(name, cases, C, Cv):
     return bank, value, fidx, valid, dict(H=H, W=W, radius=radius, topk=topk, tile=tile)
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_plain_matches_pallas_square(name):
+@pytest.mark.parametrize("name,mode", _mode_params(CASES))
+def test_plain_matches_pallas_square(name, mode):
     """K1 with the square window of the VOS paths (|dy|, |dx| <= radius)."""
     bank, value, fidx, valid, kw = _case_inputs(name, CASES, C=8, Cv=5)
-    ref = _pallas(bank, value, fidx, valid, mask_shape="square", **kw)
-    out = _port(bank, value, fidx, valid, mask_shape="square", **kw).numpy()
-    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
-    circle = _port(bank, value, fidx, valid, **kw).numpy()
+    ref = _pallas(bank, value, fidx, valid, mask_shape="square", compute_dtype=mode, **kw)
+    out = _port(bank, value, fidx, valid, mask_shape="square", compute_dtype=mode,
+                **kw).numpy()
+    _assert_close(out, ref, value, mode)
+    circle = _port(bank, value, fidx, valid, compute_dtype=mode, **kw).numpy()
     # at radius 1.5 both windows are the 3 x 3 square; with every slot
     # invalid both outputs are 0
     if name not in ("all_slots_invalid", "underfull_topk"):
@@ -136,8 +161,8 @@ def _unbanked_inputs(seed, H=20, W=12, C=8, Cv=5, Tb=5, T=4):
     return query, key, value, [True, False, True, True]
 
 
-@pytest.mark.parametrize("name", sorted(UNBANKED))
-def test_unbanked_plain_matches_pallas(name):
+@pytest.mark.parametrize("name,mode", _mode_params(UNBANKED))
+def test_unbanked_plain_matches_pallas(name, mode):
     """K2: the unbanked entry, normalising and padding per call, against
     fused_topk_attention in interpret mode (keys Tb > T, one invalid slot)."""
     import jax.numpy as jnp
@@ -147,14 +172,14 @@ def test_unbanked_plain_matches_pallas(name):
     normalize, mask_shape = UNBANKED[name]
     query, key, value, valid = _unbanked_inputs(sorted(UNBANKED).index(name))
     kw = dict(radius=3.0, temperature=0.07, topk=4, normalize=normalize, tile=8,
-              mask_shape=mask_shape)
+              mask_shape=mask_shape, compute_dtype=mode)
     ref = np.asarray(fused_topk_attention(
         jnp.asarray(query), jnp.asarray(key), jnp.asarray(value),
         key_valid=jnp.asarray(valid), interpret=True, **kw))
     args = (torch.from_numpy(query), torch.from_numpy(key), torch.from_numpy(value))
     out = k1.topk_attention(*args, key_valid=valid, **kw).numpy()
     assert out.shape == value.shape[1:]
-    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+    _assert_close(out, ref, value, mode)
     np.testing.assert_array_equal(
         out, k1.topk_attention_plain(*args, key_valid=valid, **kw).numpy())
 
@@ -199,23 +224,37 @@ def _tie_case(C):
     return bank, v, dict(H=H, W=W, radius=2.0, topk=1, tile=8), expect
 
 
+# 'bfloat16' rounds the tied weight 1/3 to bf16: 0.333984375, 2^-9.6 off
+TIE_TOL = {"float32": 1e-5, "high": 1e-5, "bfloat16": 2.0 ** -9}
+
+
 def test_tie_semantics_at_threshold():
     """The Pallas kernel's rule
     (tests/test_pallas_attention.py::test_tie_semantics_at_threshold)."""
+    test_tie_semantics_at_threshold_in_mode("float32")
+
+
+@pytest.mark.parametrize("mode", ["high", "bfloat16"])
+def test_tie_semantics_at_threshold_in_mode(mode):
+    """The same rule in the K3 modes: bf16 operands keep the three keys
+    tied."""
     bank, v, kw, expect = _tie_case(C=4)
-    ref = _pallas(bank, v, [0], [True], **kw)[0, 0]
-    out = _port(bank, v, [0], [True], **kw).numpy()[0, 0]
-    np.testing.assert_allclose(ref, expect, atol=1e-5)
-    np.testing.assert_allclose(out, expect, atol=1e-5)
+    ref = _pallas(bank, v, [0], [True], compute_dtype=mode, **kw)[0, 0]
+    out = _port(bank, v, [0], [True], compute_dtype=mode, **kw).numpy()[0, 0]
+    np.testing.assert_allclose(ref, expect, atol=TIE_TOL[mode])
+    np.testing.assert_allclose(out, expect, atol=TIE_TOL[mode])
+    np.testing.assert_allclose(out, ref, atol=1e-6)
 
 
 @pytest.mark.cuda
-def test_kernel_tie_semantics_on_card():
+@pytest.mark.parametrize("mode", MODES)
+def test_kernel_tie_semantics_on_card(mode):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
     bank, v, kw, expect = _tie_case(C=16)
-    out = _port(bank, v, [0], [True], device="cuda", **kw).cpu().numpy()[0, 0]
-    np.testing.assert_allclose(out, expect, atol=1e-5)
+    out = _port(bank, v, [0], [True], device="cuda", compute_dtype=mode,
+                **kw).cpu().numpy()[0, 0]
+    np.testing.assert_allclose(out, expect, atol=TIE_TOL[mode])
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -247,75 +286,148 @@ CARD_CASES = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(CARD_CASES))
-def test_kernel_matches_plain_on_card(name):
-    """The CUDA kernel against the plain version on the same card inputs
-    (C = 16: the kernel stages channels 16 at a time)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
-    H, W, tile, radius, topk, fidx, valid, dup = CARD_CASES[name]
-    rng = np.random.default_rng(sorted(CARD_CASES).index(name))
-    C, Cv, T = 16, 7, len(fidx)
-    bank = rng.standard_normal((max(fidx) + 2, H, W, C)).astype(np.float32)
-    value = rng.random((T, H, W, Cv)).astype(np.float32)
-    if dup:
-        value[-1] = value[0]
-    kw = dict(H=H, W=W, radius=radius, topk=topk, tile=tile)
-    halo, Hp, Wp, _, _ = k1.bank_geometry(H, W, radius, tile)
-    kpad = k1.pad_key_bank(torch.from_numpy(bank).cuda(), radius, tile=tile)
-    before = k1.launches
-    out = _port(bank, value, fidx, valid, device="cuda", **kw)
-    torch.cuda.synchronize()
-    assert k1.launches == before + 1
-    ref = k1.topk_attention_banked_plain(
-        kpad[fidx[-1] + 1, halo:halo + Hp, halo:halo + Wp].contiguous(), kpad,
-        torch.from_numpy(value).cuda(), frame_idx=fidx, key_valid=valid,
-        temperature=0.07, **kw,
-    )
-    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=TOL, atol=TOL)
-
-
 def _card_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(CARD_CASES))
-def test_kernel_matches_plain_on_card_square(name):
-    """K1 with the square window against the plain version on the card;
-    5 value channels, as DAVIS VOS with 4 objects gives."""
+def _banked_on_card(name, mode, Cv, mask_shape):
+    """One launch of the banked entry in `mode` on the card, against the
+    plain version on the same card tensors (C = 16: the kernel stages
+    channels 16 at a time); the launch counts move for that entry and mode
+    only."""
     _card_or_skip()
-    bank, value, fidx, valid, kw = _case_inputs(name, CARD_CASES, C=16, Cv=5)
+    bank, value, fidx, valid, kw = _case_inputs(name, CARD_CASES, C=16, Cv=Cv)
     halo, Hp, Wp, _, _ = k1.bank_geometry(kw["H"], kw["W"], kw["radius"], kw["tile"])
-    kpad = k1.pad_key_bank(torch.from_numpy(bank).cuda(), kw["radius"], tile=kw["tile"])
-    before = k1.launches
-    out = _port(bank, value, fidx, valid, device="cuda", mask_shape="square", **kw)
+    kpad = k1.pad_key_bank(torch.from_numpy(bank).cuda(), kw["radius"], tile=kw["tile"],
+                           compute_dtype=mode)
+    before = (k1.launches, k1.unbanked_launches, dict(k1.mode_launches))
+    out = _port(bank, value, fidx, valid, device="cuda", mask_shape=mask_shape,
+                compute_dtype=mode, **kw)
     torch.cuda.synchronize()
-    assert k1.launches == before + 1
+    modes = {m: n + (m == mode) for m, n in before[2].items()}
+    assert (k1.launches, k1.unbanked_launches, k1.mode_launches) == (
+        before[0] + 1, before[1], modes)
     ref = k1.topk_attention_banked_plain(
         kpad[fidx[-1] + 1, halo:halo + Hp, halo:halo + Wp].contiguous(), kpad,
         torch.from_numpy(value).cuda(), frame_idx=fidx, key_valid=valid,
-        temperature=0.07, mask_shape="square", **kw,
+        temperature=0.07, mask_shape=mask_shape, compute_dtype=mode, **kw,
     )
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=TOL, atol=TOL)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(UNBANKED))
-def test_unbanked_kernel_matches_plain_on_card(name):
-    """K2 against its plain version on the card (C = 16, Cv = 5)."""
+@pytest.mark.parametrize("name,mode", _mode_params(CARD_CASES))
+def test_kernel_matches_plain_on_card(name, mode):
+    """K1 (K3 in 'high' and 'bfloat16'), circle window, 7 value channels."""
+    _banked_on_card(name, mode, Cv=7, mask_shape="circle")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mode", _mode_params(CARD_CASES))
+def test_kernel_matches_plain_on_card_square(name, mode):
+    """K1 with the square window against the plain version on the card;
+    5 value channels, as DAVIS VOS with 4 objects gives."""
+    _banked_on_card(name, mode, Cv=5, mask_shape="square")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mode", _mode_params(UNBANKED))
+def test_unbanked_kernel_matches_plain_on_card(name, mode):
+    """K2 (K3's unbanked entry in 'high' and 'bfloat16') against its plain
+    version on the card (C = 16, Cv = 5)."""
     _card_or_skip()
     normalize, mask_shape = UNBANKED[name]
     query, key, value, valid = _unbanked_inputs(
         sorted(UNBANKED).index(name), H=40, W=48, C=16)
     kw = dict(radius=6.0, temperature=0.07, topk=10, normalize=normalize, tile=16,
-              mask_shape=mask_shape, key_valid=valid)
+              mask_shape=mask_shape, key_valid=valid, compute_dtype=mode)
     args = [torch.from_numpy(x).cuda() for x in (query, key, value)]
-    before = (k1.launches, k1.unbanked_launches)
+    before = (k1.launches, k1.unbanked_launches, k1.mode_launches[mode])
     out = k1.topk_attention(*args, **kw)
     torch.cuda.synchronize()
-    assert (k1.launches, k1.unbanked_launches) == (before[0], before[1] + 1)
+    assert (k1.launches, k1.unbanked_launches, k1.mode_launches[mode]) == (
+        before[0], before[1] + 1, before[2] + 1)
     ref = k1.topk_attention_plain(*args, **kw)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=TOL, atol=TOL)
+
+
+# --------------------------------------------------------------------- #
+# K3 set-up: operand dtypes per mode
+# --------------------------------------------------------------------- #
+def test_pallas_compute_dtype_mapping():
+    from fgvc_tpu.ops.pallas.topk_attention import _PALLAS_PRECISIONS, pallas_compute_dtype
+
+    for precision in ("highest", "high", "default", "fast"):
+        assert k1.pallas_compute_dtype(precision) == pallas_compute_dtype(precision)
+    assert {m: str(d).split(".")[-1] for m, d in k1.COMPUTE_DTYPES.items()} == {
+        m: np.dtype(d).name for m, d in _PALLAS_PRECISIONS.items()}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_bank_dtype_per_mode(mode):
+    """pad_key_bank normalises in float32 and stores the mode's dtype, as
+    pad_key_bank_pallas: bf16 banks agree to one bf16 ulp (2^-7 relative; a
+    norm summed in another order can put a value on the other side of a
+    rounding midpoint), f32 banks to float32 rounding."""
+    import jax.numpy as jnp
+
+    from fgvc_tpu.ops.pallas.topk_attention import pad_key_bank_pallas
+
+    bank = np.random.default_rng(6).standard_normal((3, 20, 12, 8)).astype(np.float32)
+    ref = pad_key_bank_pallas(jnp.asarray(bank), 3.0, tile=8, compute_dtype=mode)
+    out = k1.pad_key_bank(torch.from_numpy(bank), 3.0, tile=8, compute_dtype=mode)
+    assert out.dtype == k1.COMPUTE_DTYPES[mode]
+    assert str(out.dtype).split(".")[-1] == np.dtype(ref.dtype).name
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = out.to(torch.float32).numpy()
+    np.testing.assert_array_equal(out == 0, ref == 0)
+    rel = 2.0 ** -7 if mode == "bfloat16" else 1e-6
+    np.testing.assert_allclose(out, ref, rtol=rel, atol=1e-7)
+    if mode == "bfloat16":
+        assert (out == ref).mean() > 0.99  # only near-midpoint values round apart
+
+
+def test_mode_operand_checks():
+    """'high' on a bf16 bank raises ValueError (the Pallas kernel's rule: its
+    lo halves would be zero); other dtypes off the mode's raise TypeError, on
+    the CPU as on the card."""
+    rng = np.random.default_rng(0)
+    bank = torch.from_numpy(rng.standard_normal((2, 16, 16, 8)).astype(np.float32))
+    v = torch.zeros((2, 16, 16, 3))
+    halo, Hp, Wp, _, _ = k1.bank_geometry(16, 16, 4.0, 8)
+    kw = dict(frame_idx=[0, 1], key_valid=[True, True], H=16, W=16, radius=4.0,
+              topk=4, tile=8)
+    kb = k1.pad_key_bank(bank, 4.0, tile=8, compute_dtype="bfloat16")
+    kf = k1.pad_key_bank(bank, 4.0, tile=8)
+    qb = kb[0, halo:halo + Hp, halo:halo + Wp].contiguous()
+    qf = kf[0, halo:halo + Hp, halo:halo + Wp].contiguous()
+    with pytest.raises(ValueError, match="float32 query/key"):
+        k1.topk_attention_banked(qb, kb, v, compute_dtype="high", **kw)
+    with pytest.raises(TypeError):
+        k1.topk_attention_banked(qf, kf, v, compute_dtype="bfloat16", **kw)
+    with pytest.raises(TypeError):
+        k1.topk_attention_banked(qb, kb, v, **kw)
+    with pytest.raises(TypeError):
+        k1.topk_attention_banked(qb, kb, v.double(), compute_dtype="bfloat16", **kw)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        k1.topk_attention_banked(qf, kf, v, compute_dtype="tf32", **kw)
+    out = k1.topk_attention_banked(qb, kb, v, compute_dtype="bfloat16", **kw)
+    assert out.dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_kernel_mode_checks_on_card():
+    """The card's wrapper raises where the CPU's does, before any launch."""
+    _card_or_skip()
+    bank = torch.randn((2, 16, 16, 16), device="cuda")
+    kb = k1.pad_key_bank(bank, 4.0, tile=8, compute_dtype="bfloat16")
+    halo, Hp, Wp, _, _ = k1.bank_geometry(16, 16, 4.0, 8)
+    qb = kb[0, halo:halo + Hp, halo:halo + Wp].contiguous()
+    v = torch.zeros((2, 16, 16, 3), device="cuda")
+    before = k1.launches
+    with pytest.raises(ValueError, match="float32 query/key"):
+        k1.topk_attention_banked(qb, kb, v, frame_idx=[0, 1], key_valid=[True, True],
+                                 H=16, W=16, radius=4.0, topk=4, tile=8,
+                                 compute_dtype="high")
+    assert k1.launches == before

@@ -148,8 +148,7 @@ def test_unported_knobs_raise():
     from fgvc_tpu_torch.apis.test import build_tracker, run_task
     from fgvc_tpu_torch.config import DAVIS_TEST_CFG
 
-    for knob, value in [("matmul_precision", "high"),
-                        ("attention_impl", "tiled"), ("decode_impl", "coarse"),
+    for knob, value in [("attention_impl", "tiled"), ("decode_impl", "coarse"),
                         ("upload_format", "yuv420"), ("visibility_mode", "heatmap"),
                         ("with_first_neighbor", False), ("preprocess", "imagenet")]:
         cfg = dataclasses.replace(DAVIS_TEST_CFG, **{knob: value})
@@ -157,3 +156,58 @@ def test_unported_knobs_raise():
             build_tracker(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 2"):
         run_task("kinetics", ROOT, device="cpu")
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_every_precision_keeps_tf32_off(precision):
+    """matmul_precision reaches only the attention kernel: in every mode the
+    backbone's matrix products and cuDNN convolutions stay full float32."""
+    from fgvc_tpu_torch.device import set_matmul_precision
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        set_matmul_precision(precision)
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_unknown_precision_is_refused():
+    import dataclasses
+
+    from fgvc_tpu_torch.apis.test import build_tracker
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+    from fgvc_tpu_torch.device import set_matmul_precision
+
+    with pytest.raises(ValueError, match="matmul_precision"):
+        build_tracker(dataclasses.replace(DAVIS_TEST_CFG, matmul_precision="fast"),
+                      device="cpu")
+    with pytest.raises(ValueError, match="matmul_precision"):
+        set_matmul_precision("medium")
+
+
+@pytest.mark.parametrize("flag,expect", [([], "highest"), (["--precision", "highest"], "highest"),
+                                         (["--precision", "high"], "high"),
+                                         (["--precision", "default"], "default")])
+def test_cli_precision_reaches_test_config(flag, expect, monkeypatch, capsys):
+    """`--precision` sets TestConfig.matmul_precision, and the tracker that
+    run_task builds from it takes the mode's kernel: 'default' runs
+    'bfloat16', 'high' runs 'high', 'highest' runs 'float32'."""
+    import fgvc_tpu_torch.apis.test as api
+    from fgvc_tpu_torch.cli.test import main
+
+    seen = {}
+
+    def fake_run_task(task, data_root, **kw):
+        seen["cfg"] = kw["test_cfg"]
+        seen["tracker"] = api.build_tracker(kw["test_cfg"], device="cpu")
+        return {}
+
+    monkeypatch.setattr(api, "run_task", fake_run_task)
+    main(["--task", "davis", "--data-root", ROOT, "--device", "cpu", *flag])
+    capsys.readouterr()
+    assert seen["cfg"].matmul_precision == expect
+    assert seen["tracker"].compute_dtype == {
+        "highest": "float32", "high": "high", "default": "bfloat16"}[expect]

@@ -2,7 +2,18 @@
 package's Tracker with attention_impl='pallas' (its kernel interpreted on
 the CPU), on the same uint8 video, query points and ResNet-18-d1 weights.
 Trajectories agree to 1e-3 px (float32 rounding through the backbone and
-the attention; no top-k member flips at these inputs)."""
+the attention; no top-k member flips at these inputs), in matmul_precision
+'highest' and 'high' (bf16x3 keeps about 16 bits of every operand on both
+sides).
+
+In 'default' the bank and the weights of the value mix are rounded to
+bfloat16.  Either side sums the bank's norms and the affinities in its own
+float32 order, so now and then one bank element or one weight rounds to the
+neighbouring bfloat16 value (one in 2^8 relative) on one side only; that
+moves a propagated heatmap a little, and the move carries through the
+following frames.  The bound there: median |diff| <= 1e-3 px (most points
+see no such flip) and max |diff| <= 1 px, TAP-Vid's finest threshold (0.196
+px measured)."""
 
 import dataclasses
 
@@ -25,17 +36,18 @@ def _video(rng):
     return np.stack([tex[t:t + H, t:t + W] for t in range(T)])
 
 
+SMALL = dict(input_size=(H, W), neighbor_range=8, tile=8)
+# matmul_precision -> (max, median) |trajectory diff| in px against JAX
+TRAJ_BOUND = {"highest": (1e-3, 1e-3), "high": (1e-3, 1e-3), "default": (1.0, 1e-3)}
+
+
 @pytest.fixture(scope="module")
-def setup():
+def weights():
     import jax
 
-    from fgvc_tpu.config import TestConfig as JaxTestConfig
     from fgvc_tpu.models.resnet import init_resnet_params
     from fgvc_tpu.models.resnet import resnet18_d1 as flax_resnet18_d1
-    from fgvc_tpu.models.tracker import Tracker as JaxTracker
-    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
     from fgvc_tpu_torch.models.resnet import resnet18_d1
-    from fgvc_tpu_torch.models.tracker import Tracker
     from fgvc_tpu_torch.models.weights import load_weights, state_dict_from_flax
 
     rng = np.random.default_rng(0)
@@ -46,14 +58,30 @@ def setup():
     )
     model = flax_resnet18_d1()
     variables = init_resnet_params(model, jax.random.PRNGKey(0), (H, W))
-    small = dict(input_size=(H, W), neighbor_range=8, tile=8)
-    jax_cfg = JaxTestConfig(**small, frame_bucket=8, point_bucket=4, attention_impl="pallas")
+    port_model = load_weights(resnet18_d1(), state_dict_from_flax(variables))
+    return model, variables, port_model, video, query_points
+
+
+def _run(weights, precision):
+    """(port Tracker, JAX trajectories) in one matmul_precision."""
+    from fgvc_tpu.config import TestConfig as JaxTestConfig
+    from fgvc_tpu.models.tracker import Tracker as JaxTracker
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+    from fgvc_tpu_torch.models.tracker import Tracker
+
+    model, variables, port_model, video, query_points = weights
+    jax_cfg = JaxTestConfig(**SMALL, frame_bucket=8, point_bucket=4, attention_impl="pallas",
+                            matmul_precision=precision)
     jax_tracker = JaxTracker(lambda v, x: model.apply(v, x, train=False), variables, jax_cfg)
     ref = jax_tracker.track_points(video, query_points)
+    cfg = dataclasses.replace(DAVIS_TEST_CFG, **SMALL, matmul_precision=precision)
+    return Tracker(port_model, cfg, torch.device("cpu")), ref
 
-    port_model = load_weights(resnet18_d1(), state_dict_from_flax(variables))
-    tracker = Tracker(port_model, dataclasses.replace(DAVIS_TEST_CFG, **small), torch.device("cpu"))
-    return tracker, video, query_points, ref
+
+@pytest.fixture(scope="module")
+def setup(weights):
+    tracker, ref = _run(weights, "highest")
+    return tracker, weights[3], weights[4], ref
 
 
 def test_port_tracker_matches_jax_pallas_tracker(setup):
@@ -63,6 +91,43 @@ def test_port_tracker_matches_jax_pallas_tracker(setup):
     assert not out["visibilities"].any()
     np.testing.assert_array_equal(out["trajectories"][:2, 3], 0.0)  # before its query
     np.testing.assert_allclose(out["trajectories"], ref["trajectories"], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_port_tracker_matches_jax_in_precision_mode(weights, precision):
+    """K3 end to end: the port's Tracker in 'high' (kernel mode 'high') and
+    'default' (kernel mode 'bfloat16') against the JAX Tracker in the same
+    matmul_precision; bounds in the module's docstring."""
+    tracker, ref = _run(weights, precision)
+    assert tracker.compute_dtype == {"high": "high", "default": "bfloat16"}[precision]
+    out = tracker.track_points(weights[3], weights[4])
+    diff = np.abs(out["trajectories"] - ref["trajectories"])
+    assert out["trajectories"].shape == (T, 4, 2) and np.isfinite(diff).all()
+    max_bound, median_bound = TRAJ_BOUND[precision]
+    assert diff.max() <= max_bound, diff.max()
+    assert np.median(diff) <= median_bound, np.median(diff)
+
+
+def test_precision_reaches_only_the_attention(weights):
+    """The backbone runs in float32 in every mode (the same features bit for
+    bit); only the bank's dtype and the kernel's mode change."""
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+    from fgvc_tpu_torch.models.tracker import Tracker
+
+    video = weights[3]
+    feats, banks = {}, {}
+    for precision in ("highest", "high", "default"):
+        cfg = dataclasses.replace(DAVIS_TEST_CFG, **SMALL, matmul_precision=precision)
+        tracker = Tracker(weights[2], cfg, torch.device("cpu"))
+        feats[precision] = tracker.extract_features(video[:3])
+        banks[precision] = tracker.build_bank(feats[precision])
+    for precision in ("high", "default"):
+        assert feats[precision].dtype == torch.float32
+        assert torch.equal(feats[precision], feats["highest"])
+    assert banks["highest"].dtype == banks["high"].dtype == torch.float32
+    assert torch.equal(banks["high"], banks["highest"])
+    assert banks["default"].dtype == torch.bfloat16
+    assert torch.equal(banks["default"], banks["highest"].to(torch.bfloat16))
 
 
 def test_dispatch_reads_each_group_once(setup):

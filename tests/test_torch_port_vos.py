@@ -6,8 +6,14 @@ the CPU), on the same uint8 video, 2-object first mask and ResNet-18-d1
 weights, banked (K1, square window), with save_mem (K2) and with hard_prop.
 Label maps are equal; per-frame logits agree to 1e-4 (float32 rounding
 through the backbone and the attention; outputs are convex mixes of one-hot
-values).  Then the pieces around it: the label resizes and decode, the J&F
-metrics copy, the DAVIS reader and the CLI.
+values).  In matmul_precision 'high' and 'default' (kernel modes 'high' and
+'bfloat16'), banked and with save_mem, the label maps agree on >= 99.9% of
+pixels: 'default' rounds the bank, the query and the weights to bfloat16,
+and a value on one side of a rounding midpoint can fall on the other side of
+it in the other implementation (its sums run in another order), which moves
+a logit and, near a tie between two classes, a label.  Then the pieces
+around it: the label resizes and decode, the J&F metrics copy, the DAVIS
+reader and the CLI.
 """
 
 import dataclasses
@@ -23,6 +29,7 @@ SMALL = dict(precede_frames=3, topk=4, temperature=0.07, neighbor_range=10,
              input_size=(H, W), tile=8)
 MODES = {"banked": {}, "save_mem": {"save_mem": True}, "hard_prop": {"hard_prop": True}}
 LOGIT_TOL = 1e-4
+PRECISION_MASK_AGREE = 0.999
 
 
 def _ref_mask():
@@ -48,17 +55,18 @@ def weights():
     return model, variables, port_model, video
 
 
-def _trackers(weights, mode):
+def _trackers(weights, mode, precision="highest"):
     from fgvc_tpu.config import TestConfig as JaxTestConfig
     from fgvc_tpu.models.tracker import Tracker as JaxTracker
     from fgvc_tpu_torch.config import DAVIS_TEST_CFG
     from fgvc_tpu_torch.models.tracker import Tracker
 
     model, variables, port_model, _ = weights
-    jax_cfg = JaxTestConfig(**SMALL, frame_bucket=4, point_bucket=4,
-                            attention_impl="pallas", **MODES[mode])
+    jax_cfg = JaxTestConfig(**SMALL, frame_bucket=4, point_bucket=4, attention_impl="pallas",
+                            matmul_precision=precision, **MODES[mode])
     jax_tracker = JaxTracker(lambda v, x: model.apply(v, x, train=False), variables, jax_cfg)
-    cfg = dataclasses.replace(DAVIS_TEST_CFG, **SMALL, **MODES[mode])
+    cfg = dataclasses.replace(DAVIS_TEST_CFG, **SMALL, matmul_precision=precision,
+                              **MODES[mode])
     return jax_tracker, Tracker(port_model, cfg, torch.device("cpu"))
 
 
@@ -114,6 +122,32 @@ def test_propagated_logits_match_jax_pallas(weights, runs, mode):
     out = torch.stack(out).numpy()
     assert out.shape == ref.shape == (T - 1, H // 2, W // 2, 3)
     np.testing.assert_allclose(out, ref, rtol=0, atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("mode", ["banked", "save_mem"])
+def test_track_masks_matches_jax_in_precision_mode(weights, mode, precision, monkeypatch):
+    """K3 on both VOS paths: banked (K1's entry) and save_mem (K2's), against
+    the JAX track_masks in the same matmul_precision."""
+    import fgvc_tpu_torch.ops.cuda.topk_attention as k1
+
+    jax_tracker, tracker = _trackers(weights, mode, precision)
+    ref = jax_tracker.track_masks(weights[3], _ref_mask(), (H, W), num_objects=2)
+    seen = []
+    real = k1._check
+
+    def spy(qpad, kpad, value, *args):
+        seen.append((qpad.dtype, kpad.dtype, args[-1]))
+        return real(qpad, kpad, value, *args)
+
+    monkeypatch.setattr(k1, "_check", spy)
+    out = tracker.track_masks(weights[3], _ref_mask(), (H, W), num_objects=2)
+    dtype = torch.bfloat16 if precision == "default" else torch.float32
+    kernel_mode = {"high": "high", "default": "bfloat16"}[precision]
+    assert set(seen) == {(dtype, dtype, kernel_mode)} and len(seen) == T - 1
+    np.testing.assert_array_equal(out[0], _ref_mask())
+    agree = float((out == ref).mean())
+    assert agree >= PRECISION_MASK_AGREE, agree
 
 
 def test_save_mem_matches_banked(runs):
