@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (fgvc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,vos,vos_plain,modes]
+    python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,vos,vos_plain,modes,sp]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -18,7 +18,16 @@ Phases, each of which raises on failure (exit code != 0):
             are convex mixes of values in [0, 1], the sums run in another
             order, and in 'high' and 'bfloat16' the plain version sums the
             affinities in the kernel's order, so the top-k members near a tie
-            and the bf16-rounded weights are the kernel's;
+            and the bf16-rounded weights are the kernel's.  Then K4, the row
+            blocks of spatial-parallel propagation, in each mode: TAP-Vid
+            shapes (circle) in S = 2 and 3 blocks, VOS shapes (square) in
+            S = 2 and 4, distinct frames (and the tie case at S = 2); each
+            block against its plain version (<= 1e-4), and the blocks,
+            gathered and cut to the feature height, against the unsharded
+            K1/K3 output with max |diff| = 0 (bit for bit); in 'float32'
+            each S's frame (its S blocks) timed against the unsharded call,
+            and S = 2 per block launch, bounded by the block's own live
+            pairs;
   e2e       run_task('davis') (the CLI's path) on two synthetic TAP-Vid
             pickles (48 frames, 256 x 256, 32 tracks) with seeded random
             weights at the full width of ResNet-18-d1; K1's launches must
@@ -46,7 +55,18 @@ Phases, each of which raises on failure (exit code != 0):
             0.1; 'default' <D within 0.5 (the repo's fidelity bar,
             docs/precision_study.md); VOS J&F-Mean within 0.005.  Then that
             video cut to 8 frames in 'high' and 'default', through the
-            kernels and the plain versions: label maps agree on >= 99.99%.
+            kernels and the plain versions: label maps agree on >= 99.99%;
+  sp        spatial-parallel propagation (--spatial-devices) on this card
+            listed S times: run_task('davis') on the e2e pickles at S = 2,
+            whose trajectories equal the unsharded tracker's (<= 1e-6 px) and
+            whose <D equals the unsharded run's; one synthetic VOS video (24
+            frames) banked at S = 2 and save_mem at S = 4 in 'highest', and
+            save_mem at S = 2 in 'default', label maps 100% equal to the
+            unsharded runs of the same mode.  Each run launches only K4, S per
+            frame propagated; peak device memory beside the unsharded run's.
+            With two cards or more, the TAP-Vid case again on two distinct
+            cards (frame-parallel features at half the batch: trajectories
+            within the plain phase's 1e-3 px median).
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -76,6 +96,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 KERNEL_TOL = 1e-4
+# K4: blocks per frame in the kernel phase, per window
+ROW_SPLITS = {"circle": (2, 3), "square": (2, 4)}
+SP_TRAJ_TOL_PX = 1e-6
 TRAJ_TOL_PX = 1e-3
 DELTA_D_TOL = 0.1
 # share of pixels on which two label maps must agree: banked against save_mem
@@ -178,33 +201,44 @@ def _top(ms_by_name, n=6):
     return ", ".join(f"{name[:60]} {ms:.2f} ms" for name, ms in items)
 
 
-def live_pairs(h, w, mask_shape):
+def live_pairs(h, w, mask_shape, rows=None):
     """(query, key) pairs of one key slot inside the radius window and the
-    image, over an h x w grid."""
+    image, over an h x w grid, or over its query rows [r0, r1) where `rows`
+    is given (a row block)."""
     halo, r = int(RADIUS), RADIUS
+    r0, r1 = (0, h) if rows is None else rows
     n = 0
     for dy in range(-halo, halo + 1):
         for dx in range(-halo, halo + 1):
             inside = (abs(dy) <= r and abs(dx) <= r) if mask_shape == "square" \
                 else dy * dy + dx * dx < r * r
-            if inside:
-                n += max(h - abs(dy), 0) * max(w - abs(dx), 0)
+            if inside:  # query rows y in [r0, r1) with 0 <= y, y + dy < h
+                ys = min(r1, h, h - dy) - max(r0, 0, -dy)
+                n += max(ys, 0) * max(w - abs(dx), 0)
     return n
 
 
-def attention_bound(h, w, mask_shape, key_valid, nbytes, mode="float32"):
+def attention_bound(h, w, mask_shape, key_valid, nbytes, mode="float32", rows=None):
     """Least time for one top-k attention call on these inputs: the larger
     of the live affinity products (in-window, in-image, valid-slot pairs,
-    2 * C flops each; 'float32' over the fp32 peak, 'bfloat16' over the bf16
-    tensor-core peak, 'high' three bf16 products each over the same) and
-    `nbytes` (each input read once, the output written once) over the HBM
-    rate."""
-    flops = 2.0 * C * live_pairs(h, w, mask_shape) * sum(bool(v) for v in key_valid)
+    of the query rows `rows` where given; 2 * C flops each; 'float32' over
+    the fp32 peak, 'bfloat16' over the bf16 tensor-core peak, 'high' three
+    bf16 products each over the same) and `nbytes` (each input read once,
+    the output written once) over the HBM rate."""
+    flops = 2.0 * C * live_pairs(h, w, mask_shape, rows) * sum(bool(v) for v in key_valid)
     if mode == "high":
         flops *= 3
     peak = PEAK_FP32_FLOPS if mode == "float32" else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+# the kernel phase's cases: key frames, slot validity and query frame of
+# distinct key frames and of the step t = 1 (frame 0 in slot 0 and slot 5,
+# the rest before the video)
+FIDX = {"distinct": list(range(SLOTS)), "t1_tie": [0] * SLOTS}
+VALID = {"distinct": [True] * SLOTS, "t1_tie": [True] + [False] * (SLOTS - 2) + [True]}
+QFRAME = {"distinct": SLOTS, "t1_tie": 1}
 
 
 def record_key(entry, mode):
@@ -277,10 +311,7 @@ def check_kernels(records):
     from fgvc_tpu_torch.ops.attention import l2_normalize
     from fgvc_tpu_torch.ops.cuda import topk_attention as k1
 
-    fidx = {"distinct": list(range(SLOTS)), "t1_tie": [0] * SLOTS}
-    valid = {"distinct": [True] * SLOTS,
-             "t1_tie": [True] + [False] * (SLOTS - 2) + [True]}
-    qframe = {"distinct": SLOTS, "t1_tie": 1}
+    fidx, valid, qframe = FIDX, VALID, QFRAME
     rng = np.random.default_rng(0)
     for h, w, cv, entries in ((H, W, CV, ("circle",)),
                               (VOS_H, VOS_W, VOS_CV, ("square", "unbanked"))):
@@ -321,6 +352,109 @@ def check_kernels(records):
                             k1.topk_attention_banked_plain, cases, h, w, entry, nbytes, mode)
             del kpad
         del feats, nf, values
+        torch.cuda.empty_cache()
+
+
+def row_blocks(h, S):
+    """(hb, gridH, row0 of each block): Tracker.row_blocks for S blocks."""
+    hb = -(-(-(-h // TILE) * TILE // S) // TILE) * TILE
+    return hb, S * hb, [i * hb for i in range(S)]
+
+
+def check_row_blocks(records):
+    """K4 in each compute mode: the banked entry's row blocks over a bank
+    over-padded to S blocks, with the circle window at TAP-Vid shapes and
+    the square window at VOS shapes; distinct key frames at every S and the
+    t = 1 tie at S = 2.  Each block against its plain version; the gathered
+    blocks against the unsharded call bit for bit.  In 'float32' a frame's
+    S blocks are timed against the unsharded call; S = 2 per block launch
+    (all S blocks over S), bounded by the mean of its blocks' bounds."""
+    import torch
+
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    rng = np.random.default_rng(1)
+    for h, w, cv, shape in ((H, W, CV, "circle"), (VOS_H, VOS_W, VOS_CV, "square")):
+        feats = torch.from_numpy(rng.standard_normal((SLOTS + 1, h, w, C), dtype=np.float32)).cuda()
+        value = rng.random((SLOTS, h, w, cv), dtype=np.float32)
+        values = {"distinct": torch.from_numpy(value).cuda(),
+                  "t1_tie": torch.from_numpy(np.concatenate([value[:-1], value[:1]])).cuda()}
+        halo, hp, wp, _, cols_total = k1.bank_geometry(h, w, RADIUS, TILE)
+        record = records[f"K4_{shape}"]
+        for mode in k1.COMPUTE_DTYPES:
+            kpad = k1.pad_key_bank(feats, RADIUS, tile=TILE, compute_dtype=mode)
+            kw = dict(H=h, W=w, radius=RADIUS, temperature=TEMPERATURE, topk=TOPK, tile=TILE,
+                      mask_shape=shape, compute_dtype=mode)
+            for S in ROW_SPLITS[shape]:
+                hb, grid, row0s = row_blocks(h, S)
+                tall = k1.pad_key_bank(feats, RADIUS, tile=TILE, compute_dtype=mode,
+                                       grid_rows=grid)
+                for case in (("distinct", "t1_tie") if S == 2 else ("distinct",)):
+                    label = f"K4 {shape} '{mode}' S={S} {case}"
+                    args = dict(value=values[case], frame_idx=FIDX[case], key_valid=VALID[case],
+                                **kw)
+                    unsharded = dict(qpad=kpad[QFRAME[case], halo:halo + hp,
+                                               halo:halo + wp].contiguous(), kpad=kpad, **args)
+                    full = k1.topk_attention_banked(**unsharded)
+                    blocks = [dict(qpad=tall[QFRAME[case], halo + r0:halo + r0 + hb,
+                                             halo:halo + wp].contiguous(),
+                                   kpad=tall, row0=r0, grid_rows=grid, **args) for r0 in row0s]
+                    outs = [k1.topk_attention_banked(**b) for b in blocks]
+                    errs = [(o - k1.topk_attention_banked_plain(**b)).abs().max().item()
+                            for o, b in zip(outs, blocks)]
+                    gathered = torch.cat(outs)[:h]
+                    torch.cuda.synchronize()
+                    if not all(torch.isfinite(o).all() for o in outs):
+                        raise AssertionError(f"{label}: non-finite output")
+                    d = (gathered - full).abs().max().item()
+                    print(f"{label}: hb {hb}, grid {grid}; max |block - plain| "
+                          f"{max(errs):.3e} (tolerance {KERNEL_TOL}); gathered vs unsharded "
+                          f"max |diff| {d:.3e} (must be 0)", flush=True)
+                    if not max(errs) <= KERNEL_TOL:
+                        raise AssertionError(f"{label}: a block disagrees with its plain version")
+                    if not torch.equal(gathered, full):
+                        raise AssertionError(f"{label}: gathered blocks differ from unsharded")
+                    if mode == "float32":
+                        record["max_abs_err"] = max(record["max_abs_err"] or 0.0, *errs)
+                    if mode != "float32" or case != "distinct":
+                        continue
+                    del outs, gathered
+                    # a frame on one card: its S blocks against the unsharded call
+                    frame_ms = _events_ms(
+                        lambda: [k1.topk_attention_banked(**b) for b in blocks], 20)
+                    full_ms = _events_ms(lambda: k1.topk_attention_banked(**unsharded), 20)
+                    print(f"{label}: a frame in {S} blocks {frame_ms:.3f} ms, unsharded "
+                          f"{full_ms:.3f} ms ({100 * (frame_ms / full_ms - 1):+.1f}%; {grid} "
+                          f"grid rows for {hp})", flush=True)
+                    if S != 2:
+                        continue
+                    ms = frame_ms / S
+                    plain_ms = _events_ms(
+                        lambda: [k1.topk_attention_banked_plain(**b) for b in blocks], 3) / S
+                    bounds = []
+                    for r0 in row0s:
+                        r1 = min(r0 + hb, h)
+                        key_rows = hb + 2 * halo
+                        # query block, its bank rows of each slot frame, its
+                        # values' rows, the block's output
+                        nbytes = 4.0 * (hb * wp * C + SLOTS * key_rows * cols_total * C
+                                        + SLOTS * (min(r1 + halo, h) - max(r0 - halo, 0)) * w * cv
+                                        + hb * w * cv)
+                        bounds.append(attention_bound(h, w, shape, VALID[case], nbytes, mode,
+                                                      rows=(r0, r0 + hb)))
+                    bound_ms = sum(b[0] for b in bounds) / S
+                    flops = sum(b[2] for b in bounds) / S
+                    bound_by = bounds[0][1]
+                    tiles = (hb // TILE) * (wp // TILE)
+                    scratch = tiles * TILE * TILE * SLOTS * (TILE + 2 * halo) ** 2
+                    print(f"{label}: kernel {ms:.3f} ms per block launch, plain {plain_ms:.3f} ms, "
+                          f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP live per "
+                          f"block); scratch {4.0 * scratch / 1e9:.2f} GB per block launch",
+                          flush=True)
+                    record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                del tall
+            del kpad
+        del feats, values
         torch.cuda.empty_cache()
 
 
@@ -374,17 +508,18 @@ def check_metrics(metrics):
 
 
 def check_launches(label, precision, expect, entry):
-    """Every launch since the last reset was of `entry` ('banked' or
-    'unbanked') in the compute mode of `precision`, one per frame
-    propagated."""
+    """Every launch since the last reset was of `entry` ('banked',
+    'unbanked' or 'row_block') in the compute mode of `precision`, `expect`
+    of them (one per frame propagated, S per frame for row blocks)."""
     from fgvc_tpu_torch.ops.cuda import topk_attention as k1
 
     mode = k1.pallas_compute_dtype(precision)
-    got = ({"banked": k1.launches, "unbanked": k1.unbanked_launches}, dict(k1.mode_launches))
-    want = ({"banked": expect if entry == "banked" else 0,
-             "unbanked": expect if entry == "unbanked" else 0},
+    counts = {"banked": k1.launches, "unbanked": k1.unbanked_launches,
+              "row_block": k1.row_block_launches}
+    got = (counts, dict(k1.mode_launches))
+    want = ({e: expect if e == entry else 0 for e in counts},
             {m: expect if m == mode else 0 for m in k1.mode_launches})
-    print(f"{label}: launches by entry {got[0]}, by mode {got[1]} (frames propagated: {expect})",
+    print(f"{label}: launches by entry {got[0]}, by mode {got[1]} (expected {expect} {entry})",
           flush=True)
     if got != want:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
@@ -408,13 +543,14 @@ def run_e2e(data_root, record):
     dt = time.time() - t0
     check_launches("e2e", "highest", expect, "banked")
     check_metrics(metrics)
+    record["launches"] = expect
     print("TAP-Vid metrics (random weights): " + json.dumps(
         {k: metrics[k] for k in ("average_pts_within_thresh", "average_jaccard",
                                  "occlusion_accuracy", "pts_within_1", "pts_within_4",
                                  "pts_within_16")}))
     print(f"e2e: {len(ds)} videos, {n_frames} frames in {dt:.2f} s = "
           f"{n_frames / dt:.2f} frames/s (model build and data reading included)")
-    record["launches"] = expect
+    return metrics
 
 
 def run_plain_comparison(data_root):
@@ -710,9 +846,125 @@ def run_modes_vos(records):
         run_vos_plain(ds, precision=precision, agree_limit=MASK_AGREE, jf_tol=None)
 
 
+def _peak_gb_of(fn):
+    """(fn(), peak device GB allocated while it ran)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _trajectories(tracker, ds):
+    return np.concatenate([tracker.track_points(ds[i]["video"], ds[i]["query_points"])
+                           ["trajectories"].ravel() for i in range(len(ds))])
+
+
+def run_sp_tapvid(data_root, record, card, e2e_metrics=None):
+    """run_task('davis', spatial_devices=[card] * 2) on the e2e pickles:
+    only K4 launches, two per frame propagated; <D equal to the unsharded
+    run's; trajectories of the row-block tracker equal to the unsharded
+    tracker's; with two cards or more, the same on two distinct cards."""
+    import torch
+
+    from fgvc_tpu_torch.apis.test import build_tracker, run_task
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    ds = TapVidDataset(data_root)
+    expect = frames_propagated(ds)
+    if e2e_metrics is None:
+        e2e_metrics = run_task("davis", data_root, device=card, seed=0)
+    S = 2
+    k1.reset_launches()
+    t0 = time.time()
+    metrics, peak = _peak_gb_of(lambda: run_task("davis", data_root, seed=0,
+                                                 spatial_devices=[card] * S))
+    dt = time.time() - t0
+    check_launches(f"sp davis S={S}", "highest", S * expect, "row_block")
+    check_metrics(metrics)
+    record["launches"] = S * expect
+    d0, d1 = e2e_metrics["average_pts_within_thresh"], metrics["average_pts_within_thresh"]
+    print(f"sp davis S={S} on one card: <D {d1:.6f} vs unsharded {d0:.6f}; {dt:.2f} s "
+          f"(model build and data reading included); peak device memory {peak:.2f} GB",
+          flush=True)
+    if d1 != d0:
+        raise AssertionError(f"sp davis: <D {d1} differs from the unsharded {d0}")
+    single, peak0 = _peak_gb_of(lambda: _trajectories(build_tracker(seed=0, device=card), ds))
+    sp, peak1 = _peak_gb_of(lambda: _trajectories(
+        build_tracker(seed=0, spatial_devices=[card] * S), ds))
+    diff = np.abs(sp - single)
+    print(f"sp davis S={S} trajectories vs unsharded: max |diff| {diff.max():.3e} px "
+          f"(limit {SP_TRAJ_TOL_PX}); peak device memory over both videos {peak1:.2f} GB vs "
+          f"{peak0:.2f} GB unsharded", flush=True)
+    if not diff.max() <= SP_TRAJ_TOL_PX:
+        raise AssertionError(f"sp davis: trajectories differ by {diff.max()} px")
+    if torch.cuda.device_count() < 2:
+        print("sp davis on distinct cards: not run (this machine has one card)", flush=True)
+        return
+    k1.reset_launches()
+    multi = _trajectories(build_tracker(seed=0, spatial_devices=S), ds)
+    check_launches(f"sp davis S={S} on {S} cards", "highest", S * expect, "row_block")
+    diff = np.abs(multi - single)
+    print(f"sp davis S={S} on {S} distinct cards: trajectories vs unsharded median |diff| "
+          f"{np.median(diff):.3e} px, max {diff.max():.3e} px (median limit {TRAJ_TOL_PX})",
+          flush=True)
+    if not np.median(diff) <= TRAJ_TOL_PX:
+        raise AssertionError(f"sp davis on {S} cards: median |diff| {np.median(diff)} px")
+
+
+def run_sp_vos(record, card):
+    """One synthetic VOS video through eval_vos, unsharded and on `card`
+    listed S times: banked at S = 2 and save_mem at S = 4 in 'highest',
+    save_mem at S = 2 in 'default'; label maps 100% equal, only K4 launches
+    in the row-block runs (S per frame propagated)."""
+    import dataclasses
+
+    import torch
+
+    from fgvc_tpu_torch.apis.test import build_tracker, eval_vos
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    ds = SyntheticDavis(n_videos=1)
+    frames = len(ds.videos[0]) - 1
+    record["launches"] = 0
+    for precision, save_mem, S in (("highest", False, 2), ("highest", True, 4),
+                                   ("default", True, 2)):
+        cfg = dataclasses.replace(DAVIS_TEST_CFG, save_mem=save_mem, matmul_precision=precision)
+        path = f"{precision} {'save_mem' if save_mem else 'banked'}"
+        runs = {}
+        for spatial in (None, [card] * S):
+            tracker = build_tracker(cfg, seed=0, device=card, spatial_devices=spatial)
+            k1.reset_launches()
+            t0 = time.time()
+            res, peak = _peak_gb_of(lambda: eval_vos(tracker, ds))
+            dt = time.time() - t0
+            if spatial is None:
+                check_launches(f"sp vos {path} unsharded", precision, frames,
+                               "unbanked" if save_mem else "banked")
+            else:
+                check_launches(f"sp vos {path} S={S}", precision, S * frames, "row_block")
+                if precision == "highest":
+                    record["launches"] += S * frames
+            runs[spatial is None] = (res["J&F-Mean"], ds.preds[0], peak, dt)
+            del tracker
+            torch.cuda.empty_cache()
+        (jf0, pred0, peak0, dt0), (jf1, pred1, peak1, dt1) = runs[True], runs[False]
+        agree = _agreement([pred1], [pred0])
+        print(f"sp vos {path} S={S} vs unsharded: label maps agree on {100 * agree:.5f}% of "
+              f"pixels (must be 100%); J&F-Mean {jf1:.6f} vs {jf0:.6f}; {dt1:.2f} s vs "
+              f"{dt0:.2f} s (scoring included); peak device memory {peak1:.2f} GB vs "
+              f"{peak0:.2f} GB ({peak1 - peak0:+.2f} GB)", flush=True)
+        if agree != 1.0:
+            raise AssertionError(f"sp vos {path} S={S}: label maps differ from the unsharded run")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="card,build,kernel,e2e,plain,vos,vos_plain,modes")
+    ap.add_argument("--phases", default="card,build,kernel,e2e,plain,vos,vos_plain,modes,sp")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -745,6 +997,10 @@ def main():
                             ("unbanked", "topk_attention (unbanked), square")):
             records[f"K3_{tag}_{entry}"] = kernel_record(f"K3 '{mode}' {name}",
                                                          f"{pallas}:{line}")
+    # K4: the same kernel's row-block mode (row0, from :110; grid_rows)
+    for shape in ("circle", "square"):
+        records[f"K4_{shape}"] = kernel_record(
+            f"K4 topk_attention_banked row blocks, {shape}", f"{pallas}:110")
     t_start = time.time()
     phase("card")
     print(card_info(), flush=True)  # name, power limit
@@ -754,12 +1010,14 @@ def main():
     if "kernel" in phases:
         phase("kernel")
         check_kernels(records)
+        check_row_blocks(records)
+    e2e_metrics = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_root:
-        if {"e2e", "plain", "modes"} & set(phases):
+        if {"e2e", "plain", "modes", "sp"} & set(phases):
             make_tapvid_pickles(data_root)
         if "e2e" in phases:
             phase("e2e")
-            run_e2e(data_root, records["K1_circle"])
+            e2e_metrics = run_e2e(data_root, records["K1_circle"])
         if "plain" in phases:
             phase("plain")
             run_plain_comparison(data_root)
@@ -776,6 +1034,11 @@ def main():
             phase("modes")
             run_modes_tapvid(data_root, records)
             run_modes_vos(records)
+        if "sp" in phases:
+            phase("sp")
+            card = torch.device("cuda", torch.cuda.current_device())
+            run_sp_tapvid(data_root, records["K4_circle"], card, e2e_metrics)
+            run_sp_vos(records["K4_square"], card)
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

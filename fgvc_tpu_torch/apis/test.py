@@ -1,18 +1,20 @@
 """Evaluation harness of the port (fgvc_tpu/apis/test.py): TAP-Vid-DAVIS
 point tracking and DAVIS-2017 VOS.
 
-    run_task('davis', data_root, checkpoint=None, device=None)
+    run_task('davis', data_root, checkpoint=None, device=None, spatial_devices=None)
     run_task('vos', data_root, list_path=None, test_cfg=None, device=None)
 
 builds the ResNet-18-d1 tracker on the card (or on the device the caller
 names), evaluates every video of `data_root` and returns the task's metrics
-(TAP-Vid's, or DAVIS J&F).
+(TAP-Vid's, or DAVIS J&F).  `spatial_devices` S > 1 shards each frame's query
+rows over the first S cards (spatial-parallel propagation); a list of devices
+is taken as given, so one card listed S times runs S row blocks on it.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -32,16 +34,45 @@ _LATER = {
 }
 
 
+SpatialDevices = Optional[Union[int, Sequence[Union[str, torch.device]]]]
+
+
+def spatial_device_list(
+    spatial_devices: SpatialDevices, device: Optional[Union[str, torch.device]] = None,
+) -> Optional[List[torch.device]]:
+    """The spatial devices of `--spatial-devices`: None for an int S <= 1
+    (no row sharding, as fgvc_tpu); for an int S > 1 the first S CUDA cards,
+    or S copies of the CPU where `device` is 'cpu'; a sequence of devices as
+    given."""
+    if spatial_devices is None:
+        return None
+    if not isinstance(spatial_devices, int):
+        return [torch.device(d) for d in spatial_devices]
+    S = spatial_devices
+    if S <= 1:
+        return None
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev] * S
+    have = torch.cuda.device_count()
+    if S > have:
+        raise ValueError(f"{S}-way row sharding needs {S} local devices, have {have}")
+    return [torch.device("cuda", i) for i in range(S)]
+
+
 def build_tracker(
     test_cfg: TestConfig = DAVIS_TEST_CFG,
     checkpoint: Optional[str] = None,
     seed: int = 0,
     device: Optional[Union[str, torch.device]] = None,
+    spatial_devices: SpatialDevices = None,
 ) -> Tracker:
     """ResNet-18-d1 tracker with weights from a reference ``.pth``, or
     seeded random weights.  Runs on the CUDA card unless `device` names
-    another; raises where there is no card and none was named."""
-    dev = resolve_device(device)
+    another; raises where there is no card and none was named.  With
+    `spatial_devices` (spatial_device_list) it runs on the first of them."""
+    spatial = spatial_device_list(spatial_devices, device)
+    dev = resolve_device(device if spatial is None else spatial[0])
     model = resnet18_d1()
     if checkpoint is None:
         init_random(model, seed)
@@ -52,7 +83,7 @@ def build_tracker(
             f"{checkpoint}: only reference .pth checkpoints are read by "
             "fgvc_tpu_torch yet (orbax checkpoints come with slice 7)"
         )
-    return Tracker(model, test_cfg, dev)
+    return Tracker(model, test_cfg, dev, spatial_devices=spatial)
 
 
 def eval_tapvid(tracker: Tracker, dataset, max_videos=None, output_dir=None) -> Dict[str, float]:
@@ -117,9 +148,11 @@ def run_task(
     test_cfg: Optional[TestConfig] = None,
     device: Optional[Union[str, torch.device]] = None,
     seed: int = 0,
+    spatial_devices: SpatialDevices = None,
 ) -> Dict[str, float]:
-    """Mirror of `tools/test.py --task davis|vos`.  VOS reads every video
-    at 480 x 880 whatever cfg.input_size says, as the JAX harness does."""
+    """Mirror of `tools/test.py --task davis|vos [--spatial-devices S]`.
+    VOS reads every video at 480 x 880 whatever cfg.input_size says, as the
+    JAX harness does."""
     if task in _LATER:
         raise NotImplementedError(
             f"task {task!r} is not ported to fgvc_tpu_torch yet; it comes "
@@ -128,7 +161,8 @@ def run_task(
     if task not in TASK_CONFIGS:
         raise ValueError(f"unknown task {task!r}")
     cfg = test_cfg or TASK_CONFIGS[task]
-    tracker = build_tracker(cfg, checkpoint, seed=seed, device=device)
+    tracker = build_tracker(cfg, checkpoint, seed=seed, device=device,
+                            spatial_devices=spatial_devices)
     if task == "vos":
         from fgvc_tpu_torch.datasets import davis_vos
 

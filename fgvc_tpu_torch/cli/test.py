@@ -4,7 +4,8 @@ tracking and DAVIS-2017 VOS.
 
     python -m fgvc_tpu_torch.cli.test --task davis --data-root <pkls> \
         [--checkpoint ckpt.pth] [--max-videos N] [--output-dir DIR] \
-        [--precision highest|high|default] [--device cuda|cpu]
+        [--precision highest|high|default] [--spatial-devices S] \
+        [--device cuda|cpu]
     python -m fgvc_tpu_torch.cli.test --task vos --data-root <DAVIS tree> \
         [--list-path val.txt] [--save-mem] [--hard-prop] [...]
 
@@ -46,6 +47,14 @@ def main(argv=None):
         default=None,
         help="VOS: argmax->one-hot re-encode the value bank each step",
     )
+    parser.add_argument(
+        "--spatial-devices",
+        type=int,
+        default=None,
+        help="spatial-parallel propagation: shard each frame's query rows "
+             "over the first S cards (with --device cpu: S row blocks on "
+             "the CPU)",
+    )
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where the tracker runs (the counterpart of "
                              "fgvc_tpu's --platform)")
@@ -71,6 +80,7 @@ def main(argv=None):
         output_dir=args.output_dir,
         test_cfg=dataclasses.replace(TASK_CONFIGS[args.task], **overrides),
         device=args.device,
+        spatial_devices=args.spatial_devices,
     )
     print(json.dumps(results, indent=2, default=float))
 

@@ -2,14 +2,25 @@
 // sm_90a.
 //
 // Replaces the Pallas TPU kernel fgvc_tpu/ops/pallas/topk_attention.py
-// (_make_kernel, launched by _call_fused_kernel) without a row block, behind
-// both of its entries, as there: one kernel, two entries.
+// (_make_kernel, launched by _call_fused_kernel) behind both of its entries,
+// as there: one kernel, two entries, and the row-block mode of the banked
+// entry.
 //   K1  fused_topk_attention_banked: keys come from a bank normalised and
 //       halo-padded once per video (TAP-Vid points: circle mask; DAVIS VOS
 //       masks: square mask).
 //   K2  fused_topk_attention: the caller hands raw (T, H, W, C) keys that
 //       the wrapper normalises and halo-pads into the same bank geometry on
 //       every call (the save_mem streaming scan of DAVIS VOS, square mask).
+//   K4  the row-block mode of the banked entry (spatial-parallel
+//       propagation, `row0` / `grid_rows` of the Pallas kernel): the query
+//       is one block of hb rows of a grid over-padded to grid_rows rows,
+//       whose first row is the global row `row0`; the bank is over-padded
+//       to match.  Query, scratch and output rows are local to the block;
+//       bank rows, the in-image test and value rows are global.  Block rows
+//       at or past H are not computed (the wrapper zeroes the output).
+//       Every (query, key) pair is summed in the same order wherever its
+//       tile lies, so the blocks assemble to the unsharded result bit for
+//       bit.
 // The wrappers (fgvc_tpu_torch/ops/cuda/topk_attention.py) do the padding;
 // this file sees a padded bank either way.
 //
@@ -58,8 +69,9 @@
 // 227 KB of shared memory, so this port writes the masked affinities of all
 // query tiles to a global scratch buffer that the wrapper allocates
 // (ntiles * tile^2 * T * win^2 floats: 832 MB for 128 x 128 TAP-Vid
-// features, 5.46 GB for 240 x 440 DAVIS VOS features), then runs one warp per
-// query row over it:
+// features, 5.46 GB for 240 x 440 DAVIS VOS features; a K4 row block's
+// covers its own tiles only, 2.91 GB for half of the VOS rows), then runs
+// one warp per query row over it:
 //   1. affinity_kernel: a tiled f32 SIMT matrix product (64 queries x 64 keys
 //      per block, 4 x 4 outputs per thread, channels staged through shared
 //      memory in chunks of 16), with the masks computed from coordinates in
@@ -162,7 +174,9 @@ __device__ __forceinline__ float mix(float w, float v, float acc) {
 // Passed by value from the host (ctypes mirrors this layout field by field).
 struct TopkAttnParams {
   int H, W;                // query / value image size
-  int Hp, Wp;              // query grid padded to a multiple of tile
+  int Hp, Wp;              // query grid (K4: the block's rows) padded to
+                           // a multiple of tile
+  int row0;                // global row of the first query row (K4; else 0)
   int C;                   // feature channels (multiple of 16)
   int Cv;                  // value channels
   int T;                   // key slots
@@ -214,15 +228,15 @@ affinity_kernel(const typename Operand<MODE>::T* __restrict__ q,
   const bool s_ok = s_ld < S;
   const bool f_ok = f_ld < FK;
   const T* qrow = q;
-  if (s_ok) {
+  if (s_ok) {  // the query row is local to the block
     const int qi = s_ld / p.tile, qj = s_ld % p.tile;
     qrow = q + ((size_t)(r0 + qi) * p.Wp + (c0 + qj)) * p.C;
   }
   const T* krow = bank;
-  if (f_ok) {
+  if (f_ok) {  // the bank row is global
     const int wi = f_ld / p.win, wj = f_ld % p.win;
-    krow = bank + (((size_t)p.frame_idx[t] * p.rows_total + (r0 + wi)) *
-                       p.cols_total +
+    const int krow_g = p.row0 + r0 + wi;
+    krow = bank + (((size_t)p.frame_idx[t] * p.rows_total + krow_g) * p.cols_total +
                    (c0 + wj)) *
                       p.C;
   }
@@ -302,7 +316,7 @@ affinity_kernel(const typename Operand<MODE>::T* __restrict__ q,
       const bool in_range =
           p.square ? (fabsf(dy) <= p.radius && fabsf(dx) <= p.radius)
                    : __fadd_rn(__fmul_rn(dy, dy), __fmul_rn(dx, dx)) < p.rr;
-      const int kgi = r0 + wi - p.halo, kgj = c0 + wj - p.halo;
+      const int kgi = p.row0 + r0 + wi - p.halo, kgj = c0 + wj - p.halo;
       const bool in_img = kgi >= 0 && kgi < p.H && kgj >= 0 && kgj < p.W;
       const float bias = __fadd_rn(in_range ? 0.f : NEG, in_img ? 0.f : NEG);
       out_row[f] = __fadd_rn(__fadd_rn(__fmul_rn(acc[i][j], p.inv_temp), bias),
@@ -367,8 +381,8 @@ select_kernel(const float* __restrict__ aff, const float* __restrict__ v,
   if (g >= nq) return;  // uniform across the warp
   const int tile_id = (int)(g / S), s = (int)(g % S);
   const int r0 = (tile_id / ntw) * p.tile, c0 = (tile_id % ntw) * p.tile;
-  const int gi = r0 + s / p.tile, gj = c0 + s % p.tile;
-  if (gi >= p.H || gj >= p.W) return;  // query-grid padding
+  const int gi = r0 + s / p.tile, gj = c0 + s % p.tile;  // gi: block row
+  if (p.row0 + gi >= p.H || gj >= p.W) return;  // query-grid padding
 
   const int K = p.T * FK;
   const int k = p.topk;
@@ -453,7 +467,8 @@ select_kernel(const float* __restrict__ aff, const float* __restrict__ v,
           const int js = j0 + src;
           const float w = expf(fminf(as - mmax, 0.f)) * (as > thresh ? 1.f : frac);
           const int t = js / FK, f = js % FK;
-          const int vy = r0 + f / p.win - p.halo;  // live keys lie in the image
+          // live keys lie in the image (global rows)
+          const int vy = p.row0 + r0 + f / p.win - p.halo;
           const int vx = c0 + f % p.win - p.halo;
           const float* vp = v + (((size_t)t * p.H + vy) * p.W + vx) * p.Cv;
 #pragma unroll
@@ -476,7 +491,8 @@ select_kernel(const float* __restrict__ aff, const float* __restrict__ v,
 // Launches both kernels on `stream`; returns the CUDA error of the launches
 // (0 on success).  q: (Hp, Wp, C); bank: (Tb, rows_total, cols_total, C),
 // both f32, or bf16 in 'bfloat16'; v: (T, H, W, Cv) f32; out: (H, W, Cv)
-// f32; scratch: ntiles * tile^2 * T * win^2 f32.
+// f32, or (Hp, W, Cv) for a row block (K4); scratch: ntiles * tile^2 * T *
+// win^2 f32 over the Hp x Wp query grid.
 template <int MODE>
 int launch(const void* q, const void* bank, const float* v, float* out,
            float* scratch, const TopkAttnParams& p, cudaStream_t stream) {

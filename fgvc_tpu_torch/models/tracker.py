@@ -24,6 +24,18 @@ pallas_compute_dtype maps it: 'highest' runs 'float32', 'high' the bf16x3
 'high' and 'default' 'bfloat16', with the bank stored in bfloat16.  It reaches
 only the attention; the backbone runs in full float32 in every mode.
 
+Spatial-parallel propagation (`spatial_devices`, the JAX Tracker's
+`spatial_mesh`): each frame's query rows are cut into S row blocks, one per
+listed device, and each block runs the kernel's row-block mode (K4) against
+its device's replica of a bank over-padded to S blocks; the blocks are
+gathered on the first device (the primary), cut to the feature height, and
+copied back to every device to roll its value ring, so the result equals the
+unsharded propagation bit for bit.  A device may be listed more than once:
+each distinct device holds one replica of the backbone, the bank and the
+rings, and runs its blocks one after another on its current stream, so one
+card listed S times runs the same path as S cards.  Feature extraction splits
+each 16-frame chunk over the distinct devices.
+
 Differences from the JAX Tracker that leave the results unchanged: frames
 and points are not padded to buckets (PyTorch runs eagerly; bucketing exists
 for jit's static shapes, and windows only look backward), the bank is built
@@ -32,7 +44,8 @@ once per video instead of once per group, and the scan is a Python loop.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+import copy
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,6 +98,18 @@ def decode_labels(logits: torch.Tensor, full_hw: Tuple[int, int]) -> torch.Tenso
     return upsample(logits, full_hw).argmax(0).to(torch.int32)
 
 
+def _full_device(device: Union[str, torch.device]) -> torch.device:
+    """A device with its index: 'cuda' names the current card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _bucket(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
 class Tracker:
     """Feature extraction + top-k attention label propagation.
 
@@ -92,14 +117,51 @@ class Tracker:
       backbone: module mapping (N, 3, H, W) normalised Lab to (N, C, h, w).
       cfg: propagation settings (only the main path's are ported).
       device: where the backbone, the bank and the kernels run.
+      spatial_devices: S devices for spatial-parallel propagation, one row
+        block each (repeats allowed); the first must be `device`.
     """
 
-    def __init__(self, backbone: nn.Module, cfg: TestConfig, device: torch.device):
+    def __init__(
+        self, backbone: nn.Module, cfg: TestConfig, device: torch.device,
+        spatial_devices: Optional[Sequence[Union[str, torch.device]]] = None,
+    ):
+        self.device = _full_device(device)
+        self.spatial_devices = None
+        if spatial_devices is not None:
+            # checked before check_ported: JAX refuses these with ValueError
+            if cfg.attention_impl != "pallas":
+                raise ValueError(
+                    "spatial-parallel propagation supports attention_impl "
+                    f"'pallas', not {cfg.attention_impl!r}"
+                )
+            if not cfg.with_first_neighbor:
+                raise ValueError(
+                    "spatial-parallel propagation requires with_first_neighbor"
+                )
+            devs = [torch.device(d) for d in spatial_devices]
+            if not devs:
+                raise ValueError("spatial_devices is empty")
+            if len({d.type for d in devs}) > 1:
+                raise ValueError(
+                    f"spatial_devices mixes device types: {[str(d) for d in devs]}"
+                )
+            devs = [_full_device(d) for d in devs]
+            if devs[0] != self.device:
+                raise ValueError(
+                    f"the first of spatial_devices ({devs[0]}) must be the "
+                    f"tracker's device ({self.device})"
+                )
+            self.spatial_devices = devs
         check_ported(cfg)
         set_matmul_precision(cfg.matmul_precision)
         self.cfg = cfg
-        self.device = torch.device(device)
         self.backbone = backbone.to(self.device).eval()
+        # each distinct device, the primary first, with its backbone replica
+        self.devices = list(dict.fromkeys(self.spatial_devices or [self.device]))
+        self.backbones = {
+            dev: self.backbone if dev == self.device else copy.deepcopy(self.backbone).to(dev)
+            for dev in self.devices
+        }
         self.radius = cfg.neighbor_range // 2
         # the kernel's query tile (the Pallas kernel capped it at 16 too)
         self.tile = min(cfg.tile, 16)
@@ -109,28 +171,52 @@ class Tracker:
     # features and bank
     # ------------------------------------------------------------------ #
     @torch.no_grad()
+    def features_on(self, frames: np.ndarray, device: torch.device) -> torch.Tensor:
+        """(N, H, W, 3) uint8 RGB -> (N, h, w, C) float32 features, computed
+        on `device` (one of self.devices) by its backbone replica."""
+        x = torch.from_numpy(np.ascontiguousarray(frames))
+        x = preprocess_rgb_to_lab_normalized(x.to(device))
+        f = self.backbones[device](x.permute(0, 3, 1, 2).contiguous())
+        return f.permute(0, 2, 3, 1)
+
+    @torch.no_grad()
     def extract_features(self, video: np.ndarray) -> torch.Tensor:
         """(T, H, W, 3) uint8 RGB -> (T, h, w, C) float32 features on the
-        device; preprocessing runs on the device too."""
+        device; preprocessing runs on the device too.  Each 16-frame chunk is
+        split over the distinct devices (frame-parallel, the JAX Tracker's
+        sharded upload) and gathered on the primary."""
         if video.dtype != np.uint8 or video.ndim != 4:
             raise ValueError(
                 f"expected (T, H, W, 3) uint8 frames, got {video.dtype} {video.shape}"
             )
         parts = []
         for i in range(0, video.shape[0], EXTRACT_CHUNK):
-            x = torch.from_numpy(np.ascontiguousarray(video[i : i + EXTRACT_CHUNK]))
-            x = preprocess_rgb_to_lab_normalized(x.to(self.device))
-            f = self.backbone(x.permute(0, 3, 1, 2).contiguous())
-            parts.append(f.permute(0, 2, 3, 1))
+            chunk = video[i : i + EXTRACT_CHUNK]
+            shares = np.array_split(chunk, len(self.devices))
+            feats = [self.features_on(x, dev) for x, dev in zip(shares, self.devices) if len(x)]
+            parts += [f.to(self.device) for f in feats]
         return torch.cat(parts).contiguous()
 
-    def build_bank(self, feats: torch.Tensor) -> torch.Tensor:
+    def build_bank(self, feats: torch.Tensor, grid_rows: Optional[int] = None) -> torch.Tensor:
         """The normalised, halo-padded bank, in bfloat16 for compute mode
-        'bfloat16' and float32 otherwise."""
+        'bfloat16' and float32 otherwise; `grid_rows` over-pads its rows for
+        row blocks."""
         return pad_key_bank(
             feats, float(self.radius), tile=self.tile, normalize=self.cfg.with_norm,
-            compute_dtype=self.compute_dtype,
+            compute_dtype=self.compute_dtype, grid_rows=grid_rows,
         )
+
+    def row_blocks(self, h: int) -> Tuple[int, int, List[int]]:
+        """(hb, gridH, row0 of each block) of the spatial devices' row blocks
+        over an h-row feature map: the padded rows split into S blocks of hb
+        rows, a multiple of the tile (the last block may be over-padded)."""
+        S = len(self.spatial_devices)
+        hb = _bucket(-(-_bucket(h, self.tile) // S), self.tile)
+        return hb, S * hb, [i * hb for i in range(S)]
+
+    def replicate(self, x: torch.Tensor) -> Dict[torch.device, torch.Tensor]:
+        """x on each distinct device (the tensor itself where it lies)."""
+        return {dev: x.to(dev) for dev in self.devices}
 
     # ------------------------------------------------------------------ #
     # propagation
@@ -186,6 +272,53 @@ class Tracker:
             outs.append(emit(seg))
         return outs
 
+    def _sp_frame(self, banks, q, frame_idx, valid, firsts, bufs, hw, mask_shape):
+        """One frame of spatial-parallel propagation: every row block attends
+        from frame `q` of its device's bank (K4); the blocks are gathered on
+        the primary and cut to h rows (the JAX all_gather(...)[:h]), and the
+        frame's value entry rolls every device's value ring `bufs` (after
+        `firsts`, frame 0's values).  Returns the gathered logits."""
+        h, w = hw
+        hb, gridH, row0s = self.row_blocks(h)
+        halo, _, Wp, _, _ = bank_geometry(h, w, self.radius, self.tile, gridH)
+        values = {dev: torch.stack([firsts[dev], *bufs[dev]]) for dev in self.devices}
+        blocks = []
+        for dev, row0 in zip(self.spatial_devices, row0s):
+            bank = banks[dev]
+            qblk = bank[q, halo + row0 : halo + row0 + hb, halo : halo + Wp]
+            blocks.append(topk_attention_banked(
+                qblk.contiguous(), bank, values[dev], frame_idx=frame_idx, key_valid=valid,
+                H=h, W=w, radius=float(self.radius), temperature=self.cfg.temperature,
+                topk=self.cfg.topk, tile=self.tile, mask_shape=mask_shape,
+                compute_dtype=self.compute_dtype, row0=row0, grid_rows=gridH,
+            ))
+        seg = torch.cat([b.to(self.device) for b in blocks])[:h]
+        entries = self.replicate(self.bank_entry(seg))
+        for dev in self.devices:
+            bufs[dev] = bufs[dev][1:] + [entries[dev]]
+        return seg
+
+    def propagate_sp(
+        self,
+        banks: Dict[torch.device, torch.Tensor],  # the over-padded bank per device
+        t0: int,
+        length: int,
+        first: torch.Tensor,
+        emit: Callable[[torch.Tensor], torch.Tensor],
+        mask_shape: str = "circle",
+    ) -> List[torch.Tensor]:
+        """Spatial-parallel banked propagation (K4): `propagate` with each
+        frame's query rows cut into one row block per spatial device."""
+        firsts = self.replicate(first)
+        bufs = {dev: [firsts[dev]] * self.cfg.precede_frames for dev in self.devices}
+        outs = []
+        for t in range(1, length):
+            idx, valid = self.window_indices(t, length)
+            seg = self._sp_frame(banks, t0 + t, [t0 + i for i in idx], valid, firsts, bufs,
+                                 first.shape[:2], mask_shape)
+            outs.append(emit(seg))
+        return outs
+
     def propagate_streaming(
         self,
         video: np.ndarray,        # (T, H, W, 3) uint8
@@ -219,8 +352,61 @@ class Tracker:
             outs.append(emit(seg))
         return outs
 
+    def propagate_streaming_sp(
+        self,
+        video: np.ndarray,        # (T, H, W, 3) uint8
+        f0: torch.Tensor,         # (h, w, C) features of frame 0, on the primary
+        first: torch.Tensor,      # (h, w, P) value map of frame 0
+        emit: Callable[[torch.Tensor], torch.Tensor],
+        mask_shape: str = "square",
+    ) -> List[torch.Tensor]:
+        """Spatial-parallel save_mem propagation (K4), the JAX
+        _scan_propagate_streaming_sp: every distinct device runs the backbone
+        on the full frame and keeps a key ring of kernel-padded entries over
+        the row blocks' grid, in the mode's dtype (bfloat16 in 'bfloat16');
+        each block attends over frame 0 and the `precede_frames` previous
+        frames of that ring as a mini-bank.  The ring has 2 + P entries: 0
+        holds frame 0, and frame j >= 1 lands in entry 1 + j % (P + 1) when
+        it becomes the query, whose block is cut from it; the key slots read
+        their entries through frame_idx, so no mini-bank is copied."""
+        cfg = self.cfg
+        P = cfg.precede_frames
+        norm = l2_normalize if cfg.with_norm else (lambda x: x)
+        h, w = f0.shape[:2]
+        gridH = self.row_blocks(h)[1]
+        halo = bank_geometry(h, w, self.radius, self.tile, gridH)[0]
+        rings = {}
+        for dev in self.devices:
+            f = norm(f0 if dev == self.device else self.features_on(video[:1], dev)[0])
+            rings[dev] = pad_key_bank(
+                f[None].expand(2 + P, -1, -1, -1), float(self.radius), tile=self.tile,
+                normalize=False, compute_dtype=self.compute_dtype, grid_rows=gridH,
+            )
+        firsts = self.replicate(first)
+        bufs = {dev: [firsts[dev]] * P for dev in self.devices}
+        outs = []
+        for t in range(1, video.shape[0]):
+            pos = 1 + t % (P + 1)
+            for dev in self.devices:
+                q = norm(self.features_on(video[t : t + 1], dev)[0])
+                rings[dev][pos, halo : halo + h, halo : halo + w] = q.to(rings[dev].dtype)
+            idx = [0] + [1 + (t - P + i) % (P + 1) for i in range(P)]
+            valid = [cfg.with_first] + [t - P + i >= 0 for i in range(P)]
+            seg = self._sp_frame(rings, pos, idx, valid, firsts, bufs, (h, w), mask_shape)
+            outs.append(emit(seg))
+        return outs
+
+    def video_bank(self, feats: torch.Tensor):
+        """The bank `propagate` reads, or with spatial devices the bank
+        over-padded to the row blocks' grid, per distinct device, that
+        `propagate_sp` reads."""
+        if self.spatial_devices is None:
+            return self.build_bank(feats)
+        gridH = self.row_blocks(feats.shape[1])[1]
+        return self.replicate(self.build_bank(feats, grid_rows=gridH))
+
     def track_group(
-        self, bank: torch.Tensor, t0: int, length: int, pts: torch.Tensor,
+        self, bank, t0: int, length: int, pts: torch.Tensor,
         feat_hw: Tuple[int, int], full_hw: Tuple[int, int],
     ) -> torch.Tensor:
         """One query-frame group: gaussian maps, propagation, decode.  Row 0
@@ -228,7 +414,8 @@ class Tracker:
         H, W = full_hw
         stride = H // feat_hw[0]
         init_maps = draw_gaussian_maps(pts, H, W, sigma=self.cfg.sigma, stride=stride)
-        rows = self.propagate(
+        propagate = self.propagate if self.spatial_devices is None else self.propagate_sp
+        rows = propagate(
             bank, t0, length, init_maps.permute(1, 2, 0).contiguous(),
             lambda seg: self.decode(seg, full_hw),
         )
@@ -250,7 +437,7 @@ class Tracker:
         T, H, W, _ = video.shape
         if feats is None:
             feats = self.extract_features(video)
-        bank = self.build_bank(feats)
+        bank = self.video_bank(feats)
         qt = query_points[:, 0].astype(np.int64)
         pending = []
         for t in np.unique(qt):
@@ -293,14 +480,15 @@ class Tracker:
         num_objects: int,
     ) -> Dict:
         """Queue VOS mask propagation on the device (square window; K1, or
-        K2 with save_mem); `track_masks_collect` reads the label maps."""
+        K2 with save_mem; K4 on either path with spatial devices);
+        `track_masks_collect` reads the label maps."""
         if self.cfg.save_mem:
             f0 = self.extract_features(video[:1])[0]   # frame 0 at batch 1
             h, w = f0.shape[:2]
         else:
             feats = self.extract_features(video)
             h, w = feats.shape[1:3]
-            bank = self.build_bank(feats)
+            bank = self.video_bank(feats)
             del feats  # the bank holds every frame; free the unpadded copy
         labels = torch.from_numpy(np.asarray(ref_mask, np.int32)).to(self.device)
         small = resize_labels(labels, (h, w))
@@ -308,11 +496,13 @@ class Tracker:
         classes = torch.arange(num_objects + 1, device=self.device, dtype=torch.int32)
         onehot = (small[..., None] == classes).to(torch.float32)
         emit = lambda seg: decode_labels(seg, tuple(decode_hw))  # noqa: E731
+        sp = self.spatial_devices is not None
         if self.cfg.save_mem:
-            masks = self.propagate_streaming(video, f0, onehot, emit)
+            stream = self.propagate_streaming_sp if sp else self.propagate_streaming
+            masks = stream(video, f0, onehot, emit)
         else:
-            masks = self.propagate(bank, 0, video.shape[0], onehot, emit,
-                                   mask_shape="square")
+            propagate = self.propagate_sp if sp else self.propagate
+            masks = propagate(bank, 0, video.shape[0], onehot, emit, mask_shape="square")
         # frame 0 is the given mask at decode resolution
         return {"masks": [resize_labels(labels, tuple(decode_hw)), *masks]}
 

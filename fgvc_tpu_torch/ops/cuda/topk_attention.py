@@ -1,4 +1,4 @@
-"""Windowed top-k attention over a halo-padded key bank (kernels K1-K3).
+"""Windowed top-k attention over a halo-padded key bank (kernels K1-K4).
 
 Counterpart of fgvc_tpu/ops/pallas/topk_attention.py, with its two entries
 over one kernel body:
@@ -7,6 +7,13 @@ over one kernel body:
   from a bank that ``pad_key_bank`` normalised and halo-padded once;
 * ``topk_attention`` (K2, ``fused_topk_attention``): raw (Tb, H, W, C) keys,
   normalised and halo-padded into the same geometry on every call.
+
+``topk_attention_banked`` with ``row0`` and ``grid_rows`` is K4, the row-block
+mode of spatial-parallel propagation: the query is the block of hb rows of a
+grid over-padded to ``grid_rows`` rows that starts at global row ``row0``, the
+bank comes from ``pad_key_bank(..., grid_rows=)``, and the result is the
+block's (hb, W, Cv) rows, zero at and past H.  Blocks assemble to the
+unsharded result bit for bit.
 
 Both take the Pallas kernel's ``compute_dtype`` (K3): 'float32' (f32
 products), 'high' (f32 operands, each product as the three bf16 products
@@ -54,16 +61,18 @@ COMPUTE_DTYPES = {
 }
 _ENTRY_SUFFIX = {"float32": "f32", "high": "high", "bfloat16": "bf16"}
 
-# Kernel launches since the last reset: one count per entry, K1 (banked) and
-# K2 (unbanked), and one per compute mode over both entries.
+# Kernel launches since the last reset: one count per entry, K1 (banked),
+# K2 (unbanked) and K4 (banked, one row block), and one per compute mode over
+# all three.
 launches = 0
 unbanked_launches = 0
+row_block_launches = 0
 mode_launches = dict.fromkeys(COMPUTE_DTYPES, 0)
 
 
 def reset_launches() -> None:
-    global launches, unbanked_launches
-    launches = unbanked_launches = 0
+    global launches, unbanked_launches, row_block_launches
+    launches = unbanked_launches = row_block_launches = 0
     for mode in mode_launches:
         mode_launches[mode] = 0
 
@@ -78,24 +87,28 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def bank_geometry(H: int, W: int, radius: float, tile: int):
-    """(halo, Hp, Wp, rows_total, cols_total) of pad_key_bank_pallas."""
+def bank_geometry(H: int, W: int, radius: float, tile: int,
+                  grid_rows: Optional[int] = None):
+    """(halo, Hp, Wp, rows_total, cols_total) of pad_key_bank_pallas; Hp is
+    `grid_rows` where given (the row blocks' over-padded grid)."""
     halo = int(radius)
     win = tile + 2 * halo
-    Hp, Wp = _round_up(H, tile), _round_up(W, tile)
+    Hp = _round_up(H, tile) if grid_rows is None else grid_rows
+    Wp = _round_up(W, tile)
     pad8 = _round_up(win, 8) - win
     return halo, Hp, Wp, H + 2 * halo + (Hp - H) + pad8, W + 2 * halo + (Wp - W) + pad8
 
 
 def pad_key_bank(
     bank: torch.Tensor, radius: float, tile: int = 16, normalize: bool = True,
-    compute_dtype: str = "float32",
+    compute_dtype: str = "float32", grid_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Normalise (in float32) and halo-pad a (Tb, H, W, C) feature bank once,
     in the geometry and the dtype of pad_key_bank_pallas: bfloat16 for
-    compute_dtype 'bfloat16', float32 otherwise."""
+    compute_dtype 'bfloat16', float32 otherwise.  `grid_rows` over-pads the
+    rows for row blocks (K4)."""
     H, W = bank.shape[1:3]
-    halo, _, _, rows_total, cols_total = bank_geometry(H, W, radius, tile)
+    halo, _, _, rows_total, cols_total = bank_geometry(H, W, radius, tile, grid_rows)
     return build_padded_bank(
         bank, halo=halo, rows_total=rows_total, cols_total=cols_total,
         normalize=normalize, dtype=_operand_dtype(compute_dtype),
@@ -111,7 +124,7 @@ def _operand_dtype(compute_dtype: str) -> torch.dtype:
 
 
 def _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
-           mask_shape, compute_dtype):
+           mask_shape, compute_dtype, *, row0=None, grid_rows=None):
     want = _operand_dtype(compute_dtype)
     if compute_dtype == "high" and qpad.dtype != torch.float32:
         # bf16 operands would make the lo halves zero: plain bf16 accuracy
@@ -126,8 +139,22 @@ def _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
             raise TypeError(
                 f"{name} must be {dt} for compute_dtype {compute_dtype!r}, got {x.dtype}"
             )
-    halo, Hp, Wp, rows_total, cols_total = bank_geometry(H, W, radius, tile)
+    if (row0 is None) != (grid_rows is None):
+        raise ValueError("a row block needs both row0 and grid_rows")
+    halo, Hp, Wp, rows_total, cols_total = bank_geometry(H, W, radius, tile, grid_rows)
     T = value.shape[0]
+    if row0 is not None:
+        hb = qpad.shape[0]
+        if grid_rows % tile or grid_rows < _round_up(H, tile):
+            raise ValueError(
+                f"grid_rows must be a multiple of {tile} covering {H} rows, got {grid_rows}"
+            )
+        if hb < tile or hb % tile or row0 < 0 or row0 % tile or row0 + hb > grid_rows:
+            raise ValueError(
+                f"a row block needs hb % {tile} == 0 and row0 % {tile} == 0 with "
+                f"row0 + hb <= {grid_rows}, got hb {hb}, row0 {row0}"
+            )
+        Hp = hb
     if qpad.shape[:2] != (Hp, Wp) or qpad.dim() != 3:
         raise ValueError(f"qpad must be ({Hp}, {Wp}, C), got {tuple(qpad.shape)}")
     C = qpad.shape[2]
@@ -167,19 +194,26 @@ def topk_attention_banked(
     tile: int = 16,
     mask_shape: str = "circle",
     compute_dtype: str = "float32",
+    row0: Optional[int] = None,        # K4: global row of qpad's first row
+    grid_rows: Optional[int] = None,   # K4: rows of the over-padded grid
 ) -> torch.Tensor:
     """K1 (K3 in 'high' and 'bfloat16'): (H, W, Cv) float32 propagated
     values; qpad and kpad in the mode's dtype (pad_key_bank), value float32.
-    CPU tensors take the plain version; CUDA tensors take the kernel, or
-    raise."""
-    global launches
+    With row0 and grid_rows, K4: qpad is an (hb, Wp, C) row block, kpad
+    comes from pad_key_bank(..., grid_rows=grid_rows), and the result is
+    (hb, W, Cv), zero at global rows >= H.  CPU tensors take the plain
+    version; CUDA tensors take the kernel, or raise."""
+    global launches, row_block_launches
     kw = dict(frame_idx=frame_idx, key_valid=key_valid, H=H, W=W, radius=radius,
               temperature=temperature, topk=topk, tile=tile, mask_shape=mask_shape,
-              compute_dtype=compute_dtype)
+              compute_dtype=compute_dtype, row0=row0, grid_rows=grid_rows)
     if _on_cpu(qpad, kpad, value):
         return topk_attention_banked_plain(qpad, kpad, value, **kw)
     out = _launch(qpad, kpad, value, **kw)
-    launches += 1
+    if row0 is None:
+        launches += 1
+    else:
+        row_block_launches += 1
     mode_launches[compute_dtype] += 1
     return out
 
@@ -244,7 +278,7 @@ class _Params(ctypes.Structure):
     # field for field the TopkAttnParams struct of csrc/topk_attention.cu
     _fields_ = [
         *[(n, ctypes.c_int) for n in (
-            "H", "W", "Hp", "Wp", "C", "Cv", "T", "tile", "halo", "win",
+            "H", "W", "Hp", "Wp", "row0", "C", "Cv", "T", "tile", "halo", "win",
             "rows_total", "cols_total", "topk", "square",
         )],
         ("inv_temp", ctypes.c_float),
@@ -267,9 +301,10 @@ def _library(compute_dtype: str):
 
 
 def _launch(qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
-            temperature, topk, tile, mask_shape, compute_dtype):
+            temperature, topk, tile, mask_shape, compute_dtype, row0=None,
+            grid_rows=None):
     _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
-           mask_shape, compute_dtype)
+           mask_shape, compute_dtype, row0=row0, grid_rows=grid_rows)
     tensors = {"qpad": qpad, "kpad": kpad, "value": value}
     for name, x in tensors.items():
         if x.device.type != "cuda" or x.device != qpad.device:
@@ -288,20 +323,24 @@ def _launch(qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
         raise ValueError(f"the kernel takes at most {MAX_T} key slots, got {T}")
     if topk > MAX_TOPK:
         raise ValueError(f"the kernel takes topk <= {MAX_TOPK}, got {topk}")
-    halo, Hp, Wp, rows_total, cols_total = bank_geometry(H, W, radius, tile)
+    halo, _, Wp, rows_total, cols_total = bank_geometry(H, W, radius, tile, grid_rows)
+    Hp = qpad.shape[0]  # the query grid, or the row block
     win = tile + 2 * halo
     ntiles = (Hp // tile) * (Wp // tile)
     if ntiles * T > 65535:
         raise ValueError(f"{ntiles} tiles x {T} slots exceed the launch grid")
     p = _Params(
-        H, W, Hp, Wp, C, Cv, T, tile, halo, win, rows_total, cols_total, topk,
-        int(mask_shape == "square"), 1.0 / temperature,
+        H, W, Hp, Wp, 0 if row0 is None else int(row0), C, Cv, T, tile, halo, win,
+        rows_total, cols_total, topk, int(mask_shape == "square"), 1.0 / temperature,
         float(radius) * float(radius), float(radius),
     )
     for t in range(T):
         p.frame_idx[t] = int(frame_idx[t])
         p.frame_bias[t] = 0.0 if key_valid[t] else NEG
-    out = torch.empty((H, W, Cv), dtype=torch.float32, device=qpad.device)
+    if row0 is None:
+        out = torch.empty((H, W, Cv), dtype=torch.float32, device=qpad.device)
+    else:  # the kernel skips block rows at or past H: they stay 0
+        out = torch.zeros((Hp, W, Cv), dtype=torch.float32, device=qpad.device)
     scratch = torch.empty(
         ntiles * tile * tile * T * win * win, dtype=torch.float32,
         device=qpad.device,
@@ -331,18 +370,21 @@ def _windows(x: torch.Tensor, nth: int, ntw: int, tile: int, win: int):
 def topk_attention_banked_plain(
     qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
     temperature=1.0, topk=10, tile=16, mask_shape="circle", compute_dtype="float32",
+    row0=None, grid_rows=None,
 ):
-    """K1's function (K3's in 'high' and 'bfloat16') in plain PyTorch,
-    written from the Pallas kernel's three passes (_make_kernel): masked
-    affinities of every query tile, the top-k statistics by k + 1
-    distinct-value rounds, and the weighted value sum.  Runs on the device of
-    its inputs, over rows of query tiles at most PLAIN_CHUNK_TILES tiles at a
-    time (tiles are independent), so its temporaries stay near 1 GB each at
-    the DAVIS VOS shapes."""
+    """K1's function (K3's in 'high' and 'bfloat16', K4's with row0 and
+    grid_rows) in plain PyTorch, written from the Pallas kernel's three
+    passes (_make_kernel): masked affinities of every query tile, the top-k
+    statistics by k + 1 distinct-value rounds, and the weighted value sum.
+    Runs on the device of its inputs, over rows of query tiles at most
+    PLAIN_CHUNK_TILES tiles at a time (tiles are independent), so its
+    temporaries stay near 1 GB each at the DAVIS VOS shapes."""
     _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
-           mask_shape, compute_dtype)
+           mask_shape, compute_dtype, row0=row0, grid_rows=grid_rows)
     dev = qpad.device
-    halo, Hp, Wp, _, _ = bank_geometry(H, W, radius, tile)
+    halo, gridH, Wp, _, _ = bank_geometry(H, W, radius, tile, grid_rows)
+    g0 = 0 if row0 is None else int(row0)  # global row of qpad's first row
+    Hp = qpad.shape[0]
     win = tile + 2 * halo
     nth, ntw = Hp // tile, Wp // tile
     S, FK = tile * tile, win * win
@@ -365,7 +407,7 @@ def topk_attention_banked_plain(
     rbias = torch.where(in_range, 0.0, NEG)
 
     vpad = torch.zeros(
-        (T, Hp + 2 * halo, Wp + 2 * halo, Cv), dtype=value.dtype, device=dev
+        (T, gridH + 2 * halo, Wp + 2 * halo, Cv), dtype=value.dtype, device=dev
     )
     vpad[:, halo : halo + H, halo : halo + W] = value
 
@@ -375,20 +417,26 @@ def topk_attention_banked_plain(
         i1 = min(nth, i0 + rows)
         n = torch.arange(i0 * ntw, i1 * ntw, device=dev)
         # image strip (N, 1, FK), as the Pallas kernel's in_img
-        r0 = ((n // ntw) * tile).float()[:, None]
+        r0 = (g0 + (n // ntw) * tile).float()[:, None]
         c0 = ((n % ntw) * tile).float()[:, None]
         kgi, kgj = r0 + wi[None] - halo, c0 + wj[None] - halo
         in_img = (kgi >= 0) & (kgi <= H - 1) & (kgj >= 0) & (kgj <= W - 1)
         bias = rbias[None] + torch.where(in_img, 0.0, NEG)[:, None, :]
-        kws = [_windows(kpad[int(frame_idx[t]), i0 * tile :], i1 - i0, ntw, tile, win)
+        kws = [_windows(kpad[int(frame_idx[t]), g0 + i0 * tile :], i1 - i0, ntw, tile, win)
                for t in range(T)]
-        vws = [_windows(vpad[t, i0 * tile :], i1 - i0, ntw, tile, win) for t in range(T)]
+        vws = [_windows(vpad[t, g0 + i0 * tile :], i1 - i0, ntw, tile, win)
+               for t in range(T)]
         out[i0 * ntw : i1 * ntw] = _plain_tiles(
             q[i0 * ntw : i1 * ntw], kws, vws, bias, key_valid, 1.0 / temperature, topk,
             compute_dtype,
         )
     out = out.reshape(nth, ntw, tile, tile, Cv).permute(0, 2, 1, 3, 4)
-    return out.reshape(Hp, Wp, Cv)[:H, :W].contiguous()
+    out = out.reshape(Hp, Wp, Cv)[:, :W]
+    if row0 is None:
+        return out[:H].contiguous()
+    out = out.contiguous()
+    out[max(H - g0, 0):] = 0.0  # block rows at or past H, as the kernel leaves them
+    return out
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:

@@ -352,6 +352,47 @@ def test_unbanked_kernel_matches_plain_on_card(name, mode):
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=TOL, atol=TOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("mask_shape", ["circle", "square"])
+@pytest.mark.parametrize("name,mode", _mode_params(
+    ["ragged_40x48_tie", "ragged_40x48_distinct"]))
+def test_row_block_kernel_matches_plain_on_card(name, mode, mask_shape, S):
+    """K4: each row block (40 rows over S blocks of a grid over-padded to S
+    blocks of 16 or 32 rows) against its plain version on the card; the
+    blocks, gathered and cut to H, equal the unsharded kernel bit for bit.
+    Only the row-block count and the mode's count move."""
+    _card_or_skip()
+    bank, value, fidx, valid, kw = _case_inputs(name, CARD_CASES, C=16, Cv=5)
+    H, tile = kw["H"], kw["tile"]
+    halo, Hp, Wp, _, _ = k1.bank_geometry(H, kw["W"], kw["radius"], tile)
+    hb = -(-(-(-Hp // S)) // tile) * tile
+    grid = S * hb
+    feats = torch.from_numpy(bank).cuda()
+    v = torch.from_numpy(value).cuda()
+    args = dict(frame_idx=fidx, key_valid=valid, temperature=0.07, mask_shape=mask_shape,
+                compute_dtype=mode, **kw)
+    kpad = k1.pad_key_bank(feats, kw["radius"], tile=tile, compute_dtype=mode)
+    q = fidx[-1] + 1
+    full = k1.topk_attention_banked(kpad[q, halo:halo + Hp, halo:halo + Wp].contiguous(),
+                                    kpad, v, **args)
+    tall = k1.pad_key_bank(feats, kw["radius"], tile=tile, compute_dtype=mode, grid_rows=grid)
+    before = (k1.launches, k1.unbanked_launches, k1.row_block_launches, k1.mode_launches[mode])
+    blocks = []
+    for r0 in range(0, grid, hb):
+        qblk = tall[q, halo + r0:halo + r0 + hb, halo:halo + Wp].contiguous()
+        out = k1.topk_attention_banked(qblk, tall, v, row0=r0, grid_rows=grid, **args)
+        ref = k1.topk_attention_banked_plain(qblk, tall, v, row0=r0, grid_rows=grid, **args)
+        assert out.shape == (hb, kw["W"], 5)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=TOL, atol=TOL)
+        assert not out[max(H - r0, 0):].any()  # block rows at or past H
+        blocks.append(out)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.unbanked_launches, k1.row_block_launches,
+            k1.mode_launches[mode]) == (before[0], before[1], before[2] + S, before[3] + S)
+    assert torch.equal(torch.cat(blocks)[:H], full)
+
+
 # --------------------------------------------------------------------- #
 # K3 set-up: operand dtypes per mode
 # --------------------------------------------------------------------- #

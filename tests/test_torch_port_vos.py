@@ -136,9 +136,9 @@ def test_track_masks_matches_jax_in_precision_mode(weights, mode, precision, mon
     seen = []
     real = k1._check
 
-    def spy(qpad, kpad, value, *args):
+    def spy(qpad, kpad, value, *args, **kw):
         seen.append((qpad.dtype, kpad.dtype, args[-1]))
-        return real(qpad, kpad, value, *args)
+        return real(qpad, kpad, value, *args, **kw)
 
     monkeypatch.setattr(k1, "_check", spy)
     out = tracker.track_masks(weights[3], _ref_mask(), (H, W), num_objects=2)
