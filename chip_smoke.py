@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (fgvc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,vos,vos_plain,modes,sp]
+    python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,vos,vos_plain,modes,sp,
+                                    passes,overlap,profile]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -67,6 +68,24 @@ Phases, each of which raises on failure (exit code != 0):
             With two cards or more, the TAP-Vid case again on two distinct
             cards (frame-parallel features at half the batch: trajectories
             within the plain phase's 1e-3 px median).
+  passes    K5, the kernel's profiling cut-downs, through the profiling tool
+            (python -m fgvc_tpu_torch.bench.pass_breakdown) at its shapes
+            (TAP-Vid: 128 x 128 x 256, 6 slots, radius 15, top-10, 32
+            values, circle) in each compute mode: the cut launches counted
+            (one per call of each cut), the per-pass split printed; then each
+            cut against its plain version on the card: cut 'a' masked
+            affinities equal and the others within 1e-4; cut 'ab' n_above
+            and cnt_at equal, thresh, mmax and frac within 1e-4, z within
+            1e-5 relative;
+  overlap   K6, the tensor-core / SIMT overlap microbenchmark, through its
+            tool (python -m fgvc_tpu_torch.bench.mxu_vpu_overlap): the three
+            kinds' times, the overlap quality and torch.matmul's time; then
+            each kind against its plain version: 'mxu' max |diff| <= 1e-3,
+            'mixed' - 'mxu' the plain version's integer counts, 'vpu' 10 * FK
+            on every row;
+  profile   python -m fgvc_tpu_torch.cli.test --task davis --profile DIR on
+            one e2e pickle: the Chrome trace holds the propagate[0] and
+            collect[0] spans and both CUDA kernels of K1.
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -78,7 +97,6 @@ import argparse
 import json
 import os
 import pickle
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -93,9 +111,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # full 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# SIMT operations (compare, select, max, add) per second: the fp32 peak
+# counts an FMA as two
+PEAK_SIMT_OPS = PEAK_FP32_FLOPS / 2
 
 KERNEL_TOL = 1e-4
+# K5's cut 'ab': z against its plain version, relative
+Z_RTOL = 1e-5
+# K6 'mxu' against float32 products: |out| is up to about 60, 3xTF32 keeps
+# about 2^-21 of each product
+MXU_TOL = 1e-3
 # K4: blocks per frame in the kernel phase, per window
 ROW_SPLITS = {"circle": (2, 3), "square": (2, 4)}
 SP_TRAJ_TOL_PX = 1e-6
@@ -137,11 +164,12 @@ def phase(name):
 
 
 def card_info() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
+    from fgvc_tpu_torch.utils.env import card_info as query
+
+    card = query()
+    if card is None:
+        raise RuntimeError("nvidia-smi reads no card")
+    return card
 
 
 def build_kernels():
@@ -158,42 +186,18 @@ def build_kernels():
 
 
 def _events_ms(fn, reps):
-    import torch
+    """Median device ms of fn() over reps calls (CUDA events)."""
+    from fgvc_tpu_torch.utils.profiler import events_ms
 
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return events_ms(fn, reps)
 
 
 def device_ms_by_kernel(fn):
     """Run fn under torch.profiler; {CUDA kernel name: device ms} and the
     wall ms of the run (empty dict where the profiler saw no device time)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from fgvc_tpu_torch.utils.profiler import device_ms_by_kernel as profiled
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.time() - t0)
-    out = {}
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        if us > 0:
-            out[evt.key] = out.get(evt.key, 0.0) + us / 1e3
-    return out, wall_ms
+    return profiled(fn)
 
 
 def _top(ms_by_name, n=6):
@@ -241,6 +245,10 @@ VALID = {"distinct": [True] * SLOTS, "t1_tie": [True] + [False] * (SLOTS - 2) + 
 QFRAME = {"distinct": SLOTS, "t1_tie": 1}
 
 
+# record tags of the compute modes
+_TAG = {"float32": "f32", "high": "high", "bfloat16": "bf16"}
+
+
 def record_key(entry, mode):
     """Record of an entry ('circle', 'square': banked; 'unbanked') in a
     compute mode."""
@@ -249,11 +257,11 @@ def record_key(entry, mode):
     return f"K3_{'bf16' if mode == 'bfloat16' else mode}_{entry}"
 
 
-def kernel_record(name, replaces):
+def kernel_record(name, replaces, source="fgvc_tpu_torch/csrc/topk_attention.cu"):
     return {
         "name": name,
         "route": "cuda",
-        "source": "fgvc_tpu_torch/csrc/topk_attention.cu",
+        "source": source,
         "replaces": replaces,
         "launches": None, "max_abs_err": None, "ms": None, "plain_ms": None,
         "bound_ms": None, "bound_by": None,
@@ -962,9 +970,186 @@ def run_sp_vos(record, card):
             raise AssertionError(f"sp vos {path} S={S}: label maps differ from the unsharded run")
 
 
+def check_cut(label, out, ref, passes):
+    """K5 cut `passes` against its plain version; returns max |diff|."""
+    import torch
+
+    neg = -1e30
+    if passes == "a":
+        masked = ref <= neg / 2
+        if not torch.equal(out <= neg / 2, masked) or not torch.equal(out[masked], ref[masked]):
+            raise AssertionError(f"{label}: masked affinities differ from the plain version")
+        # at the tool's shapes every emitted column is masked (window row 0
+        # lies outside the radius-15 circle), so `live` may be empty
+        live = (out[~masked] - ref[~masked]).abs()
+        err = live.max().item() if live.numel() else 0.0
+        ok = err <= KERNEL_TOL
+    else:
+        n = min(out.shape[-1], 6)
+        d = (out - ref).abs()
+        err = d.max().item()
+        close = d[..., [0, 1, 3]].max().item() <= KERNEL_TOL  # thresh, mmax, frac
+        z_ok = (d[..., 2] <= Z_RTOL * ref[..., 2].abs()).all().item()
+        counts = torch.equal(out[..., 4:n], ref[..., 4:n])  # n_above, cnt_at
+        zeros = not out[..., n:].any().item()
+        ok = close and z_ok and counts and zeros
+    rule = ("masked entries equal" if passes == "a" else
+            f"counts equal, z within {Z_RTOL} relative")
+    print(f"{label}: max |kernel - plain| = {err:.3e} ({rule}, the rest within {KERNEL_TOL})",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: kernel disagrees with plain version")
+    return err
+
+
+def run_passes(records):
+    """K5 through the pass-breakdown tool, one compute mode at a time with
+    the counts reset before and read after; then each cut against its plain
+    version on the tool's inputs, timed and bounded."""
+    import torch
+
+    from fgvc_tpu_torch.bench import pass_breakdown as pb
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+    from fgvc_tpu_torch.utils.profiler import events_ms
+
+    reps = 20
+    split = {}
+    for mode in k1.COMPUTE_DTYPES:
+        k1.reset_launches()
+        res = pb.run("cuda", reps=reps, modes=(mode,))
+        torch.cuda.synchronize()
+        n = reps + 2  # warm-up, reps, one profiled call
+        got = (dict(k1.cut_launches), k1.unbanked_launches, dict(k1.mode_launches))
+        want = ({"a": n, "ab": n}, n, {m: n if m == mode else 0 for m in k1.mode_launches})
+        print(f"passes '{mode}': cut launches {got[0]}, unbanked {got[1]}, by mode {got[2]} "
+              f"(expected {n} each)", flush=True)
+        if got != want:
+            raise AssertionError(f"passes '{mode}': launches {got}, expected {want}")
+        split[mode] = res["ms"][mode]
+        for cut, kernels in res["device_ms_by_kernel"][mode].items():
+            print(f"passes '{mode}' cut '{cut}' device ms by CUDA kernel (torch.profiler): "
+                  + (_top(kernels) or "not measured"), flush=True)
+        for cut in ("a", "ab"):
+            records[f"K5_{cut}_{_TAG[mode]}"].update(launches=n, ms=split[mode][cut])
+    print("per-pass split (ms per call; A = t('a'), B = t('ab') - t('a'), C = t('abc') - t('ab')): "
+          + json.dumps(split), flush=True)
+
+    inputs = pb.make_inputs(device="cuda")
+    q, k, v = inputs
+    h, w = q.shape[:2]
+    # query and keys (float32 at the entry in every mode), the cut's output
+    nbytes = 4.0 * (h * w * C + SLOTS * h * w * C) + 4.0 * h * w * CV
+    for mode in k1.COMPUTE_DTYPES:
+        bound_ms, bound_by, flops = attention_bound(h, w, "circle", [True] * SLOTS, nbytes, mode)
+        for cut in ("a", "ab"):
+            record = records[f"K5_{cut}_{_TAG[mode]}"]
+            label = f"K5 cut '{cut}' '{mode}'"
+            kw = dict(radius=pb.RADIUS, temperature=pb.TEMPERATURE, topk=pb.TOPK, tile=pb.TILE,
+                      compute_dtype=mode, debug_passes=cut)
+            out = pb.call(inputs, mode, cut)
+            ref = k1.topk_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = check_cut(label, out, ref, cut)
+            del out, ref
+            plain_ms = events_ms(lambda: k1.topk_attention_plain(q, k, v, **kw), 3)
+            print(f"{label}: kernel {record['ms']:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP live)", flush=True)
+            record.update(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+    del inputs, q, k, v
+    torch.cuda.empty_cache()
+
+
+def overlap_bound(kind):
+    """Least time for one K6 call: the products (three TF32 products each,
+    on the tensor cores) and the rounds (4 SIMT operations an element) run
+    side by side, so the larger of the two, or the bytes (q, k, out and the
+    scratch writes) over the HBM rate."""
+    from fgvc_tpu_torch.ops.cuda import mxu_vpu_overlap as k6
+
+    t_mma = 3 * 2.0 * k6.S * k6.C * k6.T * k6.FK / PEAK_TF32_FLOPS if kind != "vpu" else 0.0
+    cols, rounds = {"mxu": (0, 0), "vpu": (k6.T * k6.FK, k6.R), "mixed": (k6.FK, 2 * k6.T)}[kind]
+    t_simt = 4.0 * k6.S * cols * rounds / PEAK_SIMT_OPS
+    written = k6.FK if kind == "vpu" else k6.T * k6.FK
+    nbytes = 4.0 * (k6.S * k6.C + k6.S * 128 + k6.S * written
+                    + (0 if kind == "vpu" else k6.T * k6.FK * k6.C))
+    t_ops, t_bytes = max(t_mma, t_simt), nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def run_overlap(records):
+    """K6 through the overlap tool with the counts reset before and read
+    after; then each kind against its plain version, timed and bounded."""
+    import torch
+
+    from fgvc_tpu_torch.bench import mxu_vpu_overlap as bench
+    from fgvc_tpu_torch.ops.cuda import mxu_vpu_overlap as k6
+    from fgvc_tpu_torch.utils.profiler import events_ms
+
+    k6.reset_launches()
+    res = bench.run("cuda")
+    torch.cuda.synchronize()
+    n = res["iters"] + 1  # warm-up and the timed launches
+    got = dict(k6.launches)
+    print(f"overlap: launches {got} (expected {n} each)", flush=True)
+    if got != dict.fromkeys(k6.KINDS, n):
+        raise AssertionError(f"overlap: launches {got}, expected {n} each")
+    q, k = bench.make_inputs("cuda")
+    out = {kind: k6.overlap(kind, q, k) for kind in k6.KINDS}
+    ref = {kind: k6.overlap_plain(kind, q, k) for kind in k6.KINDS}
+    torch.cuda.synchronize()
+    errs = {kind: (out[kind] - ref[kind]).abs().max().item() for kind in k6.KINDS}
+    counts = [torch.round(r["mixed"] - r["mxu"]) for r in (out, ref)]
+    frac = ((out["mixed"] - out["mxu"]) - counts[0]).abs().max().item()
+    print(f"overlap: max |kernel - plain| mxu {errs['mxu']:.3e} (tolerance {MXU_TOL}), "
+          f"mixed {errs['mixed']:.3e}, vpu {errs['vpu']:.3e}; mixed - mxu counts "
+          f"{counts[0].min().item():.0f}..{counts[0].max().item():.0f} (plain "
+          f"{counts[1].min().item():.0f}..{counts[1].max().item():.0f}), off an integer by "
+          f"{frac:.2e}; vpu rows {out['vpu'].min().item():.0f}..{out['vpu'].max().item():.0f} "
+          f"(must be {10 * k6.FK})", flush=True)
+    if not errs["mxu"] <= MXU_TOL or not frac <= 1e-3 or not torch.equal(counts[0], counts[1]):
+        raise AssertionError("overlap: 'mxu' or 'mixed' disagrees with the plain version")
+    if not torch.equal(out["vpu"], torch.full_like(out["vpu"], 10.0 * k6.FK)):
+        raise AssertionError("overlap: 'vpu' is not 10 * FK on every row")
+    for kind in k6.KINDS:
+        plain_ms = events_ms(lambda: k6.overlap_plain(kind, q, k), 3)
+        bound_ms, bound_by = overlap_bound(kind)
+        print(f"overlap {kind}: kernel {res['ms'][kind]:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {1e3 * bound_ms:.2f} us ({bound_by})"
+              + (f", torch.matmul {res['matmul_ms']:.4f} ms" if kind == "mxu" else ""),
+              flush=True)
+        records[f"K6_{kind}"].update(
+            launches=n, ms=res["ms"][kind], plain_ms=plain_ms, max_abs_err=errs[kind],
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=res["matmul_ms"] if kind == "mxu" else None)
+
+
+def run_profile(data_root):
+    """The port's CLI with --profile on one e2e pickle: the Chrome trace
+    holds the harness's spans and both CUDA kernels of K1."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as logdir:
+        cmd = [sys.executable, "-m", "fgvc_tpu_torch.cli.test", "--task", "davis",
+               "--data-root", data_root, "--max-videos", "1", "--output-dir",
+               os.path.join(logdir, "eval"), "--profile", logdir]
+        t0 = time.time()
+        subprocess.run(cmd, cwd=ROOT, check=True, timeout=900, stdout=subprocess.DEVNULL)
+        path = os.path.join(logdir, "trace.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        found = {want: any(want in name for name in names)
+                 for want in ("propagate[0]", "collect[0]", "affinity_kernel", "select_kernel")}
+        print(f"profile: cli.test --profile in {time.time() - t0:.1f} s; {path}: "
+              f"{os.path.getsize(path) / 1e6:.1f} MB, {len(events)} events; found {found}",
+              flush=True)
+        if not all(found.values()):
+            raise AssertionError(f"profile: the trace lacks {[k for k, v in found.items() if not v]}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="card,build,kernel,e2e,plain,vos,vos_plain,modes,sp")
+    ap.add_argument("--phases", default="card,build,kernel,e2e,plain,vos,vos_plain,modes,sp,"
+                                        "passes,overlap,profile")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1001,6 +1186,17 @@ def main():
     for shape in ("circle", "square"):
         records[f"K4_{shape}"] = kernel_record(
             f"K4 topk_attention_banked row blocks, {shape}", f"{pallas}:110")
+    # K5: the unbanked entry's profiling cut-downs ('a' from :229, 'ab' from
+    # :324), in each mode
+    for mode, tag in _TAG.items():
+        for cut, line in (("a", 229), ("ab", 324)):
+            records[f"K5_{cut}_{tag}"] = kernel_record(
+                f"K5 topk_attention debug_passes='{cut}', '{mode}'", f"{pallas}:{line}")
+    # K6: the overlap microbenchmark (make :31 -> pallas_call :92)
+    for kind in ("mxu", "vpu", "mixed"):
+        records[f"K6_{kind}"] = kernel_record(
+            f"K6 mxu_vpu_overlap '{kind}'", "tools/bench/mxu_vpu_overlap.py:31",
+            source="fgvc_tpu_torch/csrc/mxu_vpu_overlap.cu")
     t_start = time.time()
     phase("card")
     print(card_info(), flush=True)  # name, power limit
@@ -1013,7 +1209,7 @@ def main():
         check_row_blocks(records)
     e2e_metrics = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_root:
-        if {"e2e", "plain", "modes", "sp"} & set(phases):
+        if {"e2e", "plain", "modes", "sp", "profile"} & set(phases):
             make_tapvid_pickles(data_root)
         if "e2e" in phases:
             phase("e2e")
@@ -1039,6 +1235,15 @@ def main():
             card = torch.device("cuda", torch.cuda.current_device())
             run_sp_tapvid(data_root, records["K4_circle"], card, e2e_metrics)
             run_sp_vos(records["K4_square"], card)
+        if "passes" in phases:
+            phase("passes")
+            run_passes(records)
+        if "overlap" in phases:
+            phase("overlap")
+            run_overlap(records)
+        if "profile" in phases:
+            phase("profile")
+            run_profile(data_root)
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

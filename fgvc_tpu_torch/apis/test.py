@@ -9,6 +9,11 @@ names), evaluates every video of `data_root` and returns the task's metrics
 (TAP-Vid's, or DAVIS J&F).  `spatial_devices` S > 1 shards each frame's query
 rows over the first S cards (spatial-parallel propagation); a list of devices
 is taken as given, so one card listed S times runs S row blocks on it.
+
+Both evals read one video ahead on a worker thread and name their steps for
+``--profile`` traces as the JAX harness does: ``propagate[i]`` around video
+i's tracking and ``collect[i]`` around reading (and, for VOS, scoring) its
+results.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from fgvc_tpu_torch.device import resolve_device
 from fgvc_tpu_torch.models.resnet import init_random, resnet18_d1
 from fgvc_tpu_torch.models.tracker import Tracker
 from fgvc_tpu_torch.models.weights import load_reference_pth, load_weights
+from fgvc_tpu_torch.utils.profiler import annotate
 
 TASK_CONFIGS: Dict[str, TestConfig] = {"davis": DAVIS_TEST_CFG, "vos": DAVIS_TEST_CFG}
 
@@ -86,15 +92,32 @@ def build_tracker(
     return Tracker(model, test_cfg, dev, spatial_devices=spatial)
 
 
+def _read_ahead(dataset, ids):
+    """Yield dataset[i] for i in ids, reading one video ahead on a worker
+    thread (fgvc_tpu/apis/test.py _read_ahead): the next video's file read
+    and decode overlap this video's tracking."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        fut = None
+        for n, i in enumerate(ids):
+            cur = fut.result() if fut is not None else dataset[i]
+            fut = ex.submit(dataset.__getitem__, ids[n + 1]) if n + 1 < len(ids) else None
+            yield cur
+
+
 def eval_tapvid(tracker: Tracker, dataset, max_videos=None, output_dir=None) -> Dict[str, float]:
     """Track every video of `dataset` (a TapVidDataset) and score the
     results."""
     n = len(dataset) if max_videos is None else min(len(dataset), max_videos)
+    ids = list(range(n))
     results = []
-    for i in range(n):
-        sample = dataset[i]
+    for i, sample in zip(ids, _read_ahead(dataset, ids)):
         t0 = time.time()
-        out = tracker.track_points(sample["video"], sample["query_points"])
+        with annotate(f"propagate[{i}]"):
+            disp = tracker.track_points_dispatch(sample["video"], sample["query_points"])
+        with annotate(f"collect[{i}]"):
+            out = tracker.track_points_collect(disp)
         print(
             f"[{i}] T={len(sample['video'])} P={sample['query_points'].shape[0]}"
             f" {time.time() - t0:.2f}s",
@@ -119,17 +142,21 @@ def eval_vos(tracker: Tracker, dataset, max_videos=None, output_dir=None) -> Dic
     from fgvc_tpu_torch.datasets.davis_vos import write_results
 
     n = len(dataset) if max_videos is None else min(len(dataset), max_videos)
+    ids = list(range(n))
     stats = []
-    for i in range(n):
-        sample = dataset[i]
+    for i, sample in zip(ids, _read_ahead(dataset, ids)):
         t0 = time.time()
-        masks = tracker.track_masks(
-            sample["video"], sample["first_mask"],
-            tuple(sample["original_shape"]), sample["num_objects"],
-        )
+        with annotate(f"propagate[{i}]"):
+            disp = tracker.track_masks_dispatch(
+                sample["video"], sample["first_mask"],
+                tuple(sample["original_shape"]), sample["num_objects"],
+            )
+        with annotate(f"collect[{i}]"):
+            masks = tracker.track_masks_collect(disp)
+            dt = time.time() - t0
+            s = dataset.score_video(i, masks)
         print(f"[{i}] T={len(sample['video'])} objects={sample['num_objects']}"
-              f" {time.time() - t0:.2f}s", flush=True)
-        s = dataset.score_video(i, masks)
+              f" {dt:.2f}s", flush=True)
         if s is not None:
             stats.append(s)
     results = aggregate_jf(stats)

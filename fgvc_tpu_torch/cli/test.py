@@ -5,12 +5,14 @@ tracking and DAVIS-2017 VOS.
     python -m fgvc_tpu_torch.cli.test --task davis --data-root <pkls> \
         [--checkpoint ckpt.pth] [--max-videos N] [--output-dir DIR] \
         [--precision highest|high|default] [--spatial-devices S] \
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--profile LOGDIR]
     python -m fgvc_tpu_torch.cli.test --task vos --data-root <DAVIS tree> \
         [--list-path val.txt] [--save-mem] [--hard-prop] [...]
 
 Prints the task's metrics as JSON.  Runs on the CUDA card unless --device
-cpu is given.
+cpu is given.  --profile writes a torch.profiler trace of the whole run
+(LOGDIR/trace.json, with the harness's propagate[i] and collect[i] spans and
+the CUDA kernels).
 """
 
 import argparse
@@ -58,11 +60,18 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where the tracker runs (the counterpart of "
                              "fgvc_tpu's --platform)")
+    parser.add_argument(
+        "--profile",
+        default=None,
+        metavar="LOGDIR",
+        help="write a torch.profiler device+host trace (LOGDIR/trace.json)",
+    )
     args = parser.parse_args(argv)
 
     import dataclasses
 
     from fgvc_tpu_torch.apis.test import TASK_CONFIGS, run_task
+    from fgvc_tpu_torch.utils.profiler import trace
 
     overrides = {}
     if args.precision:
@@ -71,17 +80,18 @@ def main(argv=None):
         overrides["save_mem"] = args.save_mem
     if args.hard_prop is not None:
         overrides["hard_prop"] = args.hard_prop
-    results = run_task(
-        args.task,
-        args.data_root,
-        checkpoint=args.checkpoint,
-        list_path=args.list_path,
-        max_videos=args.max_videos,
-        output_dir=args.output_dir,
-        test_cfg=dataclasses.replace(TASK_CONFIGS[args.task], **overrides),
-        device=args.device,
-        spatial_devices=args.spatial_devices,
-    )
+    with trace(args.profile):
+        results = run_task(
+            args.task,
+            args.data_root,
+            checkpoint=args.checkpoint,
+            list_path=args.list_path,
+            max_videos=args.max_videos,
+            output_dir=args.output_dir,
+            test_cfg=dataclasses.replace(TASK_CONFIGS[args.task], **overrides),
+            device=args.device,
+            spatial_devices=args.spatial_devices,
+        )
     print(json.dumps(results, indent=2, default=float))
 
 

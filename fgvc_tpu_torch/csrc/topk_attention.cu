@@ -1,5 +1,4 @@
-// Windowed top-k attention for label propagation (K1, K2 and K3), for
-// sm_90a.
+// Windowed top-k attention for label propagation (K1 to K5), for sm_90a.
 //
 // Replaces the Pallas TPU kernel fgvc_tpu/ops/pallas/topk_attention.py
 // (_make_kernel, launched by _call_fused_kernel) behind both of its entries,
@@ -21,6 +20,18 @@
 //       Every (query, key) pair is summed in the same order wherever its
 //       tile lies, so the blocks assemble to the unsharded result bit for
 //       bit.
+//   K5  the profiling cut-downs of the unbanked entry (`debug_passes` of
+//       the Pallas kernel, :229-233 and :324-333, which
+//       tools/bench/pass_breakdown.py times): 'a' runs affinity_kernel and
+//       a small emit kernel that writes slot 0's affinities in the Pallas
+//       column layout; 'ab' runs select_kernel up to pass B's statistics
+//       and writes them.  A template parameter (PASSES) of launch and
+//       select_kernel, one extern "C" entry per mode
+//       (fgvc_topk_attention_<mode>_cut); the 'abc' code is unchanged.  On
+//       this card pass A is affinity_kernel, and passes B and C share
+//       select_kernel: B is the per-lane lists and the warp merge, C the
+//       rescan and the value gather.  Their bound is pass A's (the live
+//       products), as for K2.
 // The wrappers (fgvc_tpu_torch/ops/cuda/topk_attention.py) do the padding;
 // this file sees a padded bank either way.
 //
@@ -367,7 +378,11 @@ __device__ __forceinline__ void list_insert(float (&lv)[KMAX], int (&lc)[KMAX],
   }
 }
 
-template <int KMAX, int MODE>
+// PASSES: 3 runs passes B and C ('abc'); 2 stops after pass B's statistics
+// (K5 cut 'ab') and writes [thresh, mmax, z, frac, n_above, cnt_at] into
+// channels 0..5 of the query pixel's output row, zeros into the rest (the
+// first Cv of the six where Cv < 6), with no rescan and no gather.
+template <int KMAX, int MODE, int PASSES = 3>
 __global__ void __launch_bounds__(THREADS)
 select_kernel(const float* __restrict__ aff, const float* __restrict__ v,
               float* __restrict__ out, const TopkAttnParams p) {
@@ -449,6 +464,23 @@ select_kernel(const float* __restrict__ aff, const float* __restrict__ v,
   if (any) z += frac * cnt_at * expf(fminf(thresh - mmax, 0.f));
   z = fmaxf(z, 1e-30f);
 
+  if constexpr (PASSES == 2) {
+    // Pass B's max is the row's largest element, live or not (round 0 of
+    // the Pallas rounds); a row with no live key needs a scan for it.
+    float rmax = mmax;
+    if (!any) {
+      rmax = -INFINITY;
+      for (int j = lane; j < K; j += 32) rmax = fmaxf(rmax, row[j]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        rmax = fmaxf(rmax, __shfl_xor_sync(FULL, rmax, o));
+    }
+    const float stats[6] = {thresh, rmax, z, frac, (float)nab, cnt_at};
+    float* op = out + ((size_t)gi * p.W + gj) * p.Cv;
+    for (int ch = lane; ch < p.Cv; ch += 32) op[ch] = ch < 6 ? stats[ch] : 0.f;
+    return;
+  }
+
   // ---- value mix over the selected keys (k-sparse), in the mode's
   // arithmetic: w is computed in f32 and rounded per mode with v ----
   for (int cb = 0; cb < p.Cv; cb += 32 * NCH) {
@@ -488,12 +520,49 @@ select_kernel(const float* __restrict__ aff, const float* __restrict__ v,
   }
 }
 
-// Launches both kernels on `stream`; returns the CUDA error of the launches
-// (0 on success).  q: (Hp, Wp, C); bank: (Tb, rows_total, cols_total, C),
-// both f32, or bf16 in 'bfloat16'; v: (T, H, W, Cv) f32; out: (H, W, Cv)
-// f32, or (Hp, W, Cv) for a row block (K4); scratch: ntiles * tile^2 * T *
-// win^2 f32 over the Hp x Wp query grid.
-template <int MODE>
+// K5 cut 'a' (pass A only): out[i, j, c] for c < Cv (<= wpad^2, which the
+// wrapper checks) is column c of the query pixel's Pallas affinity row
+// (aff_ref[:, :Pp] of _make_kernel), whose frame blocks are rows_pad x wpad
+// with wpad = rows_pad = round_up(win, 8): slot 0, window row wi = c / wpad
+// and column wj = c % wpad.  Inside the win x win window that is the
+// scratch's column wi * win + wj; in the Pallas over-pad (wi or wj >= win)
+// it is (NEG + border bias) + frame_bias[0], summed in the Pallas order
+// (:134, :215), where the product term vanishes in NEG's rounding (|q.k| /
+// temperature < 3.8e22).  One thread per output.
+__global__ void __launch_bounds__(THREADS)
+emit_affinity_kernel(const float* __restrict__ aff, float* __restrict__ out,
+                     const TopkAttnParams p) {
+  const long long n = (long long)p.H * p.W * p.Cv;
+  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= n) return;
+  const int c = (int)(idx % p.Cv);
+  const int gj = (int)((idx / p.Cv) % p.W);
+  const int gi = (int)(idx / ((long long)p.Cv * p.W));
+  const int S = p.tile * p.tile;
+  const int wpad = (p.win + 7) / 8 * 8;
+  const int wi = c / wpad, wj = c % wpad;
+  const int ntw = p.Wp / p.tile;
+  const int r0 = (gi / p.tile) * p.tile, c0 = (gj / p.tile) * p.tile;
+  float val;
+  if (wi < p.win && wj < p.win) {
+    const size_t g = (size_t)((gi / p.tile) * ntw + gj / p.tile) * S +
+                     (gi % p.tile) * p.tile + gj % p.tile;
+    val = aff[g * p.T * p.win * p.win + wi * p.win + wj];
+  } else {
+    const int kgi = p.row0 + r0 + wi - p.halo, kgj = c0 + wj - p.halo;
+    const bool in_img = kgi >= 0 && kgi < p.H && kgj >= 0 && kgj < p.W;
+    val = __fadd_rn(__fadd_rn(NEG, in_img ? 0.f : NEG), p.frame_bias[0]);
+  }
+  out[idx] = val;
+}
+
+// Launches the kernels of PASSES on `stream` (3: passes A, B and C; K5's
+// profiling cut-downs 2: A and B's statistics, 1: A and the emit kernel);
+// returns the CUDA error of the launches (0 on success).  q: (Hp, Wp, C);
+// bank: (Tb, rows_total, cols_total, C), both f32, or bf16 in 'bfloat16';
+// v: (T, H, W, Cv) f32; out: (H, W, Cv) f32, or (Hp, W, Cv) for a row block
+// (K4); scratch: ntiles * tile^2 * T * win^2 f32 over the Hp x Wp query grid.
+template <int MODE, int PASSES = 3>
 int launch(const void* q, const void* bank, const float* v, float* out,
            float* scratch, const TopkAttnParams& p, cudaStream_t stream) {
   using T = typename Operand<MODE>::T;
@@ -505,12 +574,18 @@ int launch(const void* q, const void* bank, const float* v, float* out,
       static_cast<const T*>(q), static_cast<const T*>(bank), scratch, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long nq = (long long)ntiles * S;
-  const int grid_b = (int)((nq + THREADS / 32 - 1) / (THREADS / 32));
-  if (p.topk < 16) {
-    select_kernel<16, MODE><<<grid_b, THREADS, 0, stream>>>(scratch, v, out, p);
+  if constexpr (PASSES == 1) {
+    const long long n = (long long)p.H * p.W * p.Cv;
+    const int grid_e = (int)((n + THREADS - 1) / THREADS);
+    emit_affinity_kernel<<<grid_e, THREADS, 0, stream>>>(scratch, out, p);
   } else {
-    select_kernel<32, MODE><<<grid_b, THREADS, 0, stream>>>(scratch, v, out, p);
+    const long long nq = (long long)ntiles * S;
+    const int grid_b = (int)((nq + THREADS / 32 - 1) / (THREADS / 32));
+    if (p.topk < 16) {
+      select_kernel<16, MODE, PASSES><<<grid_b, THREADS, 0, stream>>>(scratch, v, out, p);
+    } else {
+      select_kernel<32, MODE, PASSES><<<grid_b, THREADS, 0, stream>>>(scratch, v, out, p);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -534,4 +609,35 @@ extern "C" int fgvc_topk_attention_bf16(const void* q, const void* bank,
                                         float* scratch, TopkAttnParams p,
                                         cudaStream_t stream) {
   return launch<MODE_BF16>(q, bank, v, out, scratch, p, stream);
+}
+
+// K5: the profiling cut-downs of each mode; passes 1 ('a') or 2 ('ab').
+template <int MODE>
+int launch_cut(const void* q, const void* bank, const float* v, float* out,
+               float* scratch, const TopkAttnParams& p, int passes,
+               cudaStream_t stream) {
+  if (passes == 1) return launch<MODE, 1>(q, bank, v, out, scratch, p, stream);
+  if (passes == 2) return launch<MODE, 2>(q, bank, v, out, scratch, p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int fgvc_topk_attention_f32_cut(const void* q, const void* bank,
+                                           const float* v, float* out,
+                                           float* scratch, TopkAttnParams p,
+                                           int passes, cudaStream_t stream) {
+  return launch_cut<MODE_F32>(q, bank, v, out, scratch, p, passes, stream);
+}
+
+extern "C" int fgvc_topk_attention_high_cut(const void* q, const void* bank,
+                                            const float* v, float* out,
+                                            float* scratch, TopkAttnParams p,
+                                            int passes, cudaStream_t stream) {
+  return launch_cut<MODE_HIGH>(q, bank, v, out, scratch, p, passes, stream);
+}
+
+extern "C" int fgvc_topk_attention_bf16_cut(const void* q, const void* bank,
+                                            const float* v, float* out,
+                                            float* scratch, TopkAttnParams p,
+                                            int passes, cudaStream_t stream) {
+  return launch_cut<MODE_BF16>(q, bank, v, out, scratch, p, passes, stream);
 }

@@ -15,6 +15,13 @@ bank comes from ``pad_key_bank(..., grid_rows=)``, and the result is the
 block's (hb, W, Cv) rows, zero at and past H.  Blocks assemble to the
 unsharded result bit for bit.
 
+``topk_attention(..., debug_passes='a'|'ab')`` is K5, the Pallas kernel's
+profiling cut-downs (``fused_topk_attention(debug_passes=)``, which
+tools/bench/pass_breakdown.py times): 'a' runs pass A alone and returns slot
+0's masked affinities at the Pallas window columns 0..Cv-1; 'ab' runs passes A
+and B and returns [thresh, mmax, z, frac, n_above, cnt_at], zero-padded (or
+cut) to Cv.  JAX has them on the unbanked entry only, and so has the port.
+
 Both take the Pallas kernel's ``compute_dtype`` (K3): 'float32' (f32
 products), 'high' (f32 operands, each product as the three bf16 products
 hi.hi + hi.lo + lo.hi of its bf16 halves, f32 sums) or 'bfloat16' (a bf16
@@ -60,21 +67,27 @@ COMPUTE_DTYPES = {
     "bfloat16": torch.bfloat16,
 }
 _ENTRY_SUFFIX = {"float32": "f32", "high": "high", "bfloat16": "bf16"}
+# debug_passes of the unbanked entry: the whole kernel, or a K5 cut-down
+# (the number is the kernel's PASSES)
+DEBUG_PASSES = {"a": 1, "ab": 2, "abc": 3}
+N_STATS = 6  # thresh, mmax, z, frac, n_above, cnt_at
 
 # Kernel launches since the last reset: one count per entry, K1 (banked),
 # K2 (unbanked) and K4 (banked, one row block), and one per compute mode over
-# all three.
+# all three; K5's cut launches apart, per cut, in none of the others.
 launches = 0
 unbanked_launches = 0
 row_block_launches = 0
 mode_launches = dict.fromkeys(COMPUTE_DTYPES, 0)
+cut_launches = {"a": 0, "ab": 0}
 
 
 def reset_launches() -> None:
     global launches, unbanked_launches, row_block_launches
     launches = unbanked_launches = row_block_launches = 0
-    for mode in mode_launches:
-        mode_launches[mode] = 0
+    for counts in (mode_launches, cut_launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def pallas_compute_dtype(matmul_precision: str) -> str:
@@ -175,6 +188,22 @@ def _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
         raise ValueError(f"mask_shape must be one of {MASK_SHAPES}, got {mask_shape!r}")
 
 
+def _check_cut(debug_passes, Cv, radius, tile, row0):
+    """A K5 cut runs on the unbanked entry only, and cut 'a' emits at most
+    slot 0's wpad^2 columns of the Pallas affinity row."""
+    if debug_passes not in DEBUG_PASSES:
+        raise ValueError(
+            f"debug_passes must be one of {tuple(DEBUG_PASSES)}, got {debug_passes!r}"
+        )
+    if debug_passes == "abc":
+        return
+    if row0 is not None:
+        raise ValueError("the K5 cut-downs have no row-block mode")
+    wpad = _round_up(tile + 2 * int(radius), 8)
+    if debug_passes == "a" and Cv > wpad * wpad:
+        raise ValueError(f"cut 'a' emits slot 0's {wpad * wpad} columns; Cv is {Cv}")
+
+
 def _on_cpu(*tensors) -> bool:
     return all(x.device.type == "cpu" for x in tensors)
 
@@ -256,19 +285,24 @@ def topk_attention(
     mask_shape: str = "circle",
     key_valid: Optional[Sequence[bool]] = None,
     compute_dtype: str = "float32",
+    debug_passes: str = "abc",
 ) -> torch.Tensor:
     """K2 (K3 in 'high' and 'bfloat16'): the unbanked entry.  Normalises
     (if asked) and pads float32 query and keys on every call, casts them to
     the mode's dtype, then runs the same kernel as K1 with frame_idx 0..T-1.
-    CPU tensors take the plain version; CUDA tensors take the kernel, or
-    raise."""
+    `debug_passes` 'a' or 'ab' runs a K5 cut-down instead (module
+    docstring), counted in `cut_launches` only.  CPU tensors take the plain
+    version; CUDA tensors take the kernel, or raise."""
     global unbanked_launches
     qpad, kpad, kw = _prepare_unbanked(query, key, value, key_valid, radius,
                                        temperature, topk, tile, normalize, mask_shape,
                                        compute_dtype)
     if _on_cpu(qpad, kpad, value):
-        return topk_attention_banked_plain(qpad, kpad, value, **kw)
-    out = _launch(qpad, kpad, value, **kw)
+        return topk_attention_banked_plain(qpad, kpad, value, debug_passes=debug_passes, **kw)
+    out = _launch(qpad, kpad, value, debug_passes=debug_passes, **kw)
+    if debug_passes != "abc":
+        cut_launches[debug_passes] += 1
+        return out
     unbanked_launches += 1
     mode_launches[compute_dtype] += 1
     return out
@@ -289,22 +323,27 @@ class _Params(ctypes.Structure):
     ]
 
 
-def _library(compute_dtype: str):
+def _library(compute_dtype: str, cut: bool = False):
+    """The extern "C" entry of a mode: the whole kernel, or (`cut`) the K5
+    entry, which takes PASSES before the stream."""
     from fgvc_tpu_torch.ops.cuda.build import load
 
     lib = load("topk_attention")
-    fn = getattr(lib, f"fgvc_topk_attention_{_ENTRY_SUFFIX[compute_dtype]}")
+    fn = getattr(lib, f"fgvc_topk_attention_{_ENTRY_SUFFIX[compute_dtype]}"
+                      f"{'_cut' if cut else ''}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [_Params, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [_Params]
+                       + ([ctypes.c_int] if cut else []) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
             temperature, topk, tile, mask_shape, compute_dtype, row0=None,
-            grid_rows=None):
+            grid_rows=None, debug_passes="abc"):
     _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
            mask_shape, compute_dtype, row0=row0, grid_rows=grid_rows)
+    _check_cut(debug_passes, value.shape[3], radius, tile, row0)
     tensors = {"qpad": qpad, "kpad": kpad, "value": value}
     for name, x in tensors.items():
         if x.device.type != "cuda" or x.device != qpad.device:
@@ -345,11 +384,13 @@ def _launch(qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
         ntiles * tile * tile * T * win * win, dtype=torch.float32,
         device=qpad.device,
     )
-    fn = _library(compute_dtype)
+    cut = debug_passes != "abc"
+    fn = _library(compute_dtype, cut)
     with torch.cuda.device(qpad.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(qpad.data_ptr(), kpad.data_ptr(), value.data_ptr(),
-                 out.data_ptr(), scratch.data_ptr(), p, stream)
+        args = (qpad.data_ptr(), kpad.data_ptr(), value.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), p)
+        err = fn(*args, DEBUG_PASSES[debug_passes], stream) if cut else fn(*args, stream)
     if err:
         raise RuntimeError(f"topk_attention kernel launch failed: CUDA error {err}")
     return out
@@ -370,17 +411,19 @@ def _windows(x: torch.Tensor, nth: int, ntw: int, tile: int, win: int):
 def topk_attention_banked_plain(
     qpad, kpad, value, *, frame_idx, key_valid, H, W, radius,
     temperature=1.0, topk=10, tile=16, mask_shape="circle", compute_dtype="float32",
-    row0=None, grid_rows=None,
+    row0=None, grid_rows=None, debug_passes="abc",
 ):
     """K1's function (K3's in 'high' and 'bfloat16', K4's with row0 and
-    grid_rows) in plain PyTorch, written from the Pallas kernel's three
-    passes (_make_kernel): masked affinities of every query tile, the top-k
-    statistics by k + 1 distinct-value rounds, and the weighted value sum.
-    Runs on the device of its inputs, over rows of query tiles at most
-    PLAIN_CHUNK_TILES tiles at a time (tiles are independent), so its
-    temporaries stay near 1 GB each at the DAVIS VOS shapes."""
+    grid_rows, K5's with debug_passes 'a' or 'ab') in plain PyTorch, written
+    from the Pallas kernel's three passes (_make_kernel): masked affinities
+    of every query tile, the top-k statistics by k + 1 distinct-value rounds,
+    and the weighted value sum.  Runs on the device of its inputs, over rows
+    of query tiles at most PLAIN_CHUNK_TILES tiles at a time (tiles are
+    independent), so its temporaries stay near 1 GB each at the DAVIS VOS
+    shapes."""
     _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
            mask_shape, compute_dtype, row0=row0, grid_rows=grid_rows)
+    _check_cut(debug_passes, value.shape[3], radius, tile, row0)
     dev = qpad.device
     halo, gridH, Wp, _, _ = bank_geometry(H, W, radius, tile, grid_rows)
     g0 = 0 if row0 is None else int(row0)  # global row of qpad's first row
@@ -426,10 +469,15 @@ def topk_attention_banked_plain(
                for t in range(T)]
         vws = [_windows(vpad[t, g0 + i0 * tile :], i1 - i0, ntw, tile, win)
                for t in range(T)]
-        out[i0 * ntw : i1 * ntw] = _plain_tiles(
+        res = _plain_tiles(
             q[i0 * ntw : i1 * ntw], kws, vws, bias, key_valid, 1.0 / temperature, topk,
-            compute_dtype,
+            compute_dtype, debug_passes,
         )
+        if debug_passes == "a":
+            res = _pallas_columns(res, Cv, r0, c0, halo, win, H, W, key_valid[0])
+        elif debug_passes == "ab":
+            res = torch.nn.functional.pad(res, (0, max(Cv - N_STATS, 0)))[..., :Cv]
+        out[i0 * ntw : i1 * ntw] = res
     out = out.reshape(nth, ntw, tile, tile, Cv).permute(0, 2, 1, 3, 4)
     out = out.reshape(Hp, Wp, Cv)[:, :W]
     if row0 is None:
@@ -437,6 +485,25 @@ def topk_attention_banked_plain(
     out = out.contiguous()
     out[max(H - g0, 0):] = 0.0  # block rows at or past H, as the kernel leaves them
     return out
+
+
+def _pallas_columns(a, Cv, r0, c0, halo, win, H, W, valid0):
+    """K5 cut 'a': columns 0..Cv-1 of the Pallas affinity row, which lays
+    slot 0's window out in rows of wpad = round_up(win, 8) columns, from the
+    affinities a (N, S, T * win^2) of N tiles with origins r0, c0 (N, 1;
+    global rows).  Columns in the Pallas over-pad (window row or column >=
+    win) hold (NEG + border bias) + frame_bias[0], summed in the Pallas
+    order; the product term vanishes in NEG's rounding."""
+    wpad = _round_up(win, 8)
+    col = torch.arange(Cv, device=a.device)
+    ci, cj = col // wpad, col % wpad
+    inside = (ci < win) & (cj < win)
+    src = torch.where(inside, ci * win + cj, 0)
+    kgi, kgj = r0 + ci.float() - halo, c0 + cj.float() - halo
+    in_img = (kgi >= 0) & (kgi <= H - 1) & (kgj >= 0) & (kgj <= W - 1)
+    over = torch.full_like(kgi, NEG) + torch.where(in_img, 0.0, NEG)
+    over = over + (0.0 if valid0 else NEG)
+    return torch.where(inside, a[..., src], over[:, None, :])
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -482,9 +549,12 @@ def _affinity_in_order(q: torch.Tensor, kw: torch.Tensor, mode: str) -> torch.Te
     return acc
 
 
-def _plain_tiles(q, kws, vws, bias, key_valid, inv_temp, topk, mode):
+def _plain_tiles(q, kws, vws, bias, key_valid, inv_temp, topk, mode, passes="abc"):
     """The three passes over N query tiles: q (N, S, C); per slot, key
-    windows (N, FK, C) and value windows (N, FK, Cv); bias (N, S, FK)."""
+    windows (N, FK, C) and value windows (N, FK, Cv); bias (N, S, FK).
+    `passes` 'a' returns the affinities (N, S, T * FK) after pass A, 'ab'
+    pass B's statistics (N, S, 6): thresh, mmax, z, frac, n_above,
+    cnt_at."""
     dev = q.device
     # pass A.  float32: one product per slot, so a frame in two slots ties
     # exactly.  'high' and 'bfloat16': every slot in one elementwise sum,
@@ -495,8 +565,9 @@ def _plain_tiles(q, kws, vws, bias, key_valid, inv_temp, topk, mode):
         raw = _affinity_in_order(q, torch.cat(kws, dim=1), mode).split(kws[0].shape[1], dim=-1)
     affs = [r * inv_temp + bias + (0.0 if key_valid[t] else NEG) for t, r in enumerate(raw)]
     a = torch.cat(affs, dim=-1)          # (N, S, T * FK)
-    vw = torch.cat(vws, dim=1)           # (N, T * FK, Cv)
     del affs
+    if passes == "a":
+        return a
     N, S, K = a.shape
 
     # pass B: round r finds the largest value strictly below round r-1's and
@@ -532,6 +603,8 @@ def _plain_tiles(q, kws, vws, bias, key_valid, inv_temp, topk, mode):
     z = torch.where(live & (vals > thresh), e_vals * cnts, 0.0).sum(-1, keepdim=True)
     z = z + frac * cnt_at * torch.exp(torch.clamp_max(thresh - mmax, 0.0)) * (thresh > NEG / 2)
     z = torch.clamp_min(z, 1e-30)
+    if passes == "ab":
+        return torch.cat([thresh, mmax, z, frac, n_above, cnt_at], -1)
 
     # pass C: weighted value sum, w computed in float32 and rounded with the
     # values per mode
@@ -539,16 +612,19 @@ def _plain_tiles(q, kws, vws, bias, key_valid, inv_temp, topk, mode):
     above = torch.clamp(d, 0.0, 1.0)
     at = (1.0 - d.abs()) * torch.clamp(torch.sign(a - NEG / 2) + 1.0, 0.0, 1.0)
     w = torch.exp(torch.clamp_max(a - mmax, 0.0)) * (above + frac * at)
+    vw = torch.cat(vws, dim=1)           # (N, T * FK, Cv)
     return _products(w, vw, mode) / z    # (N, S, Cv)
 
 
 def topk_attention_plain(
     query, key, value, *, radius, temperature=1.0, topk=10, normalize=True,
     tile=16, mask_shape="circle", key_valid=None, compute_dtype="float32",
+    debug_passes="abc",
 ):
-    """K2's function in plain PyTorch: the same per-call preparation as
-    ``topk_attention``, then ``topk_attention_banked_plain``."""
+    """K2's function (K5's with debug_passes 'a' or 'ab') in plain PyTorch:
+    the same per-call preparation as ``topk_attention``, then
+    ``topk_attention_banked_plain``."""
     qpad, kpad, kw = _prepare_unbanked(query, key, value, key_valid, radius,
                                        temperature, topk, tile, normalize, mask_shape,
                                        compute_dtype)
-    return topk_attention_banked_plain(qpad, kpad, value, **kw)
+    return topk_attention_banked_plain(qpad, kpad, value, debug_passes=debug_passes, **kw)
