@@ -15,20 +15,28 @@ Phases, each of which raises on failure (exit code != 0):
             window at TAP-Vid shapes (128 x 128 x 256 features, 6 key slots,
             radius 15, top-10, 32 values), and the banked entry with the
             square window and the unbanked entry at DAVIS VOS shapes (240 x
-            440 x 256, 5 values).  max |diff| <= 1e-4 in every mode: outputs
-            are convex mixes of values in [0, 1], the sums run in another
-            order, and in 'high' and 'bfloat16' the plain version sums the
-            affinities in the kernel's order, so the top-k members near a tie
-            and the bf16-rounded weights are the kernel's.  Then K4, the row
+            440 x 256, 5 values).  The kernel multiplies on the tensor cores
+            in an order the plain version cannot repeat, so each query
+            pixel's output is held to its mode's limit (1e-4 in 'float32'
+            and 'high'; 2^-7 max|v| in 'bfloat16', where a weight w one ulp
+            apart can round to the neighbouring bf16 value), except near-tie
+            rows: those whose plain k-th and (k+1)-th largest live
+            affinities lie within 1e-4 of each other, where rounding can
+            change a top-k member.  Rows beyond the limit must all be
+            near-tie rows and at most 0.1% of the rows; their count is
+            printed.  The tie case is exact: cut 'ab' (K5) of the unbanked
+            entry on it gives even counts above and at the threshold on
+            every row (each key ties with its copy).  Then K4, the row
             blocks of spatial-parallel propagation, in each mode: TAP-Vid
             shapes (circle) in S = 2 and 3 blocks, VOS shapes (square) in
             S = 2 and 4, distinct frames (and the tie case at S = 2); each
-            block against its plain version (<= 1e-4), and the blocks,
-            gathered and cut to the feature height, against the unsharded
-            K1/K3 output with max |diff| = 0 (bit for bit); in 'float32'
-            each S's frame (its S blocks) timed against the unsharded call,
-            and S = 2 per block launch, bounded by the block's own live
-            pairs;
+            block against its plain version by the same rule, and the
+            blocks, gathered and cut to the feature height, against the
+            unsharded K1/K3 output with max |diff| = 0 (bit for bit); in
+            'float32' each S's frame (its S blocks) timed against the
+            unsharded call, and S = 2 per block launch, bounded by the
+            block's own live pairs.  Each record of K1-K4 also carries
+            affinity_kernel's own device ms per launch (torch.profiler);
   e2e       run_task('davis') (the CLI's path) on two synthetic TAP-Vid
             pickles (48 frames, 256 x 256, 32 tracks) with seeded random
             weights at the full width of ResNet-18-d1; K1's launches must
@@ -74,9 +82,14 @@ Phases, each of which raises on failure (exit code != 0):
             values, circle) in each compute mode: the cut launches counted
             (one per call of each cut), the per-pass split printed; then each
             cut against its plain version on the card: cut 'a' masked
-            affinities equal and the others within 1e-4; cut 'ab' n_above
-            and cnt_at equal, thresh, mmax and frac within 1e-4, z within
-            1e-5 relative;
+            affinities equal bit for bit and the live ones within 2e-5
+            max|a|, once at the tool's 32 columns and once at Cv = 2304,
+            every column of slot 0's window (live ones included); cut 'ab'
+            n_above and cnt_at equal, thresh, mmax and frac within 1e-4, z
+            within 1e-5 relative, on every row but near-tie rows (as in
+            `kernel`, and rows whose (k-1)-th and k-th largest live
+            affinities lie within 1e-4: the counts at and above the
+            threshold move there);
   overlap   K6, the tensor-core / SIMT overlap microbenchmark, through its
             tool (python -m fgvc_tpu_torch.bench.mxu_vpu_overlap): the three
             kinds' times, the overlap quality and torch.matmul's time; then
@@ -107,8 +120,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense bf16 on the tensor cores and HBM3 bandwidth; they assume the
-# full 700 W power limit.
+# cores, dense bf16 and TF32 on the tensor cores and HBM3 bandwidth; they
+# assume the full 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
@@ -117,7 +130,17 @@ PEAK_BYTES = 3.35e12
 # counts an FMA as two
 PEAK_SIMT_OPS = PEAK_FP32_FLOPS / 2
 
+# kernel against plain, per query pixel: 'float32' and 'high' to KERNEL_TOL,
+# 'bfloat16' to BF16_TOL_REL * max|v|; rows beyond it must be near-tie rows
+# (ops/cuda/topk_attention.py near_tie_rows), at most NEAR_TIE_SHARE of them
 KERNEL_TOL = 1e-4
+BF16_TOL_REL = 2.0 ** -7
+NEAR_TIE_SHARE = 1e-3
+# K5's cut 'a': live affinities against the plain version, relative to max|a|
+AFF_RTOL = 2e-5
+# K5's cut 'a' at every column of slot 0's window: Cv = round_up(win, 8)^2
+# with win = 16 + 2 * 15 at the tool's shapes
+FULL_WINDOW_CV = 48 * 48
 # K5's cut 'ab': z against its plain version, relative
 Z_RTOL = 1e-5
 # K6 'mxu' against float32 products: |out| is up to about 60, 3xTF32 keeps
@@ -172,6 +195,27 @@ def card_info() -> str:
     return card
 
 
+def ptxas_usage(log):
+    """[(kernel, 'registers, shared memory, spills')] from nvcc -Xptxas -v
+    output, the kernels' names demangled where c++filt is at hand."""
+    usage, name, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            usage.append([name, line.split("Used", 1)[1].strip() + "; " + spills])
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in usage),
+                               capture_output=True, text=True, timeout=30).stdout.split("\n")
+        for u, n in zip(usage, names):
+            u[0] = n.replace("(anonymous namespace)::", "").split("(")[0] or u[0]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return usage
+
+
 def build_kernels():
     from fgvc_tpu_torch.ops.cuda.build import CSRC_DIR, build_all
 
@@ -180,8 +224,10 @@ def build_kernels():
     logs = build_all(names)
     dt = time.time() - t0
     for name, log in logs.items():
-        usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"built {name}.cu: " + ("; ".join(usage) if usage else "cached"))
+        usage = ptxas_usage(log)
+        print(f"built {name}.cu" + ("" if usage else ": cached"))
+        for kernel, line in usage:
+            print(f"  ptxas {kernel}: {line}")
     print(f"build time {dt:.1f} s for {len(names)} source(s)", flush=True)
 
 
@@ -225,14 +271,15 @@ def live_pairs(h, w, mask_shape, rows=None):
 def attention_bound(h, w, mask_shape, key_valid, nbytes, mode="float32", rows=None):
     """Least time for one top-k attention call on these inputs: the larger
     of the live affinity products (in-window, in-image, valid-slot pairs,
-    of the query rows `rows` where given; 2 * C flops each; 'float32' over
-    the fp32 peak, 'bfloat16' over the bf16 tensor-core peak, 'high' three
-    bf16 products each over the same) and `nbytes` (each input read once,
-    the output written once) over the HBM rate."""
+    of the query rows `rows` where given; 2 * C flops each; 'float32' three
+    TF32 products each (3xTF32) over the TF32 tensor-core peak, 'high' three
+    bf16 products each and 'bfloat16' one over the bf16 tensor-core peak)
+    and `nbytes` (each input read once, the output written once) over the
+    HBM rate."""
     flops = 2.0 * C * live_pairs(h, w, mask_shape, rows) * sum(bool(v) for v in key_valid)
-    if mode == "high":
+    if mode != "bfloat16":
         flops *= 3
-    peak = PEAK_FP32_FLOPS if mode == "float32" else PEAK_BF16_FLOPS
+    peak = PEAK_TF32_FLOPS if mode == "float32" else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
@@ -257,8 +304,9 @@ def record_key(entry, mode):
     return f"K3_{'bf16' if mode == 'bfloat16' else mode}_{entry}"
 
 
-def kernel_record(name, replaces, source="fgvc_tpu_torch/csrc/topk_attention.cu"):
-    return {
+def kernel_record(name, replaces, source="fgvc_tpu_torch/csrc/topk_attention.cu",
+                  affinity=True):
+    record = {
         "name": name,
         "route": "cuda",
         "source": source,
@@ -267,9 +315,47 @@ def kernel_record(name, replaces, source="fgvc_tpu_torch/csrc/topk_attention.cu"
         "bound_ms": None, "bound_by": None,
         "library_ms": None,  # no single PyTorch call computes this function
     }
+    if affinity:  # affinity_kernel's own device ms per launch
+        record["affinity_device_ms"] = None
+    return record
 
 
-def check_entry(label, record, kernel_fn, plain_fn, cases, h, w, mask_shape, nbytes, mode):
+def mode_limit(mode, value):
+    """The kernel-against-plain limit of a compute mode on these values."""
+    if mode == "bfloat16":
+        return BF16_TOL_REL * float(value.abs().max())
+    return KERNEL_TOL
+
+
+def check_rows(label, out, ref, limit, near_fn):
+    """Each query pixel's output (the last axis: its channels) against the
+    plain version's: rows beyond `limit` must be near-tie rows of the plain
+    affinities (near_fn(), a boolean map, asked only when some row is beyond
+    the limit) and at most NEAR_TIE_SHARE of the rows.  Returns max |diff|."""
+    d = (out - ref).abs().amax(-1)
+    beyond = d > limit
+    n_beyond, rows = int(beyond.sum()), beyond.numel()
+    far = 0
+    if n_beyond:
+        far = int((beyond & ~near_fn().to(beyond.device)).sum())
+    err = float(d.max())
+    print(f"{label}: max |kernel - plain| = {err:.3e}; {n_beyond} of {rows} rows beyond "
+          f"{limit:.3e} ({n_beyond - far} near-tie rows, {far} others; at most "
+          f"{NEAR_TIE_SHARE * rows:.0f} near-tie rows allowed)", flush=True)
+    if far or n_beyond > NEAR_TIE_SHARE * rows or not err == err:
+        raise AssertionError(f"{label}: kernel disagrees with plain version")
+    return err
+
+
+def affinity_ms(by_kernel, reps):
+    """affinity_kernel's device ms per launch from a torch.profiler table of
+    `reps` launches (None where the profiler saw no device time)."""
+    ms = [t for name, t in by_kernel.items() if "affinity_kernel" in name]
+    return sum(ms) / reps if ms else None
+
+
+def check_entry(label, record, kernel_fn, plain_fn, near_fn, cases, h, w, mask_shape, nbytes,
+                mode):
     """Kernel against plain on each case {name: (kwargs, key_valid)}; the
     first case is timed and bounded."""
     import torch
@@ -281,11 +367,8 @@ def check_entry(label, record, kernel_fn, plain_fn, cases, h, w, mask_shape, nby
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
             raise AssertionError(f"{label} {name}: non-finite output")
-        err = (out - ref).abs().max().item()
-        errs.append(err)
-        print(f"{label} {name}: max |kernel - plain| = {err:.3e} (tolerance {KERNEL_TOL})")
-        if not err <= KERNEL_TOL:
-            raise AssertionError(f"{label} {name}: kernel disagrees with plain version ({err})")
+        errs.append(check_rows(f"{label} {name}", out, ref, mode_limit(mode, kw["value"]),
+                               lambda: near_fn(**kw)))
         if i:
             continue
         del out, ref
@@ -300,13 +383,35 @@ def check_entry(label, record, kernel_fn, plain_fn, cases, h, w, mask_shape, nby
               f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP live, "
               f"{dense / 1e9:.2f} GFLOP in dense halo windows, {nbytes / 1e9:.3f} GB), "
               f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s of live work"
-              f"{' (3 bf16 products a pair)' if mode == 'high' else ''}", flush=True)
+              f"{'' if mode == 'bfloat16' else ' (3 products a pair)'}", flush=True)
         record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         reps = 5
         by_kernel, _ = device_ms_by_kernel(lambda: [kernel_fn(**kw) for _ in range(reps)])
+        record["affinity_device_ms"] = affinity_ms(by_kernel, reps)
         print(f"{label} device ms per launch by CUDA kernel (torch.profiler): " + (
             _top({n: t / reps for n, t in by_kernel.items()}) or "not measured"))
     record["max_abs_err"] = max(errs)
+
+
+def check_tie_exact(label, query, key0, mask_shape, mode):
+    """The t = 1 tie case through cut 'ab' (K5) of the unbanked entry: key
+    frame 0 in slots 0 and T - 1, both valid.  Each key ties with its copy
+    only if both slots sum its affinity bit for bit, so the counts above and
+    at the threshold are even on every row."""
+    import torch
+
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    value = torch.zeros((SLOTS, *query.shape[:2], k1.N_STATS), device=query.device)
+    stats = k1.topk_attention(query, key0.expand(SLOTS, *key0.shape[1:]).contiguous(), value,
+                              radius=RADIUS, temperature=TEMPERATURE, topk=TOPK,
+                              normalize=False, tile=TILE, mask_shape=mask_shape,
+                              key_valid=VALID["t1_tie"], compute_dtype=mode, debug_passes="ab")
+    odd = int((stats[..., 4:6] % 2 != 0).sum())
+    print(f"{label} t1_tie exact: rows with an odd count above or at the threshold: {odd} "
+          f"(must be 0)", flush=True)
+    if odd:
+        raise AssertionError(f"{label}: a frame in two slots does not tie exactly")
 
 
 def check_kernels(records):
@@ -328,9 +433,12 @@ def check_kernels(records):
         values = {"distinct": torch.from_numpy(value).cuda(),
                   "t1_tie": torch.from_numpy(np.concatenate([value[:-1], value[:1]])).cuda()}
         halo, hp, wp, rows_total, cols_total = k1.bank_geometry(h, w, RADIUS, TILE)
-        # the save_mem scan's call: pre-normalised float32 features, raw keys
-        nf = l2_normalize(feats) if "unbanked" in entries else None
+        # the save_mem scan's call, and the tie check's: pre-normalised
+        # float32 features, raw keys
+        nf = l2_normalize(feats)
         for mode in k1.COMPUTE_DTYPES:
+            check_tie_exact(f"{'TAP-Vid' if h == H else 'VOS'} '{mode}'", nf[qframe["t1_tie"]],
+                            nf[:1], entries[0], mode)
             kpad = k1.pad_key_bank(feats, RADIUS, tile=TILE, compute_dtype=mode)
             esize = kpad.element_size()  # query and bank bytes per element
             for entry in entries:
@@ -345,7 +453,8 @@ def check_kernels(records):
                     nbytes = 4.0 * (h * w * C + SLOTS * h * w * C + SLOTS * h * w * cv
                                     + h * w * cv)
                     check_entry(f"{key} square", records[key], k1.topk_attention,
-                                k1.topk_attention_plain, cases, h, w, "square", nbytes, mode)
+                                k1.topk_attention_plain, k1.near_tie_rows_plain_unbanked, cases,
+                                h, w, "square", nbytes, mode)
                     continue
                 cases = {c: (dict(qpad=kpad[qframe[c], halo:halo + hp, halo:halo + wp].contiguous(),
                                   kpad=kpad, value=values[c], frame_idx=fidx[c],
@@ -357,7 +466,8 @@ def check_kernels(records):
                 nbytes = (esize * (hp * wp * C + SLOTS * rows_total * cols_total * C)
                           + 4.0 * (SLOTS * h * w * cv + h * w * cv))
                 check_entry(key, records[key], k1.topk_attention_banked,
-                            k1.topk_attention_banked_plain, cases, h, w, entry, nbytes, mode)
+                            k1.topk_attention_banked_plain, k1.near_tie_rows_plain, cases, h, w,
+                            entry, nbytes, mode)
             del kpad
         del feats, nf, values
         torch.cuda.empty_cache()
@@ -408,18 +518,18 @@ def check_row_blocks(records):
                                              halo:halo + wp].contiguous(),
                                    kpad=tall, row0=r0, grid_rows=grid, **args) for r0 in row0s]
                     outs = [k1.topk_attention_banked(**b) for b in blocks]
-                    errs = [(o - k1.topk_attention_banked_plain(**b)).abs().max().item()
-                            for o, b in zip(outs, blocks)]
-                    gathered = torch.cat(outs)[:h]
                     torch.cuda.synchronize()
                     if not all(torch.isfinite(o).all() for o in outs):
                         raise AssertionError(f"{label}: non-finite output")
+                    limit = mode_limit(mode, args["value"])
+                    errs = [check_rows(f"{label} block row0={b['row0']}", o,
+                                       k1.topk_attention_banked_plain(**b), limit,
+                                       lambda b=b: k1.near_tie_rows_plain(**b))
+                            for o, b in zip(outs, blocks)]
+                    gathered = torch.cat(outs)[:h]
                     d = (gathered - full).abs().max().item()
-                    print(f"{label}: hb {hb}, grid {grid}; max |block - plain| "
-                          f"{max(errs):.3e} (tolerance {KERNEL_TOL}); gathered vs unsharded "
+                    print(f"{label}: hb {hb}, grid {grid}; gathered vs unsharded "
                           f"max |diff| {d:.3e} (must be 0)", flush=True)
-                    if not max(errs) <= KERNEL_TOL:
-                        raise AssertionError(f"{label}: a block disagrees with its plain version")
                     if not torch.equal(gathered, full):
                         raise AssertionError(f"{label}: gathered blocks differ from unsharded")
                     if mode == "float32":
@@ -460,6 +570,12 @@ def check_row_blocks(records):
                           f"block); scratch {4.0 * scratch / 1e9:.2f} GB per block launch",
                           flush=True)
                     record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                    reps = 5
+                    by_kernel, _ = device_ms_by_kernel(
+                        lambda: [k1.topk_attention_banked(**b) for _ in range(reps) for b in blocks])
+                    record["affinity_device_ms"] = affinity_ms(by_kernel, reps * S)
+                    print(f"{label}: affinity_kernel device ms per block launch (torch.profiler): "
+                          f"{record['affinity_device_ms']}", flush=True)
                 del tall
             del kpad
         del feats, values
@@ -970,8 +1086,13 @@ def run_sp_vos(record, card):
             raise AssertionError(f"sp vos {path} S={S}: label maps differ from the unsharded run")
 
 
-def check_cut(label, out, ref, passes):
-    """K5 cut `passes` against its plain version; returns max |diff|."""
+def check_cut(label, out, ref, passes, near_fn):
+    """K5 cut `passes` against its plain version; returns max |diff|.  Cut
+    'a': masked affinities equal bit for bit, live ones within AFF_RTOL *
+    max|a|.  Cut 'ab': on every row but near-tie rows (near_fn(), asked only
+    where a row differs; at most NEAR_TIE_SHARE of the rows) n_above and
+    cnt_at equal, thresh, mmax and frac within KERNEL_TOL, z within Z_RTOL
+    relative; the columns past the six statistics 0."""
     import torch
 
     neg = -1e30
@@ -979,25 +1100,26 @@ def check_cut(label, out, ref, passes):
         masked = ref <= neg / 2
         if not torch.equal(out <= neg / 2, masked) or not torch.equal(out[masked], ref[masked]):
             raise AssertionError(f"{label}: masked affinities differ from the plain version")
-        # at the tool's shapes every emitted column is masked (window row 0
-        # lies outside the radius-15 circle), so `live` may be empty
         live = (out[~masked] - ref[~masked]).abs()
         err = live.max().item() if live.numel() else 0.0
-        ok = err <= KERNEL_TOL
-    else:
-        n = min(out.shape[-1], 6)
-        d = (out - ref).abs()
-        err = d.max().item()
-        close = d[..., [0, 1, 3]].max().item() <= KERNEL_TOL  # thresh, mmax, frac
-        z_ok = (d[..., 2] <= Z_RTOL * ref[..., 2].abs()).all().item()
-        counts = torch.equal(out[..., 4:n], ref[..., 4:n])  # n_above, cnt_at
-        zeros = not out[..., n:].any().item()
-        ok = close and z_ok and counts and zeros
-    rule = ("masked entries equal" if passes == "a" else
-            f"counts equal, z within {Z_RTOL} relative")
-    print(f"{label}: max |kernel - plain| = {err:.3e} ({rule}, the rest within {KERNEL_TOL})",
-          flush=True)
-    if not ok:
+        limit = AFF_RTOL * (ref[~masked].abs().max().item() if live.numel() else 0.0)
+        print(f"{label}: {live.numel()} live and {int(masked.sum())} masked columns; masked "
+              f"equal; live max |kernel - plain| = {err:.3e} (limit {limit:.3e})", flush=True)
+        if not err <= limit:
+            raise AssertionError(f"{label}: live affinities disagree with the plain version")
+        return err
+    n = min(out.shape[-1], 6)
+    d = (out - ref).abs()
+    bad = (d[..., [0, 1, 3]] > KERNEL_TOL).any(-1)  # thresh, mmax, frac
+    bad |= d[..., 2] > Z_RTOL * ref[..., 2].abs()
+    bad |= (out[..., 4:n] != ref[..., 4:n]).any(-1)  # n_above, cnt_at
+    n_bad, rows = int(bad.sum()), bad.numel()
+    far = int((bad & ~near_fn().to(bad.device)).sum()) if n_bad else 0
+    err = d.max().item()
+    print(f"{label}: max |kernel - plain| = {err:.3e}; {n_bad} of {rows} rows differ beyond "
+          f"counts equal, z within {Z_RTOL} relative, the rest within {KERNEL_TOL} "
+          f"({n_bad - far} near-tie rows, {far} others)", flush=True)
+    if far or n_bad > NEAR_TIE_SHARE * rows or out[..., n:].any().item():
         raise AssertionError(f"{label}: kernel disagrees with plain version")
     return err
 
@@ -1030,7 +1152,9 @@ def run_passes(records):
             print(f"passes '{mode}' cut '{cut}' device ms by CUDA kernel (torch.profiler): "
                   + (_top(kernels) or "not measured"), flush=True)
         for cut in ("a", "ab"):
-            records[f"K5_{cut}_{_TAG[mode]}"].update(launches=n, ms=split[mode][cut])
+            records[f"K5_{cut}_{_TAG[mode]}"].update(
+                launches=n, ms=split[mode][cut],
+                affinity_device_ms=affinity_ms(res["device_ms_by_kernel"][mode][cut], 1))
     print("per-pass split (ms per call; A = t('a'), B = t('ab') - t('a'), C = t('abc') - t('ab')): "
           + json.dumps(split), flush=True)
 
@@ -1049,13 +1173,26 @@ def run_passes(records):
             out = pb.call(inputs, mode, cut)
             ref = k1.topk_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
-            err = check_cut(label, out, ref, cut)
+            near_kw = {x: y for x, y in kw.items() if x != "debug_passes"}
+            err = check_cut(label, out, ref, cut,
+                            lambda: k1.near_tie_rows_plain_unbanked(q, k, v, stats=True,
+                                                                    **near_kw))
             del out, ref
             plain_ms = events_ms(lambda: k1.topk_attention_plain(q, k, v, **kw), 3)
             print(f"{label}: kernel {record['ms']:.3f} ms, plain {plain_ms:.3f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP live)", flush=True)
             record.update(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by)
+        # cut 'a' at every column of slot 0's window, live ones included
+        full = torch.zeros((v.shape[0], h, w, FULL_WINDOW_CV), device=v.device)
+        kw = dict(radius=pb.RADIUS, temperature=pb.TEMPERATURE, topk=pb.TOPK, tile=pb.TILE,
+                  compute_dtype=mode, debug_passes="a")
+        err = check_cut(f"K5 cut 'a' '{mode}' Cv={FULL_WINDOW_CV}",
+                        k1.topk_attention(q, k, full, **kw),
+                        k1.topk_attention_plain(q, k, full, **kw), "a", None)
+        record = records[f"K5_a_{_TAG[mode]}"]
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        del full
     del inputs, q, k, v
     torch.cuda.empty_cache()
 
@@ -1196,7 +1333,7 @@ def main():
     for kind in ("mxu", "vpu", "mixed"):
         records[f"K6_{kind}"] = kernel_record(
             f"K6 mxu_vpu_overlap '{kind}'", "tools/bench/mxu_vpu_overlap.py:31",
-            source="fgvc_tpu_torch/csrc/mxu_vpu_overlap.cu")
+            source="fgvc_tpu_torch/csrc/mxu_vpu_overlap.cu", affinity=False)
     t_start = time.time()
     phase("card")
     print(card_info(), flush=True)  # name, power limit

@@ -1,6 +1,7 @@
 """Per-pass timing of the port's top-k attention kernel at TAP-Vid shapes.
 
     python -m fgvc_tpu_torch.bench.pass_breakdown [--reps N] [--device cuda|cpu] [--size N]
+                                                  [--channels N]
 
 Counterpart of tools/bench/pass_breakdown.py: the same seeded inputs (numpy
 default_rng(0): q (128, 128, 256), k (6, 128, 128, 256), v (6, 128, 128, 32)
@@ -28,7 +29,7 @@ padding, which falls in A; cut 'a' adds a small emit kernel, and cut 'ab'
 stops select_kernel before the rescan.
 
 With --device cpu the plain PyTorch versions run at --size x --size query
-pixels (host clock; no device numbers).
+pixels and --channels feature channels (host clock; no device numbers).
 """
 
 from __future__ import annotations
@@ -53,10 +54,11 @@ SIZE, C, T, CV = 128, 256, 6, 32
 RADIUS, TEMPERATURE, TOPK, TILE = 15.0, 0.07, 10, 16
 
 
-def make_inputs(size: int = SIZE, device="cuda"):
-    """The JAX tool's inputs (at --size x --size where smaller)."""
+def make_inputs(size: int = SIZE, device="cuda", channels: int = C):
+    """The JAX tool's inputs (at --size x --size and --channels where
+    smaller)."""
     rng = np.random.default_rng(0)
-    shapes = ((size, size, C), (T, size, size, C), (T, size, size, CV))
+    shapes = ((size, size, channels), (T, size, size, channels), (T, size, size, CV))
     return tuple(torch.from_numpy(np.asarray(rng.standard_normal(s), np.float32)).to(device)
                  for s in shapes)
 
@@ -103,21 +105,22 @@ def kernel_ms(inputs, modes: Iterable[str] = tuple(COMPUTE_DTYPES)) -> Dict[str,
 
 
 def run(device="cuda", size: int = SIZE, reps: int = 20,
-        modes: Iterable[str] = tuple(COMPUTE_DTYPES)) -> Dict:
+        modes: Iterable[str] = tuple(COMPUTE_DTYPES), channels: int = C) -> Dict:
     """Times, per-kernel device ms (on a card) and the card, as one dict."""
     dev = resolve_device(device)
     modes = tuple(modes)
     card = card_info() if dev.type == "cuda" else None
-    print(f"pass_breakdown on {card or 'the CPU (plain versions)'}: {size}x{size}x{C}, "
+    print(f"pass_breakdown on {card or 'the CPU (plain versions)'}: {size}x{size}x{channels}, "
           f"T={T}, Cv={CV}, radius {RADIUS:g}, top-{TOPK}, tile {TILE}, median of {reps}",
           flush=True)
-    inputs = make_inputs(size, dev)
+    inputs = make_inputs(size, dev, channels)
     with torch.no_grad():
         ms = breakdown(inputs, modes, reps)
         by_kernel = kernel_ms(inputs, modes) if dev.type == "cuda" else None
     return {"tool": "pass_breakdown", "device": str(dev), "card": card,
             "clock": "cuda events" if dev.type == "cuda" else "host",
-            "size": size, "reps": reps, "ms": ms, "device_ms_by_kernel": by_kernel}
+            "size": size, "channels": channels, "reps": reps, "ms": ms,
+            "device_ms_by_kernel": by_kernel}
 
 
 def main(argv=None):
@@ -126,8 +129,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--size", type=int, default=SIZE,
                     help="query pixels per side (the JAX tool's 128 by default)")
+    ap.add_argument("--channels", type=int, default=C,
+                    help="feature channels (the JAX tool's 256 by default; a multiple of 16)")
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.device, args.size, args.reps)))
+    print(json.dumps(run(args.device, args.size, args.reps, channels=args.channels)))
 
 
 if __name__ == "__main__":

@@ -28,15 +28,20 @@
 //     + big.small + big.big, f32 accumulation), which stands in for the
 //     TPU's HIGHEST f32 matrix unit (a product of f32 operands to about
 //     2^-21 relative).  The block's 16 query rows sit in shared memory,
-//     split once, in fragment order; the key rows stream from device memory
-//     (the L2 holds all 14.2 MB of k) as float4s into registers, one block
-//     of 32 channels ahead of the products, each read once by each block.
-//     Warp w owns column groups w, w + 4, ... of 32 columns (4 n-tiles);
-//     group w < 4 covers the first 128 columns, so warp w keeps those
-//     columns' sum in registers.
+//     split once, in fragment order.  The key rows stream from device memory
+//     (the L2 holds all 14.2 MB of k) by cp.async into a ring of four
+//     shared-memory stages of 32 key rows x 32 channels per warp, three
+//     stages in flight, read into fragments (two float4s a lane and stage)
+//     from rows padded to 48 words (no bank conflicts).  Each key element feeds one warp's products once
+//     (the block has one m16 tile of queries), so it is split once, into big
+//     and small, as its fragment is read: a split buffer in shared memory
+//     would only add traffic.  Each block reads k once.  Warp w owns column
+//     groups w, w + 4, ... of 32 columns (4 n-tiles); group w < 4 covers the
+//     first 128 columns, so warp w keeps those columns' sum in registers.
+//     A warp synchronises with __syncwarp only.
 //   * 4 SIMT warps: the count/max rounds, 4 rows per warp interleaved,
 //     float4 loads, warp-shuffle reductions.  The scratch lives in device
-//     memory (L2): shared memory holds only the query tiles.
+//     memory (L2).
 // mxu runs only the tensor-core warps, vpu only the SIMT warps (the
 // tensor-core warps idle), mixed both: after frame 0 (and a block barrier
 // that makes its block visible) the tensor-core warps run frames 1..5 while
@@ -72,17 +77,30 @@ constexpr float NEG = -1e30f;
 constexpr int BM = 16;               // rows per block
 constexpr int MMA_WARPS = 4, SIMT_WARPS = 4;
 constexpr int THREADS = 32 * (MMA_WARPS + SIMT_WARPS);
-constexpr int NT = 4;                // n-tiles of 8 columns per column group
-constexpr int GROUPS = FK / (8 * NT);
+constexpr int NT = 4;                // n-tiles of 8 columns per warp and stage
 constexpr int ROWS = BM / SIMT_WARPS;
 constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int KIND_MXU = 0, KIND_VPU = 1, KIND_MIXED = 2;
 
-static_assert(FK % (8 * NT) == 0 && GROUPS >= MMA_WARPS, "column groups");
 static_assert(MMA_WARPS * NT * 8 == OUTW, "warp w < 4 owns output columns");
 static_assert(FK % 128 == 0, "float4 rounds cover whole rows");
 static_assert(C % 32 == 0, "products take the channels 32 at a time");
+
+// The key stream of a tensor-core warp: stages of KT key rows (its 32-column
+// group) x KB channels, a ring of KSTAGES per warp filled by cp.async.  Each
+// key element feeds one warp's products once, so it is split once, as its
+// fragment is read.
+constexpr int KT = NT * 8;              // key rows (output columns) of a stage
+constexpr int KB = 32;                  // channels of a stage
+constexpr int LDK = KB + 16;            // row stride in words: a quarter warp's
+                                        // float4 reads (2 rows) hit 32 banks
+constexpr int KSTAGES = 4;
+constexpr int KSTAGE_WORDS = KT * LDK;
+constexpr int GROUPS = FK / KT, NCB = C / KB;
+constexpr int PRODUCT_SMEM = 4 * MMA_WARPS * KSTAGES * KSTAGE_WORDS;
+static_assert(FK % KT == 0 && C % KB == 0 && GROUPS % MMA_WARPS == 0, "stages cover the keys");
+static_assert(MMA_WARPS * KT == OUTW, "group w < 4 owns output columns 32 w ..");
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -105,81 +123,107 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 // Frame t's product for the block's rows: this warp's column groups of
 // q . k_t^T in 3xTF32, stored into the scratch (srows: the block's first
 // row); the first group (columns 32 * warp ..) is added to acc.
 //
-// The channels are taken 32 at a time, and within a block of 32 the m16n8k8
-// step s (0..3) pairs its k index tig with channel 4 * tig + s and tig + 4
-// with channel 16 + 4 * tig + s (tig = lane % 4), for the query fragment and
-// the key fragment alike: a dot product over the same channels in another
-// order.  So each thread loads a key row's channels 4 * tig .. + 3 and 16 + 4
-// * tig .. + 3 of a block as two float4s, one block ahead of the products
-// (registers Xn, Yn), and reads its query fragment of a step as one 16-byte
-// word of Abig and one of Asmall (laid out per step and lane by the block's
-// prologue).
+// Warp w owns column groups w, w + 4, ... of KT = 32 columns; it streams
+// their key rows in stages of KB = 32 channels (stage st: group w + 4 (st /
+// NCB), channel block st % NCB) through its own ring in shared memory
+// (wring), KSTAGES - 1 stages in flight while one is multiplied, and
+// synchronises with __syncwarp only.  A key element is read into a fragment
+// once and split there.  The block's 16 query rows come split, per m16n8k8
+// step and lane.  Within a stage of 32 channels the k8 step s (0..3) pairs
+// its k index tig with channel 4 tig + s and tig + 4 with 16 + 4 tig + s
+// (tig = lane % 4), for the query fragment and the key fragment alike: a dot
+// product over the same channels in another order.  So a lane reads its key
+// row's channels 4 tig .. + 3 and 16 + 4 tig .. + 3 of a stage as two
+// float4s, its fragments of all four steps.
 __device__ __forceinline__ void product_frame(const uint4* Abig, const uint4* Asmall,
-                                              const float* kt, float* srows, int t,
-                                              float (&acc)[NT][4], int warp, int lane) {
+                                              uint32_t* wring, const float* kt, float* srows,
+                                              int t, float (&acc)[NT][4], int warp, int lane) {
   const int gid = lane >> 2, tig = lane & 3;
-  for (int g = warp; g < GROUPS; g += MMA_WARPS) {
-    float d[NT][4];
+  constexpr int NST = GROUPS / MMA_WARPS * NCB;
+  constexpr int PARTS = KB / 4;  // 16-byte pieces of a staged row
+  auto load = [&](int st) {
+    uint32_t* dst = wring + (st % KSTAGES) * KSTAGE_WORDS;
+    const int g = warp + MMA_WARPS * (st / NCB);
+    const float* src = kt + (size_t)g * KT * C + (st % NCB) * KB + (lane % PARTS) * 4;
 #pragma unroll
-    for (int i = 0; i < NT; ++i)
+    for (int j = 0; j < KT * PARTS / 32; ++j) {
+      const int row = lane / PARTS + (32 / PARTS) * j;
+      cp_async16(dst + row * LDK + (lane % PARTS) * 4, src + (size_t)row * C);
+    }
+  };
+  __syncwarp();  // the previous frame's reads of the ring are done
 #pragma unroll
-      for (int j = 0; j < 4; ++j) d[i][j] = 0.f;
-    const float* krow[NT];
+  for (int st = 0; st < KSTAGES - 1; ++st) {
+    load(st);
+    cp_async_commit();
+  }
+  float d[NT][4];
+#pragma unroll 1
+  for (int st = 0; st < NST; ++st) {
+    cp_async_wait<KSTAGES - 2>();
+    __syncwarp();  // stage st landed; the slot of stage st - 1 is free
+    if (st + KSTAGES - 1 < NST) load(st + KSTAGES - 1);
+    cp_async_commit();
+    const float* X = reinterpret_cast<const float*>(wring + (st % KSTAGES) * KSTAGE_WORDS);
+    const int cb = st % NCB, g = warp + MMA_WARPS * (st / NCB);
+    if (cb == 0) {
 #pragma unroll
-    for (int i = 0; i < NT; ++i) krow[i] = kt + (size_t)((g * NT + i) * 8 + gid) * C + 4 * tig;
-    float4 X[NT], Y[NT];
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) d[i][j] = 0.f;
+    }
+    float4 x4[NT], y4[NT];  // this lane's key fragments of the stage
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
-      X[i] = *reinterpret_cast<const float4*>(krow[i]);
-      Y[i] = *reinterpret_cast<const float4*>(krow[i] + 16);
+      const float* r = X + (i * 8 + gid) * LDK + 4 * tig;
+      x4[i] = *reinterpret_cast<const float4*>(r);
+      y4[i] = *reinterpret_cast<const float4*>(r + 16);
     }
-#pragma unroll 1
-    for (int cb = 0; cb < C / 32; ++cb) {
-      float4 Xn[NT], Yn[NT];
-      if (cb + 1 < C / 32) {
 #pragma unroll
-        for (int i = 0; i < NT; ++i) {
-          Xn[i] = *reinterpret_cast<const float4*>(krow[i] + 32 * (cb + 1));
-          Yn[i] = *reinterpret_cast<const float4*>(krow[i] + 32 * (cb + 1) + 16);
-        }
-      }
-#pragma unroll
-      for (int s4 = 0; s4 < 4; ++s4) {
-        const uint4 ab4 = Abig[(cb * 4 + s4) * 32 + lane];
-        const uint4 as4 = Asmall[(cb * 4 + s4) * 32 + lane];
-        const uint32_t ab[4] = {ab4.x, ab4.y, ab4.z, ab4.w};
-        const uint32_t as[4] = {as4.x, as4.y, as4.z, as4.w};
-#pragma unroll
-        for (int i = 0; i < NT; ++i) {
-          const float x[4] = {X[i].x, X[i].y, X[i].z, X[i].w};
-          const float y[4] = {Y[i].x, Y[i].y, Y[i].z, Y[i].w};
-          uint32_t bb[2], bs[2];
-          split(x[s4], bb[0], bs[0]);
-          split(y[s4], bb[1], bs[1]);
-          mma(d[i], as, bb);
-          mma(d[i], ab, bs);
-          mma(d[i], ab, bb);
-        }
-      }
+    for (int s4 = 0; s4 < KB / 8; ++s4) {
+      const uint4 ab4 = Abig[(cb * (KB / 8) + s4) * 32 + lane];
+      const uint4 as4 = Asmall[(cb * (KB / 8) + s4) * 32 + lane];
+      const uint32_t ab[4] = {ab4.x, ab4.y, ab4.z, ab4.w};
+      const uint32_t as[4] = {as4.x, as4.y, as4.z, as4.w};
 #pragma unroll
       for (int i = 0; i < NT; ++i) {
-        X[i] = Xn[i];
-        Y[i] = Yn[i];
+        const float x[4] = {x4[i].x, x4[i].y, x4[i].z, x4[i].w};
+        const float y[4] = {y4[i].x, y4[i].y, y4[i].z, y4[i].w};
+        uint32_t bb[2], bs[2];
+        split(x[s4], bb[0], bs[0]);
+        split(y[s4], bb[1], bs[1]);
+        mma(d[i], as, bb);
+        mma(d[i], ab, bs);
+        mma(d[i], ab, bb);
       }
     }
+    if (cb == NCB - 1) {
 #pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const int col = t * FK + (g * NT + i) * 8 + tig * 2;
-      *reinterpret_cast<float2*>(srows + (size_t)gid * LDS + col) = make_float2(d[i][0], d[i][1]);
-      *reinterpret_cast<float2*>(srows + (size_t)(gid + 8) * LDS + col) =
-          make_float2(d[i][2], d[i][3]);
-      if (g == warp) {
+      for (int i = 0; i < NT; ++i) {
+        const int col = t * FK + g * KT + i * 8 + tig * 2;
+        *reinterpret_cast<float2*>(srows + (size_t)gid * LDS + col) = make_float2(d[i][0], d[i][1]);
+        *reinterpret_cast<float2*>(srows + (size_t)(gid + 8) * LDS + col) =
+            make_float2(d[i][2], d[i][3]);
+        if (g == warp) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += d[i][j];
+          for (int j = 0; j < 4; ++j) acc[i][j] += d[i][j];
+        }
       }
     }
   }
@@ -226,6 +270,7 @@ template <int KIND>
 __global__ void __launch_bounds__(THREADS)
 overlap_kernel(const float* __restrict__ q, const float* __restrict__ k,
                float* __restrict__ out, float* scratch) {
+  extern __shared__ __align__(16) uint32_t ring[];  // the warps' key rings (mxu, mixed)
   // the block's query rows split into tf32 halves, in fragment order: per
   // m16n8k8 step (C / 8 of them) and lane, the 4 words a0..a3
   __shared__ uint4 Abig[C / 8 * 32];
@@ -267,12 +312,13 @@ overlap_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const bool tc = warp < MMA_WARPS;
   const int sw = warp - MMA_WARPS;  // SIMT warp index
 
-  if (KIND != KIND_VPU && tc) product_frame(Abig, Asmall, k, srows, 0, acc, warp, lane);
+  if (KIND != KIND_VPU && tc) product_frame(Abig, Asmall, ring + warp * KSTAGES * KSTAGE_WORDS, k, srows, 0, acc, warp, lane);
   if (KIND == KIND_MIXED) __syncthreads();  // frame 0's block is in the scratch
   if (tc) {
     if (KIND != KIND_VPU)
       for (int t = 1; t < T; ++t)
-        product_frame(Abig, Asmall, k + (size_t)t * FK * C, srows, t, acc, warp, lane);
+        product_frame(Abig, Asmall, ring + warp * KSTAGES * KSTAGE_WORDS, k + (size_t)t * FK * C, srows, t,
+                        acc, warp, lane);
   } else if (KIND != KIND_MXU) {
     float prev[ROWS], tot[ROWS];
 #pragma unroll
@@ -312,14 +358,22 @@ overlap_kernel(const float* __restrict__ q, const float* __restrict__ k,
 extern "C" int fgvc_mxu_vpu_overlap(int kind, const float* q, const float* k, float* out,
                                     float* scratch, cudaStream_t stream) {
   const dim3 grid(S / BM);
+  cudaError_t err = cudaSuccess;
   if (kind == KIND_MXU) {
-    overlap_kernel<KIND_MXU><<<grid, THREADS, 0, stream>>>(q, k, out, scratch);
+    err = cudaFuncSetAttribute(overlap_kernel<KIND_MXU>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, PRODUCT_SMEM);
+    if (err == cudaSuccess)
+      overlap_kernel<KIND_MXU><<<grid, THREADS, PRODUCT_SMEM, stream>>>(q, k, out, scratch);
   } else if (kind == KIND_VPU) {
     overlap_kernel<KIND_VPU><<<grid, THREADS, 0, stream>>>(q, k, out, scratch);
   } else if (kind == KIND_MIXED) {
-    overlap_kernel<KIND_MIXED><<<grid, THREADS, 0, stream>>>(q, k, out, scratch);
+    err = cudaFuncSetAttribute(overlap_kernel<KIND_MIXED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, PRODUCT_SMEM);
+    if (err == cudaSuccess)
+      overlap_kernel<KIND_MIXED><<<grid, THREADS, PRODUCT_SMEM, stream>>>(q, k, out, scratch);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

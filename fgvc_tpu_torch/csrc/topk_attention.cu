@@ -37,27 +37,32 @@
 //
 // K3 is the kernel's compute mode (`compute_dtype` of the Pallas kernel, a
 // template parameter here, one extern "C" entry per mode):
-//   'float32'   (fgvc_topk_attention_f32) f32 query, bank and values, f32
-//               products: the Pallas Precision.HIGHEST matmuls.
+//   'float32'   (fgvc_topk_attention_f32) f32 query, bank and values; q.k as
+//               3xTF32 on the tensor cores (x = big + small, both tf32,
+//               q.k = small.big + big.small + big.big in f32, about 2^-21 of
+//               each product kept), the card's counterpart of the Pallas
+//               Precision.HIGHEST matmul; the value mix in f32 FMAs.
 //   'high'      (fgvc_topk_attention_high) f32 operands, each split as
 //               x = hi + lo with hi = bf16(x), lo = bf16(x - hi), both rounded
 //               to nearest even; q.k = sum hi.hi + hi.lo + lo.hi (no lo.lo),
 //               and the value mix sum w_hi.v_hi + w_hi.v_lo + w_lo.v_hi: the
 //               Pallas manual bf16x3 (_make_kernel :114-121, :192-199,
-//               :366-391).  Three products per channel instead of one.
+//               :366-391).  Three bf16 tensor-core products instead of one.
 //   'bfloat16'  (fgvc_topk_attention_bf16) the query and the bank are bf16
 //               (normalised in f32, then rounded by the wrapper); q.k sums
-//               bf16 x bf16 products in f32, and the value mix sums bf16(w) x
-//               bf16(v) in f32, with w computed in f32 and the values handed
-//               over in f32 and rounded here (:201-214, :353-365, :611-614).
+//               bf16 x bf16 products in f32 on the tensor cores, and the value
+//               mix sums bf16(w) x bf16(v) in f32, with w computed in f32 and
+//               the values handed over in f32 and rounded here (:201-214,
+//               :353-365, :611-614).
 // A product of two bf16 values is exact in f32, so in 'high' and 'bfloat16'
-// only the order of the f32 sums can differ from another implementation;
-// this kernel sums each (query, key) pair's products channel by channel from
-// 0 (hi.hi, hi.lo, lo.hi within a channel), which the plain PyTorch version
-// of those modes repeats, so the two give the same affinities bit for bit:
-// the same top-k members near a tie, and in 'bfloat16' the same bf16
-// rounding of each weight w (one f32 ulp could flip it). Masks, the top-k
-// statistics and the tie split are the same in every mode.
+// only the order of the f32 sums differs from another implementation; the
+// tensor cores' order cannot be repeated in PyTorch, so the plain versions
+// agree with this kernel to rounding, and a row whose k-th largest affinity
+// lies within rounding of the next may select another member.  Within the
+// kernel each (query, key) pair is summed by one instruction sequence
+// wherever it lies, so a frame in two slots ties exactly and row blocks (K4)
+// equal the unsharded result bit for bit.  Masks, the top-k statistics and
+// the tie split are the same in every mode.
 //
 // What it computes, for every query pixel of a (Hp, Wp) grid cut into
 // tile x tile query tiles:
@@ -83,12 +88,10 @@
 // features, 5.46 GB for 240 x 440 DAVIS VOS features; a K4 row block's
 // covers its own tiles only, 2.91 GB for half of the VOS rows), then runs
 // one warp per query row over it:
-//   1. affinity_kernel: a tiled f32 SIMT matrix product (64 queries x 64 keys
-//      per block, 4 x 4 outputs per thread, channels staged through shared
-//      memory in chunks of 16), with the masks computed from coordinates in
-//      the epilogue.  Every (query, key) dot product is summed in the same
-//      order wherever it is computed, so a key frame that sits in two slots
-//      gives bit-identical affinities: exact ties, as on the TPU.
+//   1. affinity_kernel: a tensor-core product (mma.sync, 128 queries x 128
+//      keys per block, operands staged by cp.async and split once in shared
+//      memory; see the kernel), with the masks computed from coordinates in
+//      the epilogue and all-masked fragments not multiplied.
 //   2. select_kernel: each lane keeps the exact top distinct values of its
 //      strided share of the row with their counts (enough entries to reach k
 //      elements); the warp merges the 32 lists by distinct-value rounds,
@@ -97,25 +100,19 @@
 //      the warp rescans its row for the keys at or above the threshold and
 //      gathers their value vectors, one channel per lane.
 //
-// What bounds it on an H100: the affinity product.  At the TAP-Vid shapes
-// (128 x 128 queries, T = 6, radius 15, circle, C = 256) the live
-// (in-window, in-image, valid-slot) pairs need 31.69 GFLOP per call; the
-// dense halo windows computed here are 106.5 GFLOP, against 67 TFLOP/s of
-// fp32 outside the tensor cores.  The scratch round trip moves 2.5 GB
-// (written once, read twice).  At the DAVIS VOS shapes (240 x 440 queries,
-// square) the live pairs need 296 GFLOP and the dense windows 699 GFLOP.
-// Tensor cores (3xTF32), skipping the dead window corners and keeping the
-// affinities on chip are later work.
-//
-// K3's bounds: 'bfloat16' is the same live work at 989 TFLOP/s of bf16 tensor
-// cores with the query and the bank at 2 bytes an element (0.032 ms at the
-// TAP-Vid shapes, 0.300 ms at the VOS shapes); 'high' is three times the
-// products at that rate (0.096 and 0.899 ms).  This first K3 runs its
-// products as SIMT FMAs on bf16-rounded operands, so it is bound by the same
-// f32 SIMT rate as 'float32': 'high' does three times the affinity work of
-// 'float32', 'bfloat16' the same work from half the bytes.  mma.sync or wgmma
-// with bf16 operands is later work; it must keep one summation order per
-// (query, key) pair for the tie case.
+// What bounds it on an H100.  At the TAP-Vid shapes (128 x 128 queries, T =
+// 6, radius 15, circle, C = 256) the live (in-window, in-image, valid-slot)
+// pairs need 31.69 GFLOP per call and the dense halo windows 106.50 GFLOP; at
+// the DAVIS VOS shapes (240 x 440 queries, square) 296.39 and 698.92 GFLOP.
+// affinity_kernel multiplies the windows' fragments that hold a live pair,
+// so its floor is the dense product at the mode's tensor-core rate (989
+// TFLOP/s bf16, 495 TF32, published peaks at 700 W): TAP-Vid 'bfloat16'
+// 0.108 ms, 'high' (three products) 0.323 ms, 'float32' (3xTF32) 0.645 ms;
+// VOS 0.707, 2.12 and 4.24 ms; and the scratch write beside it, 832 MB in
+// 0.248 ms (TAP-Vid), 5.46 GB in 1.63 ms (VOS) at 3.35 TB/s.  select_kernel
+// reads the scratch twice (1.66 GB, 0.50 ms at TAP-Vid shapes) and is
+// latency bound: one warp's serial list inserts per query row.  Keeping the
+// affinities on chip is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,9 +124,6 @@
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr int BM = 64;   // queries per affinity block
-constexpr int BN = 64;   // keys per affinity block
-constexpr int BK = 16;   // channels per shared-memory stage
 constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -151,19 +145,6 @@ struct Operand<MODE_BF16> {
 // bf16(x) back in f32, rounded to nearest even (jnp's astype(bfloat16))
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// four consecutive channels of an operand row as f32 (zeros where !ok)
-__device__ __forceinline__ float4 load4(const float* row, int c, bool ok) {
-  return ok ? *reinterpret_cast<const float4*>(row + c)
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* row, int c, bool ok) {
-  if (!ok) return make_float4(0.f, 0.f, 0.f, 0.f);
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(row + c);
-  const float2 a = __bfloat1622float2(p[0]);
-  const float2 b = __bfloat1622float2(p[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // one weighted value added to an accumulator in the mode's arithmetic
@@ -202,20 +183,187 @@ struct TopkAttnParams {
   float frame_bias[FGVC_MAX_T];  // 0 for a valid slot, NEG otherwise
 };
 
+// The affinity product on the tensor cores (pass A).  One block computes the
+// masked affinities of ABM = 128 queries of one query tile against ABN = 128
+// keys (flat window columns f = wi * win + wj) of one key slot: 8 warps, each
+// a 64 x 32 tile of 4 x 4 mma.sync fragments.  The channels stream through a
+// ring of NSTAGE shared-memory stages filled by cp.async (16 bytes a copy),
+// each holding KW words of every query and key row (Tiling below), with the
+// stages after the current one in flight.  In 'float32' and 'high' each
+// staged element is split once, one stage ahead of its products, into one
+// of two split buffers that the fragments read, so a stage's split overlaps
+// the previous stage's products and the block meets one barrier a stage:
+//   'float32'  3xTF32: big = tf32(x), small = tf32(x - big) (cvt.rna), and
+//              q.k += small.big, big.small, big.big per m16n8k8 step;
+//   'high'     bf16x3: hi = bf16(x), lo = bf16(x - hi), and q.k += lo.hi,
+//              hi.lo, hi.hi per m16n8k16 step (each product exact in f32);
+//   'bfloat16' the bf16 operands as staged, one m16n8k16 product per step.
+// Each output element is one accumulator register of one warp, summed over
+// the channel steps from channel 0 in the same order with the same fragment
+// role wherever its (query, key) pair lies: in every slot, tile, block and
+// row block alike.  A fragment whose 16 x 8 pairs are all masked (outside
+// the radius window or the image, or an invalid slot) is not multiplied: its
+// entries are NEG-biased, and NEG swallows any product, so the values
+// written are the same bit for bit.  The block's output tile goes through
+// shared memory and out in rows of 512 contiguous bytes.
+namespace {
+
+constexpr int ABM = 128;              // queries per affinity block
+constexpr int ABN = 128;              // keys per affinity block
+constexpr int AROWS = ABM + ABN;      // staged rows: queries, then keys
+constexpr int NSTAGE = 3;
+constexpr int LDO = ABN + 4;          // row stride of the output tile
+constexpr int WM = 64, WN = 32;       // warp tile
+constexpr int MI = WM / 16, NI = WN / 8;
+
+// A mode's stages: KW words of each row per stage (f32: 8 channels, one k8
+// step; 'high': 16 channels, split into 8 words of bf16 hi and of lo, one k16
+// step; bf16: 32 channels, two k16 steps).  Rows that fragments read are
+// padded by 4 words, so that a fragment read (8 rows x 4 words) hits 32
+// banks: the bf16 stages and the split buffers (8 words a row); the raw
+// stages of the split modes are read row by row and are not padded.
 template <int MODE>
-__global__ void __launch_bounds__(THREADS)
+struct Tiling {
+  static constexpr bool SPLIT = MODE != MODE_BF16;
+  static constexpr int KW = MODE == MODE_F32 ? 8 : 16;
+  static constexpr int LDR = SPLIT ? KW : KW + 4;  // raw row stride (words)
+  static constexpr int CH = MODE == MODE_BF16 ? 2 * KW : KW;  // channels a stage
+  static constexpr int LDS = 12;                   // split row stride (words)
+  static constexpr int RAW_WORDS = AROWS * LDR;    // one ring stage
+  static constexpr int HALF_WORDS = AROWS * LDS;   // big (hi) or small (lo)
+  static constexpr int OPERAND_WORDS = NSTAGE * RAW_WORDS + (SPLIT ? 4 * HALF_WORDS : 0);
+  static constexpr int SMEM_BYTES =
+      4 * (OPERAND_WORDS > ABM * LDO ? OPERAND_WORDS : ABM * LDO);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory, zeros where !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_k, float hi_k) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo_k)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi_k)) << 16);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The fragments of one step at word w0 of rows of stride LD: the m16 A
+// fragment of rows m0.. (words w0 + tig and w0 + tig + 4 of rows gid and
+// gid + 8) and the n8 B fragment of rows n0.. (words w0 + tig, w0 + tig + 4
+// of row gid).  The same words serve m16n8k8 tf32 (one channel a word) and
+// m16n8k16 bf16 (two).
+template <int LD>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const uint32_t* X, int m0, int w0,
+                                       int gid, int tig) {
+  const uint32_t* r0 = X + (m0 + gid) * LD + w0 + tig;
+  const uint32_t* r8 = r0 + 8 * LD;
+  a[0] = r0[0];
+  a[1] = r8[0];
+  a[2] = r0[4];
+  a[3] = r8[4];
+}
+template <int LD>
+__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const uint32_t* X, int n0, int w0,
+                                       int gid, int tig) {
+  const uint32_t* r = X + (n0 + gid) * LD + w0 + tig;
+  b[0] = r[0];
+  b[1] = r[4];
+}
+
+// The Pallas kernel's masks of one (query, key) pair, in the same float
+// arithmetic: 0, NEG or 2 NEG (strict circle or inclusive square, then the
+// image-border strip).  qrow = (qi + halo, qj + halo) of the query; kcol =
+// (wi, wj, key inside the image) of the key.
+__device__ __forceinline__ float pair_bias(const TopkAttnParams& p, int2 qrow, int4 kcol) {
+  const float dy = (float)(kcol.x - qrow.x);
+  const float dx = (float)(kcol.y - qrow.y);
+  const bool in_range = p.square ? (fabsf(dy) <= p.radius && fabsf(dx) <= p.radius)
+                                 : __fadd_rn(__fmul_rn(dy, dy), __fmul_rn(dx, dx)) < p.rr;
+  return __fadd_rn(in_range ? 0.f : NEG, kcol.z ? 0.f : NEG);
+}
+
+// Split one raw stage (AROWS rows of KW f32 words) into the big / small
+// ('float32') or hi / lo ('high') halves at `half` and `half + HALF_WORDS`.
+template <int MODE>
+__device__ __forceinline__ void split_stage(const uint32_t* raw, uint32_t* half, int tid) {
+  using TL = Tiling<MODE>;
+#pragma unroll
+  for (int n = 0; n < AROWS * TL::KW / 4 / THREADS; ++n) {
+    const int i = tid + THREADS * n;
+    const int row = i / (TL::KW / 4), quad = i % (TL::KW / 4);
+    const float4 x = *reinterpret_cast<const float4*>(raw + row * TL::LDR + quad * 4);
+    if (MODE == MODE_F32) {
+      uint4 big, small;
+      big.x = to_tf32(x.x);
+      big.y = to_tf32(x.y);
+      big.z = to_tf32(x.z);
+      big.w = to_tf32(x.w);
+      small.x = to_tf32(x.x - __uint_as_float(big.x));
+      small.y = to_tf32(x.y - __uint_as_float(big.y));
+      small.z = to_tf32(x.z - __uint_as_float(big.z));
+      small.w = to_tf32(x.w - __uint_as_float(big.w));
+      *reinterpret_cast<uint4*>(half + row * TL::LDS + quad * 4) = big;
+      *reinterpret_cast<uint4*>(half + TL::HALF_WORDS + row * TL::LDS + quad * 4) = small;
+    } else {
+      // channels 4 quad .. + 3 are words 2 quad, + 1 of a bf16 row
+      const float hx = bf16_round(x.x), hy = bf16_round(x.y);
+      const float hz = bf16_round(x.z), hw = bf16_round(x.w);
+      *reinterpret_cast<uint2*>(half + row * TL::LDS + quad * 2) =
+          make_uint2(pack_bf16(hx, hy), pack_bf16(hz, hw));
+      *reinterpret_cast<uint2*>(half + TL::HALF_WORDS + row * TL::LDS + quad * 2) =
+          make_uint2(pack_bf16(x.x - hx, x.y - hy), pack_bf16(x.z - hz, x.w - hw));
+    }
+  }
+}
+
+}  // namespace
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 2)
 affinity_kernel(const typename Operand<MODE>::T* __restrict__ q,
                 const typename Operand<MODE>::T* __restrict__ bank,
                 float* __restrict__ aff, const TopkAttnParams p) {
   using T = typename Operand<MODE>::T;
-  constexpr bool HIGH = MODE == MODE_HIGH;
-  // As/Bs hold the operands ('high': their bf16 hi halves), Al/Bl the lo
-  // halves of 'high' (one unused row otherwise)
-  constexpr int LO = HIGH ? BK : 1;
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN + 4];
-  __shared__ __align__(16) float Al[LO][BM + 4];
-  __shared__ __align__(16) float Bl[LO][BN + 4];
+  using TL = Tiling<MODE>;
+  constexpr int CHUNK = 16 / sizeof(T);  // channels of one 16-byte copy
+  constexpr int PARTS = TL::KW / 4;      // 16-byte copies of a staged row
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* const split = smem + NSTAGE * TL::RAW_WORDS;  // two (big, small) pairs
 
   const int S = p.tile * p.tile;
   const int FK = p.win * p.win;
@@ -224,114 +372,203 @@ affinity_kernel(const typename Operand<MODE>::T* __restrict__ q,
   const int tile_id = blockIdx.z / p.T;
   const int r0 = (tile_id / ntw) * p.tile;
   const int c0 = (tile_id % ntw) * p.tile;
-  const int s0 = blockIdx.y * BM;
-  const int f0 = blockIdx.x * BN;
+  const int s0 = blockIdx.y * ABM;
+  const int f0 = blockIdx.x * ABN;
+  const bool slot_ok = p.frame_bias[t] == 0.f;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // key group of this thread's 4 x 4 outputs
-  const int ty = tid / 16;  // query group
+  const int warp = tid / 32, lane = tid % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm = (warp & 1) * WM, wn = (warp >> 1) * WN;
 
-  // each thread stages one float4 of one query row and one key row per chunk
-  const int lrow = tid / 4;
-  const int lc = (tid % 4) * 4;
-  const int s_ld = s0 + lrow;
-  const int f_ld = f0 + lrow;
-  const bool s_ok = s_ld < S;
-  const bool f_ok = f_ld < FK;
-  const T* qrow = q;
-  if (s_ok) {  // the query row is local to the block
-    const int qi = s_ld / p.tile, qj = s_ld % p.tile;
-    qrow = q + ((size_t)(r0 + qi) * p.Wp + (c0 + qj)) * p.C;
-  }
-  const T* krow = bank;
-  if (f_ok) {  // the bank row is global
-    const int wi = f_ld / p.win, wj = f_ld % p.win;
-    const int krow_g = p.row0 + r0 + wi;
-    krow = bank + (((size_t)p.frame_idx[t] * p.rows_total + krow_g) * p.cols_total +
-                   (c0 + wj)) *
-                      p.C;
-  }
-
-  float acc[4][4];
+  // each thread copies 16 bytes (piece `part`) of its rows: query rows
+  // (local to the block) first, then key rows (global bank rows)
+  constexpr int RPT = AROWS * PARTS / THREADS;  // rows per thread
+  const int part = tid % PARTS;
+  const T* src[RPT];
+  bool ok[RPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  // Each output sums its channels in order 0 .. C-1 (per channel: hi.hi,
-  // hi.lo, lo.hi in 'high'), whichever block computes it.
-  for (int k0 = 0; k0 < p.C; k0 += BK) {
-    const float4 a4 = load4(qrow, k0 + lc, s_ok);
-    const float4 b4 = load4(krow, k0 + lc, f_ok);
-    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-    const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (HIGH) {
-        const float ah = bf16_round(a[c]), bh = bf16_round(b[c]);
-        As[lc + c][lrow] = ah;
-        Bs[lc + c][lrow] = bh;
-        Al[(lc + c) % LO][lrow] = bf16_round(a[c] - ah);
-        Bl[(lc + c) % LO][lrow] = bf16_round(b[c] - bh);
-      } else {
-        As[lc + c][lrow] = a[c];
-        Bs[lc + c][lrow] = b[c];
-      }
+  for (int j = 0; j < RPT; ++j) {
+    const int row = tid / PARTS + (THREADS / PARTS) * j;
+    src[j] = q;
+    if (row < ABM) {
+      const int s = s0 + row;
+      ok[j] = s < S;
+      if (ok[j]) src[j] = q + ((size_t)(r0 + s / p.tile) * p.Wp + (c0 + s % p.tile)) * p.C;
+    } else {
+      const int f = f0 + row - ABM;
+      ok[j] = f < FK;
+      if (ok[j])
+        src[j] = bank + (((size_t)p.frame_idx[t] * p.rows_total + p.row0 + r0 + f / p.win) *
+                             p.cols_total + (c0 + f % p.win)) * p.C;
     }
-    __syncthreads();
+  }
+  const int nk = (p.C + TL::CH - 1) / TL::CH;
+  auto load = [&](int kc) {
+    uint32_t* dst = smem + (kc % NSTAGE) * TL::RAW_WORDS;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-      if (HIGH) {
-        const float4 alv = *reinterpret_cast<const float4*>(&Al[kk % LO][ty * 4]);
-        const float4 blv = *reinterpret_cast<const float4*>(&Bl[kk % LO][tx * 4]);
-        const float al[4] = {alv.x, alv.y, alv.z, alv.w};
-        const float bl[4] = {blv.x, blv.y, blv.z, blv.w};
+    for (int j = 0; j < RPT; ++j) {
+      const int row = tid / PARTS + (THREADS / PARTS) * j;
+      const int c = kc * TL::CH + part * CHUNK;
+      const bool in = ok[j] && c < p.C;
+      cp_async16(dst + row * TL::LDR + part * 4, src[j] + (in ? c : 0), in);
+    }
+  };
+  // the first stages fly while the masks are worked out
+  constexpr int AHEAD = TL::SPLIT ? NSTAGE : NSTAGE - 1;
+  if (slot_ok) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int s = 0; s < AHEAD; ++s) {
+      if (s < nk) load(s);
+      cp_async_commit();
+    }
+  }
+
+  // The block's query rows and key columns: qrow[i] = (qi + halo, qj +
+  // halo) of query s0 + i, kcol[j] = (wi, wj, key in the image, f < FK) of
+  // key f0 + j.
+  __shared__ int2 qrow[ABM];
+  __shared__ int4 kcol[ABN];
+  if (tid < ABM) {
+    const int s = s0 + tid;
+    qrow[tid] = make_int2(s / p.tile + p.halo, s % p.tile + p.halo);
+  } else {
+    const int f = f0 + tid - ABM;
+    const int wi = f / p.win, wj = f % p.win;
+    const int kgi = p.row0 + r0 + wi - p.halo, kgj = c0 + wj - p.halo;
+    kcol[tid - ABM] = make_int4(wi, wj, kgi >= 0 && kgi < p.H && kgj >= 0 && kgj < p.W, f < FK);
+  }
+  __syncthreads();
+
+  // Live fragments of this warp: bit mi * NI + ni is set where some pair of
+  // the fragment is unmasked; each lane tests the 2 x 2 pairs whose
+  // accumulators it holds.
+  unsigned live = 0;
+  if (slot_ok) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-            acc[i][j] = fmaf(ar[i], bl[j], acc[i][j]);
-            acc[i][j] = fmaf(al[i], br[j], acc[i][j]);
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        bool any = false;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = wm + mi * 16 + gid + 8 * h, j = wn + ni * 8 + 2 * tig + e;
+            const int4 kc = kcol[j];
+            any |= s0 + i < S && kc.w && pair_bias(p, qrow[i], kc) == 0.f;
           }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+        if (__any_sync(FULL, any)) live |= 1u << (mi * NI + ni);
       }
-    }
-    __syncthreads();
   }
 
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+
+  if (__syncthreads_or(live != 0)) {
+    if (TL::SPLIT) {  // stage 0 split before the loop
+      cp_async_wait<NSTAGE - 1>();
+      __syncthreads();
+      split_stage<MODE>(smem, split, tid);
+    }
+    for (int kc = 0; kc < nk; ++kc) {
+      // split modes: stage kc + 1 landed, stage kc's split is visible, the
+      // ring slot of stage kc and the split buffer of kc + 1 are free;
+      // bf16: stage kc landed, the slot of stage kc - 1 is free
+      cp_async_wait<NSTAGE - 2>();
+      __syncthreads();
+      if (kc + AHEAD < nk) load(kc + AHEAD);
+      cp_async_commit();
+      const uint32_t* X;  // the operands of stage kc
+      if (TL::SPLIT) {
+        if (kc + 1 < nk)
+          split_stage<MODE>(smem + ((kc + 1) % NSTAGE) * TL::RAW_WORDS,
+                            split + ((kc + 1) % 2) * 2 * TL::HALF_WORDS, tid);
+        X = split + (kc % 2) * 2 * TL::HALF_WORDS;
+      } else {
+        X = smem + (kc % NSTAGE) * TL::RAW_WORDS;
+      }
+      if (live) {
+        constexpr int LD = TL::SPLIT ? TL::LDS : TL::LDR;
+        const uint32_t* Y = X + ABM * LD;  // the key rows
+        const uint32_t* XL = X + TL::HALF_WORDS;  // small / lo halves
+        const uint32_t* YL = XL + ABM * LD;
+        // 8 words a step: a tf32 k8 step or a bf16 k16 step
+        constexpr int STEPS = TL::SPLIT ? 1 : TL::KW / 8;
+#pragma unroll
+        for (int st = 0; st < STEPS; ++st) {
+          const int w0 = 8 * st;
+          uint32_t b[NI][2], bl[NI][2];
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+            frag_b<LD>(b[ni], Y, wn + ni * 8, w0, gid, tig);
+            if (TL::SPLIT) frag_b<LD>(bl[ni], YL, wn + ni * 8, w0, gid, tig);
+          }
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi) {
+            if (!((live >> (mi * NI)) & ((1u << NI) - 1))) continue;
+            uint32_t a[4], al[4];
+            frag_a<LD>(a, X, wm + mi * 16, w0, gid, tig);
+            if (TL::SPLIT) frag_a<LD>(al, XL, wm + mi * 16, w0, gid, tig);
+#pragma unroll
+            for (int ni = 0; ni < NI; ++ni) {
+              if (!((live >> (mi * NI + ni)) & 1u)) continue;
+              if (MODE == MODE_F32) {  // small.big, big.small, big.big
+                mma_tf32(acc[mi][ni], al, b[ni]);
+                mma_tf32(acc[mi][ni], a, bl[ni]);
+                mma_tf32(acc[mi][ni], a, b[ni]);
+              } else if (MODE == MODE_HIGH) {  // lo.hi, hi.lo, hi.hi
+                mma_bf16(acc[mi][ni], al, b[ni]);
+                mma_bf16(acc[mi][ni], a, bl[ni]);
+                mma_bf16(acc[mi][ni], a, b[ni]);
+              } else {
+                mma_bf16(acc[mi][ni], a, b[ni]);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // Epilogue: (acc / temperature + masks) + slot bias, the Pallas order,
+  // into an ABM x ABN tile in shared memory (over the operands), then each
+  // warp writes whole rows of it, 512 contiguous bytes a row.
+  cp_async_wait<0>();
+  __syncthreads();
+  float* const otile = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = wm + mi * 16 + gid + 8 * h;
+      const int2 qr = qrow[i];
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = wn + ni * 8 + 2 * tig + e;
+          otile[i * LDO + j] = __fadd_rn(__fadd_rn(__fmul_rn(acc[mi][ni][2 * h + e], p.inv_temp),
+                                                   pair_bias(p, qr, kcol[j])),
+                                         p.frame_bias[t]);
+        }
+    }
+  __syncthreads();
   const size_t row_len = (size_t)p.T * FK;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = s0 + ty * 4 + i;
-    if (s >= S) continue;
-    const int qi = s / p.tile, qj = s % p.tile;
-    float* out_row = aff + ((size_t)tile_id * S + s) * row_len + (size_t)t * FK;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int f = f0 + tx * 4 + j;
-      if (f >= FK) continue;
-      const int wi = f / p.win, wj = f % p.win;
-      // the Pallas kernel's masks, in the same float arithmetic: strict
-      // circle or inclusive square, image-border strip, per-slot validity
-      const float dy = (float)(wi - p.halo - qi);
-      const float dx = (float)(wj - p.halo - qj);
-      const bool in_range =
-          p.square ? (fabsf(dy) <= p.radius && fabsf(dx) <= p.radius)
-                   : __fadd_rn(__fmul_rn(dy, dy), __fmul_rn(dx, dx)) < p.rr;
-      const int kgi = p.row0 + r0 + wi - p.halo, kgj = c0 + wj - p.halo;
-      const bool in_img = kgi >= 0 && kgi < p.H && kgj >= 0 && kgj < p.W;
-      const float bias = __fadd_rn(in_range ? 0.f : NEG, in_img ? 0.f : NEG);
-      out_row[f] = __fadd_rn(__fadd_rn(__fmul_rn(acc[i][j], p.inv_temp), bias),
-                             p.frame_bias[t]);
+  const int ncols = min(ABN, FK - f0);
+  const bool vec = ncols == ABN && FK % 4 == 0;  // 16-byte aligned whole rows
+  for (int i = warp; i < ABM && s0 + i < S; i += THREADS / 32) {
+    float* out_row = aff + ((size_t)tile_id * S + s0 + i) * row_len + (size_t)t * FK + f0;
+    const float* src_row = otile + i * LDO;
+    if (vec) {
+      reinterpret_cast<float4*>(out_row)[lane] = reinterpret_cast<const float4*>(src_row)[lane];
+    } else {
+      for (int j = lane; j < ncols; j += 32) out_row[j] = src_row[j];
     }
   }
 }
@@ -569,10 +806,14 @@ int launch(const void* q, const void* bank, const float* v, float* out,
   const int S = p.tile * p.tile;
   const int FK = p.win * p.win;
   const int ntiles = (p.Hp / p.tile) * (p.Wp / p.tile);
-  const dim3 grid_a((FK + BN - 1) / BN, (S + BM - 1) / BM, ntiles * p.T);
-  affinity_kernel<MODE><<<grid_a, THREADS, 0, stream>>>(
+  const dim3 grid_a((FK + ABN - 1) / ABN, (S + ABM - 1) / ABM, ntiles * p.T);
+  constexpr int smem = Tiling<MODE>::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(affinity_kernel<MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  affinity_kernel<MODE><<<grid_a, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(bank), scratch, p);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if constexpr (PASSES == 1) {
     const long long n = (long long)p.H * p.W * p.Cv;

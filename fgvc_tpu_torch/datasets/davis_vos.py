@@ -4,8 +4,8 @@ scoring (fgvc_tpu/datasets/davis_vos.py).
 Every video is resized to 480 x 880 whatever the configuration's input size,
 as the JAX harness does.  JPEG frames and palette PNG annotations are
 decoded with PIL; where PIL is missing, reading a video raises ImportError.
-Frames are resized bilinearly (half-pixel centres, no antialias) in float
-and rounded, which stays within one grey level of cv2.INTER_LINEAR.
+Frames are resized as cv2.resize(..., INTER_LINEAR) resizes uint8 images, bit
+for bit, in numpy's integer arithmetic (the card's machine has no cv2).
 """
 
 from __future__ import annotations
@@ -16,8 +16,6 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 from fgvc_tpu_torch.core.metrics.vos import aggregate_jf, evaluate_video_jf
 
@@ -35,14 +33,51 @@ def _pil_image():
     return Image
 
 
+# cv2's fixed-point bilinear coefficients: 11 fractional bits
+_COEF_BITS = 11
+_COEF_SCALE = 1 << _COEF_BITS
+
+
+def _linear_taps(n_src: int, n_dst: int, clamp: bool):
+    """Source indices (i0, i1) and fixed-point weights (w0, w1) of each
+    destination index, as cv2's INTER_LINEAR computes them: half-pixel
+    centres at scale 1 / (n_dst / n_src) in double, the fraction in float32,
+    weights rint((1 - f) * 2048) and rint(f * 2048).  Columns (`clamp`) past
+    either edge take the edge pixel at weight (2048, 0); rows keep their
+    weights and read the edge row twice."""
+    scale = 1.0 / (n_dst / n_src)
+    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    f = f - i0.astype(np.float32)
+    if clamp:
+        edge = (i0 < 0) | (i0 >= n_src - 1)
+        f[edge] = 0.0
+        i0 = np.clip(i0, 0, n_src - 1)
+    i1 = np.clip(i0 + 1, 0, n_src - 1)
+    i0 = np.clip(i0, 0, n_src - 1)
+    w0 = np.rint((np.float32(1.0) - f) * np.float32(_COEF_SCALE)).astype(np.int32)
+    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int32)
+    return i0, i1, w0, w1
+
+
 def resize_frames(frames: np.ndarray, size) -> np.ndarray:
-    """(T, H0, W0, 3) uint8 -> (T, H, W, 3) uint8 by bilinear resizing with
-    half-pixel centres and no antialias, rounded to the nearest level."""
-    x = torch.from_numpy(np.ascontiguousarray(frames)).permute(0, 3, 1, 2).float()
-    y = F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False,
-                      antialias=False)
-    y = torch.round(y).clamp_(0, 255).to(torch.uint8)
-    return y.permute(0, 2, 3, 1).contiguous().numpy()
+    """(T, H0, W0, C) uint8 -> (T, H, W, C) uint8, equal to cv2.resize(frame,
+    (W, H), interpolation=cv2.INTER_LINEAR) frame by frame: a horizontal pass
+    in 32-bit integers at 11 fractional bits, then cv2's vectorised vertical
+    pass, ((((S0 >> 4) * b0) >> 16) + (((S1 >> 4) * b1) >> 16) + 2) >> 2."""
+    frames = np.asarray(frames)
+    H, W = size
+    x0, x1, a0, a1 = _linear_taps(frames.shape[2], W, clamp=True)
+    y0, y1, b0, b1 = _linear_taps(frames.shape[1], H, clamp=False)
+    a0, a1 = a0[:, None], a1[:, None]
+    b0, b1 = b0[:, None, None], b1[:, None, None]
+    out = np.empty((frames.shape[0], H, W, frames.shape[3]), np.uint8)
+    for t, frame in enumerate(frames):
+        src = frame.astype(np.int32)
+        rows = (src[:, x0] * a0 + src[:, x1] * a1) >> 4  # (H0, W, C)
+        v = (((rows[y0] * b0) >> 16) + ((rows[y1] * b1) >> 16) + 2) >> 2
+        out[t] = np.clip(v, 0, 255)
+    return out
 
 
 def score_masks(gt: np.ndarray, pred: np.ndarray):

@@ -173,11 +173,12 @@ class Tracker:
     @torch.no_grad()
     def features_on(self, frames: np.ndarray, device: torch.device) -> torch.Tensor:
         """(N, H, W, 3) uint8 RGB -> (N, h, w, C) float32 features, computed
-        on `device` (one of self.devices) by its backbone replica."""
+        on `device` (one of self.devices) by its backbone replica; contiguous,
+        so that a norm over C sums in the same order on every path."""
         x = torch.from_numpy(np.ascontiguousarray(frames))
         x = preprocess_rgb_to_lab_normalized(x.to(device))
         f = self.backbones[device](x.permute(0, 3, 1, 2).contiguous())
-        return f.permute(0, 2, 3, 1)
+        return f.permute(0, 2, 3, 1).contiguous()
 
     @torch.no_grad()
     def extract_features(self, video: np.ndarray) -> torch.Tensor:

@@ -23,10 +23,14 @@ and B and returns [thresh, mmax, z, frac, n_above, cnt_at], zero-padded (or
 cut) to Cv.  JAX has them on the unbanked entry only, and so has the port.
 
 Both take the Pallas kernel's ``compute_dtype`` (K3): 'float32' (f32
-products), 'high' (f32 operands, each product as the three bf16 products
-hi.hi + hi.lo + lo.hi of its bf16 halves, f32 sums) or 'bfloat16' (a bf16
-query and bank, bf16 products and values, f32 sums); ``pallas_compute_dtype``
-maps TestConfig.matmul_precision onto it.
+operands; the kernel's affinities as 3xTF32 products, the plain version's in
+f32), 'high' (f32 operands, each product as the three bf16 products hi.hi +
+hi.lo + lo.hi of its bf16 halves, f32 sums) or 'bfloat16' (a bf16 query and
+bank, bf16 products and values, f32 sums); ``pallas_compute_dtype`` maps
+TestConfig.matmul_precision onto it.  The kernel sums on the tensor cores in
+an order PyTorch cannot repeat, so it agrees with the plain version to
+rounding, and where a row's k-th and (k+1)-th largest affinities lie within
+rounding of each other (``near_tie_rows``) it may select another member.
 
 Both launch the hand-written CUDA kernel of csrc/topk_attention.cu for CUDA
 tensors, and run a straightforward PyTorch version of the same function
@@ -71,6 +75,8 @@ _ENTRY_SUFFIX = {"float32": "f32", "high": "high", "bfloat16": "bf16"}
 # (the number is the kernel's PASSES)
 DEBUG_PASSES = {"a": 1, "ab": 2, "abc": 3}
 N_STATS = 6  # thresh, mmax, z, frac, n_above, cnt_at
+# near_tie_rows: affinities this close to the k-th largest make a near tie
+NEAR_TIE_TOL = 1e-4
 
 # Kernel launches since the last reset: one count per entry, K1 (banked),
 # K2 (unbanked) and K4 (banked, one row block), and one per compute mode over
@@ -423,7 +429,10 @@ def topk_attention_banked_plain(
     shapes."""
     _check(qpad, kpad, value, frame_idx, key_valid, H, W, radius, topk, tile,
            mask_shape, compute_dtype, row0=row0, grid_rows=grid_rows)
-    _check_cut(debug_passes, value.shape[3], radius, tile, row0)
+    # near_tie_rows_plain: one flag a pixel
+    near = debug_passes in ("near", "near_stats")
+    if not near:
+        _check_cut(debug_passes, value.shape[3], radius, tile, row0)
     dev = qpad.device
     halo, gridH, Wp, _, _ = bank_geometry(H, W, radius, tile, grid_rows)
     g0 = 0 if row0 is None else int(row0)  # global row of qpad's first row
@@ -454,7 +463,8 @@ def topk_attention_banked_plain(
     )
     vpad[:, halo : halo + H, halo : halo + W] = value
 
-    out = torch.empty((nth * ntw, S, Cv), dtype=torch.float32, device=dev)
+    width = 1 if near else Cv
+    out = torch.empty((nth * ntw, S, width), dtype=torch.float32, device=dev)
     rows = max(1, PLAIN_CHUNK_TILES // ntw)
     for i0 in range(0, nth, rows):
         i1 = min(nth, i0 + rows)
@@ -471,15 +481,17 @@ def topk_attention_banked_plain(
                for t in range(T)]
         res = _plain_tiles(
             q[i0 * ntw : i1 * ntw], kws, vws, bias, key_valid, 1.0 / temperature, topk,
-            compute_dtype, debug_passes,
+            compute_dtype, "a" if near else debug_passes,
         )
-        if debug_passes == "a":
+        if near:
+            res = near_tie_rows(res, topk, stats=debug_passes == "near_stats")[..., None].float()
+        elif debug_passes == "a":
             res = _pallas_columns(res, Cv, r0, c0, halo, win, H, W, key_valid[0])
         elif debug_passes == "ab":
             res = torch.nn.functional.pad(res, (0, max(Cv - N_STATS, 0)))[..., :Cv]
         out[i0 * ntw : i1 * ntw] = res
-    out = out.reshape(nth, ntw, tile, tile, Cv).permute(0, 2, 1, 3, 4)
-    out = out.reshape(Hp, Wp, Cv)[:, :W]
+    out = out.reshape(nth, ntw, tile, tile, width).permute(0, 2, 1, 3, 4)
+    out = out.reshape(Hp, Wp, width)[:, :W]
     if row0 is None:
         return out[:H].contiguous()
     out = out.contiguous()
@@ -527,28 +539,6 @@ def _products(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     return torch.bmm(ah, bh) + torch.bmm(ah, bl) + torch.bmm(al, bh)
 
 
-def _affinity_in_order(q: torch.Tensor, kw: torch.Tensor, mode: str) -> torch.Tensor:
-    """q (N, S, C) . kw (N, FK, C) in mode 'bfloat16' (bf16 operands) or
-    'high' (per channel hi.hi, hi.lo, lo.hi of the float32 operands), summed
-    in float32 channel by channel from 0: the kernel's order.  Products of
-    bf16 values are exact in float32, so the sums equal the kernel's bit for
-    bit, and so do the top-k selections near a tie and, in 'bfloat16', the
-    rounding of each weight to bf16 (a weight one float32 ulp off could round
-    to the neighbouring bf16 value)."""
-    qt = q.to(torch.float32).transpose(1, 2).contiguous()   # (N, C, S)
-    kt = kw.to(torch.float32).transpose(1, 2).contiguous()  # (N, C, FK)
-    if mode == "high":
-        (qh, ql), (kh, kl) = _split(qt), _split(kt)
-        pairs = ((qh, kh), (qh, kl), (ql, kh))
-    else:
-        pairs = ((qt, kt),)
-    acc = torch.zeros((q.shape[0], q.shape[1], kw.shape[1]), device=q.device)
-    for c in range(q.shape[2]):
-        for a, b in pairs:
-            acc.addcmul_(a[:, c, :, None], b[:, c, None, :])
-    return acc
-
-
 def _plain_tiles(q, kws, vws, bias, key_valid, inv_temp, topk, mode, passes="abc"):
     """The three passes over N query tiles: q (N, S, C); per slot, key
     windows (N, FK, C) and value windows (N, FK, Cv); bias (N, S, FK).
@@ -556,13 +546,9 @@ def _plain_tiles(q, kws, vws, bias, key_valid, inv_temp, topk, mode, passes="abc
     pass B's statistics (N, S, 6): thresh, mmax, z, frac, n_above,
     cnt_at."""
     dev = q.device
-    # pass A.  float32: one product per slot, so a frame in two slots ties
-    # exactly.  'high' and 'bfloat16': every slot in one elementwise sum,
-    # which gives each pair the same bits whichever slot it lies in.
-    if mode == "float32":
-        raw = [torch.bmm(q, kw.transpose(1, 2)) for kw in kws]
-    else:
-        raw = _affinity_in_order(q, torch.cat(kws, dim=1), mode).split(kws[0].shape[1], dim=-1)
+    # pass A: one product per slot in the mode's arithmetic, so a frame in
+    # two slots ties exactly
+    raw = [_products(q, kw.transpose(1, 2), mode) for kw in kws]
     affs = [r * inv_temp + bias + (0.0 if key_valid[t] else NEG) for t, r in enumerate(raw)]
     a = torch.cat(affs, dim=-1)          # (N, S, T * FK)
     del affs
@@ -614,6 +600,46 @@ def _plain_tiles(q, kws, vws, bias, key_valid, inv_temp, topk, mode, passes="abc
     w = torch.exp(torch.clamp_max(a - mmax, 0.0)) * (above + frac * at)
     vw = torch.cat(vws, dim=1)           # (N, T * FK, Cv)
     return _products(w, vw, mode) / z    # (N, S, Cv)
+
+
+def near_tie_rows(a: torch.Tensor, topk: int, tol: float = NEAR_TIE_TOL,
+                  stats: bool = False) -> torch.Tensor:
+    """(..., K) affinity rows (NEG-masked) -> (...) bool: the rows whose top-k
+    selection another summation order can change, those whose k-th and
+    (k+1)-th largest live elements lie within `tol` of each other.  That
+    takes in a k-th value held by several keys of which the selection takes
+    only some (the two are equal): keys that tie exactly in one order may
+    not in another.  Rows with at most k live elements take every live key
+    and are never near ties.  With `stats`, also the rows whose (k-1)-th and
+    k-th largest live elements lie within `tol`: there the count at the
+    threshold and the count above it can change (K5's cut 'ab'), though the
+    selection does not."""
+    if a.shape[-1] <= topk:
+        return torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    top = torch.topk(a, topk + 1, dim=-1).values  # descending
+    kth, next_ = top[..., topk - 1], top[..., topk]
+    near = (next_ > NEG / 2) & (kth - next_ <= tol)
+    if stats and topk > 1:
+        near |= (kth > NEG / 2) & (top[..., topk - 2] - kth <= tol)
+    return near
+
+
+def near_tie_rows_plain(qpad, kpad, value, stats: bool = False, **kw) -> torch.Tensor:
+    """near_tie_rows (with `stats`) of the plain version's affinities for the
+    banked entry's arguments (K1, K3; K4 with row0 and grid_rows): (H, W)
+    bool, or (hb, W) for a row block."""
+    passes = "near_stats" if stats else "near"
+    return topk_attention_banked_plain(qpad, kpad, value, debug_passes=passes, **kw)[..., 0] > 0
+
+
+def near_tie_rows_plain_unbanked(query, key, value, *, radius, temperature=1.0, topk=10,
+                                 normalize=True, tile=16, mask_shape="circle",
+                                 key_valid=None, compute_dtype="float32", stats=False):
+    """near_tie_rows_plain for the unbanked entry's arguments (K2, K5): (H,
+    W) bool."""
+    qpad, kpad, kw = _prepare_unbanked(query, key, value, key_valid, radius, temperature,
+                                       topk, tile, normalize, mask_shape, compute_dtype)
+    return near_tie_rows_plain(qpad, kpad, value, stats=stats, **kw)
 
 
 def topk_attention_plain(

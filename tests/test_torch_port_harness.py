@@ -194,16 +194,29 @@ def test_cli_profile_writes_a_trace_with_the_spans(tmp_path, small_davis, capsys
 
 def test_pass_breakdown_runs_the_plain_cuts_on_the_cpu(capsys):
     """`python -m fgvc_tpu_torch.bench.pass_breakdown --device cpu --size
-    16`: the JAX tool's lines per mode and one JSON line whose split adds
-    up, with no device numbers."""
+    16 --channels 16`: the JAX tool's lines per mode and one JSON line whose
+    split adds up, with no device numbers."""
     from fgvc_tpu_torch.bench.pass_breakdown import main
 
-    main(["--device", "cpu", "--size", "16", "--reps", "1"])
+    main(["--device", "cpu", "--size", "16", "--channels", "16", "--reps", "1"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert [ln.split(":")[0].strip() for ln in lines[1:4]] == ["float32", "high", "bfloat16"]
     res = json.loads(lines[-1])
     assert res["card"] is None and res["device_ms_by_kernel"] is None
-    assert res["clock"] == "host"
+    assert res["clock"] == "host" and res["channels"] == 16
     for t in res["ms"].values():
         assert t["A"] + t["B"] + t["C"] == pytest.approx(t["total"])
         assert t["A"] == t["a"] and t["total"] == t["abc"]
+
+
+@pytest.mark.parametrize("name", ["topk_attention", "mxu_vpu_overlap"])
+def test_ablate_cuts_are_in_the_kernel_sources(name):
+    """`python -m fgvc_tpu_torch.bench.ablate` cuts each part it times out
+    of the current source, once: every variant differs from the source in
+    that one place."""
+    from fgvc_tpu_torch.bench import ablate
+
+    variants = ablate.variant_sources(name)
+    assert list(variants) == ["full", *ablate.CUTS[name]]
+    for variant, text in variants.items():
+        assert (text == variants["full"]) == (variant == "full")
