@@ -26,7 +26,13 @@ Phases, each of which raises on failure (exit code != 0):
             near-tie rows and at most 0.1% of the rows; their count is
             printed.  The tie case is exact: cut 'ab' (K5) of the unbanked
             entry on it gives even counts above and at the threshold on
-            every row (each key ties with its copy).  Then K4, the row
+            every row (each key ties with its copy).  The tie-heavy case
+            (integer features on a few channels, no normalisation,
+            temperature 1, a flat quarter in every frame) is exact in every
+            mode at both shapes: every mode computes those affinities
+            exactly, so cut 'ab''s thresh, mmax, frac, n_above and cnt_at
+            equal the plain version's and z and the whole kernel's output
+            agree within 1e-6 relative.  Then K4, the row
             blocks of spatial-parallel propagation, in each mode: TAP-Vid
             shapes (circle) in S = 2 and 3 blocks, VOS shapes (square) in
             S = 2 and 4, distinct frames (and the tie case at S = 2); each
@@ -35,8 +41,10 @@ Phases, each of which raises on failure (exit code != 0):
             unsharded K1/K3 output with max |diff| = 0 (bit for bit); in
             'float32' each S's frame (its S blocks) timed against the
             unsharded call, and S = 2 per block launch, bounded by the
-            block's own live pairs.  Each record of K1-K4 also carries
-            affinity_kernel's own device ms per launch (torch.profiler);
+            block's own live pairs.  Each record of K1-K5 also carries
+            affinity_kernel's and select_kernel's own device ms per launch
+            (torch.profiler) and select_kernel's bound (its bytes: the
+            scratch read once, the values, the output);
   e2e       run_task('davis') (the CLI's path) on two synthetic TAP-Vid
             pickles (48 frames, 256 x 256, 32 tracks) with seeded random
             weights at the full width of ResNet-18-d1; K1's launches must
@@ -143,6 +151,10 @@ AFF_RTOL = 2e-5
 FULL_WINDOW_CV = 48 * 48
 # K5's cut 'ab': z against its plain version, relative
 Z_RTOL = 1e-5
+# the tie-heavy case (exact affinities): the least limit of z and the
+# output, relative; only their summation orders differ from the plain
+# version's (bench/compare_source.py tie_heavy_limits)
+TIE_RTOL = 1e-6
 # K6 'mxu' against float32 products: |out| is up to about 60, 3xTF32 keeps
 # about 2^-21 of each product
 MXU_TOL = 1e-3
@@ -315,8 +327,8 @@ def kernel_record(name, replaces, source="fgvc_tpu_torch/csrc/topk_attention.cu"
         "bound_ms": None, "bound_by": None,
         "library_ms": None,  # no single PyTorch call computes this function
     }
-    if affinity:  # affinity_kernel's own device ms per launch
-        record["affinity_device_ms"] = None
+    if affinity:  # affinity_kernel's and select_kernel's own device ms per launch
+        record.update(affinity_device_ms=None, select_device_ms=None, select_bound_ms=None)
     return record
 
 
@@ -347,11 +359,27 @@ def check_rows(label, out, ref, limit, near_fn):
     return err
 
 
-def affinity_ms(by_kernel, reps):
-    """affinity_kernel's device ms per launch from a torch.profiler table of
-    `reps` launches (None where the profiler saw no device time)."""
-    ms = [t for name, t in by_kernel.items() if "affinity_kernel" in name]
+def affinity_ms(by_kernel, reps, kernel="affinity_kernel"):
+    """`kernel`'s device ms per launch from a torch.profiler table of `reps`
+    launches (None where the profiler saw no device time)."""
+    ms = [t for name, t in by_kernel.items() if kernel in name]
     return sum(ms) / reps if ms else None
+
+
+def select_bound(h, w, cv, rows=None, values=True):
+    """Least time of one select_kernel launch: its bytes over the HBM rate,
+    each read once: the scratch rows of the h x w query pixels (of those in
+    the row block [r0, r1) where `rows` is given; the grid's padding is not
+    read), the values (their rows within the halo of the block) unless
+    `values` is False (cut 'ab' reads none), and the output.  Its rounds and
+    gather are a few hundred operations a row."""
+    halo = int(RADIUS)
+    win = TILE + 2 * halo
+    r0, r1 = (0, h) if rows is None else rows
+    n = max(min(r1, h) - r0, 0) * w  # query pixels read
+    vrows = min(r1 + halo, h) - max(r0 - halo, 0)
+    nbytes = 4.0 * (n * SLOTS * win * win + (SLOTS * vrows * w * cv if values else 0) + n * cv)
+    return 1e3 * nbytes / PEAK_BYTES
 
 
 def check_entry(label, record, kernel_fn, plain_fn, near_fn, cases, h, w, mask_shape, nbytes,
@@ -387,9 +415,12 @@ def check_entry(label, record, kernel_fn, plain_fn, near_fn, cases, h, w, mask_s
         record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         reps = 5
         by_kernel, _ = device_ms_by_kernel(lambda: [kernel_fn(**kw) for _ in range(reps)])
-        record["affinity_device_ms"] = affinity_ms(by_kernel, reps)
+        record.update(affinity_device_ms=affinity_ms(by_kernel, reps),
+                      select_device_ms=affinity_ms(by_kernel, reps, "select_kernel"),
+                      select_bound_ms=select_bound(h, w, kw["value"].shape[-1]))
         print(f"{label} device ms per launch by CUDA kernel (torch.profiler): " + (
-            _top({n: t / reps for n, t in by_kernel.items()}) or "not measured"))
+            _top({n: t / reps for n, t in by_kernel.items()}) or "not measured")
+            + f"; select_kernel bound {record['select_bound_ms']:.4f} ms (bytes)")
     record["max_abs_err"] = max(errs)
 
 
@@ -412,6 +443,58 @@ def check_tie_exact(label, query, key0, mask_shape, mode):
           f"(must be 0)", flush=True)
     if odd:
         raise AssertionError(f"{label}: a frame in two slots does not tie exactly")
+
+
+def check_tie_heavy():
+    """The tie-heavy case with exact affinities (integer features on a few
+    channels, no normalisation, temperature 1: bench/compare_source.py's
+    integer_tie_inputs) through the unbanked entry in each compute mode, at
+    TAP-Vid shapes (circle) and VOS shapes (square): every mode computes
+    the affinities exactly, so the kernel's scratch equals the plain
+    version's affinities.  Cut 'ab': thresh, mmax, frac, n_above and cnt_at
+    equal the plain version's; z and the whole kernel's output within the
+    float32 bound of their summation order (tie_heavy_limits: at least 1e-6
+    relative, more on rows that sum thousands of tied keys)."""
+    import torch
+
+    from fgvc_tpu_torch.bench.compare_source import (
+        integer_tie_inputs,
+        tie_heavy_kwargs,
+        tie_heavy_limits,
+    )
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    for name, h, w, cv, shape in (("TAP-Vid", H, W, CV, "circle"),
+                                  ("VOS", VOS_H, VOS_W, VOS_CV, "square")):
+        q, k, v = (torch.from_numpy(x).cuda() for x in integer_tie_inputs(h, w, cv=cv))
+        six = torch.zeros((SLOTS, h, w, k1.N_STATS), device=v.device)
+        for mode in k1.COMPUTE_DTYPES:
+            label = f"tie-heavy {name} {shape} '{mode}'"
+            kw = tie_heavy_kwargs(shape, mode, "ab")  # all six statistics
+            out, ref = (k1.topk_attention(q, k, six, **kw),
+                        k1.topk_attention_plain(q, k, six, **kw))
+            kw = tie_heavy_kwargs(shape, mode, "abc")
+            mix, mix_ref = (k1.topk_attention(q, k, v, **kw),
+                            k1.topk_attention_plain(q, k, v, **kw))
+            torch.cuda.synchronize()
+            exact = {n: int((out[..., i] != ref[..., i]).sum())
+                     for i, n in ((0, "thresh"), (1, "mmax"), (3, "frac"), (4, "n_above"),
+                                  (5, "cnt_at"))}
+            z_rtol, mix_limit = tie_heavy_limits(ref, mode, TOPK)
+            z_rel = ((out[..., 2] - ref[..., 2]).abs() / ref[..., 2].abs()).max().item()
+            mix_rel = (mix - mix_ref).abs().amax(-1) / v.abs().max()
+            over = int((mix_rel > mix_limit).sum())
+            ties = int((ref[..., 5] > 1).sum())
+            print(f"{label}: pixels differing from plain {exact} (all must be 0); z max rel "
+                  f"diff {z_rel:.3e} (limit {z_rtol:.3e}); output max |diff| / max |v| "
+                  f"{mix_rel.max().item():.3e}, {over} rows over their limit (at least "
+                  f"{TIE_RTOL:.0e}, up to {mix_limit.max().item():.3e} on the row summing the "
+                  f"most terms); {ties} of {h * w} rows tie at the threshold, at most "
+                  f"{int(ref[..., 5].max())} keys", flush=True)
+            if any(exact.values()) or not z_rel <= z_rtol or over:
+                raise AssertionError(f"{label}: the kernel's statistics or output differ")
+        del q, k, v, six
+        torch.cuda.empty_cache()
 
 
 def check_kernels(records):
@@ -573,9 +656,15 @@ def check_row_blocks(records):
                     reps = 5
                     by_kernel, _ = device_ms_by_kernel(
                         lambda: [k1.topk_attention_banked(**b) for _ in range(reps) for b in blocks])
-                    record["affinity_device_ms"] = affinity_ms(by_kernel, reps * S)
-                    print(f"{label}: affinity_kernel device ms per block launch (torch.profiler): "
-                          f"{record['affinity_device_ms']}", flush=True)
+                    record.update(
+                        affinity_device_ms=affinity_ms(by_kernel, reps * S),
+                        select_device_ms=affinity_ms(by_kernel, reps * S, "select_kernel"),
+                        select_bound_ms=sum(select_bound(h, w, cv, rows=(r0, r0 + hb))
+                                            for r0 in row0s) / S)
+                    print(f"{label}: device ms per block launch (torch.profiler): affinity_kernel "
+                          f"{record['affinity_device_ms']}, select_kernel "
+                          f"{record['select_device_ms']} (bound {record['select_bound_ms']:.4f}, "
+                          f"bytes)", flush=True)
                 del tall
             del kpad
         del feats, values
@@ -1152,9 +1241,12 @@ def run_passes(records):
             print(f"passes '{mode}' cut '{cut}' device ms by CUDA kernel (torch.profiler): "
                   + (_top(kernels) or "not measured"), flush=True)
         for cut in ("a", "ab"):
+            by_kernel = res["device_ms_by_kernel"][mode][cut]
+            ab = cut == "ab"  # cut 'a' runs no select_kernel
             records[f"K5_{cut}_{_TAG[mode]}"].update(
-                launches=n, ms=split[mode][cut],
-                affinity_device_ms=affinity_ms(res["device_ms_by_kernel"][mode][cut], 1))
+                launches=n, ms=split[mode][cut], affinity_device_ms=affinity_ms(by_kernel, 1),
+                select_device_ms=affinity_ms(by_kernel, 1, "select_kernel") if ab else None,
+                select_bound_ms=select_bound(H, W, CV, values=False) if ab else None)
     print("per-pass split (ms per call; A = t('a'), B = t('ab') - t('a'), C = t('abc') - t('ab')): "
           + json.dumps(split), flush=True)
 
@@ -1343,6 +1435,7 @@ def main():
     if "kernel" in phases:
         phase("kernel")
         check_kernels(records)
+        check_tie_heavy()
         check_row_blocks(records)
     e2e_metrics = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_root:

@@ -3,19 +3,31 @@ part cut out, timed on the card.
 
     python -m fgvc_tpu_torch.bench.ablate [--reps N]
 
-Two kernels, each built as it is ('full') and with one part cut out:
+Two sources, each built as it is ('full') and with one part cut out, at
+the TAP-Vid shapes of ``pass_breakdown`` (128 x 128 x 256 query, 6 key slots,
+radius 15, circle, top-10, 32 values):
 
-* ``affinity_kernel`` (pass A of the top-k attention, csrc/topk_attention.cu)
-  at the TAP-Vid shapes of ``pass_breakdown`` (128 x 128 x 256 query, 6 key
-  slots, radius 15, circle), banked, in each compute mode, by its device ms
-  per launch (torch.profiler): 'no products' skips the mma.sync products
-  (staging, splitting, masks and the scratch write remain); 'no channel
-  loop' skips the whole channel loop (the mask prologue, the epilogue and
-  the scratch write remain).
+* csrc/topk_attention.cu, banked, in each compute mode, by the device ms per
+  launch (torch.profiler) of both its CUDA kernels.  ``affinity_kernel``
+  (pass A): 'no products' skips the mma.sync products (staging, splitting,
+  masks and the scratch write remain); 'no channel loop' skips the whole
+  channel loop (the mask prologue, the epilogue and the scratch write
+  remain).  ``select_kernel`` (passes B and C): 'load only' stops after the
+  row's load and the bound; 'no rounds' runs no round on the candidates
+  (the load, the bound, the candidates and their value fetch remain; with no
+  statistics nothing is summed); 'no value fetch' runs all but the fetch of
+  the candidates' values (the sums read stale shared memory); 'no sums'
+  fetches the values but sums none.  Each variant times both kernels; a cut of one leaves the other
+  with other inputs, so read each kernel's own cuts.
 * K6 'mxu' (csrc/mxu_vpu_overlap.cu) by CUDA events over back-to-back
   launches: 'no products' skips the mma.sync products (the key stream and
   the splits remain); 'no key refill' loads each warp's ring once and never
   refills it (no L2 key stream after the first stages).
+
+A yardstick line beside them: ``torch.topk(rows, 10)`` over random rows of
+the scratch's shape (16,384 rows of 12,696), by CUDA events.  It is not the
+same function (it gives no counts at a tie), so it stands in the notes, not
+as a library time.
 
 A variant's output is wrong by design and is not checked: the variants
 only time.  Each is compiled by nvcc with the flags of ops/cuda/build.py
@@ -47,6 +59,11 @@ CUTS = {
         "no products": ("      if (live) {\n", "      if (live == 0xffffffffu) {\n"),
         "no channel loop": ("  if (__syncthreads_or(live != 0)) {\n",
                             "  if (__syncthreads_or(live == 0xffffffffu)) {\n"),
+        "load only": ("  __syncthreads();  // the row is resident\n", "  return;\n"),
+        "no rounds": ("      for (int r = 0;; ++r) {\n", "      for (int r = 0; r < 0; ++r) {\n"),
+        "no value fetch": ("    for (int i = tid; i < n * p.Cv; i += THREADS) {\n",
+                           "    for (int i = tid; i < 0; i += THREADS) {\n"),
+        "no sums": ("        if (w >= 0.f) acc = mix<MODE>(w, srow[e * p.Cv + tid], acc);\n", ""),
     },
     "mxu_vpu_overlap": {
         "no products": ("        mma(d[i], as, bb);\n        mma(d[i], ab, bs);\n"
@@ -55,6 +72,7 @@ CUTS = {
     },
 }
 SIZE, C, T, CV = 128, 256, 6, 32
+ATTENTION_KERNELS = ("affinity_kernel", "select_kernel")
 RADIUS, TEMPERATURE, TOPK, TILE = 15.0, 0.07, 10, 16
 
 
@@ -70,7 +88,9 @@ def variant_sources(name: str):
     return out
 
 
-def _build(name: str, variant: str, text: str):
+def build_variant(name: str, variant: str, text: str):
+    """nvcc `text` (a version of csrc/<name>.cu) into build/kernels/ and
+    load it."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = variant.replace(" ", "_")
     src = build.BUILD_DIR / f"ablate-{name}-{tag}.cu"
@@ -82,7 +102,7 @@ def _build(name: str, variant: str, text: str):
 
 
 @contextlib.contextmanager
-def _swapped(name: str, lib):
+def swapped(name: str, lib):
     """The wrappers of csrc/<name>.cu call `lib` inside the block."""
     old = build._loaded.get(name)
     build._loaded[name] = lib
@@ -95,8 +115,9 @@ def _swapped(name: str, lib):
             build._loaded[name] = old
 
 
-def time_affinity(reps: int):
-    """{variant: {mode: affinity_kernel device ms per launch}}."""
+def time_attention(reps: int):
+    """{variant: {mode: {CUDA kernel: device ms per launch}}} of
+    affinity_kernel and select_kernel."""
     rng = np.random.default_rng(0)
     feats = torch.from_numpy(rng.standard_normal((T + 1, SIZE, SIZE, C), dtype=np.float32)).cuda()
     value = torch.from_numpy(rng.random((T, SIZE, SIZE, CV), dtype=np.float32)).cuda()
@@ -104,7 +125,7 @@ def time_affinity(reps: int):
     res = {}
     for variant, text in variant_sources("topk_attention").items():
         res[variant] = {}
-        with _swapped("topk_attention", _build("topk_attention", variant, text)):
+        with swapped("topk_attention", build_variant("topk_attention", variant, text)):
             for mode in k1.COMPUTE_DTYPES:
                 kpad = k1.pad_key_bank(feats, RADIUS, tile=TILE, compute_dtype=mode)
                 kw = dict(qpad=kpad[T, halo:halo + hp, halo:halo + wp].contiguous(), kpad=kpad,
@@ -114,9 +135,20 @@ def time_affinity(reps: int):
                 k1.topk_attention_banked(**kw)  # warm-up
                 by_kernel, _ = device_ms_by_kernel(
                     lambda: [k1.topk_attention_banked(**kw) for _ in range(reps)])
-                res[variant][mode] = sum(
-                    t for n, t in by_kernel.items() if "affinity_kernel" in n) / reps
+                res[variant][mode] = {
+                    kernel: sum(t for n, t in by_kernel.items() if kernel in n) / reps
+                    for kernel in ATTENTION_KERNELS}
     return res
+
+
+def time_topk(reps: int):
+    """torch.topk(rows, TOPK) over random rows shaped as select_kernel's
+    scratch at these shapes (SIZE^2 rows of T * win^2): ms per call."""
+    win = TILE + 2 * int(RADIUS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = torch.randn((SIZE * SIZE, T * win * win), device="cuda", generator=gen)
+    torch.topk(rows, TOPK, dim=-1)  # warm-up
+    return events_ms(lambda: torch.topk(rows, TOPK, dim=-1), reps)
 
 
 def time_mxu(reps: int):
@@ -126,7 +158,7 @@ def time_mxu(reps: int):
             for s in ((k6.S, k6.C), (k6.T, k6.FK, k6.C)))
     res = {}
     for variant, text in variant_sources("mxu_vpu_overlap").items():
-        with _swapped("mxu_vpu_overlap", _build("mxu_vpu_overlap", variant, text)):
+        with swapped("mxu_vpu_overlap", build_variant("mxu_vpu_overlap", variant, text)):
             scratch = k6.new_scratch(q.device)
             k6.overlap("mxu", q, k, scratch)  # warm-up
             res[variant] = events_ms(lambda: k6.overlap("mxu", q, k, scratch), reps,
@@ -139,14 +171,19 @@ def run(reps: int = 20):
         raise RuntimeError("ablate times CUDA kernels: it needs a card")
     card = card_info()
     print(f"ablate on {card}", flush=True)
-    aff = time_affinity(max(reps // 4, 1))
-    for variant, ms in aff.items():
-        print(f"affinity_kernel {variant:16s}: " + ", ".join(f"{m} {t:.3f}" for m, t in ms.items())
-              + " ms", flush=True)
+    att = time_attention(max(reps // 4, 1))
+    for variant, by_mode in att.items():
+        for kernel in ATTENTION_KERNELS:
+            print(f"{kernel:15s} {variant:16s}: " + ", ".join(
+                f"{m} {t[kernel]:.3f}" for m, t in by_mode.items()) + " ms", flush=True)
+    topk_ms = time_topk(reps)
+    print(f"torch.topk over the scratch's rows (not the same function: no counts at a tie): "
+          f"{topk_ms:.3f} ms", flush=True)
     mxu = time_mxu(reps)
     for variant, ms in mxu.items():
         print(f"K6 mxu {variant:16s}: {ms:.4f} ms", flush=True)
-    return {"tool": "ablate", "card": card, "affinity_device_ms": aff, "mxu_ms": mxu}
+    return {"tool": "ablate", "card": card, "attention_device_ms": att, "topk_ms": topk_ms,
+            "mxu_ms": mxu}
 
 
 def main(argv=None):

@@ -21,12 +21,13 @@ name and power limit.
 What the split means on an H100.  The kernel (csrc/topk_attention.cu) runs
 two CUDA kernels where the Pallas kernel ran one: pass A is affinity_kernel
 (the masked affinities into a device-memory scratch), and passes B and C
-share select_kernel, one warp per query row: B is its per-lane lists of the
-largest distinct values and the warp merge into the exact statistics; C is
-its rescan of the row for the keys at or above the threshold and the gather
-of their values.  Every cut also pays the entry's per-call normalisation and
-padding, which falls in A; cut 'a' adds a small emit kernel, and cut 'ab'
-stops select_kernel before the rescan.
+share select_kernel, one block per query row: B is its one read of the row
+into shared memory, the candidates above a bound and the fused
+distinct-value rounds into the exact statistics; C is its compaction of the
+keys at or above the threshold and the gather of their values.  Every cut
+also pays the entry's per-call normalisation and padding, which falls in A;
+cut 'a' adds a small emit kernel, and cut 'ab' stops select_kernel before
+the selection.
 
 With --device cpu the plain PyTorch versions run at --size x --size query
 pixels and --channels feature channels (host clock; no device numbers).

@@ -29,9 +29,9 @@
 //       select_kernel, one extern "C" entry per mode
 //       (fgvc_topk_attention_<mode>_cut); the 'abc' code is unchanged.  On
 //       this card pass A is affinity_kernel, and passes B and C share
-//       select_kernel: B is the per-lane lists and the warp merge, C the
-//       rescan and the value gather.  Their bound is pass A's (the live
-//       products), as for K2.
+//       select_kernel: B is the row's load, the candidates and the rounds,
+//       C the selection and the value gather.  Their bound is pass A's (the
+//       live products), as for K2.
 // The wrappers (fgvc_tpu_torch/ops/cuda/topk_attention.py) do the padding;
 // this file sees a padded bank either way.
 //
@@ -86,19 +86,25 @@
 // query tiles to a global scratch buffer that the wrapper allocates
 // (ntiles * tile^2 * T * win^2 floats: 832 MB for 128 x 128 TAP-Vid
 // features, 5.46 GB for 240 x 440 DAVIS VOS features; a K4 row block's
-// covers its own tiles only, 2.91 GB for half of the VOS rows), then runs
-// one warp per query row over it:
+// covers its own tiles only, 2.91 GB for half of the VOS rows), then reads
+// each query row of it back once:
 //   1. affinity_kernel: a tensor-core product (mma.sync, 128 queries x 128
 //      keys per block, operands staged by cp.async and split once in shared
 //      memory; see the kernel), with the masks computed from coordinates in
 //      the epilogue and all-masked fragments not multiplied.
-//   2. select_kernel: each lane keeps the exact top distinct values of its
-//      strided share of the row with their counts (enough entries to reach k
-//      elements); the warp merges the 32 lists by distinct-value rounds,
-//      which gives the same statistics as the Pallas kernel's pass B.  The
-//      value mix is k-sparse, so instead of a dense weight x value product
-//      the warp rescans its row for the keys at or above the threshold and
-//      gathers their value vectors, one channel per lane.
+//   2. select_kernel: one block per query row loads the row (T * win^2
+//      affinities, 49.6 KB at T = 6, win = 46) into shared memory with one
+//      read, bounds the k-th largest element from below by the threads'
+//      maxima, compacts the few elements above the bound in key order, and
+//      runs the Pallas kernel's fused distinct-value rounds over them (the
+//      whole row where the bound leaves too many); the value mix is
+//      k-sparse, so instead of a dense weight x value product the block
+//      compacts the selected keys in key order and one thread per value
+//      channel sums their values.  Rows longer than shared memory holds are
+//      swept from the scratch instead.  Both sums run in one fixed order,
+//      whatever path a row takes: z over the distinct values in descending
+//      order, then the tie term; the value mix over the selected keys in
+//      ascending key order.
 //
 // What bounds it on an H100.  At the TAP-Vid shapes (128 x 128 queries, T =
 // 6, radius 15, circle, C = 256) the live (in-window, in-image, valid-slot)
@@ -110,9 +116,10 @@
 // 0.108 ms, 'high' (three products) 0.323 ms, 'float32' (3xTF32) 0.645 ms;
 // VOS 0.707, 2.12 and 4.24 ms; and the scratch write beside it, 832 MB in
 // 0.248 ms (TAP-Vid), 5.46 GB in 1.63 ms (VOS) at 3.35 TB/s.  select_kernel
-// reads the scratch twice (1.66 GB, 0.50 ms at TAP-Vid shapes) and is
-// latency bound: one warp's serial list inserts per query row.  Keeping the
-// affinities on chip is later work.
+// is bound by its bytes: the scratch read once, the values (12.6 MB) and
+// the output (2.1 MB), 0.253 ms at TAP-Vid shapes and 1.634 ms at VOS
+// shapes; its rounds and gather are a few hundred operations a row.
+// Keeping the affinities on chip is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -573,187 +580,425 @@ affinity_kernel(const typename Operand<MODE>::T* __restrict__ q,
   }
 }
 
-// Per-lane list of the largest distinct values seen with their counts, cut
-// after the entry at which the running count reaches k (KMAX > k).
-template <int KMAX>
-__device__ __forceinline__ void list_insert(float (&lv)[KMAX], int (&lc)[KMAX],
-                                            float a, int k, float& cutoff) {
-  bool found = false;
+// select_kernel: passes B and C, one block of THREADS threads per query row.
+//   load    the row (T * win^2 affinities) is read from the scratch once,
+//           16 bytes a thread and step, into shared memory ("resident"); each
+//           thread keeps the largest live finite element it loaded.
+//   bound   the k-th largest of a warp's 32 thread maxima (a warp bitonic
+//           sort) is held by k distinct elements, so it is at most the row's
+//           k-th largest; the block takes the largest of its warps' bounds.
+//   candidates  the live elements at or above the bound (usually a few
+//           dozen) are compacted into a buffer of CAP entries in ascending
+//           key order: a count over each thread's contiguous share of the
+//           row, a block-wide scan, a write.  Their values are fetched into
+//           shared memory (cp.async, over the row) while pass B runs.  Where
+//           more than CAP qualify (ties, flat regions, under-full rows), pass
+//           B runs over the whole row instead.
+//   pass B  the Pallas kernel's fused rounds: one comparison `a < prev` a
+//           live element gives both the largest value below the previous
+//           round's and the count at or above it (at most k + 1 rounds).
+//           Warp 0 alone sweeps the candidates (two warp reductions a round,
+//           no barrier); the whole row takes every warp and one
+//           shared-memory exchange a round.  The candidates hold every
+//           element at or above the threshold, so the values and counts are
+//           the row's.  z is summed over the distinct values in descending
+//           order, then the tie term.
+//   pass C  one thread per value channel sums the selected keys (live, at or
+//           above the threshold) in ascending key order through mix<MODE>,
+//           from 0: over the candidates' fetched values, the
+//           others' weights marked -1; from the whole row, SEG entries at a
+//           time compacted in order with their weights and value pixels, the
+//           values read from the L2.
+// No second read of the scratch.  A row longer than shared memory holds takes
+// the same code with the row read from the scratch (the L2) at each sweep
+// (RES = false).
+namespace {
+
+constexpr int NWARP = THREADS / 32;
+constexpr int CAP = 512;              // candidate / selection buffer entries
+constexpr int SEG = CAP;              // list entries one selection step takes
+constexpr int PER = SEG / THREADS;    // of them a thread's, contiguous
+constexpr int GATHER_UNROLL = 8;      // value loads in flight per channel
+// dynamic shared memory a select block may take: the card's 232,448 bytes a
+// block less room for the static arrays
+constexpr int SEL_SMEM_MAX = 232448 - 2048;
+
+__device__ __forceinline__ bool is_live(float a) { return a > NEG * 0.5f; }
+
+// The lanes' values sorted in descending order (bitonic, over the warp).
+__device__ __forceinline__ float warp_sort_desc(float x, int lane) {
 #pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    if (lv[i] == a) {
-      lc[i] += 1;
-      found = true;
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size / 2; stride > 0; stride >>= 1) {
+      const float o = __shfl_xor_sync(FULL, x, stride);
+      const bool desc = (lane & size) == 0 || size == 32;
+      const bool low = (lane & stride) == 0;
+      x = (low == desc) ? fmaxf(x, o) : fminf(x, o);
     }
   }
-  if (!found) {
-#pragma unroll
-    for (int i = KMAX - 1; i > 0; --i) {
-      if (lv[i - 1] < a) {
-        lv[i] = lv[i - 1];
-        lc[i] = lc[i - 1];
-      } else if (lv[i] < a) {
-        lv[i] = a;
-        lc[i] = 1;
-      }
-    }
-    if (lv[0] < a) {
-      lv[0] = a;
-      lc[0] = 1;
-    }
-  }
-  int cum = 0;
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    if (cum >= k) {
-      lv[i] = -INFINITY;
-      lc[i] = 0;
-    } else {
-      cum += lc[i];
-      if (cum >= k) cutoff = lv[i];
-    }
-  }
+  return x;
 }
+
+// Exclusive prefix sum of x over the block in thread order; `total` gets
+// the block's sum.  wsum (NWARP ints) must not be read by another scan
+// until a barrier has passed.
+__device__ __forceinline__ int block_scan(int x, int* wsum, int& total) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int inc = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) wsum[warp] = inc;
+  __syncthreads();
+  int off = 0;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < NWARP; ++w) {
+    const int s = wsum[w];
+    off += w < warp ? s : 0;
+    total += s;
+  }
+  return off + inc - x;
+}
+
+// The largest of the lanes' values (not NaN), by one warp reduction of
+// their order-preserving integer images.
+__device__ __forceinline__ float warp_max(float x) {
+  const int i = __float_as_int(x);
+  const int m = __reduce_max_sync(FULL, i >= 0 ? i : i ^ 0x7fffffff);
+  return __int_as_float(m >= 0 ? m : m ^ 0x7fffffff);
+}
+
+// 4 bytes from global to shared memory, through the L1
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src));
+}
+
+// Pass B's running statistics over the row's distinct live values, in
+// descending order.
+struct Rounds {
+  float prev, mmax, tv, zab;
+  int tc, nab, cum, base;
+  bool any;
+
+  __device__ void init() {
+    prev = INFINITY;
+    mmax = tv = NEG;
+    zab = 0.f;
+    tc = nab = cum = base = 0;
+    any = false;
+  }
+  // Takes round r's sweep: m, the largest live value below prev (the next
+  // distinct value), and c, the count of live elements at or above prev,
+  // which completes prev's count (`base`, round 0's count at or above
+  // +inf, is left out of the values).  Returns true when the statistics
+  // are complete.
+  __device__ bool step(int r, float m, int c, int k) {
+    if (r == 0) {
+      base = c;
+    } else {
+      const int cnt = c - base - cum;
+      if (!any) {
+        mmax = prev;
+        any = true;
+      } else {
+        zab += expf(fminf(tv - mmax, 0.f)) * (float)tc;  // previous, above
+      }
+      tv = prev;
+      tc = cnt;
+      nab = cum;
+      cum += cnt;
+      if (cum >= k) return true;
+    }
+    if (!is_live(m)) return true;  // no live value left: under-full row
+    prev = m;
+    return false;
+  }
+};
+
+}  // namespace
 
 // PASSES: 3 runs passes B and C ('abc'); 2 stops after pass B's statistics
 // (K5 cut 'ab') and writes [thresh, mmax, z, frac, n_above, cnt_at] into
 // channels 0..5 of the query pixel's output row, zeros into the rest (the
-// first Cv of the six where Cv < 6), with no rescan and no gather.
-template <int KMAX, int MODE, int PASSES = 3>
-__global__ void __launch_bounds__(THREADS)
+// first Cv of the six where Cv < 6), with no selection and no gather.
+// Dynamic shared memory: CAP floats and CAP ints, then (RES) the row.
+template <int MODE, int PASSES, bool RES>
+__global__ void __launch_bounds__(THREADS, 4)
 select_kernel(const float* __restrict__ aff, const float* __restrict__ v,
               float* __restrict__ out, const TopkAttnParams p) {
-  constexpr int NCH = 4;  // value channels per lane per pass (128 per warp)
-  const int lane = threadIdx.x % 32;
+  extern __shared__ __align__(16) float sel_smem[];
+  float* const bval = sel_smem;                              // candidates' values,
+  int* const bidx = reinterpret_cast<int*>(sel_smem + CAP);  // keys; then weights, pixels
+  float* const srow = sel_smem + 2 * CAP;                    // the resident row
+  __shared__ float red_m[2][NWARP];
+  __shared__ int red_c[2][NWARP];
+  __shared__ int wsum[NWARP];
+  __shared__ float wmax[NWARP];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int S = p.tile * p.tile;
   const int FK = p.win * p.win;
   const int ntw = p.Wp / p.tile;
-  const long long nq = (long long)(p.Hp / p.tile) * ntw * S;
-  const long long g = (long long)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
-  if (g >= nq) return;  // uniform across the warp
+  const long long g = blockIdx.x;
   const int tile_id = (int)(g / S), s = (int)(g % S);
   const int r0 = (tile_id / ntw) * p.tile, c0 = (tile_id % ntw) * p.tile;
   const int gi = r0 + s / p.tile, gj = c0 + s % p.tile;  // gi: block row
-  if (p.row0 + gi >= p.H || gj >= p.W) return;  // query-grid padding
+  if (p.row0 + gi >= p.H || gj >= p.W) return;  // query-grid padding (whole block)
 
   const int K = p.T * FK;
   const int k = p.topk;
-  const float* row = aff + (size_t)g * K;
+  const float* const grow = aff + (size_t)g * K;
 
-  // ---- exact top-k statistics: per-lane lists, then a warp merge ----
-  float lv[KMAX];
-  int lc[KMAX];
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    lv[i] = -INFINITY;
-    lc[i] = 0;
+  // ---- load: one read of the row; each thread's largest live finite
+  // element (and, for cut 'ab', its largest element) ----
+  float tmax = -INFINITY, amax = -INFINITY;
+  auto see = [&](float a) {
+    if (is_live(a) && a < INFINITY) tmax = fmaxf(tmax, a);
+    if (PASSES == 2) amax = fmaxf(amax, a);
+  };
+  if (K % 4 == 0) {  // rows 16-byte aligned
+    const float4* src = reinterpret_cast<const float4*>(grow);
+    for (int i = tid; i < K / 4; i += THREADS) {
+      const float4 x = RES ? __ldcs(src + i) : src[i];
+      if (RES) reinterpret_cast<float4*>(srow)[i] = x;
+      see(x.x);
+      see(x.y);
+      see(x.z);
+      see(x.w);
+    }
+  } else {
+    for (int i = tid; i < K; i += THREADS) {
+      const float a = grow[i];
+      if (RES) srow[i] = a;
+      see(a);
+    }
   }
-  float cutoff = -INFINITY;
-  for (int j = lane; j < K; j += 32) {
+  const float* const row = RES ? srow : grow;
+
+  // ---- bound: the largest of the warps' k-th largest thread maxima ----
+  const float wk = __shfl_sync(FULL, warp_sort_desc(tmax, lane), k - 1);
+  if (lane == 0) wmax[warp] = wk;
+  __syncthreads();  // the row is resident
+  float bound = wmax[0];
+#pragma unroll
+  for (int w = 1; w < NWARP; ++w) bound = fmaxf(bound, wmax[w]);
+
+  // ---- candidates, in ascending key order ----
+  const int chunk = (K + THREADS - 1) / THREADS;
+  const int j0 = min(K, tid * chunk), j1 = min(K, j0 + chunk);
+  int mine = 0;
+  for (int j = j0; j < j1; ++j) {
     const float a = row[j];
-    if (!(a > NEG * 0.5f) || a < cutoff) continue;
-    list_insert<KMAX>(lv, lc, a, k, cutoff);
+    mine += is_live(a) && a >= bound;
   }
-
-  // Round r takes the largest distinct value below round r-1's across the
-  // warp and its total count; every value down to the threshold is in some
-  // lane's list with its exact count (a lane cuts only below its own k-th
-  // element, which is at or below the row's k-th element).
-  float prev = INFINITY, mmax = NEG, tv = NEG, zab = 0.f;
-  int tc = 0, nab = 0, cum = 0;
-  bool any = false;
-  for (int r = 0; r < k; ++r) {
-    float cand = -INFINITY;
-    int cc = 0;
-#pragma unroll
-    for (int i = 0; i < KMAX; ++i) {
-      if (lv[i] < prev && lv[i] > cand) {
-        cand = lv[i];
-        cc = lc[i];
+  int n;
+  int off = block_scan(mine, wsum, n);
+  const bool fits = n <= CAP;
+  if (fits) {
+    for (int j = j0; j < j1 && mine; ++j) {
+      const float a = row[j];
+      if (is_live(a) && a >= bound) {
+        bval[off] = a;
+        bidx[off] = j;
+        ++off;
+        --mine;
       }
     }
-    float vmax = cand;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      vmax = fmaxf(vmax, __shfl_xor_sync(FULL, vmax, o));
-    if (!(vmax > NEG * 0.5f)) break;  // no live value left: under-full row
-    int c = (cand == vmax) ? cc : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(FULL, c, o);
-    if (!any) {
-      mmax = vmax;
-      any = true;
-    } else {
-      zab += expf(fminf(tv - mmax, 0.f)) * (float)tc;  // previous, above
-    }
-    tv = vmax;
-    tc = c;
-    nab = cum;
-    cum += c;
-    prev = vmax;
-    if (cum >= k) break;
   }
-  const float thresh = any ? tv : NEG;
-  const float cnt_at = any ? (float)tc : 0.f;
+  __syncthreads();
+  const float* const list = fits ? bval : row;  // what the rounds sweep
+  const int len = fits ? n : K;
+
+  // the value pixel of a live key (live keys lie in the image; global rows)
+  auto value_pixel = [&](int key) {
+    const int t = key / FK, f = key % FK;
+    const int vy = p.row0 + r0 + f / p.win - p.halo;
+    const int vx = c0 + f % p.win - p.halo;
+    return (t * p.H + vy) * p.W + vx;
+  };
+  // The candidates' values are fetched into shared memory over the row
+  // (the candidates replaced it) while the rounds run; their keys become
+  // value pixels in place.
+  const bool prefetch = PASSES == 3 && RES && fits && p.Cv <= THREADS && n * p.Cv <= K;
+  if (prefetch) {
+    for (int e = tid; e < n; e += THREADS) bidx[e] = value_pixel(bidx[e]);
+    __syncthreads();
+    for (int i = tid; i < n * p.Cv; i += THREADS) {
+      const int e = i / p.Cv;
+      cp_async4(srow + i, v + (size_t)bidx[e] * p.Cv + (i - e * p.Cv));
+    }
+    cp_async_commit();
+  }
+
+  // ---- pass B: fused rounds over the list, by warp 0 alone on the
+  // candidates (no barrier a round) or by the block on the whole row ----
+  auto sweep = [&](float prev, int first, int step, float& m, int& c) {
+    m = -INFINITY;
+    c = 0;
+    for (int j = first; j < len; j += step) {
+      const float a = list[j];
+      if (!is_live(a)) continue;
+      if (a < prev) {
+        m = fmaxf(m, a);
+      } else {
+        ++c;
+      }
+    }
+    m = warp_max(m);
+    c = __reduce_add_sync(FULL, c);
+  };
+  __shared__ Rounds shared_rounds;
+  Rounds rs;
+  rs.init();
+  if (fits) {
+    if (warp == 0) {
+      for (int r = 0;; ++r) {
+        float m;
+        int c;
+        sweep(rs.prev, lane, 32, m, c);
+        if (rs.step(r, m, c, k)) break;
+      }
+      if (lane == 0) shared_rounds = rs;
+    }
+    __syncthreads();
+    rs = shared_rounds;
+  } else {
+    for (int r = 0;; ++r) {
+      float m;
+      int c;
+      sweep(rs.prev, tid, THREADS, m, c);
+      if (lane == 0) {
+        red_m[r & 1][warp] = m;
+        red_c[r & 1][warp] = c;
+      }
+      __syncthreads();
+      m = red_m[r & 1][0];
+      c = red_c[r & 1][0];
+#pragma unroll
+      for (int w = 1; w < NWARP; ++w) {
+        m = fmaxf(m, red_m[r & 1][w]);
+        c += red_c[r & 1][w];
+      }
+      if (rs.step(r, m, c, k)) break;
+    }
+  }
+  const bool any = rs.any;
+  const float mmax = rs.mmax;
+  const float thresh = any ? rs.tv : NEG;
+  const float cnt_at = any ? (float)rs.tc : 0.f;
   const float frac =
-      fminf(fmaxf((float)k - (float)nab, 0.f), cnt_at) / fmaxf(cnt_at, 1.f);
-  float z = zab;
+      fminf(fmaxf((float)k - (float)rs.nab, 0.f), cnt_at) / fmaxf(cnt_at, 1.f);
+  float z = rs.zab;
   if (any) z += frac * cnt_at * expf(fminf(thresh - mmax, 0.f));
   z = fmaxf(z, 1e-30f);
+  float* const op = out + ((size_t)gi * p.W + gj) * p.Cv;
 
   if constexpr (PASSES == 2) {
     // Pass B's max is the row's largest element, live or not (round 0 of
-    // the Pallas rounds); a row with no live key needs a scan for it.
+    // the Pallas rounds); a row with no live key takes the loaded maxima.
     float rmax = mmax;
     if (!any) {
-      rmax = -INFINITY;
-      for (int j = lane; j < K; j += 32) rmax = fmaxf(rmax, row[j]);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(FULL, rmax, o));
+      for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, o));
+      if (lane == 0) wmax[warp] = amax;
+      __syncthreads();
+      rmax = wmax[0];
+#pragma unroll
+      for (int w = 1; w < NWARP; ++w) rmax = fmaxf(rmax, wmax[w]);
     }
-    const float stats[6] = {thresh, rmax, z, frac, (float)nab, cnt_at};
-    float* op = out + ((size_t)gi * p.W + gj) * p.Cv;
-    for (int ch = lane; ch < p.Cv; ch += 32) op[ch] = ch < 6 ? stats[ch] : 0.f;
+    const float stats[6] = {thresh, rmax, z, frac, (float)rs.nab, cnt_at};
+    for (int ch = tid; ch < p.Cv; ch += THREADS) op[ch] = ch < 6 ? stats[ch] : 0.f;
     return;
   }
 
-  // ---- value mix over the selected keys (k-sparse), in the mode's
-  // arithmetic: w is computed in f32 and rounded per mode with v ----
-  for (int cb = 0; cb < p.Cv; cb += 32 * NCH) {
-    float acc[NCH];
+  // ---- pass C: the value mix over the selected keys (k-sparse), in
+  // ascending key order, in the mode's arithmetic: w is computed in f32 and
+  // rounded per mode with v ----
+  auto weight = [&](float a) {
+    return expf(fminf(a - mmax, 0.f)) * (a > thresh ? 1.f : frac);
+  };
+  if (prefetch) {
+    // each candidate's weight, -1 where it is not selected (all are live);
+    // then one thread per channel sums the selected ones in key order
+    for (int e = tid; e < n; e += THREADS) {
+      const float a = bval[e];
+      bval[e] = any && a >= thresh ? weight(a) : -1.f;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if (tid < p.Cv) {
+      float acc = 0.f;
+      for (int e = 0; e < n; ++e) {
+        const float w = bval[e];
+        if (w >= 0.f) acc = mix<MODE>(w, srow[e * p.Cv + tid], acc);
+      }
+      op[tid] = acc / z;
+    }
+    return;
+  }
+  // The selected keys of list entries [e0, e0 + SEG), compacted in order
+  // into bval (weights) and bidx (value pixels); returns their number.
+  auto select_keys = [&](int e0) {
+    float w[PER];
+    int px[PER];
+    int cnt = 0;
 #pragma unroll
-    for (int n = 0; n < NCH; ++n) acc[n] = 0.f;
-    if (any) {
-      for (int j0 = 0; j0 < K; j0 += 32) {
-        const int j = j0 + lane;
-        const float a = j < K ? row[j] : NEG;
-        unsigned mask = __ballot_sync(FULL, a > NEG * 0.5f && a >= thresh);
-        while (mask) {
-          const int src = __ffs(mask) - 1;
-          mask &= mask - 1;
-          const float as = __shfl_sync(FULL, a, src);
-          const int js = j0 + src;
-          const float w = expf(fminf(as - mmax, 0.f)) * (as > thresh ? 1.f : frac);
-          const int t = js / FK, f = js % FK;
-          // live keys lie in the image (global rows)
-          const int vy = p.row0 + r0 + f / p.win - p.halo;
-          const int vx = c0 + f % p.win - p.halo;
-          const float* vp = v + (((size_t)t * p.H + vy) * p.W + vx) * p.Cv;
-#pragma unroll
-          for (int n = 0; n < NCH; ++n) {
-            const int ch = cb + n * 32 + lane;
-            if (ch < p.Cv) acc[n] = mix<MODE>(w, vp[ch], acc[n]);
-          }
-        }
+    for (int u = 0; u < PER; ++u) {
+      const int e = e0 + PER * tid + u;
+      const float a = e < len ? list[e] : NEG;
+      const int key = fits ? (e < len ? bidx[e] : 0) : e;
+      px[u] = -1;
+      if (is_live(a) && a >= thresh) {
+        w[u] = weight(a);
+        px[u] = value_pixel(key);
+        ++cnt;
       }
     }
-    float* op = out + ((size_t)gi * p.W + gj) * p.Cv;
+    int nsel;
+    int at = block_scan(cnt, wsum, nsel);  // every list read is done
 #pragma unroll
-    for (int n = 0; n < NCH; ++n) {
-      const int ch = cb + n * 32 + lane;
-      if (ch < p.Cv) op[ch] = acc[n] / z;
+    for (int u = 0; u < PER; ++u) {
+      if (px[u] >= 0) {
+        bval[at] = w[u];
+        bidx[at] = px[u];
+        ++at;
+      }
     }
+    __syncthreads();
+    return nsel;
+  };
+  // channel ch of the nsel compacted keys added to acc, in order
+  auto gather = [&](int nsel, int ch, float acc) {
+    for (int e = 0; e < nsel; e += GATHER_UNROLL) {
+      float vv[GATHER_UNROLL];
+#pragma unroll
+      for (int u = 0; u < GATHER_UNROLL; ++u)
+        vv[u] = e + u < nsel ? __ldg(v + (size_t)bidx[e + u] * p.Cv + ch) : 0.f;
+#pragma unroll
+      for (int u = 0; u < GATHER_UNROLL; ++u)
+        if (e + u < nsel) acc = mix<MODE>(bval[e + u], vv[u], acc);
+    }
+    return acc;
+  };
+  // candidates: one segment, selected once (in place) for every channel
+  const int nfit = any && fits ? select_keys(0) : 0;
+  for (int cb = 0; cb < p.Cv; cb += THREADS) {
+    const int ch = cb + tid;
+    float acc = 0.f;
+    if (fits) {
+      if (ch < p.Cv) acc = gather(nfit, ch, acc);
+    } else {
+      for (int e0 = 0; any && e0 < len; e0 += SEG) {
+        const int nsel = select_keys(e0);
+        if (ch < p.Cv) acc = gather(nsel, ch, acc);
+        __syncthreads();
+      }
+    }
+    if (ch < p.Cv) op[ch] = acc / z;
   }
 }
 
@@ -793,6 +1038,17 @@ emit_affinity_kernel(const float* __restrict__ aff, float* __restrict__ out,
   out[idx] = val;
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory, with the SM's
+// carveout given to shared memory.
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, int bytes) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 // Launches the kernels of PASSES on `stream` (3: passes A, B and C; K5's
 // profiling cut-downs 2: A and B's statistics, 1: A and the emit kernel);
 // returns the CUDA error of the launches (0 on success).  q: (Hp, Wp, C);
@@ -820,12 +1076,17 @@ int launch(const void* q, const void* bank, const float* v, float* out,
     const int grid_e = (int)((n + THREADS - 1) / THREADS);
     emit_affinity_kernel<<<grid_e, THREADS, 0, stream>>>(scratch, out, p);
   } else {
-    const long long nq = (long long)ntiles * S;
-    const int grid_b = (int)((nq + THREADS / 32 - 1) / (THREADS / 32));
-    if (p.topk < 16) {
-      select_kernel<16, MODE, PASSES><<<grid_b, THREADS, 0, stream>>>(scratch, v, out, p);
+    // one block per query row; the row resident in shared memory where it fits
+    const unsigned nq = (unsigned)(ntiles * S);
+    const int K = p.T * FK;
+    const int res_smem = 4 * (2 * CAP + (K + 3) / 4 * 4);
+    if (res_smem <= SEL_SMEM_MAX) {
+      err = set_smem(select_kernel<MODE, PASSES, true>, res_smem);
+      if (err != cudaSuccess) return (int)err;
+      select_kernel<MODE, PASSES, true><<<nq, THREADS, res_smem, stream>>>(scratch, v, out, p);
     } else {
-      select_kernel<32, MODE, PASSES><<<grid_b, THREADS, 0, stream>>>(scratch, v, out, p);
+      select_kernel<MODE, PASSES, false><<<nq, THREADS, 4 * 2 * CAP, stream>>>(scratch, v, out,
+                                                                              p);
     }
   }
   return (int)cudaGetLastError();

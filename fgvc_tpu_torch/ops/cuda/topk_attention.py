@@ -59,7 +59,7 @@ from fgvc_tpu_torch.ops.attention import build_padded_bank, l2_normalize
 
 NEG = -1e30
 MAX_T = 16      # key slots the kernel's parameter block holds
-MAX_TOPK = 31   # largest k the kernel's per-lane lists hold
+MAX_TOPK = 31   # largest k: the kernel's bound takes the k-th of a warp's 32 maxima
 MASK_SHAPES = ("circle", "square")
 PLAIN_CHUNK_TILES = 64  # query tiles per step of the plain version
 

@@ -542,3 +542,191 @@ def test_kernel_mode_checks_on_card():
                                  H=16, W=16, radius=4.0, topk=4, tile=8,
                                  compute_dtype="high")
     assert k1.launches == before
+
+
+# --------------------------------------------------------------------- #
+# select_kernel (passes B and C) on rows with exact affinities
+# --------------------------------------------------------------------- #
+# Integer features on a few channels, no normalisation, temperature 1
+# (bench/compare_source.py's integer_tie_inputs): every mode computes these
+# affinities exactly, on the card as in the plain version and in JAX, so the
+# statistics of pass B are held exactly and only the summation orders of z
+# and of the value mix differ: the float32 bound of a sum of that many terms,
+# at least 1e-6 relative (tie_heavy_limits; rows of the flat quarter sum
+# thousands of tied keys).
+
+
+def _tie_heavy(H, W, T=6, Cv=7, seed=0):
+    from fgvc_tpu_torch.bench.compare_source import integer_tie_inputs
+
+    return integer_tie_inputs(H, W, slots=T, cv=Cv, seed=seed)
+
+
+def _tie_kw(mode, passes, radius=6.0, topk=10, tile=16, mask_shape="circle", key_valid=None):
+    return dict(radius=radius, temperature=1.0, topk=topk, normalize=False, tile=tile,
+                mask_shape=mask_shape, key_valid=key_valid, compute_dtype=mode,
+                debug_passes=passes)
+
+
+def _assert_stats_exact(out, ref, mode, topk):
+    """[thresh, mmax, z, frac, n_above, cnt_at]: all but z equal, z within
+    its summation bound."""
+    from fgvc_tpu_torch.bench.compare_source import tie_heavy_limits
+
+    assert out.shape == ref.shape
+    for i in (0, 1, 3, 4, 5):
+        np.testing.assert_array_equal(out[..., i].numpy(), ref[..., i].numpy())
+    z_rtol, _ = tie_heavy_limits(ref, mode, topk)
+    np.testing.assert_allclose(out[..., 2].numpy(), ref[..., 2].numpy(), rtol=z_rtol, atol=0)
+
+
+def _assert_mix_close(out, ref, stats, value, mode, topk):
+    """Each row of the output within its summation bound of max |v|."""
+    from fgvc_tpu_torch.bench.compare_source import tie_heavy_limits
+
+    _, limit = tie_heavy_limits(stats, mode, topk)
+    assert ((out - ref).abs().amax(-1) <= limit * value.abs().max()).all()
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_stats_match_pallas_on_tie_heavy_rows(mode):
+    """The plain version, the oracle the card is held to, against JAX's
+    Pallas-interpreted fused_topk_attention on the tie-heavy integer rows:
+    cut 'ab''s threshold and counts equal, and the whole kernel."""
+    import jax.numpy as jnp
+
+    from fgvc_tpu.ops.pallas.topk_attention import fused_topk_attention
+
+    q, k, v = _tie_heavy(16, 16, T=3)
+    for passes in ("ab", "abc"):
+        kw = _tie_kw(mode, passes, radius=4.0, tile=8)
+        ref = np.asarray(fused_topk_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True,
+            **{n: x for n, x in kw.items() if n != "key_valid"}))
+        out = k1.topk_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                **kw).numpy()
+        if passes == "ab":
+            _assert_stats_exact(torch.tensor(out), torch.tensor(ref), mode, kw["topk"])
+            assert (out[..., 5] > 1).mean() > 0.25  # most rows tie at their threshold
+        else:
+            _assert_close(out, ref, v, mode)
+
+
+def _tie_on_card(q, k, v, **kw):
+    """Kernel and plain version of the unbanked entry on the card; cut 'ab'
+    and the whole kernel against the plain version; returns the kernel's
+    (stats, output)."""
+    _card_or_skip()
+    args = [torch.from_numpy(x).cuda() for x in (q, k, v)]
+    mode, topk = kw["compute_dtype"], kw["topk"]
+    res = []
+    for passes in ("ab", "abc"):
+        out = k1.topk_attention(*args, **{**kw, "debug_passes": passes}).cpu()
+        ref = k1.topk_attention_plain(*args, **{**kw, "debug_passes": passes}).cpu()
+        if passes == "ab":
+            _assert_stats_exact(out, ref, mode, topk)
+            stats = ref
+        else:
+            _assert_mix_close(out, ref, stats, torch.from_numpy(v), mode, topk)
+        res.append(out)
+    return res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topk,mask_shape", [(1, "circle"), (10, "square"), (31, "circle")])
+@pytest.mark.parametrize("mode", MODES)
+def test_kernel_tie_heavy_exact_on_card(mode, topk, mask_shape):
+    """select_kernel on tie-heavy rows (the flat quarter ties thousands of
+    keys, beyond the candidate buffer), at k = 1, 10 and 31: the
+    statistics exact, z and the output to summation order."""
+    q, k, v = _tie_heavy(40, 48)
+    stats, _ = _tie_on_card(q, k, v, **_tie_kw(mode, "abc", topk=topk, mask_shape=mask_shape))
+    assert (stats[..., 5] > 1).float().mean() > 0.25
+    assert stats[..., 5].max() > 512  # rows past the candidate buffer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [6.0, 22.0])
+@pytest.mark.parametrize("mode", MODES)
+def test_kernel_long_rows_on_card(mode, radius):
+    """T = 16 slots: rows of 16 x 28^2 affinities held in shared memory, and
+    of 16 x 60^2 = 57,600, longer than the on-chip path takes, swept from the
+    scratch instead."""
+    q, k, v = _tie_heavy(16, 16, T=16)
+    _tie_on_card(q, k, v, **_tie_kw(mode, "abc", radius=radius))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_kernel_underfull_and_masked_rows_on_card(mode):
+    """Rows with fewer than k live keys take every live key once; a row with
+    no live key (every slot invalid) gives 0, and cut 'ab' gives thresh and
+    mmax NEG (its largest element: an in-window key's NEG slot bias), no
+    counts and z 1e-30."""
+    q, k, v = _tie_heavy(16, 16, T=2)
+    stats, _ = _tie_on_card(q, k, v, **_tie_kw(mode, "abc", radius=1.5, topk=31))
+    assert (stats[..., 4] + stats[..., 5] < 31).all()  # every row under-full
+    stats, out = _tie_on_card(q, k, v, **_tie_kw(mode, "abc", key_valid=[False, False]))
+    assert not out.any() and (stats[..., :2] == k1.NEG).all() and not stats[..., 3:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_kernel_nan_affinities_on_card(mode):
+    """NaN affinities are dead.  A NaN key (features in [1, 2], so every
+    other key scores above a zero key) acts as a key that is never
+    selected: the result equals the plain version with that key zeroed.  A
+    NaN query pixel's row is all NaN: its output is 0."""
+    _card_or_skip()
+    q, k, v = _tie_heavy(16, 16, T=3)
+    q[..., :4], k[..., :4] = np.abs(q[..., :4]) + 1, np.abs(k[..., :4]) + 1
+    kz = k.copy()
+    kz[1, 5, 6] = 0.0
+    k[1, 5, 6, 0] = np.nan
+    qz = q.copy()
+    q[9, 3, 0] = np.nan
+    qz[9, 3] = 0.0
+    args = [torch.from_numpy(x).cuda() for x in (q, k, v)]
+    plain = [torch.from_numpy(x).cuda() for x in (qz, kz, v)]
+    for passes in ("ab", "abc"):
+        kw = _tie_kw(mode, passes)
+        out = k1.topk_attention(*args, **kw).cpu()
+        ref = k1.topk_attention_plain(*plain, **kw).cpu()
+        if passes == "abc":
+            assert not out[9, 3].any()
+        else:
+            assert out[9, 3, 0] == k1.NEG and out[9, 3, 5] == 0
+        out[9, 3], ref[9, 3] = 0.0, 0.0
+        if passes == "ab":
+            _assert_stats_exact(out, ref, mode, 10)
+            stats = ref
+        else:
+            _assert_mix_close(out, ref, stats, torch.from_numpy(v), mode, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 3])
+@pytest.mark.parametrize("mode", MODES)
+def test_kernel_row_blocks_tie_heavy_on_card(mode, S):
+    """K4 on tie-heavy rows: the row blocks, gathered and cut to H, equal
+    the unsharded kernel bit for bit."""
+    _card_or_skip()
+    H, W, radius, tile = 40, 48, 6.0, 16
+    q, k, v = _tie_heavy(H, W)
+    feats = torch.from_numpy(np.concatenate([k, q[None]])).cuda()
+    value = torch.from_numpy(v).cuda()
+    T = len(k)
+    halo, Hp, Wp, _, _ = k1.bank_geometry(H, W, radius, tile)
+    args = dict(value=value, frame_idx=list(range(T)), key_valid=[True] * T, H=H, W=W,
+                radius=radius, temperature=1.0, topk=10, tile=tile, compute_dtype=mode)
+    kpad = k1.pad_key_bank(feats, radius, tile=tile, normalize=False, compute_dtype=mode)
+    full = k1.topk_attention_banked(kpad[T, halo:halo + Hp, halo:halo + Wp].contiguous(),
+                                    kpad, **args)
+    hb = -(-(-(-Hp // S)) // tile) * tile
+    tall = k1.pad_key_bank(feats, radius, tile=tile, normalize=False, compute_dtype=mode,
+                           grid_rows=S * hb)
+    blocks = [k1.topk_attention_banked(tall[T, halo + r0:halo + r0 + hb, halo:halo + Wp]
+                                       .contiguous(), tall, row0=r0, grid_rows=S * hb, **args)
+              for r0 in range(0, S * hb, hb)]
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(blocks)[:H], full)
