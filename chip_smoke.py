@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (fgvc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,vos,vos_plain,modes,sp,
-                                    passes,overlap,profile]
+                                    passes,overlap,profile,train]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -106,7 +106,20 @@ Phases, each of which raises on failure (exit code != 0):
             on every row;
   profile   python -m fgvc_tpu_torch.cli.test --task davis --profile DIR on
             one e2e pickle: the Chrome trace holds the propagate[0] and
-            collect[0] spans and both CUDA kernels of K1.
+            collect[0] spans and both CUDA kernels of K1;
+  train     the mixed training recipe (fgvc_tpu_torch.apis.train.train_model
+            on structured synthetic data): (a) the TrainConfig defaults at
+            full width (crop 256, batch 4, radius 24, 'high', all three
+            branches, ResNet-18-d1) for 8 steps with finite losses, the
+            median step ms from step 3 on, the peak device memory, and 3
+            steps under torch.profiler (busy share, top kernels); (b) one
+            step at crop 64, radius 4, 'highest' on the card and on the CPU
+            from the same weights, batch and dropped channels: losses within
+            1e-4 relative, every gradient leaf within 1e-3 relative L2;
+            (c) 2 steps + resume + 2 against 4 steps on the card: parameters
+            and statistics within 1e-4; (d) mid-training validation
+            (make_synthetic_val_fn) on the student: K1 launched, metrics
+            finite.
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -1375,10 +1388,213 @@ def run_profile(data_root):
             raise AssertionError(f"profile: the trace lacks {[k for k, v in found.items() if not v]}")
 
 
+TRAIN_STEPS = 8           # full-width steps of phase train (a)
+TRAIN_PROFILED = 3        # steps under torch.profiler
+TRAIN_LOSS_RTOL = 1e-4    # (b) card against CPU, 'highest'
+TRAIN_GRAD_RTOL = 1e-3    # (b) relative L2 per gradient leaf
+TRAIN_RESUME_TOL = 1e-4   # (c) largest parameter difference
+SMALL_TRAIN = dict(crop_size=64, radius=4, batch_size=2, matmul_precision="highest")
+
+
+def _train_model(cfg, steps, work_dir, **kw):
+    """fgvc_tpu_torch.apis.train.train_model on structured data, as
+    python -m fgvc_tpu_torch.cli.train --synthetic-mode structured runs it."""
+    from fgvc_tpu_torch.apis.train import train_model
+    from fgvc_tpu_torch.datasets.flyingthings_ytv import (StructuredSyntheticMixedDataset,
+                                                          make_batches)
+
+    ds = StructuredSyntheticMixedDataset(crop=cfg.crop_size, seed=cfg.seed)
+    skip = kw.pop("skip", 0)
+    return train_model(cfg, make_batches(ds, cfg.batch_size, steps, skip=skip), work_dir,
+                       steps_per_epoch=16, max_steps=steps, device="cuda", **kw)
+
+
+def _read_log(work_dir):
+    with open(os.path.join(work_dir, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_train_full_width(work_dir):
+    """(a) The TrainConfig defaults (crop 256, batch 4, radius 24, 'high',
+    all three branches) for TRAIN_STEPS steps through train_model: finite
+    losses, the median step ms from step 3 on, peak device memory; then
+    TRAIN_PROFILED more steps under torch.profiler: busy share, top kernels."""
+    import torch
+
+    from fgvc_tpu_torch.config import TrainConfig
+    from fgvc_tpu_torch.core.train import step_generator
+    from fgvc_tpu_torch.datasets.flyingthings_ytv import (StructuredSyntheticMixedDataset,
+                                                          make_batches)
+
+    cfg = TrainConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    trainer = _train_model(cfg, TRAIN_STEPS, work_dir, log_interval=1,
+                           ckpt_interval=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    logs = [r for r in _read_log(work_dir) if "loss" in r]
+    if len(logs) != TRAIN_STEPS:
+        raise AssertionError(f"train (a): {len(logs)} logged steps, expected {TRAIN_STEPS}")
+    for r in logs:
+        bad = [k for k in ("l1_loss", "sup_loss", "corr_da_loss", "loss") if not np.isfinite(r[k])]
+        if bad:
+            raise AssertionError(f"train (a): non-finite {bad} at step {r['step']}")
+    step_ms = [1e3 / r["steps_per_sec"] for r in logs[2:]]
+    print(f"train (a) full width (crop {cfg.crop_size}, batch {cfg.batch_size}, radius "
+          f"{cfg.radius}, '{cfg.matmul_precision}', ResNet-18-d1): {TRAIN_STEPS} steps in "
+          f"{wall:.1f} s (first steps include cuDNN's search); step ms from step 3 "
+          f"{[round(x, 1) for x in step_ms]}, median {float(np.median(step_ms)):.1f} ms; "
+          f"peak device memory {peak:.2f} GB", flush=True)
+    print("train (a) losses: " + json.dumps({k: logs[-1][k] for k in
+                                             ("l1_loss", "sup_loss", "corr_da_loss", "loss")}))
+    ds = StructuredSyntheticMixedDataset(crop=cfg.crop_size, seed=cfg.seed + 1)
+    batches = [trainer.to_device(b) for b in
+               make_batches(ds, cfg.batch_size, TRAIN_PROFILED)]
+
+    def steps():
+        for b in batches:
+            trainer.train_step(b, step_generator(cfg.seed, trainer.step))
+
+    by_kernel, wall_ms = device_ms_by_kernel(steps)
+    busy = sum(by_kernel.values())
+    if busy:
+        print(f"train (a) {TRAIN_PROFILED} profiled steps (batches on the card): wall "
+              f"{wall_ms:.1f} ms ({wall_ms / TRAIN_PROFILED:.1f} per step), device busy "
+              f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%); top kernels: "
+              + _top(by_kernel, 8), flush=True)
+    else:
+        print("train (a) profile: device time not measured by torch.profiler")
+    del trainer, batches
+    torch.cuda.empty_cache()
+    return float(np.median(step_ms)), peak
+
+
+def _leaf_errors(a, b):
+    """{name: relative L2 of a's gradient against b's} over a's modules."""
+    out = {}
+    for name, module in a.trainable().items():
+        other = dict(b.trainable()[name].named_parameters())
+        for pname, p in module.named_parameters():
+            q = other[pname]
+            if p.grad is None and q.grad is None:
+                continue
+            ref = q.grad.double().cpu()
+            out[f"{name}.{pname}"] = float((p.grad.double().cpu() - ref).norm()
+                                           / ref.norm().clamp_min(1e-30))
+    return out
+
+
+def run_train_card_vs_cpu():
+    """(b) One loss_fn + backward at crop 64, radius 4, 'highest' on the card
+    and on the CPU from the same weights, batch and dropped channels; each
+    also against the CPU in float64 (printed: BN-bias gradients are sums
+    that cancel, and float32 keeps a few 1e-3 of them)."""
+    import torch
+
+    from fgvc_tpu_torch.config import TrainConfig
+    from fgvc_tpu_torch.core.train import MixedTrainer
+    from fgvc_tpu_torch.datasets.flyingthings_ytv import (StructuredSyntheticMixedDataset,
+                                                          make_batches)
+
+    cfg = TrainConfig(**SMALL_TRAIN)
+    cpu = MixedTrainer(cfg, device="cpu").init(0, 16)
+    card = MixedTrainer(cfg, device="cuda")
+    card.load_module_states({k: m.state_dict() for k, m in
+                             {**cpu.trainable(), "teacher": cpu.teacher}.items()})
+    card.reset_optimizer(16)
+    batch = next(make_batches(StructuredSyntheticMixedDataset(crop=cfg.crop_size, seed=5),
+                              cfg.batch_size, 1))
+    # float64 on the CPU: how far float32 itself is from the gradients
+    exact = MixedTrainer(cfg, device="cpu")
+    exact.load_module_states({k: m.state_dict() for k, m in
+                              {**cpu.trainable(), "teacher": cpu.teacher}.items()})
+    for m in (*exact.trainable().values(), exact.teacher):
+        m.double()
+    losses = {}
+    for name, trainer in (("cpu", cpu), ("card", card), ("float64", exact)):
+        b = {k: torch.as_tensor(v).to(trainer.device, next(trainer.backbone.parameters()).dtype)
+             for k, v in batch.items()}
+        total, parts = trainer.loss_fn(b, (1, 2))
+        total.backward()
+        losses[name] = {k: float(v.detach()) for k, v in parts.items()}
+    errs = _leaf_errors(card, cpu)
+    worst = max(errs, key=errs.get)
+    loss_err = max(abs(losses["card"][k] - v) / abs(v) for k, v in losses["cpu"].items())
+    to_f64 = {name: max(_leaf_errors(t, exact).values()) for name, t in (("card", card),
+                                                                          ("cpu", cpu))}
+    print(f"train (b) card vs CPU (crop 64, radius 4, 'highest'): losses {losses['card']}, "
+          f"largest relative loss difference {loss_err:.2e}; {len(errs)} gradient leaves, "
+          f"worst {worst} at {errs[worst]:.2e} relative L2 (worst leaf against float64: "
+          f"card {to_f64['card']:.2e}, CPU {to_f64['cpu']:.2e})", flush=True)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train (b): losses differ by {loss_err} relative")
+    if not errs[worst] <= TRAIN_GRAD_RTOL:
+        raise AssertionError(f"train (b): gradient {worst} differs by {errs[worst]}")
+
+
+def run_train_resume(root):
+    """(c) 2 steps, a checkpoint, 2 resumed steps against 4 straight steps on
+    the card (crop 64, radius 4): the largest parameter difference."""
+    import torch
+
+    from fgvc_tpu_torch.config import TrainConfig
+
+    cfg = TrainConfig(**SMALL_TRAIN)
+    a = _train_model(cfg, 4, os.path.join(root, "a"), ckpt_interval=100, resume=False)
+    _train_model(cfg, 2, os.path.join(root, "b"), ckpt_interval=2, resume=False)
+    b = _train_model(cfg, 4, os.path.join(root, "b"), ckpt_interval=100, resume=True, skip=2)
+    diff = 0.0
+    for name, module in a.trainable().items():
+        for (k, v), w in zip(module.state_dict().items(),
+                             b.trainable()[name].state_dict().values()):
+            if v.is_floating_point():
+                diff = max(diff, float((v - w).abs().max()))
+    print(f"train (c) 2 + resume + 2 against 4 steps on the card: steps {a.step}, {b.step}; "
+          f"largest parameter/statistic difference {diff:.3e}", flush=True)
+    if a.step != 4 or b.step != 4 or not diff <= TRAIN_RESUME_TOL:
+        raise AssertionError(f"train (c): resumed run differs by {diff}")
+    torch.cuda.empty_cache()
+    return b
+
+
+def run_train_val(trainer, root):
+    """(d) make_synthetic_val_fn on the student: mid-training validation
+    through the port's Tracker launches K1 on the card."""
+    from fgvc_tpu_torch.apis.train import make_synthetic_val_fn
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    val_fn = make_synthetic_val_fn(root, device="cuda")
+    k1.reset_launches()
+    metrics = val_fn(trainer)
+    launches = (k1.launches, k1.unbanked_launches, k1.row_block_launches)
+    print(f"train (d) mid-training validation: K1 launches {launches[0]} (K2 {launches[1]}, "
+          f"K4 {launches[2]}); " + json.dumps({k: metrics[k] for k in
+                                               ("average_pts_within_thresh", "average_jaccard")}),
+          flush=True)
+    check_metrics(metrics)
+    if not launches[0] > 0:
+        raise AssertionError("train (d): the validation launched no K1")
+
+
+def run_train():
+    """Phase train: (a) full width, (b) card against CPU, (c) resume, (d)
+    mid-training validation through K1."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        t0 = time.time()
+        run_train_full_width(os.path.join(root, "full"))
+        run_train_card_vs_cpu()
+        trainer = run_train_resume(root)
+        run_train_val(trainer, root)
+        print(f"train phase {time.time() - t0:.1f} s", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="card,build,kernel,e2e,plain,vos,vos_plain,modes,sp,"
-                                        "passes,overlap,profile")
+                                        "passes,overlap,profile,train")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1474,6 +1690,9 @@ def main():
         if "profile" in phases:
             phase("profile")
             run_profile(data_root)
+    if "train" in phases:
+        phase("train")
+        run_train()
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

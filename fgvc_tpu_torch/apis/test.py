@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import torch
 
 from fgvc_tpu_torch.config import DAVIS_TEST_CFG, TestConfig
+from fgvc_tpu_torch.core.checkpoint import student_state_dict
 from fgvc_tpu_torch.device import resolve_device
 from fgvc_tpu_torch.models.resnet import init_random, resnet18_d1
 from fgvc_tpu_torch.models.tracker import Tracker
@@ -73,10 +74,12 @@ def build_tracker(
     device: Optional[Union[str, torch.device]] = None,
     spatial_devices: SpatialDevices = None,
 ) -> Tracker:
-    """ResNet-18-d1 tracker with weights from a reference ``.pth``, or
-    seeded random weights.  Runs on the CUDA card unless `device` names
-    another; raises where there is no card and none was named.  With
-    `spatial_devices` (spatial_device_list) it runs on the first of them."""
+    """ResNet-18-d1 tracker with weights from a reference ``.pth``, from the
+    trained student of a port training checkpoint (a step_N directory or a
+    latest/best pointer file), or seeded random weights.  Runs on the CUDA
+    card unless `device` names another; raises where there is no card and
+    none was named.  With `spatial_devices` (spatial_device_list) it runs on
+    the first of them."""
     spatial = spatial_device_list(spatial_devices, device)
     dev = resolve_device(device if spatial is None else spatial[0])
     model = resnet18_d1()
@@ -85,10 +88,8 @@ def build_tracker(
     elif checkpoint.endswith(".pth"):
         load_weights(model, load_reference_pth(checkpoint))
     else:
-        raise NotImplementedError(
-            f"{checkpoint}: only reference .pth checkpoints are read by "
-            "fgvc_tpu_torch yet (orbax checkpoints come with slice 7)"
-        )
+        # JAX orbax directories have no state.pt and are refused here
+        load_weights(model, student_state_dict(checkpoint))
     return Tracker(model, test_cfg, dev, spatial_devices=spatial)
 
 

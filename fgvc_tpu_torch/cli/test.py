@@ -3,7 +3,8 @@
 tracking and DAVIS-2017 VOS.
 
     python -m fgvc_tpu_torch.cli.test --task davis --data-root <pkls> \
-        [--checkpoint ckpt.pth] [--max-videos N] [--output-dir DIR] \
+        [--checkpoint ckpt.pth|WORK_DIR/latest] [--max-videos N] [--output-dir DIR] \
+        [--config cfg.json] [--input-size N] \
         [--precision highest|high|default] [--spatial-devices S] \
         [--device cuda|cpu] [--profile LOGDIR]
     python -m fgvc_tpu_torch.cli.test --task vos --data-root <DAVIS tree> \
@@ -26,9 +27,16 @@ def main(argv=None):
     parser.add_argument("--list-path", default=None,
                         help="VOS: sequence list (.txt, one per line, or .json)")
     parser.add_argument("--checkpoint", default=None,
-                        help="reference .pth (mmcv or torchvision naming)")
+                        help="reference .pth (mmcv or torchvision naming), or a "
+                             "training checkpoint of fgvc_tpu_torch.cli.train "
+                             "(WORK_DIR/latest, WORK_DIR/best or a step_N dir)")
     parser.add_argument("--max-videos", type=int, default=None)
     parser.add_argument("--output-dir", default="eval_results")
+    parser.add_argument("--config", default=None,
+                        help="JSON file of TestConfig fields over the task preset; "
+                             "explicit flags win over it")
+    parser.add_argument("--input-size", type=int, default=None,
+                        help="the eval resolution (square; task preset 256)")
     parser.add_argument(
         "--precision",
         default=None,
@@ -71,9 +79,15 @@ def main(argv=None):
     import dataclasses
 
     from fgvc_tpu_torch.apis.test import TASK_CONFIGS, run_task
+    from fgvc_tpu_torch.config import config_from_file
     from fgvc_tpu_torch.utils.profiler import trace
 
+    base = TASK_CONFIGS[args.task]
+    if args.config:
+        base = config_from_file(args.config, base)
     overrides = {}
+    if args.input_size:
+        overrides["input_size"] = (args.input_size, args.input_size)
     if args.precision:
         overrides["matmul_precision"] = args.precision
     if args.save_mem is not None:
@@ -88,7 +102,7 @@ def main(argv=None):
             list_path=args.list_path,
             max_videos=args.max_videos,
             output_dir=args.output_dir,
-            test_cfg=dataclasses.replace(TASK_CONFIGS[args.task], **overrides),
+            test_cfg=dataclasses.replace(base, **overrides),
             device=args.device,
             spatial_devices=args.spatial_devices,
         )

@@ -1,6 +1,7 @@
-"""Test configuration of the port (the slice's fields of fgvc_tpu/config.py).
+"""Configuration of the port (fgvc_tpu/config.py): the test settings of the
+ported slices, and the training recipe.
 
-Field names and defaults follow fgvc_tpu.config.TestConfig.  Knobs whose other
+Field names and defaults follow fgvc_tpu.config's.  Test knobs whose other
 settings this package does not run yet keep their field, and
 ``check_ported`` raises NotImplementedError for a value other than the main
 path's, naming the slice of ROADMAP.md that ports it.
@@ -9,7 +10,7 @@ path's, naming the slice of ROADMAP.md that ports it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,3 +65,99 @@ def check_ported(cfg: TestConfig) -> None:
                 f"{name}={getattr(cfg, name)!r} is not ported to fgvc_tpu_torch "
                 f"yet (only {value!r}); it comes with {slice_name}"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The mixed-training recipe (fgvc_tpu.config.TrainConfig), every field
+    and default: reconstruction at radius 24 on stride-2 features, flow
+    distillation from a frozen teacher, adversarial correlation alignment;
+    Adam with cosine annealing (no warmup, as the released recipe ran)."""
+
+    # model
+    radius: int = 24
+    downsample_rate: int = 2
+    scale: int = 2              # sup-branch sampling stride on full-res flow
+    temperature_t: float = 0.07
+    rec_weight: float = 20.0    # smooth-l1 photometric scaling
+    loss_weight_l1: float = 1.0
+    loss_weight_sup: float = 1.0
+    loss_weight_corr_da: float = 1.0
+    bilateral: bool = False
+    norm: bool = True
+    # optimisation
+    lr: float = 1e-3
+    betas: Tuple[float, float] = (0.9, 0.999)
+    max_epochs: int = 30
+    warmup: Optional[str] = None   # None: pure cosine; 'linear': warmup first
+    warmup_epochs: int = 10
+    warmup_ratio: float = 0.1
+    check_numerics: bool = False   # raise on the first non-finite step
+    min_lr_ratio: float = 0.001
+    batch_size: int = 4
+    crop_size: int = 256
+    seed: int = 0
+    grad_clip: Optional[float] = None
+    loss_scale: float = 1.0
+    # precision of the correlation products only; the backbone is float32
+    matmul_precision: str = "high"
+    compute_dtype: str = "float32"
+    remat: bool = False            # recompute the student's activations
+    fused_encoder: bool = False    # one student pass over rec + sup (union BN)
+
+
+def config_from_file(path: str, base):
+    """Overlay a JSON object of config fields onto `base` (a TestConfig or
+    TrainConfig).  Unknown keys fail loudly; lists become tuples for
+    tuple-typed fields.  CLI layering: preset -> file -> explicit flags."""
+    import json
+
+    with open(path) as f:
+        data = json.load(f)
+    if not isinstance(data, dict):
+        raise ValueError(f"{path}: expected a JSON object of config fields")
+    valid = {f.name for f in dataclasses.fields(base)}
+    unknown = sorted(set(data) - valid)
+    if unknown:
+        raise ValueError(
+            f"{path}: unknown {type(base).__name__} field(s) {unknown}; "
+            f"valid: {sorted(valid)}"
+        )
+    coerced = {
+        k: tuple(v) if isinstance(v, list) and isinstance(getattr(base, k), tuple) else v
+        for k, v in data.items()
+    }
+    return dataclasses.replace(base, **coerced)
+
+
+def check_train_ported(cfg: TrainConfig, *, data_roots=(), multi_process: bool = False) -> None:
+    """Raise NotImplementedError for what the port's training leaves out
+    (bfloat16 compute, real-data roots, multi-process runs), and ValueError
+    for a value no package accepts."""
+    if any(data_roots):
+        raise NotImplementedError(
+            "real-data training (YouTube-VOS + FlyingThings3D) is not ported to "
+            "fgvc_tpu_torch yet: it needs the datasets and card-side JPEG/PNG "
+            "readers (ROADMAP.md item 43); train on --synthetic data"
+        )
+    if multi_process:
+        raise NotImplementedError(
+            "multi-process training (DDP + SyncBN) is not ported to "
+            "fgvc_tpu_torch yet (ROADMAP.md item 31); run one process"
+        )
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"compute_dtype must be 'float32' or 'bfloat16', got {cfg.compute_dtype!r}"
+        )
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "compute_dtype='bfloat16' is not ported to fgvc_tpu_torch yet; the "
+            "backbone trains in float32 (ROADMAP.md, slice 7 remnants)"
+        )
+    if cfg.matmul_precision not in MATMUL_PRECISIONS:
+        raise ValueError(
+            f"matmul_precision must be one of {MATMUL_PRECISIONS}, "
+            f"got {cfg.matmul_precision!r}"
+        )
+    if cfg.warmup not in (None, "linear"):
+        raise ValueError(f"warmup must be None or 'linear', got {cfg.warmup!r}")

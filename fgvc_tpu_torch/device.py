@@ -33,3 +33,11 @@ def set_matmul_precision(precision: str) -> None:
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def set_deterministic() -> None:
+    """cuDNN convolutions with deterministic algorithms (no atomics in their
+    backward): with them a training run repeats itself on the card, and a
+    resumed run the uninterrupted one."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False

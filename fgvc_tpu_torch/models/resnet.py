@@ -3,32 +3,80 @@
 The shipped FGVC recipes use ResNet(depth=18, strides=(1, 1, 1, 4),
 out_indices=(2,), pool_type='none'): a 7x7/2 stem with no max-pool, so layer3
 features are at stride 2.  layer4 keeps its parameters, so checkpoints load
-unchanged, but never runs.  Module names follow torchvision (conv1, bn1,
+unchanged; it runs only in training, without gradients, to keep its BN
+statistics as the reference's and flax's training forwards do.  Module names follow torchvision (conv1, bn1,
 layerX.Y.convN / bnN / downsample.0-1); models/weights.py maps the other
 namings onto them.
+
+In training mode the batch norms normalise as nn.BatchNorm2d does but keep
+their running statistics as flax's nn.BatchNorm(momentum=0.9) does: the
+biased batch variance, mean(x^2) - mean(x)^2, where torch would store the
+unbiased one.  `init_flax_like` draws weights the way the JAX package's
+modules initialise them, for training from scratch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+FLAX_BN_MOMENTUM = 0.9  # flax: running = 0.9 * running + 0.1 * batch
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose training-mode running statistics follow flax:
+    running = 0.9 * running + 0.1 * batch, with the biased batch variance
+    mean(x^2) - mean(x)^2 (flax's use_fast_variance).  Evaluation is
+    nn.BatchNorm2d's.  `update_stats` False skips the update (the
+    recomputed forward of a checkpointed student)."""
+
+    update_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        if self.update_stats:
+            with torch.no_grad():
+                mean = x.mean(dim=(0, 2, 3))
+                var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+                m = FLAX_BN_MOMENTUM
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+                self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+@contextlib.contextmanager
+def batch_stats_updates(model: nn.Module, enabled: bool):
+    """Switch the running-statistics update of `model`'s BatchNorm2d on or
+    off inside the block."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_stats = enabled
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-                nn.BatchNorm2d(planes, eps=1e-5),
+                BatchNorm2d(planes, eps=1e-5),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -51,7 +99,7 @@ class ResNet(nn.Module):
         super().__init__()
         self.out_index = out_index
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm2d(64, eps=1e-5)
         inplanes = 64
         for i, n in enumerate(stage_blocks):
             planes = 64 * 2**i
@@ -65,7 +113,20 @@ class ResNet(nn.Module):
         x = torch.relu(self.bn1(self.conv1(x)))
         for i in range(self.out_index + 1):
             x = getattr(self, f"layer{i + 1}")(x)
+        if self.training:
+            self._update_later_stages(x)
         return x
+
+    @torch.no_grad()
+    def _update_later_stages(self, x: torch.Tensor) -> None:
+        """The stages past out_index feed no output, but in training the
+        reference's and flax's forwards run them, and so update their BN
+        statistics: run them for that alone."""
+        later = [getattr(self, f"layer{i + 1}") for i in range(self.out_index + 1, 4)]
+        bns = [m for stage in later for m in stage.modules() if isinstance(m, BatchNorm2d)]
+        if later and all(m.update_stats for m in bns):
+            for stage in later:
+                x = stage(x)
 
 
 def resnet18_d1() -> ResNet:
@@ -85,6 +146,27 @@ def init_random(model: nn.Module, seed: int = 0) -> nn.Module:
                 m.weight.copy_(
                     torch.randn(m.weight.shape, generator=g) / math.sqrt(fan_in)
                 )
+            elif isinstance(m, nn.BatchNorm2d):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+                m.reset_running_stats()
+    return model
+
+
+def init_flax_like(model: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Weights drawn as flax initialises the JAX package's modules:
+    convolution and linear weights lecun-normal (a normal truncated at two
+    standard deviations, scaled to variance 1 / fan_in), biases 0, batch
+    norms at identity (scale 1, shift 0, running mean 0, variance 1)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                # flax's truncated_normal: stddev of the truncated draw is 1
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
             elif isinstance(m, nn.BatchNorm2d):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)

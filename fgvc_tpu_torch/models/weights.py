@@ -4,9 +4,13 @@
   variables (as numpy arrays) onto the port's module names.
 * ``load_reference_pth``: the reference's released ``.pth``, in its mmcv
   ConvModule naming or in torchvision naming.
+* ``trainer_state_from_flax``: the JAX MixedTrainer's state (student,
+  BatchNorm statistics, discriminators) and teacher variables onto the
+  port's MixedTrainer modules.
 * ``load_weights``: a state dict into a module, failing on any gap.
 
-Orbax checkpoints of the JAX package are not read here yet.
+Orbax checkpoints of the JAX package are not read: they reach the port as an
+exported .pth.
 """
 
 from __future__ import annotations
@@ -57,6 +61,32 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
             conv(f"{base}.downsample.0", blk["downsample_conv"])
             bn(f"{base}.downsample.1", blk["downsample_bn"], blk_s["downsample_bn"])
     return out
+
+
+def discriminator_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """GradReverseDiscriminator: flax Dense_{i} kernel (in, out) and bias ->
+    fc{i+1}.weight (out, in) and .bias."""
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(3):
+        dense = params[f"Dense_{i}"]
+        out[f"fc{i + 1}.weight"] = _tensor(np.asarray(dense["kernel"]).T)
+        out[f"fc{i + 1}.bias"] = _tensor(dense["bias"])
+    return out
+
+
+def trainer_state_from_flax(
+    params: Mapping[str, Any], batch_stats: Mapping[str, Any], teacher_vars: Mapping[str, Any]
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX MixedTrainer's state.params, state.batch_stats and teacher
+    variables (numpy) as state dicts of the port's MixedTrainer modules:
+    {'backbone', 'teacher', 'corr_disc', 'feat_disc'}."""
+    return {
+        "backbone": state_dict_from_flax({"params": params["backbone"],
+                                          "batch_stats": batch_stats}),
+        "teacher": state_dict_from_flax(teacher_vars),
+        "corr_disc": discriminator_state_dict_from_flax(params["corr_disc"]),
+        "feat_disc": discriminator_state_dict_from_flax(params["feat_disc"]),
+    }
 
 
 def convert_reference_state_dict(
