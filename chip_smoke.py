@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (fgvc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,vos,vos_plain,modes,sp,
-                                    passes,overlap,profile,train]
+    python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,vos,vos_plain,modes,
+                                    kinetics,jhmdb,badja,sp,passes,overlap,profile,train]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -44,7 +44,10 @@ Phases, each of which raises on failure (exit code != 0):
             block's own live pairs.  Each record of K1-K5 also carries
             affinity_kernel's and select_kernel's own device ms per launch
             (torch.profiler) and select_kernel's bound (its bytes: the
-            scratch read once, the values, the output);
+            scratch read once, the values, the output).  Last, K1 with the
+            square window in 'float32' at the keypoint tasks' shapes, JHMDB
+            (160 x 160, 15 values) and BADJA (160 x 256, 20 values), by the
+            same rule, timed and bounded;
   e2e       run_task('davis') (the CLI's path) on two synthetic TAP-Vid
             pickles (48 frames, 256 x 256, 32 tracks) with seeded random
             weights at the full width of ResNet-18-d1; K1's launches must
@@ -73,6 +76,28 @@ Phases, each of which raises on failure (exit code != 0):
             docs/precision_study.md); VOS J&F-Mean within 0.005.  Then that
             video cut to 8 frames in 'high' and 'default', through the
             kernels and the plain versions: label maps agree on >= 99.99%;
+  kinetics  run_task('kinetics', query_mode='strided') on one synthetic
+            TAP-Vid-Kinetics shard (250 frames stored at 360 x 640, resized
+            to 256 x 256 by the reader; 32 tracks visible throughout, so
+            every 5th frame queries all of them): K1 (circle) launches one
+            per frame of each query group (6,325), metrics finite; wall
+            time, frames/s, peak device memory; then the last three query
+            groups through K1 and its plain version on the same features:
+            median |diff| <= 1e-3 px, and K1's device ms per launch;
+  jhmdb     run_task('jhmdb') on a JHMDB tree (val_list.txt, PNG frames
+            written with zlib, a .mat of pos_img per video through
+            scipy.io) of two 40-frame 240 x 320 videos with 15 joints; the
+            frames come through a replaced read_image (the card's machine
+            has no PNG decoder yet), the one part that differs from a real
+            run.  K1 (square, 160 x 160, 15 values) launches one per frame
+            propagated; PCK@0.1-0.5 finite; then video 0 through K1 and
+            through the plain version: median |diff| <= 1e-3 px, both PCKs
+            printed, K1's device ms per launch;
+  badja     the same for run_task('badja') on one 60-frame video with
+            frames at 1080 x 1920 (resized to 320 x 512 by the reader), 20
+            joints annotated on every 5th frame and palette segmentations
+            expanded to BGR as cv2 reads them (K1 square, 160 x 256, 20
+            values);
   sp        spatial-parallel propagation (--spatial-devices) on this card
             listed S times: run_task('davis') on the e2e pickles at S = 2,
             whose trajectories equal the unsharded tracker's (<= 1e-6 px) and
@@ -83,7 +108,9 @@ Phases, each of which raises on failure (exit code != 0):
             frame propagated; peak device memory beside the unsharded run's.
             With two cards or more, the TAP-Vid case again on two distinct
             cards (frame-parallel features at half the batch: trajectories
-            within the plain phase's 1e-3 px median).
+            within the plain phase's 1e-3 px median).  Last, JHMDB video 0
+            through track_heatmaps with the card listed twice (K4 square,
+            two blocks a frame): coordinates equal to the unsharded run's.
   passes    K5, the kernel's profiling cut-downs, through the profiling tool
             (python -m fgvc_tpu_torch.bench.pass_breakdown) at its shapes
             (TAP-Vid: 128 x 128 x 256, 6 slots, radius 15, top-10, 32
@@ -205,6 +232,14 @@ CV = 32
 VOS_H, VOS_W = 240, 440
 VOS_CV = 5
 VOS_T, VOS_ORIG, VOS_OBJECTS = 24, (480, 854), 3
+# TAP-Vid-Kinetics, strided queries: one 250-frame video stored at 360 x 640
+KIN_T, KIN_ORIG, KIN_TRACKS = 250, (360, 640), 32
+# JHMDB: 320 x 320 input (160 x 160 features), 15 joints, frames at 240 x 320
+JHMDB_H = JHMDB_W = 160
+JHMDB_CV, JHMDB_T, JHMDB_VIDEOS, JHMDB_ORIG = 15, 40, 2, (240, 320)
+# BADJA: (320, 512) input (160 x 256 features), 20 joints, frames at 1080 x 1920
+BADJA_H, BADJA_W = 160, 256
+BADJA_CV, BADJA_T, BADJA_EVERY, BADJA_ORIG = 20, 60, 5, (1080, 1920)
 
 
 def phase(name):
@@ -569,6 +604,38 @@ def check_kernels(records):
         torch.cuda.empty_cache()
 
 
+def check_heatmap_kernels(records):
+    """K1 with the square window in 'float32' at the keypoint tasks' shapes:
+    JHMDB (160 x 160, 15 values) and BADJA (160 x 256, 20 values), for
+    distinct key frames and the step t = 1, held to the plain version by the
+    near-tie rule, timed and bounded."""
+    import torch
+
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    rng = np.random.default_rng(2)
+    for key, h, w, cv in (("K1_square_jhmdb", JHMDB_H, JHMDB_W, JHMDB_CV),
+                          ("K1_square_badja", BADJA_H, BADJA_W, BADJA_CV)):
+        feats = torch.from_numpy(rng.standard_normal((SLOTS + 1, h, w, C), dtype=np.float32)).cuda()
+        value = rng.random((SLOTS, h, w, cv), dtype=np.float32)
+        values = {"distinct": torch.from_numpy(value).cuda(),
+                  "t1_tie": torch.from_numpy(np.concatenate([value[:-1], value[:1]])).cuda()}
+        halo, hp, wp, rows_total, cols_total = k1.bank_geometry(h, w, RADIUS, TILE)
+        kpad = k1.pad_key_bank(feats, RADIUS, tile=TILE, compute_dtype="float32")
+        cases = {c: (dict(qpad=kpad[QFRAME[c], halo:halo + hp, halo:halo + wp].contiguous(),
+                          kpad=kpad, value=values[c], frame_idx=FIDX[c], key_valid=VALID[c],
+                          H=h, W=w, radius=RADIUS, temperature=TEMPERATURE, topk=TOPK,
+                          tile=TILE, mask_shape="square", compute_dtype="float32"), VALID[c])
+                 for c in FIDX}
+        nbytes = 4.0 * (hp * wp * C + SLOTS * rows_total * cols_total * C
+                        + SLOTS * h * w * cv + h * w * cv)
+        check_entry(f"{key} {h}x{w} Cv {cv}", records[key], k1.topk_attention_banked,
+                    k1.topk_attention_banked_plain, k1.near_tie_rows_plain, cases, h, w,
+                    "square", nbytes, "float32")
+        del feats, values, kpad, cases
+        torch.cuda.empty_cache()
+
+
 def row_blocks(h, S):
     """(hb, gridH, row0 of each block): Tracker.row_blocks for S blocks."""
     hb = -(-(-(-h // TILE) * TILE // S) // TILE) * TILE
@@ -782,7 +849,6 @@ def run_e2e(data_root, record):
 def run_plain_comparison(data_root):
     import torch
 
-    import fgvc_tpu_torch.models.tracker as tracker_mod
     from fgvc_tpu_torch.apis.test import build_tracker
     from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
     from fgvc_tpu_torch.ops.cuda import topk_attention as k1
@@ -811,11 +877,8 @@ def run_plain_comparison(data_root):
               + _top(by_kernel))
     else:
         print("video 0 profile: device time not measured by torch.profiler")
-    tracker_mod.topk_attention_banked = k1.topk_attention_banked_plain
-    try:
-        out_p, t_plain = timed(lambda: tracker.track_points(s["video"], s["query_points"], feats=feats))
-    finally:
-        tracker_mod.topk_attention_banked = k1.topk_attention_banked
+    out_p, t_plain = _plain_propagation(
+        lambda: timed(lambda: tracker.track_points(s["video"], s["query_points"], feats=feats)))
     T = len(s["video"])
     print(f"video 0 ({T} frames): features {1e3 * t_feat:.1f} ms, propagation+decode "
           f"{1e3 * t_prop:.1f} ms with K1 ({n_k} launches), {1e3 * t_plain:.1f} ms "
@@ -1388,6 +1451,329 @@ def run_profile(data_root):
             raise AssertionError(f"profile: the trace lacks {[k for k, v in found.items() if not v]}")
 
 
+def make_kinetics_pickle(root, T=KIN_T, orig=KIN_ORIG, n_tracks=KIN_TRACKS, seed=0):
+    """One TAP-Vid-Kinetics shard ({name: record}, as the release's are):
+    a texture panning slowly at the original 360 x 640, every track inside
+    the frame throughout, so each 5th frame queries all of them."""
+    rng = np.random.default_rng(seed)
+    h0, w0 = orig
+    margin = int(0.2 * T) + 14  # past the largest shift: every track stays inside
+    tex = _texture(rng, w0 + 2 * margin)
+    vel = rng.uniform(-0.2, 0.2, 2)
+    off = np.round(np.arange(T)[:, None] * vel[None]).astype(int) + margin
+    video = np.stack([tex[oy:oy + h0, ox:ox + w0] for ox, oy in off])
+    p0 = rng.uniform(margin, [w0 - margin, h0 - margin], (n_tracks, 2))
+    pts = p0[:, None, :] - (off - off[0])[None].astype(np.float64)
+    occ = (pts < 0).any(-1) | (pts[..., 0] > w0 - 1) | (pts[..., 1] > h0 - 1)
+    with open(os.path.join(root, "kinetics_00000.pkl"), "wb") as f:
+        pickle.dump({"kinetics_00000": {
+            "video": video, "points": (pts / np.array([w0, h0])).astype(np.float32),
+            "occluded": occ}}, f)
+
+
+def _kernel_ms_per_launch(fn, launches):
+    """Device ms per K1 launch (affinity_kernel + select_kernel) over fn(),
+    which makes `launches` of them (torch.profiler; None where it saw no
+    device time)."""
+    by_kernel, _ = device_ms_by_kernel(fn)
+    a = affinity_ms(by_kernel, launches)
+    b = affinity_ms(by_kernel, launches, "select_kernel")
+    return None if a is None or b is None else a + b
+
+
+def _plain_propagation(fn):
+    """fn() with the banked entry forced through its plain version."""
+    import fgvc_tpu_torch.models.tracker as tracker_mod
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    tracker_mod.topk_attention_banked = k1.topk_attention_banked_plain
+    try:
+        return fn()
+    finally:
+        tracker_mod.topk_attention_banked = k1.topk_attention_banked
+
+
+def _fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
+def run_kinetics(data_root, record):
+    """run_task('kinetics', query_mode='strided') on one 250-frame video
+    stored at 360 x 640 (the host resize to 256 x 256 runs): K1 (circle)
+    launches one per frame of each query group; metrics finite.  Then the
+    last three query groups (the short ones) through K1 and through its
+    plain version on the same features: median |diff| <= 1e-3 px from each
+    point's query frame on."""
+    import torch
+
+    from fgvc_tpu_torch.apis.test import build_tracker, run_task
+    from fgvc_tpu_torch.config import KINETICS_TEST_CFG
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    ds = TapVidDataset(data_root, subset_name="kinetics", query_mode="strided")
+    t0 = time.time()
+    s = ds[0]
+    t_read = time.time() - t0
+    T = len(s["video"])
+    qt = s["query_points"][:, 0].astype(int)
+    groups = np.unique(qt)
+    expect = int(sum(T - t - 1 for t in groups))
+    k1.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    metrics = run_task("kinetics", data_root, device="cuda", seed=0, query_mode="strided")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_launches("kinetics strided", "highest", expect, "banked")
+    check_metrics(metrics)
+    record["launches"] = (record["launches"] or 0) + expect
+    print("kinetics strided metrics (random weights): " + json.dumps(
+        {k: metrics[k] for k in ("average_pts_within_thresh", "average_jaccard",
+                                 "pts_within_1", "pts_within_4", "pts_within_16")}))
+    print(f"kinetics strided: {T} frames at {KIN_ORIG[0]} x {KIN_ORIG[1]} read and resized to "
+          f"256 x 256 in {t_read:.2f} s; {len(s['query_points'])} queries in {len(groups)} "
+          f"groups, {expect} K1 launches; run_task {dt:.2f} s = {T / dt:.2f} frames/s "
+          f"(model build and data reading included), {1e3 * dt / expect:.3f} ms of wall time "
+          f"per launch; peak device memory {peak:.2f} GB", flush=True)
+
+    tracker = build_tracker(KINETICS_TEST_CFG, seed=0, device="cuda")
+    feats = tracker.extract_features(s["video"])
+    last = groups[-3:]
+    sel = np.isin(qt, last)
+    qp = s["query_points"][sel]
+    n_last = int(sum(T - t - 1 for t in last))
+    ms = _kernel_ms_per_launch(lambda: tracker.track_points(s["video"], qp, feats=feats), n_last)
+    out_k = tracker.track_points(s["video"], qp, feats=feats)["trajectories"]
+    out_p = _plain_propagation(
+        lambda: tracker.track_points(s["video"], qp, feats=feats))["trajectories"]
+    tracked = np.arange(T)[:, None] >= qp[:, 0][None].astype(int)  # from each query frame on
+    diff = np.abs(out_k - out_p)[tracked]
+    med = float(np.median(diff))
+    print(f"kinetics strided last groups {list(last)} ({int(sel.sum())} queries, {n_last} "
+          f"launches): K1 device {_fmt_ms(ms)} per launch (torch.profiler); kernel vs plain "
+          f"median |diff| {med:.3e} px, max {diff.max():.3e} px (median limit {TRAJ_TOL_PX})",
+          flush=True)
+    if not med <= TRAJ_TOL_PX:
+        raise AssertionError(f"kinetics: median trajectory difference {med} px > {TRAJ_TOL_PX}")
+
+
+def encode_png(path, img, palette=None):
+    """Write a PNG with zlib alone: (H, W, 3) uint8 RGB, or (H, W) uint8
+    palette indices with `palette` ((n, 3) uint8 RGB)."""
+    import struct
+    import zlib
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    h, w = img.shape[:2]
+    color = 2 if palette is None else 3
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
+    parts = [b"\x89PNG\r\n\x1a\n", chunk(b"IHDR", header)]
+    if palette is not None:
+        parts.append(chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
+    parts += [chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)), chunk(b"IEND", b"")]
+    with open(path, "wb") as f:
+        f.write(b"".join(parts))
+
+
+class ImageHook:
+    """Replaces the JHMDB and BADJA readers' read_image by a lookup of the
+    arrays this script wrote (the card's machine has no PNG or JPEG
+    decoder yet, ROADMAP.md item 43): the one part of a run that differs
+    from a real one."""
+
+    def __init__(self, images):
+        self.images = images
+
+    def read(self, path, flags="color"):
+        return self.images[(path, flags)]
+
+    def __enter__(self):
+        from fgvc_tpu_torch.datasets import badja, jhmdb
+
+        self.saved = jhmdb.read_image, badja.read_image
+        jhmdb.read_image = badja.read_image = self.read
+        return self
+
+    def __exit__(self, *exc):
+        from fgvc_tpu_torch.datasets import badja, jhmdb
+
+        jhmdb.read_image, badja.read_image = self.saved
+
+
+def _panning(rng, T, orig, speed):
+    """(T, h, w, 3) frames of a texture panning by up to `speed` pixels a
+    frame and the (T, 2) (x, y) offsets from frame 0."""
+    h0, w0 = orig
+    margin = int(np.ceil(speed * T))
+    tex = _texture(rng, max(h0, w0) + 2 * margin)
+    vel = rng.uniform(-speed, speed, 2)
+    off = np.round(np.arange(T)[:, None] * vel[None]).astype(int) + margin
+    frames = np.stack([tex[oy:oy + h0, ox:ox + w0] for ox, oy in off])
+    return frames, (off - off[0]).astype(np.float64)
+
+
+def make_jhmdb_tree(root, images, n_videos=JHMDB_VIDEOS, T=JHMDB_T, orig=JHMDB_ORIG, seed=0):
+    """A JHMDB tree: PNG frames (written with zlib), a .mat of 1-based
+    pos_img (2, 15, T) per video through scipy.io.savemat (15 joints
+    following the pan), val_list.txt; each frame also into `images`."""
+    import scipy.io as sio
+
+    rng = np.random.default_rng(seed)
+    lines = []
+    for v in range(n_videos):
+        vdir = os.path.join(root, "Frames", f"v{v}")
+        os.makedirs(vdir, exist_ok=True)
+        frames, off = _panning(rng, T, orig, 1.0)
+        for t, frame in enumerate(frames):
+            path = os.path.join(vdir, f"{t + 1:05d}.png")
+            encode_png(path, frame)
+            images[(path, "color")] = frame
+        # joints within 20 px of the centre: PCK@0.1 is about 3 px
+        j0 = np.array([orig[1] / 2, orig[0] / 2]) + rng.uniform(-20, 20, (15, 2))
+        pos = (j0[None] - off[:, None]).transpose(2, 1, 0)  # (2, 15, T) (x; y)
+        sio.savemat(os.path.join(root, f"v{v}.mat"), {"pos_img": pos + 1})
+        lines.append(f"v{v}.mat Frames/v{v}")
+    with open(os.path.join(root, "val_list.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+# DAVIS's palette: 0 background, 1 (128, 0, 0), 2 (0, 128, 0)
+DAVIS_PALETTE = np.array([[0, 0, 0], [128, 0, 0], [0, 128, 0]] + [[0, 0, 0]] * 253, np.uint8)
+
+
+def make_badja_tree(root, images, T=BADJA_T, orig=BADJA_ORIG, every=BADJA_EVERY, seed=0):
+    """A BADJA tree for one animal: joint_annotations/<animal>.json (37 SMAL
+    joints (y, x) following the pan, on every 5th frame and the last) and
+    palette PNG segmentations (written with zlib; the animal an ellipse,
+    label 1, a second object label 2).  `images` gets each frame and each
+    segmentation as cv2.imread(IMREAD_UNCHANGED) reads it, expanded through
+    the palette to BGR; the JPEG frames are not written (no encoder here)."""
+    rng = np.random.default_rng(seed)
+    animal = "dog"
+    adir = os.path.join(root, "Annotations", "Full-Resolution", animal)
+    os.makedirs(adir, exist_ok=True)
+    os.makedirs(os.path.join(root, "joint_annotations"), exist_ok=True)
+    frames, off = _panning(rng, T, orig, 3.0)
+    h0, w0 = orig
+    yy, xx = np.mgrid[:h0, :w0]
+    j0 = np.array([h0 / 2, w0 / 2]) + rng.uniform(-100, 100, (37, 2))  # (y, x), on the animal
+    entries = []
+    for t in range(T):
+        img = os.path.join(root, f"JPEGImages/Full-Resolution/{animal}/{t:05d}.jpg")
+        seg = os.path.join(adir, f"{t:05d}.png")
+        cy, cx = h0 / 2 - off[t, 1], w0 / 2 - off[t, 0]
+        # radii 120 x 180 px: PCK@0.1 is about 7 px at 320 x 512
+        labels = (((yy - cy) / 120) ** 2 + ((xx - cx) / 180) ** 2 <= 1).astype(np.uint8)
+        labels[:200, :300] = 2
+        encode_png(seg, labels, DAVIS_PALETTE)
+        images[(img, "color")] = frames[t]
+        images[(seg, "unchanged")] = DAVIS_PALETTE[labels][..., ::-1]
+        if t % every == 0 or t == T - 1:
+            entries.append({
+                "image_path": f"badja/JPEGImages/Full-Resolution/{animal}/{t:05d}.jpg",
+                "segmentation_path": f"badja/Annotations/Full-Resolution/{animal}/{t:05d}.png",
+                "joints": (j0 - off[t, ::-1]).tolist(),
+                "visibility": [1] * 37,
+            })
+    with open(os.path.join(root, "joint_annotations", f"{animal}.json"), "w") as f:
+        json.dump(entries, f)
+    return len(entries)
+
+
+def run_keypoints(task, root, images, record, n_frames, decode_hw):
+    """run_task(task) ('jhmdb' or 'badja') through ImageHook: K1 (square)
+    launches one per frame propagated, PCK finite; then video 0 profiled
+    (K1 device ms per launch) and propagated again through the plain
+    version on the same features: median |diff| <= 1e-3 px, PCK of both
+    printed."""
+    import torch
+
+    from fgvc_tpu_torch.apis.test import TASK_CONFIGS, build_tracker, run_task
+    from fgvc_tpu_torch.datasets.badja import BadjaDataset
+    from fgvc_tpu_torch.datasets.jhmdb import JhmdbDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    with ImageHook(images):
+        ds = JhmdbDataset(root, root) if task == "jhmdb" else BadjaDataset(root, root)
+        expect = sum(n - 1 for n in n_frames)
+        k1.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        metrics = run_task(task, root, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check_launches(task, "highest", expect, "banked")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{task}: PCK not finite: {metrics}")
+        record["launches"] = (record["launches"] or 0) + expect
+        print(f"{task} PCK (random weights): " + json.dumps(metrics))
+        print(f"{task}: {len(ds)} video(s), {sum(n_frames)} frames in {dt:.2f} s = "
+              f"{sum(n_frames) / dt:.2f} frames/s (model build, data reading and scoring "
+              f"included); {expect} K1 launches; peak device memory {peak:.2f} GB", flush=True)
+
+        s = ds[0]
+        tracker = build_tracker(TASK_CONFIGS[task], seed=0, device="cuda")
+        feats = tracker.extract_features(s["video"])
+        args = (s["video"], s["ref_maps"], tuple(s["original_shape"]))
+        ms = _kernel_ms_per_launch(lambda: tracker.track_heatmaps(*args, feats=feats),
+                                   n_frames[0] - 1)
+        t0 = time.time()
+        out_k = tracker.track_heatmaps(*args, feats=feats)
+        t_k = time.time() - t0
+        t0 = time.time()
+        out_p = _plain_propagation(lambda: tracker.track_heatmaps(*args, feats=feats))
+        t_p = time.time() - t0
+        diff = np.abs(out_k - out_p)
+        med = float(np.median(diff))
+        if task == "jhmdb":
+            pck = [ds.evaluate([np.transpose(o, (2, 1, 0))], indices=[0]) for o in (out_k, out_p)]
+        else:
+            pck = [ds.evaluate([o], indices=[0]) for o in (out_k, out_p)]
+        dpck = max(abs(pck[0][k] - pck[1][k]) for k in pck[0])
+        print(f"{task} video 0 ({n_frames[0]} frames, decode {decode_hw}): K1 device "
+              f"{_fmt_ms(ms)} per launch (torch.profiler); propagation+decode {1e3 * t_k:.1f} ms "
+              f"with K1, {1e3 * t_p:.1f} ms with the plain version; coordinates median |diff| "
+              f"{med:.3e} px, max {diff.max():.3e} px (median limit {TRAJ_TOL_PX}); PCK "
+              f"{json.dumps(pck[0])} vs plain {json.dumps(pck[1])} (largest |diff| {dpck})",
+              flush=True)
+        if not med <= TRAJ_TOL_PX:
+            raise AssertionError(f"{task}: median coordinate difference {med} px > {TRAJ_TOL_PX}")
+    return metrics
+
+
+def run_sp_jhmdb(root, images, record, card):
+    """JHMDB video 0 through track_heatmaps unsharded and with `card` listed
+    twice (K4 square, two row blocks a frame): coordinates equal bit for
+    bit."""
+    from fgvc_tpu_torch.apis.test import TASK_CONFIGS, build_tracker
+    from fgvc_tpu_torch.datasets.jhmdb import JhmdbDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    S = 2
+    with ImageHook(images):
+        s = JhmdbDataset(root, root)[0]
+    args = (s["video"], s["ref_maps"], tuple(s["original_shape"]))
+    single = build_tracker(TASK_CONFIGS["jhmdb"], seed=0, device=card).track_heatmaps(*args)
+    tracker = build_tracker(TASK_CONFIGS["jhmdb"], seed=0, spatial_devices=[card] * S)
+    k1.reset_launches()
+    sp, peak = _peak_gb_of(lambda: tracker.track_heatmaps(*args))
+    expect = S * (len(s["video"]) - 1)
+    check_launches(f"sp jhmdb S={S}", "highest", expect, "row_block")
+    record["launches"] = (record["launches"] or 0) + expect
+    d = float(np.abs(sp - single).max())
+    print(f"sp jhmdb S={S} on one card: coordinates vs unsharded max |diff| {d:.3e} px (must be "
+          f"0); peak device memory {peak:.2f} GB", flush=True)
+    if not np.array_equal(sp, single):
+        raise AssertionError("sp jhmdb: row blocks differ from the unsharded run")
+
+
 TRAIN_STEPS = 8           # full-width steps of phase train (a)
 TRAIN_PROFILED = 3        # steps under torch.profiler
 TRAIN_LOSS_RTOL = 1e-4    # (b) card against CPU, 'highest'
@@ -1593,8 +1979,8 @@ def run_train():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="card,build,kernel,e2e,plain,vos,vos_plain,modes,sp,"
-                                        "passes,overlap,profile,train")
+    ap.add_argument("--phases", default="card,build,kernel,e2e,plain,vos,vos_plain,modes,"
+                                        "kinetics,jhmdb,badja,sp,passes,overlap,profile,train")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1618,6 +2004,13 @@ def main():
         "K1_circle": kernel_record("K1 topk_attention_banked, circle", f"{pallas}:597"),
         "K1_square": kernel_record("K1 topk_attention_banked, square", f"{pallas}:597"),
         "K2": kernel_record("K2 topk_attention (unbanked), square", f"{pallas}:424"),
+        # the same entry at the keypoint tasks' shapes
+        "K1_square_jhmdb": kernel_record(
+            f"K1 topk_attention_banked, square, JHMDB {JHMDB_H}x{JHMDB_W} Cv {JHMDB_CV}",
+            f"{pallas}:597"),
+        "K1_square_badja": kernel_record(
+            f"K1 topk_attention_banked, square, BADJA {BADJA_H}x{BADJA_W} Cv {BADJA_CV}",
+            f"{pallas}:597"),
     }
     # K3: the same kernel in mode 'high' (bf16x3, from :192) and 'bfloat16'
     # (from :201), through both entries
@@ -1651,6 +2044,7 @@ def main():
     if "kernel" in phases:
         phase("kernel")
         check_kernels(records)
+        check_heatmap_kernels(records)
         check_tie_heavy()
         check_row_blocks(records)
     e2e_metrics = None
@@ -1676,11 +2070,34 @@ def main():
             phase("modes")
             run_modes_tapvid(data_root, records)
             run_modes_vos(records)
+        if "kinetics" in phases:
+            phase("kinetics")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_kinetics_") as kin_root:
+                make_kinetics_pickle(kin_root)
+                run_kinetics(kin_root, records["K1_circle"])
+        jhmdb_root = os.path.join(data_root, "jhmdb")
+        jhmdb_images = {}
+        if "jhmdb" in phases or "sp" in phases:
+            os.makedirs(jhmdb_root)
+            make_jhmdb_tree(jhmdb_root, jhmdb_images)
+        if "jhmdb" in phases:
+            phase("jhmdb")
+            run_keypoints("jhmdb", jhmdb_root, jhmdb_images, records["K1_square_jhmdb"],
+                          [JHMDB_T] * JHMDB_VIDEOS, JHMDB_ORIG)
+        if "badja" in phases:
+            phase("badja")
+            badja_root = os.path.join(data_root, "badja")
+            badja_images = {}
+            make_badja_tree(badja_root, badja_images)
+            run_keypoints("badja", badja_root, badja_images, records["K1_square_badja"],
+                          [BADJA_T], (320, 512))
+            del badja_images
         if "sp" in phases:
             phase("sp")
             card = torch.device("cuda", torch.cuda.current_device())
             run_sp_tapvid(data_root, records["K4_circle"], card, e2e_metrics)
             run_sp_vos(records["K4_square"], card)
+            run_sp_jhmdb(jhmdb_root, jhmdb_images, records["K4_square"], card)
         if "passes" in phases:
             phase("passes")
             run_passes(records)

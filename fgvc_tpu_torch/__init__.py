@@ -2,6 +2,6 @@
 
 The package stands beside the JAX package ``fgvc_tpu`` (the reference it is
 tested against) and imports nothing of it.  Evaluation:
-``python -m fgvc_tpu_torch.cli.test --task davis|vos``; training:
-``python -m fgvc_tpu_torch.cli.train --synthetic``.
+``python -m fgvc_tpu_torch.cli.test --task davis|kinetics|jhmdb|badja|vos``;
+training: ``python -m fgvc_tpu_torch.cli.train --synthetic``.
 """

@@ -1,16 +1,19 @@
-"""Evaluation harness of the port (fgvc_tpu/apis/test.py): TAP-Vid-DAVIS
-point tracking and DAVIS-2017 VOS.
+"""Evaluation harness of the port (fgvc_tpu/apis/test.py): TAP-Vid-DAVIS and
+TAP-Vid-Kinetics point tracking, JHMDB pose and BADJA keypoint propagation,
+and DAVIS-2017 VOS.
 
-    run_task('davis', data_root, checkpoint=None, device=None, spatial_devices=None)
+    run_task('davis' | 'kinetics', data_root, query_mode='first' | 'strided', ...)
+    run_task('jhmdb' | 'badja', data_root, list_path=None, ...)
     run_task('vos', data_root, list_path=None, test_cfg=None, device=None)
 
 builds the ResNet-18-d1 tracker on the card (or on the device the caller
 names), evaluates every video of `data_root` and returns the task's metrics
-(TAP-Vid's, or DAVIS J&F).  `spatial_devices` S > 1 shards each frame's query
-rows over the first S cards (spatial-parallel propagation); a list of devices
-is taken as given, so one card listed S times runs S row blocks on it.
+(TAP-Vid's, PCK, or DAVIS J&F).  `spatial_devices` S > 1 shards each frame's
+query rows over the first S cards (spatial-parallel propagation); a list of
+devices is taken as given, so one card listed S times runs S row blocks on
+it.
 
-Both evals read one video ahead on a worker thread and name their steps for
+Every eval reads one video ahead on a worker thread and names its steps for
 ``--profile`` traces as the JAX harness does: ``propagate[i]`` around video
 i's tracking and ``collect[i]`` around reading (and, for VOS, scoring) its
 results.
@@ -21,9 +24,16 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
-from fgvc_tpu_torch.config import DAVIS_TEST_CFG, TestConfig
+from fgvc_tpu_torch.config import (
+    BADJA_TEST_CFG,
+    DAVIS_TEST_CFG,
+    JHMDB_TEST_CFG,
+    KINETICS_TEST_CFG,
+    TestConfig,
+)
 from fgvc_tpu_torch.core.checkpoint import student_state_dict
 from fgvc_tpu_torch.device import resolve_device
 from fgvc_tpu_torch.models.resnet import init_random, resnet18_d1
@@ -31,13 +41,12 @@ from fgvc_tpu_torch.models.tracker import Tracker
 from fgvc_tpu_torch.models.weights import load_reference_pth, load_weights
 from fgvc_tpu_torch.utils.profiler import annotate
 
-TASK_CONFIGS: Dict[str, TestConfig] = {"davis": DAVIS_TEST_CFG, "vos": DAVIS_TEST_CFG}
-
-# tasks of fgvc_tpu's CLI that later slices of ROADMAP.md port
-_LATER = {
-    "kinetics": "slice 2 (Kinetics and multi-GPU eval)",
-    "jhmdb": "slice 4 (JHMDB and BADJA)",
-    "badja": "slice 4 (JHMDB and BADJA)",
+TASK_CONFIGS: Dict[str, TestConfig] = {
+    "davis": DAVIS_TEST_CFG,
+    "kinetics": KINETICS_TEST_CFG,
+    "jhmdb": JHMDB_TEST_CFG,
+    "badja": BADJA_TEST_CFG,
+    "vos": DAVIS_TEST_CFG,
 }
 
 
@@ -134,6 +143,39 @@ def eval_tapvid(tracker: Tracker, dataset, max_videos=None, output_dir=None) -> 
     return dataset.evaluate(results, output_dir=output_dir, indices=range(n))
 
 
+def _heatmap_eval_loop(tracker: Tracker, dataset, n: int) -> List[np.ndarray]:
+    """(T, P, 2) coordinates at the reader's decode size of the first n
+    videos of a JHMDB or BADJA reader, one video read ahead."""
+    ids = list(range(n))
+    out = []
+    for i, sample in zip(ids, _read_ahead(dataset, ids)):
+        t0 = time.time()
+        with annotate(f"propagate[{i}]"):
+            disp = tracker.track_heatmaps_dispatch(
+                sample["video"], sample["ref_maps"], tuple(sample["original_shape"]))
+        with annotate(f"collect[{i}]"):
+            out.append(tracker.track_heatmaps_collect(disp))
+        print(f"[{i}] T={len(sample['video'])} P={sample['ref_maps'].shape[-1]}"
+              f" {time.time() - t0:.2f}s", flush=True)
+    return out
+
+
+def eval_jhmdb(tracker: Tracker, dataset, max_videos=None, output_dir=None) -> Dict[str, float]:
+    """Propagate every video's frame-0 joints (a JhmdbDataset) and score PCK
+    at the original frame size."""
+    n = len(dataset) if max_videos is None else min(len(dataset), max_videos)
+    preds = [np.transpose(c, (2, 1, 0)) for c in _heatmap_eval_loop(tracker, dataset, n)]
+    return dataset.evaluate(preds, indices=range(n), output_dir=output_dir)  # (2, P, T) each
+
+
+def eval_badja(tracker: Tracker, dataset, max_videos=None, output_dir=None) -> Dict[str, float]:
+    """Propagate every video's frame-0 joints (a BadjaDataset) and score PCK
+    at the reader's (320, 512)."""
+    n = len(dataset) if max_videos is None else min(len(dataset), max_videos)
+    preds = _heatmap_eval_loop(tracker, dataset, n)  # (T, P, 2) at the reader's size
+    return dataset.evaluate(preds, indices=range(n), output_dir=output_dir)
+
+
 def eval_vos(tracker: Tracker, dataset, max_videos=None, output_dir=None) -> Dict[str, float]:
     """Propagate the first mask of every video of `dataset` (a
     DavisVosDataset, or anything with its __len__, __getitem__ and
@@ -177,26 +219,41 @@ def run_task(
     device: Optional[Union[str, torch.device]] = None,
     seed: int = 0,
     spatial_devices: SpatialDevices = None,
+    query_mode: str = "first",
 ) -> Dict[str, float]:
-    """Mirror of `tools/test.py --task davis|vos [--spatial-devices S]`.
-    VOS reads every video at 480 x 880 whatever cfg.input_size says, as the
-    JAX harness does."""
-    if task in _LATER:
-        raise NotImplementedError(
-            f"task {task!r} is not ported to fgvc_tpu_torch yet; it comes "
-            f"with {_LATER[task]}"
-        )
+    """Mirror of `tools/test.py --task davis|kinetics|jhmdb|badja|vos
+    [--query-mode strided] [--spatial-devices S]`.  query_mode 'strided'
+    (TAP-Vid tasks only) queries every track every 5 frames where it is
+    visible.  JHMDB and BADJA read their lists under `list_path`, by default
+    `data_root`.  VOS reads every video at 480 x 880 and BADJA at 320 x 512
+    whatever cfg.input_size says, as the JAX harness does."""
     if task not in TASK_CONFIGS:
         raise ValueError(f"unknown task {task!r}")
+    if query_mode != "first" and task not in ("davis", "kinetics"):
+        raise ValueError(
+            f"--query-mode {query_mode!r} only applies to TAP-Vid point "
+            f"tracking (davis/kinetics), not task {task!r}"
+        )
     cfg = test_cfg or TASK_CONFIGS[task]
     tracker = build_tracker(cfg, checkpoint, seed=seed, device=device,
                             spatial_devices=spatial_devices)
-    if task == "vos":
-        from fgvc_tpu_torch.datasets import davis_vos
+    if task in ("davis", "kinetics"):
+        from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
 
-        ds = davis_vos.DavisVosDataset(data_root, split_list=list_path)
-        return eval_vos(tracker, ds, max_videos, output_dir=output_dir)
-    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+        ds = TapVidDataset(data_root, subset_name=task, query_mode=query_mode,
+                           input_size=cfg.input_size)
+        return eval_tapvid(tracker, ds, max_videos, output_dir=output_dir)
+    if task == "jhmdb":
+        from fgvc_tpu_torch.datasets.jhmdb import JhmdbDataset
 
-    ds = TapVidDataset(data_root, subset_name=task, input_size=cfg.input_size)
-    return eval_tapvid(tracker, ds, max_videos, output_dir=output_dir)
+        ds = JhmdbDataset(data_root, list_path or data_root, input_size=cfg.input_size)
+        return eval_jhmdb(tracker, ds, max_videos, output_dir=output_dir)
+    if task == "badja":
+        from fgvc_tpu_torch.datasets.badja import BadjaDataset
+
+        ds = BadjaDataset(data_root, list_path or data_root)
+        return eval_badja(tracker, ds, max_videos, output_dir=output_dir)
+    from fgvc_tpu_torch.datasets import davis_vos
+
+    ds = davis_vos.DavisVosDataset(data_root, split_list=list_path)
+    return eval_vos(tracker, ds, max_videos, output_dir=output_dir)

@@ -1,12 +1,18 @@
 #!/usr/bin/env python
-"""Evaluation CLI of the port (fgvc_tpu/cli/test.py): TAP-Vid-DAVIS point
-tracking and DAVIS-2017 VOS.
+"""Evaluation CLI of the port (fgvc_tpu/cli/test.py): TAP-Vid-DAVIS and
+TAP-Vid-Kinetics point tracking, JHMDB pose and BADJA keypoint propagation,
+and DAVIS-2017 VOS.
 
-    python -m fgvc_tpu_torch.cli.test --task davis --data-root <pkls> \
+    python -m fgvc_tpu_torch.cli.test --task davis|kinetics --data-root <pkls> \
+        [--query-mode first|strided] \
         [--checkpoint ckpt.pth|WORK_DIR/latest] [--max-videos N] [--output-dir DIR] \
         [--config cfg.json] [--input-size N] \
         [--precision highest|high|default] [--spatial-devices S] \
         [--device cuda|cpu] [--profile LOGDIR]
+    python -m fgvc_tpu_torch.cli.test --task jhmdb --data-root <JHMDB root> \
+        [--list-path <dir of val_list.txt>] [...]
+    python -m fgvc_tpu_torch.cli.test --task badja --data-root <BADJA root> \
+        [--list-path <dir of joint_annotations/>] [...]
     python -m fgvc_tpu_torch.cli.test --task vos --data-root <DAVIS tree> \
         [--list-path val.txt] [--save-mem] [--hard-prop] [...]
 
@@ -22,10 +28,17 @@ import json
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="fgvc_tpu_torch evaluation")
-    parser.add_argument("--task", required=True, choices=["davis", "vos"])
+    parser.add_argument("--task", required=True,
+                        choices=["davis", "kinetics", "jhmdb", "badja", "vos"])
     parser.add_argument("--data-root", required=True)
     parser.add_argument("--list-path", default=None,
-                        help="VOS: sequence list (.txt, one per line, or .json)")
+                        help="VOS: sequence list (.txt, one per line, or .json); "
+                             "JHMDB: the directory of val_list.txt; BADJA: the "
+                             "directory of joint_annotations/ (both default to "
+                             "--data-root)")
+    parser.add_argument("--query-mode", default="first", choices=["first", "strided"],
+                        help="TAP-Vid query sampling: each track's first visible "
+                             "frame, or every 5th frame where it is visible")
     parser.add_argument("--checkpoint", default=None,
                         help="reference .pth (mmcv or torchvision naming), or a "
                              "training checkpoint of fgvc_tpu_torch.cli.train "
@@ -36,7 +49,9 @@ def main(argv=None):
                         help="JSON file of TestConfig fields over the task preset; "
                              "explicit flags win over it")
     parser.add_argument("--input-size", type=int, default=None,
-                        help="the eval resolution (square; task preset 256)")
+                        help="the eval resolution (square; task preset 256, JHMDB "
+                             "320; BADJA reads 320 x 512 and VOS 480 x 880 "
+                             "whatever it says)")
     parser.add_argument(
         "--precision",
         default=None,
@@ -105,6 +120,7 @@ def main(argv=None):
             test_cfg=dataclasses.replace(base, **overrides),
             device=args.device,
             spatial_devices=args.spatial_devices,
+            query_mode=args.query_mode,
         )
     print(json.dumps(results, indent=2, default=float))
 

@@ -19,6 +19,7 @@ class TestConfig:
     topk: int = 10
     temperature: float = 0.07
     neighbor_range: int = 30    # full diameter: radius = neighbor_range // 2
+    step: int = 512             # the reference's chunk size; no effect on the kernel path
     with_first: bool = True     # False invalidates the frame-0 key slot
     with_first_neighbor: bool = True
     with_norm: bool = True
@@ -35,7 +36,10 @@ class TestConfig:
     preprocess: str = "lab"
 
 
-DAVIS_TEST_CFG = TestConfig()
+DAVIS_TEST_CFG = TestConfig(step=512)
+KINETICS_TEST_CFG = TestConfig(step=128)
+JHMDB_TEST_CFG = TestConfig(step=128, input_size=(320, 320))
+BADJA_TEST_CFG = TestConfig(step=128)
 
 # knob -> (the main path's value, the ROADMAP.md slice that ports the others)
 _NOT_PORTED = {

@@ -4,8 +4,8 @@ scoring (fgvc_tpu/datasets/davis_vos.py).
 Every video is resized to 480 x 880 whatever the configuration's input size,
 as the JAX harness does.  JPEG frames and palette PNG annotations are
 decoded with PIL; where PIL is missing, reading a video raises ImportError.
-Frames are resized as cv2.resize(..., INTER_LINEAR) resizes uint8 images, bit
-for bit, in numpy's integer arithmetic (the card's machine has no cv2).
+Frames are resized by image_io.resize_frames, which equals cv2's
+INTER_LINEAR bit for bit (re-exported here).
 """
 
 from __future__ import annotations
@@ -18,66 +18,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from fgvc_tpu_torch.core.metrics.vos import aggregate_jf, evaluate_video_jf
+from fgvc_tpu_torch.datasets.image_io import pil_image, read_image, resize_frames
 
 INPUT_SIZE = (480, 880)
-
-
-def _pil_image():
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(
-            "reading DAVIS frames and palette PNG annotations needs PIL "
-            "(Pillow), which is not installed"
-        ) from e
-    return Image
-
-
-# cv2's fixed-point bilinear coefficients: 11 fractional bits
-_COEF_BITS = 11
-_COEF_SCALE = 1 << _COEF_BITS
-
-
-def _linear_taps(n_src: int, n_dst: int, clamp: bool):
-    """Source indices (i0, i1) and fixed-point weights (w0, w1) of each
-    destination index, as cv2's INTER_LINEAR computes them: half-pixel
-    centres at scale 1 / (n_dst / n_src) in double, the fraction in float32,
-    weights rint((1 - f) * 2048) and rint(f * 2048).  Columns (`clamp`) past
-    either edge take the edge pixel at weight (2048, 0); rows keep their
-    weights and read the edge row twice."""
-    scale = 1.0 / (n_dst / n_src)
-    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
-    i0 = np.floor(f).astype(np.int64)
-    f = f - i0.astype(np.float32)
-    if clamp:
-        edge = (i0 < 0) | (i0 >= n_src - 1)
-        f[edge] = 0.0
-        i0 = np.clip(i0, 0, n_src - 1)
-    i1 = np.clip(i0 + 1, 0, n_src - 1)
-    i0 = np.clip(i0, 0, n_src - 1)
-    w0 = np.rint((np.float32(1.0) - f) * np.float32(_COEF_SCALE)).astype(np.int32)
-    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int32)
-    return i0, i1, w0, w1
-
-
-def resize_frames(frames: np.ndarray, size) -> np.ndarray:
-    """(T, H0, W0, C) uint8 -> (T, H, W, C) uint8, equal to cv2.resize(frame,
-    (W, H), interpolation=cv2.INTER_LINEAR) frame by frame: a horizontal pass
-    in 32-bit integers at 11 fractional bits, then cv2's vectorised vertical
-    pass, ((((S0 >> 4) * b0) >> 16) + (((S1 >> 4) * b1) >> 16) + 2) >> 2."""
-    frames = np.asarray(frames)
-    H, W = size
-    x0, x1, a0, a1 = _linear_taps(frames.shape[2], W, clamp=True)
-    y0, y1, b0, b1 = _linear_taps(frames.shape[1], H, clamp=False)
-    a0, a1 = a0[:, None], a1[:, None]
-    b0, b1 = b0[:, None, None], b1[:, None, None]
-    out = np.empty((frames.shape[0], H, W, frames.shape[3]), np.uint8)
-    for t, frame in enumerate(frames):
-        src = frame.astype(np.int32)
-        rows = (src[:, x0] * a0 + src[:, x1] * a1) >> 4  # (H0, W, C)
-        v = (((rows[y0] * b0) >> 16) + ((rows[y1] * b1) >> 16) + 2) >> 2
-        out[t] = np.clip(v, 0, 255)
-    return out
 
 
 def score_masks(gt: np.ndarray, pred: np.ndarray):
@@ -153,14 +96,11 @@ class DavisVosDataset:
 
     def load_mask(self, path: str) -> np.ndarray:
         """Palette PNG -> integer label map."""
-        return np.array(_pil_image().open(path))
+        return np.array(pil_image().open(path))
 
     def __getitem__(self, idx: int) -> Dict:
-        Image = _pil_image()
         seq = self.sequences[idx]
-        frames = np.stack([
-            np.array(Image.open(p).convert("RGB")) for p in self._frame_paths(seq)
-        ])
+        frames = np.stack([read_image(p) for p in self._frame_paths(seq)])
         first_mask = self.load_mask(self._anno_paths(seq)[0])
         return {
             "sequence": seq,

@@ -1,10 +1,11 @@
-"""TAP-Vid pickles: reader, 'first' query sampling, evaluation
-(fgvc_tpu/datasets/tapvid.py).
+"""TAP-Vid pickles (DAVIS and Kinetics): reader, 'first' and 'strided'
+query sampling, evaluation (fgvc_tpu/datasets/tapvid.py).
 
-Each ``*.pkl`` holds one video: {'video': (T, H, W, 3) uint8, 'points':
-(N, T, 2) (x, y) in [0, 1], 'occluded': (N, T) bool}.  This slice reads
-frames stored as uint8 arrays at the network input size; JPEG-byte frames and
-resizing (cv2/PIL in the JAX package) are not ported yet and raise.
+Each ``*.pkl`` holds one video: {'video': (T, H, W, 3) uint8 or a list of
+JPEG byte strings, 'points': (N, T, 2) (x, y) in [0, 1], 'occluded': (N, T)
+bool}.  JPEG bytes decode through image_io.read_image (PIL); frames at
+another size than the input size are resized as cv2's INTER_LINEAR does
+(image_io.resize_frames, bit for bit).
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ from fgvc_tpu_torch.core.metrics.tapvid import (
     aggregate_summaries,
     compute_point_summary,
 )
+from fgvc_tpu_torch.datasets.image_io import read_image, resize_frames
+
+QUERY_MODES = ("first", "strided")
 
 
 def sample_queries_first(occluded: np.ndarray, points: np.ndarray) -> Dict:
@@ -42,6 +46,26 @@ def sample_queries_first(occluded: np.ndarray, points: np.ndarray) -> Dict:
         "query_points": np.array(queries, dtype=np.float32).reshape(-1, 3),
         "target_points": points,
         "occluded": occluded,
+    }
+
+
+def sample_queries_strided(occluded: np.ndarray, points: np.ndarray, stride: int = 5) -> Dict:
+    """A query every `stride` frames for each track visible there: the
+    queries of frame 0, then of frame `stride`, ...; target_points and
+    occluded repeat each query's track."""
+    n = occluded.shape[0]
+    queries, tracks, occs = [], [], []
+    for t in range(0, occluded.shape[1], stride):
+        mask = ~occluded[:, t]
+        q = np.stack([np.full(n, t, dtype=np.float32), points[:, t, 1], points[:, t, 0]],
+                     axis=-1)
+        queries.append(q[mask])
+        tracks.append(points[mask])
+        occs.append(occluded[mask])
+    return {
+        "query_points": np.concatenate(queries, axis=0),
+        "target_points": np.concatenate(tracks, axis=0),
+        "occluded": np.concatenate(occs, axis=0),
     }
 
 
@@ -75,11 +99,8 @@ class TapVidDataset:
         input_size=(256, 256),
         eval_size=(256, 256),
     ):
-        if query_mode != "first":
-            raise NotImplementedError(
-                f"query_mode={query_mode!r} is not ported yet (slice 2); "
-                "only 'first'"
-            )
+        if query_mode not in QUERY_MODES:
+            raise ValueError(f"query_mode must be one of {QUERY_MODES}, got {query_mode!r}")
         self.root = root
         self.subset_name = subset_name
         self.query_mode = query_mode
@@ -104,20 +125,14 @@ class TapVidDataset:
         return sample
 
     def _frames(self, video, path: str) -> np.ndarray:
+        """(T, H, W, 3) uint8 frames at the input size."""
         if len(video) and isinstance(video[0], bytes):
-            raise NotImplementedError(
-                f"{path}: JPEG-byte frames are not decoded by fgvc_tpu_torch "
-                "yet; store the frames as a (T, H, W, 3) uint8 array"
-            )
+            video = np.stack([read_image(f) for f in video])
         video = np.asarray(video)
         if video.dtype != np.uint8 or video.ndim != 4:
             raise ValueError(f"{path}: expected (T, H, W, 3) uint8 frames")
         if video.shape[1:3] != self.input_size:
-            raise NotImplementedError(
-                f"{path}: frames are {video.shape[1:3]}, the input size is "
-                f"{self.input_size}; resizing is not ported to "
-                "fgvc_tpu_torch yet"
-            )
+            video = resize_frames(video, self.input_size)
         return video
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
@@ -128,7 +143,10 @@ class TapVidDataset:
         points[..., 0] *= self.input_size[1]  # [0, 1] -> input pixels
         points[..., 1] *= self.input_size[0]
 
-        data = sample_queries_first(occluded, points)
+        if self.query_mode == "first":
+            data = sample_queries_first(occluded, points)
+        else:
+            data = sample_queries_strided(occluded, points)
         qp = data["query_points"][:, [0, 2, 1]]  # (t, y, x) -> (t, x, y)
         traj = np.transpose(data["target_points"], (1, 0, 2))  # (T, P, 2)
         vis = ~np.transpose(data["occluded"], (1, 0))  # (T, P)

@@ -1,7 +1,7 @@
 """Label-propagation tracker (fgvc_tpu/models/tracker.py, attention_impl
 'pallas').
 
-Two protocols share one propagation loop:
+Three protocols share one propagation loop:
 
 * TAP-Vid point tracking: uint8 frames -> Lab -> ResNet features (16-frame
   chunks, on the device) -> one normalised, halo-padded key bank per video
@@ -18,6 +18,10 @@ Two protocols share one propagation loop:
   Each frame decodes by bilinear upsampling to the original size and an
   argmax; frame 0 is the given mask.  `hard_prop` re-encodes each propagated
   frame as a one-hot before it enters the value buffer.
+* JHMDB / BADJA keypoint propagation: reference heatmaps, resized to
+  feature resolution as jax.image.resize does (antialiased), propagate from
+  frame 0 through K1 with the square window; each frame decodes as in
+  TAP-Vid, at the reader's decode size.
 
 cfg.matmul_precision picks the kernel's compute mode (K3), as
 pallas_compute_dtype maps it: 'highest' runs 'float32', 'high' the bf16x3
@@ -90,6 +94,16 @@ def upsample(logits: torch.Tensor, full_hw: Tuple[int, int]) -> torch.Tensor:
         logits.permute(2, 0, 1)[None], size=full_hw, mode="bilinear",
         align_corners=False,
     )[0]
+
+
+def resize_maps(maps: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """(h0, w0, P) -> (h, w, P) as jax.image.resize(..., 'bilinear') does:
+    half-pixel centres, and a triangle filter widened by the scale where it
+    shrinks an axis (antialiasing, which a plain bilinear downscale lacks)."""
+    return F.interpolate(
+        maps.permute(2, 0, 1)[None], size=hw, mode="bilinear", align_corners=False,
+        antialias=True,
+    )[0].permute(1, 2, 0)
 
 
 def decode_labels(logits: torch.Tensor, full_hw: Tuple[int, int]) -> torch.Tensor:
@@ -438,7 +452,9 @@ class Tracker:
         T, H, W, _ = video.shape
         if feats is None:
             feats = self.extract_features(video)
+        feat_hw = tuple(feats.shape[1:3])
         bank = self.video_bank(feats)
+        del feats  # the bank holds every frame (a 250-frame video's features are 4.2 GB)
         qt = query_points[:, 0].astype(np.int64)
         pending = []
         for t in np.unique(qt):
@@ -446,9 +462,7 @@ class Tracker:
             pts = torch.from_numpy(
                 np.ascontiguousarray(query_points[sel, 1:], dtype=np.float32)
             ).to(self.device)
-            rows = self.track_group(
-                bank, int(t), T - int(t), pts, tuple(feats.shape[1:3]), (H, W)
-            )
+            rows = self.track_group(bank, int(t), T - int(t), pts, feat_hw, (H, W))
             pending.append((int(t), sel, rows))
         return {"pending": pending, "T": T, "P": query_points.shape[0]}
 
@@ -467,6 +481,51 @@ class Tracker:
     ) -> Dict[str, np.ndarray]:
         return self.track_points_collect(
             self.track_points_dispatch(video, query_points, feats=feats)
+        )
+
+    # ------------------------------------------------------------------ #
+    # JHMDB / BADJA keypoint heatmap protocol
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def track_heatmaps_dispatch(
+        self,
+        video: np.ndarray,           # (T, H, W, 3) uint8 RGB
+        ref_maps: np.ndarray,        # (h0, w0, P) reference keypoint heatmaps
+        decode_hw: Tuple[int, int],  # the resolution coordinates decode at
+        feats: Optional[torch.Tensor] = None,
+    ) -> Dict:
+        """Queue heatmap propagation on the device (square window: K1, or K4
+        with spatial devices); `track_heatmaps_collect` reads the
+        coordinates."""
+        if feats is None:
+            feats = self.extract_features(video)
+        h, w = feats.shape[1:3]
+        bank = self.video_bank(feats)
+        del feats  # the bank holds every frame
+        maps = torch.from_numpy(np.ascontiguousarray(ref_maps, np.float32)).to(self.device)
+        propagate = self.propagate if self.spatial_devices is None else self.propagate_sp
+        rows = propagate(bank, 0, video.shape[0], resize_maps(maps, (h, w)).contiguous(),
+                         lambda seg: self.decode(seg, tuple(decode_hw)), mask_shape="square")
+        # frame 0 decodes the reference maps themselves at decode_hw
+        ref_up = resize_maps(maps, tuple(decode_hw)).permute(2, 0, 1)
+        return {"coords": [soft_argmax_topk(ref_up, topk=5), *rows]}
+
+    def track_heatmaps_collect(self, disp: Dict) -> np.ndarray:
+        """(T, P, 2) (x, y) at decode_hw."""
+        return torch.stack(disp["coords"]).cpu().numpy()
+
+    def track_heatmaps(
+        self, video: np.ndarray, ref_maps: np.ndarray, decode_hw: Tuple[int, int],
+        feats: Optional[torch.Tensor] = None,
+    ) -> np.ndarray:
+        """Propagate reference heatmaps from frame 0 (the JAX
+        track_heatmaps): the maps bilinear-resized to feature resolution
+        (antialiased, as jax.image.resize), propagated with the square
+        window, each frame decoded by upsampling to decode_hw and a top-5
+        soft-argmax; frame 0 is the soft-argmax of the reference maps
+        resized to decode_hw.  Returns (T, P, 2) (x, y)."""
+        return self.track_heatmaps_collect(
+            self.track_heatmaps_dispatch(video, ref_maps, decode_hw, feats=feats)
         )
 
     # ------------------------------------------------------------------ #

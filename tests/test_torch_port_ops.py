@@ -154,8 +154,12 @@ def test_unported_knobs_raise():
         cfg = dataclasses.replace(DAVIS_TEST_CFG, **{knob: value})
         with pytest.raises(NotImplementedError, match="slice"):
             build_tracker(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        run_task("kinetics", ROOT, device="cpu")
+    # every task of the JAX CLI is ported; --query-mode stays TAP-Vid's
+    for task in ("jhmdb", "badja", "vos"):
+        with pytest.raises(ValueError, match="query-mode"):
+            run_task(task, ROOT, device="cpu", query_mode="strided")
+    with pytest.raises(ValueError, match="unknown task"):
+        run_task("movi", ROOT, device="cpu")
 
 
 @pytest.mark.parametrize("precision", ["highest", "high", "default"])
