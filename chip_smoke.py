@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (fgvc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,vos,vos_plain,modes,
+    python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,vos,vos_plain,modes,zoo,
                                     kinetics,jhmdb,badja,sp,passes,overlap,profile,train]
 
 Phases, each of which raises on failure (exit code != 0):
@@ -47,7 +47,11 @@ Phases, each of which raises on failure (exit code != 0):
             scratch read once, the values, the output).  Last, K1 with the
             square window in 'float32' at the keypoint tasks' shapes, JHMDB
             (160 x 160, 15 values) and BADJA (160 x 256, 20 values), by the
-            same rule, timed and bounded;
+            same rule, timed and bounded; and K1 at the zoo's shapes (C = 384
+            at 32 x 32, dino_vit_s8; C = 768 at 32 x 32, dino_vit_b8; C = 144
+            at 8 x 8, one partial tile, hrnet_w18; square at 60 x 110 x 768 Cv
+            5, dino_vit_b8 on VOS) in 'float32', timed and bounded, and in
+            'high' and 'bfloat16' by the same rule;
   e2e       run_task('davis') (the CLI's path) on two synthetic TAP-Vid
             pickles (48 frames, 256 x 256, 32 tracks) with seeded random
             weights at the full width of ResNet-18-d1; K1's launches must
@@ -76,6 +80,18 @@ Phases, each of which raises on failure (exit code != 0):
             docs/precision_study.md); VOS J&F-Mean within 0.005.  Then that
             video cut to 8 frames in 'high' and 'default', through the
             kernels and the plain versions: label maps agree on >= 99.99%;
+  zoo       run_task('davis', backbone=NAME) for the eight zoo entries
+            beside ResNet-18-d1 (DINO S/8, S/16, B/8, ViT-S/d8, Swin-T,
+            HRNet-W18, MAST, positional ResNet-18) at their published widths
+            with seeded weights, on e2e video 0: K1 launches one per frame
+            propagated; per entry the grid, C, backbone ms a frame, ms a
+            video, peak memory, and the video through K1 and the plain
+            version (median |diff| <= 1e-3 px, <D within 0.1); then
+            dino_vit_b8 on one 24-frame VOS video banked (K1 square at 60 x
+            110 x 768; each frame's rows beyond 1e-4 of the plain version
+            on the same inputs all near-tie rows, label maps >= 99.99% equal
+            to the plain version's end to end); then swin_tiny on JHMDB's
+            320 x 320 must raise the JAX failure's ValueError;
   kinetics  run_task('kinetics', query_mode='strided') on one synthetic
             TAP-Vid-Kinetics shard (250 frames stored at 360 x 640, resized
             to 256 x 256 by the reader; 32 tracks visible throughout, so
@@ -240,6 +256,17 @@ JHMDB_CV, JHMDB_T, JHMDB_VIDEOS, JHMDB_ORIG = 15, 40, 2, (240, 320)
 # BADJA: (320, 512) input (160 x 256 features), 20 joints, frames at 1080 x 1920
 BADJA_H, BADJA_W = 160, 256
 BADJA_CV, BADJA_T, BADJA_EVERY, BADJA_ORIG = 20, 60, 5, (1080, 1920)
+# the zoo (--backbone) beside ResNet-18-d1, and the K1 shapes it brings:
+# record -> (entry, h, w, C, Cv, window) at TAP-Vid's 256 x 256 and VOS's
+# 480 x 880
+ZOO_ENTRIES = ("dino_vit_s8", "dino_vit_s16", "dino_vit_b8", "vit_small_d8", "swin_tiny",
+               "hrnet_w18", "resnet18_mast", "resnet18_pos")
+ZOO_SHAPES = {
+    "K1_circle_dino_s8": ("dino_vit_s8", 32, 32, 384, CV, "circle"),
+    "K1_circle_dino_b8": ("dino_vit_b8", 32, 32, 768, CV, "circle"),
+    "K1_circle_hrnet": ("hrnet_w18", 8, 8, 144, CV, "circle"),
+    "K1_square_vos_b8": ("dino_vit_b8", VOS_H // 4, VOS_W // 4, 768, VOS_CV, "square"),
+}
 
 
 def phase(name):
@@ -328,15 +355,15 @@ def live_pairs(h, w, mask_shape, rows=None):
     return n
 
 
-def attention_bound(h, w, mask_shape, key_valid, nbytes, mode="float32", rows=None):
+def attention_bound(h, w, mask_shape, key_valid, nbytes, mode="float32", rows=None, c=C):
     """Least time for one top-k attention call on these inputs: the larger
     of the live affinity products (in-window, in-image, valid-slot pairs,
-    of the query rows `rows` where given; 2 * C flops each; 'float32' three
+    of the query rows `rows` where given; 2 * c flops each; 'float32' three
     TF32 products each (3xTF32) over the TF32 tensor-core peak, 'high' three
     bf16 products each and 'bfloat16' one over the bf16 tensor-core peak)
     and `nbytes` (each input read once, the output written once) over the
     HBM rate."""
-    flops = 2.0 * C * live_pairs(h, w, mask_shape, rows) * sum(bool(v) for v in key_valid)
+    flops = 2.0 * c * live_pairs(h, w, mask_shape, rows) * sum(bool(v) for v in key_valid)
     if mode != "bfloat16":
         flops *= 3
     peak = PEAK_TF32_FLOPS if mode == "float32" else PEAK_BF16_FLOPS
@@ -431,9 +458,9 @@ def select_bound(h, w, cv, rows=None, values=True):
 
 
 def check_entry(label, record, kernel_fn, plain_fn, near_fn, cases, h, w, mask_shape, nbytes,
-                mode):
+                mode, c=C):
     """Kernel against plain on each case {name: (kwargs, key_valid)}; the
-    first case is timed and bounded."""
+    first case is timed and bounded (c key channels)."""
     import torch
 
     errs = []
@@ -450,11 +477,11 @@ def check_entry(label, record, kernel_fn, plain_fn, near_fn, cases, h, w, mask_s
         del out, ref
         ms = _events_ms(lambda: kernel_fn(**kw), 20)
         plain_ms = _events_ms(lambda: plain_fn(**kw), 3)
-        bound_ms, bound_by, flops = attention_bound(h, w, mask_shape, valid, nbytes, mode)
+        bound_ms, bound_by, flops = attention_bound(h, w, mask_shape, valid, nbytes, mode, c=c)
         halo = int(RADIUS)
         win = TILE + 2 * halo
         hp, wp = -(-h // TILE) * TILE, -(-w // TILE) * TILE
-        dense = 2.0 * C * hp * wp * len(valid) * win * win  # the halo windows computed
+        dense = 2.0 * c * hp * wp * len(valid) * win * win  # the halo windows computed
         print(f"{label} {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP live, "
               f"{dense / 1e9:.2f} GFLOP in dense halo windows, {nbytes / 1e9:.3f} GB), "
@@ -604,36 +631,65 @@ def check_kernels(records):
         torch.cuda.empty_cache()
 
 
-def check_heatmap_kernels(records):
-    """K1 with the square window in 'float32' at the keypoint tasks' shapes:
-    JHMDB (160 x 160, 15 values) and BADJA (160 x 256, 20 values), for
-    distinct key frames and the step t = 1, held to the plain version by the
-    near-tie rule, timed and bounded."""
+def check_shape_kernels(records, shapes, seed, modes=("float32",)):
+    """K1 at each of `shapes` {record: (label, h, w, C, Cv, window)}: in
+    'float32' for distinct key frames and the step t = 1, held to the plain
+    version by the near-tie rule, timed and bounded into the record; in the
+    other `modes` for distinct key frames by the same rule."""
     import torch
 
     from fgvc_tpu_torch.ops.cuda import topk_attention as k1
 
-    rng = np.random.default_rng(2)
-    for key, h, w, cv in (("K1_square_jhmdb", JHMDB_H, JHMDB_W, JHMDB_CV),
-                          ("K1_square_badja", BADJA_H, BADJA_W, BADJA_CV)):
-        feats = torch.from_numpy(rng.standard_normal((SLOTS + 1, h, w, C), dtype=np.float32)).cuda()
+    rng = np.random.default_rng(seed)
+    for key, (label, h, w, c, cv, shape) in shapes.items():
+        feats = torch.from_numpy(rng.standard_normal((SLOTS + 1, h, w, c), dtype=np.float32)).cuda()
         value = rng.random((SLOTS, h, w, cv), dtype=np.float32)
         values = {"distinct": torch.from_numpy(value).cuda(),
                   "t1_tie": torch.from_numpy(np.concatenate([value[:-1], value[:1]])).cuda()}
         halo, hp, wp, rows_total, cols_total = k1.bank_geometry(h, w, RADIUS, TILE)
-        kpad = k1.pad_key_bank(feats, RADIUS, tile=TILE, compute_dtype="float32")
-        cases = {c: (dict(qpad=kpad[QFRAME[c], halo:halo + hp, halo:halo + wp].contiguous(),
-                          kpad=kpad, value=values[c], frame_idx=FIDX[c], key_valid=VALID[c],
-                          H=h, W=w, radius=RADIUS, temperature=TEMPERATURE, topk=TOPK,
-                          tile=TILE, mask_shape="square", compute_dtype="float32"), VALID[c])
-                 for c in FIDX}
-        nbytes = 4.0 * (hp * wp * C + SLOTS * rows_total * cols_total * C
-                        + SLOTS * h * w * cv + h * w * cv)
-        check_entry(f"{key} {h}x{w} Cv {cv}", records[key], k1.topk_attention_banked,
-                    k1.topk_attention_banked_plain, k1.near_tie_rows_plain, cases, h, w,
-                    "square", nbytes, "float32")
+        for mode in modes:
+            kpad = k1.pad_key_bank(feats, RADIUS, tile=TILE, compute_dtype=mode)
+            cases = {c_: (dict(qpad=kpad[QFRAME[c_], halo:halo + hp, halo:halo + wp].contiguous(),
+                               kpad=kpad, value=values[c_], frame_idx=FIDX[c_],
+                               key_valid=VALID[c_], H=h, W=w, radius=RADIUS,
+                               temperature=TEMPERATURE, topk=TOPK, tile=TILE, mask_shape=shape,
+                               compute_dtype=mode), VALID[c_])
+                     for c_ in FIDX}
+            if mode == "float32":
+                nbytes = 4.0 * (hp * wp * c + SLOTS * rows_total * cols_total * c
+                                + SLOTS * h * w * cv + h * w * cv)
+                check_entry(label, records[key], k1.topk_attention_banked,
+                            k1.topk_attention_banked_plain, k1.near_tie_rows_plain, cases, h, w,
+                            shape, nbytes, mode, c=c)
+                continue
+            kw = cases["distinct"][0]
+            out, ref = k1.topk_attention_banked(**kw), k1.topk_attention_banked_plain(**kw)
+            torch.cuda.synchronize()
+            check_rows(f"{label} '{mode}' distinct", out, ref, mode_limit(mode, kw["value"]),
+                       lambda: k1.near_tie_rows_plain(**kw))
+            del out, ref
         del feats, values, kpad, cases
         torch.cuda.empty_cache()
+
+
+def check_heatmap_kernels(records):
+    """K1 with the square window at the keypoint tasks' shapes: JHMDB (160 x
+    160, 15 values) and BADJA (160 x 256, 20 values)."""
+    check_shape_kernels(records, {
+        key: (f"{key} {h}x{w} Cv {cv}", h, w, C, cv, "square")
+        for key, h, w, cv in (("K1_square_jhmdb", JHMDB_H, JHMDB_W, JHMDB_CV),
+                              ("K1_square_badja", BADJA_H, BADJA_W, BADJA_CV))}, seed=2)
+
+
+def check_zoo_kernels(records):
+    """K1 at the zoo's shapes (ZOO_SHAPES: C = 384, 768 and 144, grids from
+    8 x 8, one partial tile, to 60 x 110), in every compute mode."""
+    from fgvc_tpu_torch.ops.cuda.topk_attention import COMPUTE_DTYPES
+
+    check_shape_kernels(records, {
+        key: (f"{key} ({entry}) {h}x{w}x{c} Cv {cv} {shape}", h, w, c, cv, shape)
+        for key, (entry, h, w, c, cv, shape) in ZOO_SHAPES.items()}, seed=3,
+        modes=COMPUTE_DTYPES)
 
 
 def row_blocks(h, S):
@@ -1559,6 +1615,152 @@ def run_kinetics(data_root, record):
         raise AssertionError(f"kinetics: median trajectory difference {med} px > {TRAJ_TOL_PX}")
 
 
+def run_zoo(data_root, records):
+    """run_task('davis', backbone=NAME) for each entry of ZOO_ENTRIES at its
+    published width with seeded weights, on video 0 of the e2e pickles (48
+    frames, 256 x 256, 32 tracks, query groups at frames 0, 10 and 20): K1
+    launches one per frame propagated, metrics finite.  Per entry: feature
+    grid and C, backbone ms a frame (CUDA events over extract_features,
+    upload and preprocessing included), ms a video (track_points), peak
+    device memory of run_task, and the video through K1 and through its
+    plain version on the same features: median |diff| <= 1e-3 px and <D
+    within 0.1, as in phase plain.  Then dino_vit_b8 on one 24-frame 480 x
+    880 VOS video, banked (K1 square at 60 x 110 x 768): launches, peak
+    memory; each frame's K1 output on the kernel's path against the plain
+    version on the same inputs: every row beyond 1e-4 must be a near-tie
+    row (random DINO-B/8 features are nearly uniform, so 1-40% of a
+    frame's rows are near-tie rows, and the kernel phase's 0.1% share does
+    not apply); and the label maps against the plain version's end to end
+    on >= 99.99% of pixels (each row that flips decodes to 64 pixels and
+    carries to later frames).  Last, swin_tiny on JHMDB's 320 x 320 must raise the ValueError of the
+    JAX module's failure (stage 2 at 20 x 20, window 8)."""
+    import torch
+
+    from fgvc_tpu_torch.apis.test import build_tracker, eval_vos, run_task
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    ds = TapVidDataset(data_root)
+    s = ds[0]
+    video, qp = s["video"], s["query_points"]
+    T = len(video)
+    qt = qp[:, 0].astype(int)
+    expect = int(sum(T - t - 1 for t in np.unique(qt)))
+    record_of = {entry: key for key, (entry, *_rest) in ZOO_SHAPES.items()
+                 if key != "K1_square_vos_b8"}
+    for name in ZOO_ENTRIES:
+        k1.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        metrics = run_task("davis", data_root, device="cuda", seed=0, backbone=name,
+                           max_videos=1)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check_launches(f"zoo {name}", "highest", expect, "banked")
+        check_metrics(metrics)
+        if name in record_of:
+            records[record_of[name]]["launches"] = expect
+        tracker = build_tracker(DAVIS_TEST_CFG, seed=0, device="cuda", backbone=name)
+        feats = tracker.extract_features(video)
+        backbone_ms = _events_ms(lambda: tracker.extract_features(video), 3) / T
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tracker.track_points(video, qp)
+        torch.cuda.synchronize()
+        video_ms = 1e3 * (time.time() - t0)
+        out_k = tracker.track_points(video, qp, feats=feats)["trajectories"]
+        out_p = _plain_propagation(
+            lambda: tracker.track_points(video, qp, feats=feats))["trajectories"]
+        tracked = np.arange(T)[:, None] >= qt[None]  # from each query frame on
+        diff = np.abs(out_k - out_p)[tracked]
+        med = float(np.median(diff))
+        delta = [ds.evaluate([{
+            "trajectories_gt": s["trajectories"], "visibilities_gt": s["visibilities"],
+            "trajectories_pred": out, "visibilities_pred": np.zeros(out.shape[:2], bool),
+            "query_points": qp}])["average_pts_within_thresh"] for out in (out_k, out_p)]
+        print(f"zoo {name}: grid {tuple(feats.shape[1:3])}, C {feats.shape[3]}; {expect} K1 "
+              f"launches; backbone {backbone_ms:.3f} ms a frame; {video_ms:.1f} ms a video "
+              f"(track_points, {T} frames); run_task {dt:.2f} s; peak device memory "
+              f"{peak:.2f} GB; K1 vs plain (same features) median |diff| {med:.3e} px, "
+              f"max {diff.max():.3e} px, <D {delta[0]:.4f} vs {delta[1]:.4f}", flush=True)
+        if not med <= TRAJ_TOL_PX:
+            raise AssertionError(f"zoo {name}: median trajectory difference {med} px")
+        if not abs(delta[0] - delta[1]) <= DELTA_D_TOL:
+            raise AssertionError(f"zoo {name}: <D differs by {abs(delta[0] - delta[1])}")
+        del tracker, feats
+        torch.cuda.empty_cache()
+
+    vos = SyntheticDavis(n_videos=1)
+    tracker = build_tracker(DAVIS_TEST_CFG, seed=0, device="cuda", backbone="dino_vit_b8")
+    k1.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = eval_vos(tracker, vos)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = len(vos.videos[0]) - 1
+    check_launches("zoo vos dino_vit_b8", "highest", n, "banked")
+    records["K1_square_vos_b8"]["launches"] = n
+    v = vos[0]
+    backbone_ms = _events_ms(lambda: tracker.extract_features(v["video"]), 1) / len(v["video"])
+    args = (v["video"], v["first_mask"], tuple(v["original_shape"]), v["num_objects"])
+    rows = np.zeros(4, np.int64)  # beyond the limit, of them not near ties, near ties, all
+    errs = []
+
+    def checked(qpad, kpad, value, **kw):
+        """K1 on the kernel's own path, each frame's rows beyond KERNEL_TOL
+        of the plain version on the same inputs counted, and those that are
+        not near-tie rows of the plain affinities."""
+        out = k1.topk_attention_banked(qpad, kpad, value, **kw)
+        d = (out - k1.topk_attention_banked_plain(qpad, kpad, value, **kw)).abs().amax(-1)
+        beyond, near = d > KERNEL_TOL, k1.near_tie_rows_plain(qpad, kpad, value, **kw)
+        rows[:] += [int(beyond.sum()), int((beyond & ~near).sum()), int(near.sum()), d.numel()]
+        errs.append(float(d.max()))
+        return out
+
+    import fgvc_tpu_torch.models.tracker as tracker_mod
+
+    tracker_mod.topk_attention_banked = checked
+    try:
+        out_k = tracker.track_masks(*args)
+    finally:
+        tracker_mod.topk_attention_banked = k1.topk_attention_banked
+    out_p = _plain_propagation(lambda: tracker.track_masks(*args))
+    agree = _agreement([out_k], [out_p])
+    print(f"zoo vos dino_vit_b8: J&F (random weights) {json.dumps(res)}; {n} K1 square "
+          f"launches at {VOS_H // 4}x{VOS_W // 4}x768; backbone {backbone_ms:.2f} ms a "
+          f"frame at 480 x 880; eval_vos {dt:.2f} s (scoring included); peak device memory "
+          f"{peak:.2f} GB", flush=True)
+    print(f"zoo vos dino_vit_b8 K1 vs plain per frame on the kernel's path: max |diff| "
+          f"{max(errs):.3e}; {rows[0]} of {rows[3]} rows beyond {KERNEL_TOL:.0e}, {rows[1]} "
+          f"of them not near-tie rows (must be 0); {rows[2]} near-tie rows in all (random "
+          f"DINO-B/8 features are nearly uniform); label maps agree with the plain "
+          f"version's end to end on {100 * agree:.5f}% of pixels (limit {100 * MASK_AGREE}%)",
+          flush=True)
+    if rows[1]:
+        raise AssertionError(f"zoo vos: {rows[1]} rows differ from plain beyond a near tie")
+    if not np.isfinite(res["J&F-Mean"]):
+        raise AssertionError(f"zoo vos: J&F-Mean is not finite: {res}")
+    if not np.array_equal(out_k, vos.preds[0]):
+        raise AssertionError("zoo vos: the checked run's label maps differ from eval_vos's")
+    if not agree >= MASK_AGREE:
+        raise AssertionError(f"zoo vos: masks agree on {agree} < {MASK_AGREE}")
+    del tracker
+    torch.cuda.empty_cache()
+
+    try:
+        run_task("jhmdb", data_root, device="cuda", backbone="swin_tiny")
+    except ValueError as e:
+        print(f"zoo swin_tiny on JHMDB 320 x 320 refused: {e}", flush=True)
+        if "stage 2 at 20x20" not in str(e) or "window 8" not in str(e):
+            raise AssertionError(f"zoo swin_tiny: unexpected message {e}") from e
+    else:
+        raise AssertionError("zoo swin_tiny on JHMDB's 320 x 320 ran; JAX fails there")
+
+
 def encode_png(path, img, palette=None):
     """Write a PNG with zlib alone: (H, W, 3) uint8 RGB, or (H, W) uint8
     palette indices with `palette` ((n, 3) uint8 RGB)."""
@@ -1979,7 +2181,7 @@ def run_train():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="card,build,kernel,e2e,plain,vos,vos_plain,modes,"
+    ap.add_argument("--phases", default="card,build,kernel,e2e,plain,vos,vos_plain,modes,zoo,"
                                         "kinetics,jhmdb,badja,sp,passes,overlap,profile,train")
     args = ap.parse_args()
     phases = args.phases.split(",")
@@ -2012,6 +2214,10 @@ def main():
             f"K1 topk_attention_banked, square, BADJA {BADJA_H}x{BADJA_W} Cv {BADJA_CV}",
             f"{pallas}:597"),
     }
+    # the same entry at the zoo's widths and grids
+    for key, (entry, h, w, c, cv, shape) in ZOO_SHAPES.items():
+        records[key] = kernel_record(
+            f"K1 topk_attention_banked, {shape}, {entry} {h}x{w}x{c} Cv {cv}", f"{pallas}:597")
     # K3: the same kernel in mode 'high' (bf16x3, from :192) and 'bfloat16'
     # (from :201), through both entries
     for mode, tag, line in (("high", "high", 192), ("bfloat16", "bf16", 201)):
@@ -2045,11 +2251,12 @@ def main():
         phase("kernel")
         check_kernels(records)
         check_heatmap_kernels(records)
+        check_zoo_kernels(records)
         check_tie_heavy()
         check_row_blocks(records)
     e2e_metrics = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_root:
-        if {"e2e", "plain", "modes", "sp", "profile"} & set(phases):
+        if {"e2e", "plain", "modes", "sp", "profile", "zoo"} & set(phases):
             make_tapvid_pickles(data_root)
         if "e2e" in phases:
             phase("e2e")
@@ -2070,6 +2277,11 @@ def main():
             phase("modes")
             run_modes_tapvid(data_root, records)
             run_modes_vos(records)
+        if "zoo" in phases:
+            phase("zoo")
+            t_zoo = time.time()
+            run_zoo(data_root, records)
+            print(f"zoo phase {time.time() - t_zoo:.1f} s", flush=True)
         if "kinetics" in phases:
             phase("kinetics")
             with tempfile.TemporaryDirectory(prefix="chip_smoke_kinetics_") as kin_root:

@@ -6,8 +6,9 @@ and DAVIS-2017 VOS.
     run_task('jhmdb' | 'badja', data_root, list_path=None, ...)
     run_task('vos', data_root, list_path=None, test_cfg=None, device=None)
 
-builds the ResNet-18-d1 tracker on the card (or on the device the caller
-names), evaluates every video of `data_root` and returns the task's metrics
+builds the tracker on the card (or on the device the caller names) over the
+paper's ResNet-18-d1 or, with `backbone=`, any encoder of models/zoo.py,
+evaluates every video of `data_root` and returns the task's metrics
 (TAP-Vid's, PCK, or DAVIS J&F).  `spatial_devices` S > 1 shards each frame's
 query rows over the first S cards (spatial-parallel propagation); a list of
 devices is taken as given, so one card listed S times runs S row blocks on
@@ -21,6 +22,7 @@ results.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -39,6 +41,7 @@ from fgvc_tpu_torch.device import resolve_device
 from fgvc_tpu_torch.models.resnet import init_random, resnet18_d1
 from fgvc_tpu_torch.models.tracker import Tracker
 from fgvc_tpu_torch.models.weights import load_reference_pth, load_weights
+from fgvc_tpu_torch.models.zoo import make_eval_backbone
 from fgvc_tpu_torch.utils.profiler import annotate
 
 TASK_CONFIGS: Dict[str, TestConfig] = {
@@ -82,15 +85,25 @@ def build_tracker(
     seed: int = 0,
     device: Optional[Union[str, torch.device]] = None,
     spatial_devices: SpatialDevices = None,
+    backbone: str = "resnet18_d1",
 ) -> Tracker:
-    """ResNet-18-d1 tracker with weights from a reference ``.pth``, from the
-    trained student of a port training checkpoint (a step_N directory or a
-    latest/best pointer file), or seeded random weights.  Runs on the CUDA
-    card unless `device` names another; raises where there is no card and
-    none was named.  With `spatial_devices` (spatial_device_list) it runs on
-    the first of them."""
+    """Tracker over a zoo encoder (default: the paper's ResNet-18-d1), with
+    weights from a reference ``.pth``, from the trained student of a port
+    training checkpoint (a step_N directory or a latest/best pointer file;
+    ResNet-18-d1 only), or seeded random weights.  Another `backbone` is
+    built by models.zoo.make_eval_backbone, which also switches
+    cfg.preprocess to what that encoder expects.  Runs on the CUDA card
+    unless `device` names another; raises where there is no card and none
+    was named.  With `spatial_devices` (spatial_device_list) it runs on the
+    first of them."""
     spatial = spatial_device_list(spatial_devices, device)
     dev = resolve_device(device if spatial is None else spatial[0])
+    if backbone != "resnet18_d1":
+        model, pre = make_eval_backbone(backbone, checkpoint, input_hw=test_cfg.input_size,
+                                        seed=seed, device=dev)
+        if test_cfg.preprocess != pre:
+            test_cfg = dataclasses.replace(test_cfg, preprocess=pre)
+        return Tracker(model, test_cfg, dev, spatial_devices=spatial)
     model = resnet18_d1()
     if checkpoint is None:
         init_random(model, seed)
@@ -220,13 +233,15 @@ def run_task(
     seed: int = 0,
     spatial_devices: SpatialDevices = None,
     query_mode: str = "first",
+    backbone: str = "resnet18_d1",
 ) -> Dict[str, float]:
     """Mirror of `tools/test.py --task davis|kinetics|jhmdb|badja|vos
-    [--query-mode strided] [--spatial-devices S]`.  query_mode 'strided'
-    (TAP-Vid tasks only) queries every track every 5 frames where it is
-    visible.  JHMDB and BADJA read their lists under `list_path`, by default
-    `data_root`.  VOS reads every video at 480 x 880 and BADJA at 320 x 512
-    whatever cfg.input_size says, as the JAX harness does."""
+    [--query-mode strided] [--spatial-devices S] [--backbone NAME]`.
+    query_mode 'strided' (TAP-Vid tasks only) queries every track every 5
+    frames where it is visible.  JHMDB and BADJA read their lists under
+    `list_path`, by default `data_root`.  VOS reads every video at 480 x 880
+    and BADJA at 320 x 512 whatever cfg.input_size says, as the JAX harness
+    does.  `backbone` names the encoder (models/zoo.py)."""
     if task not in TASK_CONFIGS:
         raise ValueError(f"unknown task {task!r}")
     if query_mode != "first" and task not in ("davis", "kinetics"):
@@ -236,7 +251,7 @@ def run_task(
         )
     cfg = test_cfg or TASK_CONFIGS[task]
     tracker = build_tracker(cfg, checkpoint, seed=seed, device=device,
-                            spatial_devices=spatial_devices)
+                            spatial_devices=spatial_devices, backbone=backbone)
     if task in ("davis", "kinetics"):
         from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
 

@@ -5,7 +5,8 @@ and DAVIS-2017 VOS.
 
     python -m fgvc_tpu_torch.cli.test --task davis|kinetics --data-root <pkls> \
         [--query-mode first|strided] \
-        [--checkpoint ckpt.pth|WORK_DIR/latest] [--max-videos N] [--output-dir DIR] \
+        [--backbone NAME] [--checkpoint ckpt.pth|WORK_DIR/latest] \
+        [--max-videos N] [--output-dir DIR] \
         [--config cfg.json] [--input-size N] \
         [--precision highest|high|default] [--spatial-devices S] \
         [--device cuda|cpu] [--profile LOGDIR]
@@ -43,6 +44,14 @@ def main(argv=None):
                         help="reference .pth (mmcv or torchvision naming), or a "
                              "training checkpoint of fgvc_tpu_torch.cli.train "
                              "(WORK_DIR/latest, WORK_DIR/best or a step_N dir)")
+    parser.add_argument(
+        "--backbone",
+        default="resnet18_d1",
+        help="eval encoder from the zoo (models/zoo.py): resnet18_d1 "
+             "(paper default), hrnet_w18, dino_vit_s8/s16/b8, vit_small_d8, "
+             "swin_tiny, resnet18_mast, resnet18_pos — the reference swaps "
+             "the config's backbone dict the same way (ablations)",
+    )
     parser.add_argument("--max-videos", type=int, default=None)
     parser.add_argument("--output-dir", default="eval_results")
     parser.add_argument("--config", default=None,
@@ -121,6 +130,7 @@ def main(argv=None):
             device=args.device,
             spatial_devices=args.spatial_devices,
             query_mode=args.query_mode,
+            backbone=args.backbone,
         )
     print(json.dumps(results, indent=2, default=float))
 

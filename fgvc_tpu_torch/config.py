@@ -48,8 +48,9 @@ _NOT_PORTED = {
     "decode_impl": ("upsample", "slice 5b (reproduce and host modes)"),
     "upload_format": ("rgb", "slice 5b (reproduce and host modes)"),
     "visibility_mode": ("none", "slice 5b (reproduce and host modes)"),
-    "preprocess": ("lab", "slice 9 (zoo and RAFT)"),
 }
+
+PREPROCESS = ("lab", "imagenet")
 
 
 MATMUL_PRECISIONS = ("highest", "high", "default")
@@ -57,11 +58,16 @@ MATMUL_PRECISIONS = ("highest", "high", "default")
 
 def check_ported(cfg: TestConfig) -> None:
     """Raise NotImplementedError for a knob set off the ported main path,
-    and ValueError for a matmul_precision outside the three modes."""
+    and ValueError for a matmul_precision outside the three modes or a
+    preprocess other than 'lab' and 'imagenet'."""
     if cfg.matmul_precision not in MATMUL_PRECISIONS:
         raise ValueError(
             f"matmul_precision must be one of {MATMUL_PRECISIONS}, "
             f"got {cfg.matmul_precision!r}"
+        )
+    if cfg.preprocess not in PREPROCESS:
+        raise ValueError(
+            f"preprocess must be 'lab' or 'imagenet', got {cfg.preprocess!r}"
         )
     for name, (value, slice_name) in _NOT_PORTED.items():
         if getattr(cfg, name) != value:

@@ -3,13 +3,13 @@
 
 Three protocols share one propagation loop:
 
-* TAP-Vid point tracking: uint8 frames -> Lab -> ResNet features (16-frame
-  chunks, on the device) -> one normalised, halo-padded key bank per video
-  -> for each group of points sharing a query frame, a loop over the
-  following frames, each attending over frame 0 of the group plus the
-  `precede_frames` preceding frames through the banked top-k attention
-  kernel (K1, circle window) -> bilinear upsample to the input size and
-  top-5 soft-argmax.
+* TAP-Vid point tracking: uint8 frames -> Lab (or ImageNet-normalised RGB,
+  by cfg.preprocess) -> encoder features (16-frame chunks, on the device)
+  -> one normalised, halo-padded key bank per video -> for each group of
+  points sharing a query frame, a loop over the following frames, each
+  attending over frame 0 of the group plus the `precede_frames` preceding
+  frames through the banked top-k attention kernel (K1, circle window) ->
+  bilinear upsample to the input size and top-5 soft-argmax.
 * DAVIS VOS mask propagation: the first frame's label map, nearest-resized
   to feature resolution and one-hot encoded, propagates through K1 with the
   square window over the whole video's bank; with `save_mem` the features
@@ -59,7 +59,7 @@ from torch import nn
 from fgvc_tpu_torch.config import TestConfig, check_ported
 from fgvc_tpu_torch.device import set_matmul_precision
 from fgvc_tpu_torch.ops.attention import l2_normalize
-from fgvc_tpu_torch.ops.color import preprocess_rgb_to_lab_normalized
+from fgvc_tpu_torch.ops.color import preprocess_fn
 from fgvc_tpu_torch.ops.cuda.topk_attention import (
     bank_geometry,
     pad_key_bank,
@@ -68,6 +68,7 @@ from fgvc_tpu_torch.ops.cuda.topk_attention import (
     topk_attention_banked,
 )
 from fgvc_tpu_torch.ops.grids import draw_gaussian_maps, soft_argmax_topk
+from fgvc_tpu_torch.ops.misc import resize_bilinear
 
 EXTRACT_CHUNK = 16  # frames per backbone call
 
@@ -89,11 +90,10 @@ def resize_labels(labels: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 
 def upsample(logits: torch.Tensor, full_hw: Tuple[int, int]) -> torch.Tensor:
     """(h, w, K) -> (K, H, W) by bilinear interpolation with half-pixel
-    centres (jax.image.resize's 'bilinear' going up)."""
-    return F.interpolate(
-        logits.permute(2, 0, 1)[None], size=full_hw, mode="bilinear",
-        align_corners=False,
-    )[0]
+    centres, as jax.image.resize's 'bilinear' goes up (ops/misc): the
+    borders past the last feature centre are exact plateaus, so the
+    decode's top-k breaks their ties as JAX does."""
+    return resize_bilinear(logits.permute(2, 0, 1), full_hw)
 
 
 def resize_maps(maps: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -128,7 +128,9 @@ class Tracker:
     """Feature extraction + top-k attention label propagation.
 
     Args:
-      backbone: module mapping (N, 3, H, W) normalised Lab to (N, C, h, w).
+      backbone: module mapping (N, 3, H, W) preprocessed frames to (N, C, h,
+        w): normalised Lab where cfg.preprocess is 'lab', ImageNet-normalised
+        RGB where it is 'imagenet'.
       cfg: propagation settings (only the main path's are ported).
       device: where the backbone, the bank and the kernels run.
       spatial_devices: S devices for spatial-parallel propagation, one row
@@ -180,6 +182,7 @@ class Tracker:
         # the kernel's query tile (the Pallas kernel capped it at 16 too)
         self.tile = min(cfg.tile, 16)
         self.compute_dtype = pallas_compute_dtype(cfg.matmul_precision)
+        self.preprocess = preprocess_fn(cfg.preprocess)
 
     # ------------------------------------------------------------------ #
     # features and bank
@@ -187,10 +190,12 @@ class Tracker:
     @torch.no_grad()
     def features_on(self, frames: np.ndarray, device: torch.device) -> torch.Tensor:
         """(N, H, W, 3) uint8 RGB -> (N, h, w, C) float32 features, computed
-        on `device` (one of self.devices) by its backbone replica; contiguous,
-        so that a norm over C sums in the same order on every path."""
+        on `device` (one of self.devices) by its backbone replica after
+        cfg.preprocess (every path, banked and streaming, comes here);
+        contiguous, so that a norm over C sums in the same order on every
+        path."""
         x = torch.from_numpy(np.ascontiguousarray(frames))
-        x = preprocess_rgb_to_lab_normalized(x.to(device))
+        x = self.preprocess(x.to(device))
         f = self.backbones[device](x.permute(0, 3, 1, 2).contiguous())
         return f.permute(0, 2, 3, 1).contiguous()
 

@@ -1,4 +1,5 @@
-"""Weights for the port's ResNet (fgvc_tpu/models/torch_convert.py).
+"""Weights for the port's encoders (fgvc_tpu/models/torch_convert.py and the
+zoo's converters).
 
 * ``state_dict_from_flax``: the JAX package's {'params', 'batch_stats'}
   variables (as numpy arrays) onto the port's module names.
@@ -7,6 +8,12 @@
 * ``trainer_state_from_flax``: the JAX MixedTrainer's state (student,
   BatchNorm statistics, discriminators) and teacher variables onto the
   port's MixedTrainer modules.
+* ``zoo_state_dict_from_flax``: the JAX zoo encoders' variables (ViT, DINO,
+  HRNet, Swin, MAST, ResNet18Pos) onto the port's module names.
+* ``dino_state_from_pth`` / ``hrnet_state_from_pth``: a released DINO or
+  mmcv HRNet state dict with the keys dropped that fgvc_tpu's converters
+  drop; the port's modules carry the released names, so the rest loads
+  as it is.
 * ``load_weights``: a state dict into a module, failing on any gap.
 
 Orbax checkpoints of the JAX package are not read: they reach the port as an
@@ -145,14 +152,130 @@ def convert_reference_state_dict(
     return out
 
 
-def load_reference_pth(path: str, prefix: str = "backbone.") -> Dict[str, torch.Tensor]:
-    """Read a reference ``.pth`` (a state dict, or {'state_dict': ...}) and
-    return it in the port's names."""
+def read_pth(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a ``.pth`` (a state dict, or {'state_dict': ...})."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
-    state = {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
-    return convert_reference_state_dict(state, prefix=prefix)
+    return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def load_reference_pth(path: str, prefix: str = "backbone.") -> Dict[str, torch.Tensor]:
+    """Read a reference ``.pth`` and return it in the port's names."""
+    return convert_reference_state_dict(read_pth(path), prefix=prefix)
+
+
+# ---------------------------------------------------------------------- #
+# the zoo
+# ---------------------------------------------------------------------- #
+# flax module path -> the port's module name, per family: (pattern, repl)
+# pairs, the first full match wins; an unmatched path keeps its name
+
+
+def _seq(pattern: str, repl: str):
+    """The rule for a conv and its BN in one of mmcv's Sequentials: `KIND`
+    in the pattern is 'conv' or 'bn', `I` in the name index 0 or 1."""
+    return [(pattern.replace("KIND", kind), repl.replace("I", i))
+            for kind, i in (("conv", "0"), ("bn", "1"))]
+
+
+ZOO_RULES = {
+    "vit": [(r"block(\d+)\.(.*)", r"blocks.\1.\2")],
+    "dino": [(r"patch_embed", "patch_embed.proj"),
+             (r"block(\d+)\.mlp_(fc\d)", r"blocks.\1.mlp.\2"),
+             (r"block(\d+)\.(.*)", r"blocks.\1.\2")],
+    "hrnet": [*_seq(r"layer1_(\d+)\.down_KIND", r"layer1.\1.downsample.I"),
+              (r"layer1_(\d+)\.(.*)", r"layer1.\1.\2"),
+              *_seq(r"transition(\d)_(\d)_KIND", r"transition\1.\2.I"),
+              *_seq(r"transition(\d)_(\d)_d(\d)_KIND", r"transition\1.\2.\3.I"),
+              *_seq(r"stage(\d)_m(\d+)\.branch(\d)_block(\d+)\.down_KIND",
+                    r"stage\1.\2.branches.\3.\4.downsample.I"),
+              (r"stage(\d)_m(\d+)\.branch(\d)_block(\d+)\.(.*)",
+               r"stage\1.\2.branches.\3.\4.\5"),
+              *_seq(r"stage(\d)_m(\d+)\.fuse(\d)_(\d)_KIND",
+                    r"stage\1.\2.fuse_layers.\3.\4.I"),
+              *_seq(r"stage(\d)_m(\d+)\.fuse(\d)_(\d)_down(\d)_KIND",
+                    r"stage\1.\2.fuse_layers.\3.\4.\5.I")],
+    "swin": [(r"stage(\d)_block(\d+)\.attn\.rel_pos_bias",
+              r"layers.\1.blocks.\2.attn.relative_position_bias_table"),
+             (r"stage(\d)_block(\d+)\.(fc\d)", r"layers.\1.blocks.\2.mlp.\3"),
+             (r"stage(\d)_block(\d+)\.(.*)", r"layers.\1.blocks.\2.\3"),
+             (r"merge(\d)_norm", r"layers.\1.downsample.norm"),
+             (r"merge(\d)", r"layers.\1.downsample.reduction")],
+    "resnet_blocks": [(r"layer(\d)_(\d+)\.(.*)", r"layer\1.\2.\3")],  # MAST, ResNet18Pos
+}
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path + "."))
+        else:
+            out[path] = v
+    return out
+
+
+def _rename(path: str, rules) -> str:
+    for pattern, repl in rules:
+        if re.fullmatch(pattern, path):
+            return re.sub(pattern, repl, path)
+    return path
+
+
+def zoo_state_dict_from_flax(variables: Mapping[str, Any], family: str) -> Dict[str, torch.Tensor]:
+    """A JAX zoo encoder's {'params'[, 'batch_stats']} (numpy) as the port's
+    state dict: conv kernels HWIO -> OIHW, dense kernels transposed, the
+    attention's (dim, heads, head_dim) and (heads, head_dim, dim) kernels
+    flattened to linear maps, LayerNorm and BatchNorm scale -> weight, BN
+    mean/var -> running_mean/var; a parameter of its own (positions, class
+    token, bias table) as it is.  `family`: 'vit', 'dino', 'hrnet', 'swin'
+    or 'resnet_blocks' (ResNet18MAST, ResNet18Pos)."""
+    rules = ZOO_RULES[family]
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(variables["params"]).items():
+        mod, _, field = path.rpartition(".")
+        x = np.asarray(leaf)
+        if field == "kernel":
+            if x.ndim == 4:
+                x = np.transpose(x, (3, 2, 0, 1))
+            elif x.ndim == 3:  # flax DenseGeneral of the attention
+                x = (x.reshape(-1, x.shape[-1]) if mod.endswith(".out")
+                     else x.reshape(x.shape[0], -1)).T
+            else:
+                x = x.T
+            out[f"{_rename(mod, rules)}.weight"] = _tensor(x)
+        elif field in ("bias", "scale"):
+            out[f"{_rename(mod, rules)}.{'weight' if field == 'scale' else 'bias'}"] = \
+                _tensor(x.reshape(-1))
+        else:
+            out[_rename(path, rules)] = _tensor(x)
+    for path, leaf in _flatten(variables.get("batch_stats", {})).items():
+        mod, _, field = path.rpartition(".")
+        out[f"{_rename(mod, rules)}.running_{field}"] = _tensor(leaf)
+    return out
+
+
+def dino_state_from_pth(state: Mapping[str, torch.Tensor], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A DINO release state dict without what convert_dino_vit_state_dict
+    drops: the classifier head (``head.weight``, ``head.bias``), then the
+    ``module.`` and `prefix` of each key."""
+    return {k.removeprefix("module.").removeprefix(prefix): v for k, v in state.items()
+            if not k.endswith(("head.weight", "head.bias"))}
+
+
+HRNET_OUTSIDE = ("head", "classifier", "fc", "incre", "downsamp", "final")
+
+
+def hrnet_state_from_pth(state: Mapping[str, torch.Tensor], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """An mmcv HRNet state dict without what convert_hrnet_state_dict
+    ignores: with a `prefix`, every key outside it (and the prefix of the
+    rest); without one, the heads' keys (HRNET_OUTSIDE); and
+    num_batches_tracked."""
+    keep = (lambda k: k.startswith(prefix)) if prefix else (lambda k: not k.startswith(HRNET_OUTSIDE))
+    return {k[len(prefix):]: v for k, v in state.items()
+            if keep(k) and not k.endswith("num_batches_tracked")}
 
 
 def load_weights(model: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Module:

@@ -1,4 +1,5 @@
-"""RGB -> CIE-Lab and the eval normalisation (fgvc_tpu/ops/color.py).
+"""RGB -> CIE-Lab, the Lab and ImageNet eval normalisations
+(fgvc_tpu/ops/color.py).
 
 Matches cv2.cvtColor(float32 RGB in [0, 1], COLOR_RGB2Lab), including the
 sRGB gamma decoding cv2 applies before the D65 XYZ matrix.  Channels-last.
@@ -65,3 +66,23 @@ def preprocess_rgb_to_lab_normalized(rgb_uint8: torch.Tensor) -> torch.Tensor:
     """uint8 RGB frame(s) -> normalised Lab float32, the eval preprocessing."""
     lab = rgb_to_lab(rgb_uint8.to(torch.float32) / 255.0)
     return normalize(lab, LAB_MEAN, LAB_STD)
+
+
+# mmcv's ImageNet img_norm_cfg (mean and std on 0-255, here on 0-1): the
+# preprocessing of the DINO / ViT / Swin encoders of the zoo
+IMAGENET_MEAN = (123.675 / 255.0, 116.28 / 255.0, 103.53 / 255.0)
+IMAGENET_STD = (58.395 / 255.0, 57.12 / 255.0, 57.375 / 255.0)
+
+
+def preprocess_rgb_to_imagenet(rgb_uint8: torch.Tensor) -> torch.Tensor:
+    """uint8 RGB frame(s) -> ImageNet-normalised RGB float32."""
+    return normalize(rgb_uint8.to(torch.float32) / 255.0, IMAGENET_MEAN, IMAGENET_STD)
+
+
+def preprocess_fn(preprocess: str):
+    """The uint8 -> float32 preprocessing of TestConfig.preprocess."""
+    if preprocess == "imagenet":
+        return preprocess_rgb_to_imagenet
+    if preprocess == "lab":
+        return preprocess_rgb_to_lab_normalized
+    raise ValueError(f"preprocess must be 'lab' or 'imagenet', got {preprocess!r}")

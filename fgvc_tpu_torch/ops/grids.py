@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def draw_gaussian_maps(
@@ -26,15 +27,43 @@ def draw_gaussian_maps(
     return torch.exp(-d2 / (2.0 * sigma**2))
 
 
+def top_k(x: torch.Tensor, k: int):
+    """jax.lax.top_k: the k largest along the last axis, in descending
+    order, equal values in index order (a stable sort; torch.topk may order
+    ties otherwise and so pick other positions at the k-th value)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def top_k_segmented(x: torch.Tensor, k: int, seg: int = 512):
+    """fgvc_tpu/ops/topk.py topk_segmented on a 2-D array: the k segments of
+    `seg` columns with the largest maxima (top_k's order), then top_k over
+    those segments' columns in that order; the same values as top_k, ties
+    broken by segment order, then position, as fgvc_tpu breaks them."""
+    S, K = x.shape
+    n_seg = -(-K // seg)
+    a = F.pad(x, (0, n_seg * seg - K), value=float("-inf")).reshape(S, n_seg, seg)
+    _, seg_idx = top_k(a.amax(-1), min(k, n_seg))
+    cand = torch.gather(a, 1, seg_idx[:, :, None].expand(-1, -1, seg)).reshape(S, -1)
+    vals, ci = top_k(cand, k)
+    seg_of = torch.gather(seg_idx, 1, torch.div(ci, seg, rounding_mode="floor"))
+    return vals, seg_of * seg + ci % seg
+
+
 def soft_argmax_topk(heatmaps: torch.Tensor, topk: int = 5) -> torch.Tensor:
     """(..., H, W) heatmaps -> (..., 2) (x, y): the weighted mean position of
     the top-k activations.  All-zero maps decode to (-1, -1).
 
-    torch.topk is exact; where activations tie at the k-th value it may pick
-    other positions than lax.top_k."""
+    The positions picked where activations tie at the k-th value are
+    fgvc_tpu's: lax.top_k's for rows of up to 4096 pixels, topk_segmented's
+    for longer rows of a 2-D stack (the bilinear upsample of a coarse grid
+    leaves flat plateaus, so such ties are common past stride 2)."""
     width = heatmaps.shape[-1]
     flat = heatmaps.reshape(*heatmaps.shape[:-2], -1)
-    vals, idx = torch.topk(flat, topk, dim=-1)
+    if flat.shape[-1] > 4096 and flat.ndim == 2:
+        vals, idx = top_k_segmented(flat, topk)
+    else:
+        vals, idx = top_k(flat, topk)
     w = vals / (torch.sum(vals, dim=-1, keepdim=True) + 1e-9)
     xs = (idx % width).to(flat.dtype)
     ys = torch.div(idx, width, rounding_mode="floor").to(flat.dtype)

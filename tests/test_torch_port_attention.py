@@ -399,6 +399,41 @@ def test_kernel_matches_plain_on_card_square(name, mode):
     _banked_on_card(name, mode, Cv=5, mask_shape="square")
 
 
+# the zoo's K1 launches at their eval sizes: (H, W, C, Cv, window); DINO
+# S/8 and B/8 on TAP-Vid (32 x 32 at C = 384 and 768), HRNet-W18 on TAP-Vid
+# (8 x 8 at C = 144: one partial tile, the window wider than the map, and
+# half of the last bfloat16 channel stage zeros), DINO B/8 on DAVIS VOS
+ZOO_CARD_SHAPES = {
+    "dino_s8_32x32x384": (32, 32, 384, 32, "circle"),
+    "dino_b8_32x32x768": (32, 32, 768, 32, "circle"),
+    "hrnet_8x8x144": (8, 8, 144, 32, "circle"),
+    "dino_b8_vos_60x110x768": (60, 110, 768, 5, "square"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mode", _mode_params(ZOO_CARD_SHAPES))
+def test_kernel_matches_plain_on_card_zoo_shapes(name, mode):
+    """K1 (K3 in 'high' and 'bfloat16') at the zoo's widths and grids, with
+    the eval settings (6 slots, radius 15, top-10, tile 16), against the
+    plain version on the card."""
+    _card_or_skip()
+    H, W, C, Cv, mask_shape = ZOO_CARD_SHAPES[name]
+    rng = np.random.default_rng(sorted(ZOO_CARD_SHAPES).index(name))
+    bank = torch.from_numpy(rng.standard_normal((7, H, W, C), dtype=np.float32)).cuda()
+    kpad = k1.pad_key_bank(bank, 15.0, tile=16, compute_dtype=mode)
+    halo, Hp, Wp, _, _ = k1.bank_geometry(H, W, 15.0, 16)
+    args = dict(qpad=kpad[6, halo:halo + Hp, halo:halo + Wp].contiguous(), kpad=kpad,
+                value=torch.from_numpy(rng.random((6, H, W, Cv), dtype=np.float32)).cuda(),
+                frame_idx=list(range(6)), key_valid=[True] * 6, H=H, W=W, radius=15.0,
+                temperature=0.07, topk=10, tile=16, mask_shape=mask_shape,
+                compute_dtype=mode)
+    out = k1.topk_attention_banked(**args)
+    ref = k1.topk_attention_banked_plain(**args)
+    torch.cuda.synchronize()
+    _assert_kernel_close(out, ref, args["value"], mode, lambda: k1.near_tie_rows_plain(**args))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,mode", _mode_params(UNBANKED))
 def test_unbanked_kernel_matches_plain_on_card(name, mode):

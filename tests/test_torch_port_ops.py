@@ -150,10 +150,13 @@ def test_unported_knobs_raise():
 
     for knob, value in [("attention_impl", "tiled"), ("decode_impl", "coarse"),
                         ("upload_format", "yuv420"), ("visibility_mode", "heatmap"),
-                        ("with_first_neighbor", False), ("preprocess", "imagenet")]:
+                        ("with_first_neighbor", False)]:
         cfg = dataclasses.replace(DAVIS_TEST_CFG, **{knob: value})
         with pytest.raises(NotImplementedError, match="slice"):
             build_tracker(cfg, device="cpu")
+    # both preprocessings are ported; any other is refused as fgvc_tpu does
+    with pytest.raises(ValueError, match="preprocess must be 'lab' or 'imagenet'"):
+        build_tracker(dataclasses.replace(DAVIS_TEST_CFG, preprocess="yuv"), device="cpu")
     # every task of the JAX CLI is ported; --query-mode stays TAP-Vid's
     for task in ("jhmdb", "badja", "vos"):
         with pytest.raises(ValueError, match="query-mode"):
