@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (fgvc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,vos,vos_plain,modes,zoo,
-                                    kinetics,jhmdb,badja,sp,passes,overlap,profile,train]
+    python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,
+                                    modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,profile,
+                                    train]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -59,6 +60,29 @@ Phases, each of which raises on failure (exit code != 0):
   plain     one of those videos again with the propagation forced through
             the plain version on the card: median trajectory |diff| <= 1e-3
             px and <D within 0.1;
+  raft      the RAFT baseline (--model raft) with seeded weights at the
+            official width (fnet and cnet 256 channels, batch-normed cnet,
+            12 iterations, 4 levels, radius 4) loaded through load_raft_pth
+            from a .pth under the official names: (a) one 256 x 256 pair of
+            e2e video 0 at batch 1 on the card against the same model on the
+            CPU, final flow median |diff| <= 1e-3 px and max <= 1e-2 px, its
+            ms by CUDA events; (b) run_task('davis', model='raft') on the e2e
+            pickles, no attention kernel launched, metrics finite; video 0's
+            flows (ms a flow by CUDA events), chain_flows_track ms, wall time,
+            peak memory, busy share and top kernels (torch.profiler); (c)
+            video 0's trajectories on the card against the port on the CPU:
+            median |diff| <= 1e-2 px and <D within 0.1;
+  decode    run_task('davis') on the e2e pickles with visibility_mode
+            'heatmap', once with decode_impl 'upsample' and once 'coarse':
+            K1 launches one per frame propagated, metrics finite, the share
+            of visible predictions, AJ and OA, video 0's wall time under
+            each; 'upsample' trajectories equal to the default tracker's
+            (e2e's) bit for bit; video 0 with the propagation through the
+            plain version ('upsample'): visibilities agree on >= 99.9% of
+            (frame, point) pairs, median trajectory |diff| <= 1e-3 px, <D
+            within 0.1; video 0 with the card listed twice (K4, two blocks a
+            frame) under each decode: trajectories and visibilities equal to
+            the unsharded run's bit for bit;
   vos       eval_vos (the path of `--task vos`) on two synthetic DAVIS-like
             videos (24 frames, 480 x 854 resized to 480 x 880 as the reader
             does, three moving objects) with seeded random weights, once
@@ -233,6 +257,14 @@ PRECISIONS = ("highest", "high", "default")
 MODE_TRAJ_TOL_PX = 1e-2
 MODE_DELTA_D = {"high": 0.1, "default": 0.5}
 MODE_JF_TOL = 0.005
+# RAFT (--model raft): final flow of one 256 x 256 pair, card against CPU
+# (cuDNN and the CPU sum the convolutions in other orders), and video 0's
+# chained trajectories, whose errors grow along the chain
+RAFT_FLOW_MEDIAN_PX, RAFT_FLOW_MAX_PX = 1e-3, 1e-2
+RAFT_TRAJ_MEDIAN_PX = 1e-2
+# heatmap visibility, K1 against its plain version: share of (frame, point)
+# pairs whose visibility agrees (a peak ratio may sit at the threshold)
+VIS_AGREE = 0.999
 
 # propagation settings of DAVIS_TEST_CFG (ResNet-18-d1 features, C = 256)
 C = 256
@@ -941,13 +973,7 @@ def run_plain_comparison(data_root):
           f"with the plain version")
     diff = np.abs(out_k["trajectories"] - out_p["trajectories"])
     med = float(np.median(diff))
-    res = []
-    for out in (out_k, out_p):
-        res.append(ds.evaluate([{
-            "trajectories_gt": s["trajectories"], "visibilities_gt": s["visibilities"],
-            "trajectories_pred": out["trajectories"], "visibilities_pred": out["visibilities"],
-            "query_points": s["query_points"],
-        }])["average_pts_within_thresh"])
+    res = [_score(ds, s, out)["average_pts_within_thresh"] for out in (out_k, out_p)]
     print(f"kernel vs plain trajectories: median |diff| {med:.3e} px, max {diff.max():.3e} px; "
           f"<D {res[0]:.4f} vs {res[1]:.4f}", flush=True)
     if not med <= TRAJ_TOL_PX:
@@ -1483,6 +1509,210 @@ def run_overlap(records):
             launches=n, ms=res["ms"][kind], plain_ms=plain_ms, max_abs_err=errs[kind],
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=res["matmul_ms"] if kind == "mxu" else None)
+
+
+def make_raft_pth(path, seed=0):
+    """Seeded RAFT weights at the official width (fnet and cnet 256
+    channels, batch-normed cnet, 4 levels, radius 4) saved under the
+    official names, ``module.`` prefixed as the released files are."""
+    import torch
+
+    from fgvc_tpu_torch.models.raft import RAFT
+    from fgvc_tpu_torch.models.resnet import init_flax_like
+
+    model = init_flax_like(RAFT(cnet_norm="batch"), torch.Generator().manual_seed(seed))
+    torch.save({"module." + k: v for k, v in model.state_dict().items()}, path)
+    return path
+
+
+def _score(ds, s, out):
+    return ds.evaluate([{
+        "trajectories_gt": s["trajectories"], "visibilities_gt": s["visibilities"],
+        "trajectories_pred": out["trajectories"], "visibilities_pred": out["visibilities"],
+        "query_points": s["query_points"],
+    }])
+
+
+def check_no_launches(label):
+    """No kernel of fgvc_tpu_torch launched since the last reset."""
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    got = {"banked": k1.launches, "unbanked": k1.unbanked_launches,
+           "row_block": k1.row_block_launches, "cut": sum(k1.cut_launches.values())}
+    print(f"{label}: attention kernel launches {got} (expected none)", flush=True)
+    if any(got.values()):
+        raise AssertionError(f"{label}: the attention kernel launched: {got}")
+
+
+def run_raft(data_root):
+    """The RAFT baseline (--model raft): (a) one 256 x 256 frame pair on the
+    card against the same model on the CPU; (b) run_task('davis',
+    model='raft') on the e2e pickles, no attention kernel launched, and
+    video 0's flows, chaining, wall time, peak and busy share; (c) video 0's
+    trajectories on the card against the port on the CPU."""
+    import copy
+
+    import torch
+
+    from fgvc_tpu_torch.apis.test import build_raft_tracker, run_task
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.models.raft import PAIR_CHUNK, chain_flows_track
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+    from fgvc_tpu_torch.utils.profiler import events_ms
+
+    pth = make_raft_pth(os.path.join(data_root, "raft_seeded.pth"))
+    tracker = build_raft_tracker(pth, device="cuda")
+    ds = TapVidDataset(data_root)
+    s = ds[0]
+    T = len(s["video"])
+
+    # (a) one pair at batch 1, card against CPU
+    pair = torch.from_numpy(s["video"][:2]).permute(0, 3, 1, 2).float() / 127.5 - 1.0
+    model = tracker.model
+    im1, im2 = pair[:1].cuda(), pair[1:].cuda()
+    with torch.no_grad():
+        flow = model(im1, im2)[-1]
+        pair_ms = events_ms(lambda: model(im1, im2), 3)
+        t0 = time.time()
+        cpu_flow = copy.deepcopy(model).cpu()(pair[:1], pair[1:])[-1]
+        t_cpu = time.time() - t0
+    diff = (flow.cpu() - cpu_flow).abs()
+    med, mx = float(diff.median()), float(diff.max())
+    print(f"raft (a): one 256x256 pair at batch 1, {model.iters} iterations: {pair_ms:.3f} ms on "
+          f"the card (CUDA events), {t_cpu:.2f} s on the CPU; final flow card vs CPU median "
+          f"|diff| {med:.3e} px, max {mx:.3e} px (limits {RAFT_FLOW_MEDIAN_PX}, "
+          f"{RAFT_FLOW_MAX_PX}); |flow| up to {float(cpu_flow.abs().max()):.2f} px", flush=True)
+    if not (med <= RAFT_FLOW_MEDIAN_PX and mx <= RAFT_FLOW_MAX_PX):
+        raise AssertionError(f"raft (a): card vs CPU flow median {med}, max {mx} px")
+
+    # (b) the CLI's path on both videos, then video 0 measured
+    k1.reset_launches()
+    t0 = time.time()
+    metrics = run_task("davis", data_root, checkpoint=pth, device="cuda", model="raft")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    check_no_launches("raft run_task")
+    check_metrics(metrics)
+    print(f"raft (b): run_task('davis', model='raft') {len(ds)} videos in {dt:.2f} s (model "
+          "build and data reading included); metrics " + json.dumps(
+              {k: metrics[k] for k in ("average_pts_within_thresh", "average_jaccard",
+                                       "occlusion_accuracy", "pts_within_1", "pts_within_16")}),
+          flush=True)
+    n_flows = 2 * (T - 1)
+    flows = []
+    flows_ms = events_ms(lambda: flows.append(tracker.flows(s["video"])), 1)
+    fwd, bwd = (f.permute(0, 2, 3, 1).cpu().numpy() for f in flows[0])
+    t0 = time.time()
+    chain_flows_track(fwd, bwd, s["query_points"])
+    chain_ms = 1e3 * (time.time() - t0)
+    t0 = time.time()
+    out, peak = _peak_gb_of(lambda: tracker.track_points(s["video"], s["query_points"]))
+    wall_ms = 1e3 * (time.time() - t0)
+    by_kernel, prof_ms = device_ms_by_kernel(
+        lambda: tracker.track_points(s["video"], s["query_points"]))
+    busy = sum(by_kernel.values())
+    print(f"raft (b) video 0 ({T} frames, {n_flows} flows): flows {flows_ms:.1f} ms on the "
+          f"card = {flows_ms / n_flows:.3f} ms a flow (CUDA events; encoders once a frame, "
+          f"{PAIR_CHUNK} pairs a call); chain_flows_track {chain_ms:.2f} ms on the host; "
+          f"track_points wall {wall_ms:.1f} ms; peak device memory {peak:.3f} GB", flush=True)
+    if busy:
+        print(f"raft (b) video 0 profiled: wall {prof_ms:.1f} ms, device busy {busy:.1f} ms "
+              f"({100 * busy / prof_ms:.1f}%); top kernels: " + _top(by_kernel, 8), flush=True)
+    else:
+        print("raft (b) video 0 profile: device time not measured by torch.profiler")
+
+    # (c) video 0, card against CPU
+    cpu_tracker = build_raft_tracker(pth, device="cpu")
+    t0 = time.time()
+    ref = cpu_tracker.track_points(s["video"], s["query_points"])
+    t_cpu = time.time() - t0
+    diff = np.abs(out["trajectories"] - ref["trajectories"])
+    med = float(np.median(diff))
+    d_card = _score(ds, s, out)["average_pts_within_thresh"]
+    d_cpu = _score(ds, s, ref)["average_pts_within_thresh"]
+    print(f"raft (c) video 0 card vs CPU ({t_cpu:.1f} s on the CPU): trajectories median |diff| "
+          f"{med:.3e} px, max {diff.max():.3e} px (median limit {RAFT_TRAJ_MEDIAN_PX}); "
+          f"visibilities equal on {100 * np.mean(out['visibilities'] == ref['visibilities']):.3f}%"
+          f"; <D {d_card:.4f} vs {d_cpu:.4f}", flush=True)
+    if not med <= RAFT_TRAJ_MEDIAN_PX:
+        raise AssertionError(f"raft (c): median trajectory difference {med} px")
+    if not abs(d_card - d_cpu) <= DELTA_D_TOL:
+        raise AssertionError(f"raft (c): <D differs by {abs(d_card - d_cpu)}")
+
+
+def _tracks(tracker, ds):
+    return [tracker.track_points(ds[i]["video"], ds[i]["query_points"]) for i in range(len(ds))]
+
+
+def run_decode(data_root):
+    """visibility_mode 'heatmap' with decode_impl 'upsample' and 'coarse'
+    through run_task('davis') on the e2e pickles (K1, one launch per frame
+    propagated); 'upsample' trajectories equal the default tracker's; video
+    0 through K1 and the plain version; the card listed twice (K4) against
+    the unsharded run."""
+    import dataclasses
+
+    import torch
+
+    from fgvc_tpu_torch.apis.test import build_tracker, run_task
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    ds = TapVidDataset(data_root)
+    expect = frames_propagated(ds)
+    s = ds[0]
+    cfgs = {d: dataclasses.replace(DAVIS_TEST_CFG, visibility_mode="heatmap", decode_impl=d)
+            for d in ("upsample", "coarse")}
+    base = _tracks(build_tracker(seed=0, device="cuda"), ds)
+    for d, cfg in cfgs.items():
+        k1.reset_launches()
+        metrics = run_task("davis", data_root, test_cfg=cfg, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        check_launches(f"decode {d}", "highest", expect, "banked")
+        check_metrics(metrics)
+        tracker = build_tracker(cfg, seed=0, device="cuda")
+        outs = _tracks(tracker, ds)
+        vis = np.concatenate([o["visibilities"].ravel() for o in outs])
+        t0 = time.time()
+        tracker.track_points(s["video"], s["query_points"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+        print(f"decode {d} + heatmap visibility (threshold {cfg.visibility_threshold}): visible "
+              f"{100 * vis.mean():.2f}% of predictions; AJ {metrics['average_jaccard']:.4f}, "
+              f"OA {metrics['occlusion_accuracy']:.4f}, <D "
+              f"{metrics['average_pts_within_thresh']:.4f}; video 0 track_points wall "
+              f"{wall_ms:.1f} ms", flush=True)
+        if d == "upsample":
+            same = all(np.array_equal(o["trajectories"], b["trajectories"])
+                       for o, b in zip(outs, base))
+            print(f"decode upsample trajectories equal the default tracker's bit for bit: {same}",
+                  flush=True)
+            if not same:
+                raise AssertionError("decode upsample: trajectories differ from e2e's")
+            plain = _plain_propagation(lambda: tracker.track_points(s["video"], s["query_points"]))
+            diff = np.abs(outs[0]["trajectories"] - plain["trajectories"])
+            agree = float(np.mean(outs[0]["visibilities"] == plain["visibilities"]))
+            d0 = _score(ds, s, outs[0])["average_pts_within_thresh"]
+            d1 = _score(ds, s, plain)["average_pts_within_thresh"]
+            print(f"decode upsample video 0 K1 vs plain: trajectories median |diff| "
+                  f"{np.median(diff):.3e} px, max {diff.max():.3e}; visibilities agree on "
+                  f"{100 * agree:.3f}% (limit {100 * VIS_AGREE}); <D {d0:.4f} vs {d1:.4f}",
+                  flush=True)
+            if not (np.median(diff) <= TRAJ_TOL_PX and agree >= VIS_AGREE
+                    and abs(d0 - d1) <= DELTA_D_TOL):
+                raise AssertionError("decode: K1 against plain out of its limits")
+        card = torch.device("cuda", torch.cuda.current_device())
+        k1.reset_launches()
+        sp = build_tracker(cfg, seed=0, spatial_devices=[card] * 2).track_points(
+            s["video"], s["query_points"])
+        check_launches(f"decode {d} S=2", "highest", 2 * frames_propagated([s]), "row_block")
+        same = (np.array_equal(sp["trajectories"], outs[0]["trajectories"])
+                and np.array_equal(sp["visibilities"], outs[0]["visibilities"]))
+        print(f"decode {d} S=2 on one card: trajectories and visibilities equal the unsharded "
+              f"run's bit for bit: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"decode {d}: row blocks differ from the unsharded run")
 
 
 def run_profile(data_root):
@@ -2181,8 +2411,9 @@ def run_train():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="card,build,kernel,e2e,plain,vos,vos_plain,modes,zoo,"
-                                        "kinetics,jhmdb,badja,sp,passes,overlap,profile,train")
+    ap.add_argument("--phases", default="card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,"
+                                        "modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,"
+                                        "profile,train")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2256,7 +2487,7 @@ def main():
         check_row_blocks(records)
     e2e_metrics = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_root:
-        if {"e2e", "plain", "modes", "sp", "profile", "zoo"} & set(phases):
+        if {"e2e", "plain", "raft", "decode", "modes", "sp", "profile", "zoo"} & set(phases):
             make_tapvid_pickles(data_root)
         if "e2e" in phases:
             phase("e2e")
@@ -2264,6 +2495,12 @@ def main():
         if "plain" in phases:
             phase("plain")
             run_plain_comparison(data_root)
+        for name, run in (("raft", run_raft), ("decode", run_decode)):
+            if name in phases:
+                phase(name)
+                t_phase = time.time()
+                run(data_root)
+                print(f"{name} phase {time.time() - t_phase:.1f} s", flush=True)
         if "vos" in phases or "vos_plain" in phases:
             ds = SyntheticDavis()
             if "vos" in phases:

@@ -2,17 +2,19 @@
 TAP-Vid-Kinetics point tracking, JHMDB pose and BADJA keypoint propagation,
 and DAVIS-2017 VOS.
 
-    run_task('davis' | 'kinetics', data_root, query_mode='first' | 'strided', ...)
+    run_task('davis' | 'kinetics', data_root, query_mode='first' | 'strided',
+             model='vanilla' | 'raft', ...)
     run_task('jhmdb' | 'badja', data_root, list_path=None, ...)
     run_task('vos', data_root, list_path=None, test_cfg=None, device=None)
 
 builds the tracker on the card (or on the device the caller names) over the
 paper's ResNet-18-d1 or, with `backbone=`, any encoder of models/zoo.py,
 evaluates every video of `data_root` and returns the task's metrics
-(TAP-Vid's, PCK, or DAVIS J&F).  `spatial_devices` S > 1 shards each frame's
-query rows over the first S cards (spatial-parallel propagation); a list of
-devices is taken as given, so one card listed S times runs S row blocks on
-it.
+(TAP-Vid's, PCK, or DAVIS J&F).  `model='raft'` tracks TAP-Vid points by
+chaining RAFT's flows instead (build_raft_tracker).  `spatial_devices` S > 1
+shards each frame's query rows over the first S cards (spatial-parallel
+propagation); a list of devices is taken as given, so one card listed S
+times runs S row blocks on it.
 
 Every eval reads one video ahead on a worker thread and names its steps for
 ``--profile`` traces as the JAX harness does: ``propagate[i]`` around video
@@ -38,9 +40,10 @@ from fgvc_tpu_torch.config import (
 )
 from fgvc_tpu_torch.core.checkpoint import student_state_dict
 from fgvc_tpu_torch.device import resolve_device
-from fgvc_tpu_torch.models.resnet import init_random, resnet18_d1
+from fgvc_tpu_torch.models.raft import RAFT, RaftTracker
+from fgvc_tpu_torch.models.resnet import init_flax_like, init_random, resnet18_d1
 from fgvc_tpu_torch.models.tracker import Tracker
-from fgvc_tpu_torch.models.weights import load_reference_pth, load_weights
+from fgvc_tpu_torch.models.weights import load_raft_pth, load_reference_pth, load_weights
 from fgvc_tpu_torch.models.zoo import make_eval_backbone
 from fgvc_tpu_torch.utils.profiler import annotate
 
@@ -115,6 +118,28 @@ def build_tracker(
     return Tracker(model, test_cfg, dev, spatial_devices=spatial)
 
 
+def build_raft_tracker(
+    checkpoint: Optional[str] = None, iters: int = 12, seed: int = 0,
+    device: Optional[Union[str, torch.device]] = None,
+) -> RaftTracker:
+    """The RAFT baseline tracker: an official RAFT ``.pth`` (princeton-vl
+    names) into RAFT(cnet_norm='batch'), or, without a checkpoint, seeded
+    flax-like weights with cnet_norm 'none', as fgvc_tpu builds them.  Runs
+    on the CUDA card unless `device` names another."""
+    dev = resolve_device(device)
+    if checkpoint is None:
+        model = init_flax_like(RAFT(iters=iters, cnet_norm="none"),
+                               torch.Generator().manual_seed(seed))
+    elif checkpoint.endswith(".pth"):
+        model = load_weights(RAFT(iters=iters, cnet_norm="batch"), load_raft_pth(checkpoint))
+    else:
+        raise ValueError(
+            f"RAFT reads an official .pth checkpoint, not {checkpoint!r} (orbax "
+            "directories of fgvc_tpu reach the port as an exported .pth)"
+        )
+    return RaftTracker(model, dev, iters=iters)
+
+
 def _read_ahead(dataset, ids):
     """Yield dataset[i] for i in ids, reading one video ahead on a worker
     thread (fgvc_tpu/apis/test.py _read_ahead): the next video's file read
@@ -129,18 +154,23 @@ def _read_ahead(dataset, ids):
             yield cur
 
 
-def eval_tapvid(tracker: Tracker, dataset, max_videos=None, output_dir=None) -> Dict[str, float]:
+def eval_tapvid(tracker: Union[Tracker, RaftTracker], dataset, max_videos=None,
+                output_dir=None) -> Dict[str, float]:
     """Track every video of `dataset` (a TapVidDataset) and score the
-    results."""
+    results.  A tracker without the dispatch/collect split (RaftTracker)
+    tracks inside the collect span."""
     n = len(dataset) if max_videos is None else min(len(dataset), max_videos)
     ids = list(range(n))
     results = []
     for i, sample in zip(ids, _read_ahead(dataset, ids)):
         t0 = time.time()
+        split = hasattr(tracker, "track_points_dispatch")
         with annotate(f"propagate[{i}]"):
-            disp = tracker.track_points_dispatch(sample["video"], sample["query_points"])
+            disp = (tracker.track_points_dispatch(sample["video"], sample["query_points"])
+                    if split else None)
         with annotate(f"collect[{i}]"):
-            out = tracker.track_points_collect(disp)
+            out = (tracker.track_points_collect(disp) if split
+                   else tracker.track_points(sample["video"], sample["query_points"]))
         print(
             f"[{i}] T={len(sample['video'])} P={sample['query_points'].shape[0]}"
             f" {time.time() - t0:.2f}s",
@@ -234,14 +264,19 @@ def run_task(
     spatial_devices: SpatialDevices = None,
     query_mode: str = "first",
     backbone: str = "resnet18_d1",
+    model: str = "vanilla",
 ) -> Dict[str, float]:
     """Mirror of `tools/test.py --task davis|kinetics|jhmdb|badja|vos
-    [--query-mode strided] [--spatial-devices S] [--backbone NAME]`.
+    [--query-mode strided] [--spatial-devices S] [--backbone NAME]
+    [--model vanilla|raft]`.
     query_mode 'strided' (TAP-Vid tasks only) queries every track every 5
     frames where it is visible.  JHMDB and BADJA read their lists under
     `list_path`, by default `data_root`.  VOS reads every video at 480 x 880
     and BADJA at 320 x 512 whatever cfg.input_size says, as the JAX harness
-    does.  `backbone` names the encoder (models/zoo.py)."""
+    does.  `backbone` names the encoder (models/zoo.py).  `model='raft'`
+    (TAP-Vid tasks only, one device, `backbone` unread) builds
+    build_raft_tracker(checkpoint) instead of the label-propagation
+    tracker."""
     if task not in TASK_CONFIGS:
         raise ValueError(f"unknown task {task!r}")
     if query_mode != "first" and task not in ("davis", "kinetics"):
@@ -249,9 +284,20 @@ def run_task(
             f"--query-mode {query_mode!r} only applies to TAP-Vid point "
             f"tracking (davis/kinetics), not task {task!r}"
         )
+    if model not in ("vanilla", "raft"):
+        raise ValueError(f"model must be 'vanilla' or 'raft', got {model!r}")
     cfg = test_cfg or TASK_CONFIGS[task]
-    tracker = build_tracker(cfg, checkpoint, seed=seed, device=device,
-                            spatial_devices=spatial_devices, backbone=backbone)
+    if model == "raft":
+        if spatial_devices is not None and (not isinstance(spatial_devices, int)
+                                            or spatial_devices > 1):
+            raise ValueError("--spatial-devices applies to the label-propagation tracker "
+                             "only (RaftTracker has no dispatch/collect split)")
+        if task not in ("davis", "kinetics"):
+            raise ValueError("--model raft supports point-tracking tasks only")
+        tracker = build_raft_tracker(checkpoint, seed=seed, device=device)
+    else:
+        tracker = build_tracker(cfg, checkpoint, seed=seed, device=device,
+                                spatial_devices=spatial_devices, backbone=backbone)
     if task in ("davis", "kinetics"):
         from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
 

@@ -4,7 +4,9 @@ TAP-Vid-Kinetics point tracking, JHMDB pose and BADJA keypoint propagation,
 and DAVIS-2017 VOS.
 
     python -m fgvc_tpu_torch.cli.test --task davis|kinetics --data-root <pkls> \
-        [--query-mode first|strided] \
+        [--query-mode first|strided] [--model vanilla|raft] \
+        [--decode-impl upsample|window|coarse] \
+        [--visibility-mode none|heatmap] [--visibility-threshold X] \
         [--backbone NAME] [--checkpoint ckpt.pth|WORK_DIR/latest] \
         [--max-videos N] [--output-dir DIR] \
         [--config cfg.json] [--input-size N] \
@@ -17,8 +19,10 @@ and DAVIS-2017 VOS.
     python -m fgvc_tpu_torch.cli.test --task vos --data-root <DAVIS tree> \
         [--list-path val.txt] [--save-mem] [--hard-prop] [...]
 
-Prints the task's metrics as JSON.  Runs on the CUDA card unless --device
-cpu is given.  --profile writes a torch.profiler trace of the whole run
+--model raft tracks TAP-Vid points by chaining RAFT's flows (an official
+RAFT .pth as --checkpoint, or seeded weights).  Prints the task's metrics as
+JSON.  Runs on the CUDA card unless --device cpu is given.  --profile
+writes a torch.profiler trace of the whole run
 (LOGDIR/trace.json, with the harness's propagate[i] and collect[i] spans and
 the CUDA kernels).
 """
@@ -45,6 +49,12 @@ def main(argv=None):
                              "training checkpoint of fgvc_tpu_torch.cli.train "
                              "(WORK_DIR/latest, WORK_DIR/best or a step_N dir)")
     parser.add_argument(
+        "--model",
+        default="vanilla",
+        choices=["vanilla", "raft"],
+        help="vanilla = label-propagation tracker; raft = flow-chaining baseline",
+    )
+    parser.add_argument(
         "--backbone",
         default="resnet18_d1",
         help="eval encoder from the zoo (models/zoo.py): resnet18_d1 "
@@ -67,6 +77,27 @@ def main(argv=None):
         choices=["highest", "high", "default"],
         help="affinity matmul precision (task preset: highest; "
              "default = bf16 multiplies)",
+    )
+    parser.add_argument(
+        "--decode-impl",
+        default=None,
+        choices=["upsample", "window", "coarse"],
+        help="coordinate decode: full-res upsample (reference-exact; "
+             "'window' decodes as it), or feature-res soft-argmax (coarse)",
+    )
+    parser.add_argument(
+        "--visibility-mode",
+        default=None,
+        choices=["none", "heatmap"],
+        help="point-tracking visibility prediction: none = constant zeros "
+             "(reference parity; AJ/OA degenerate), heatmap = peak-ratio "
+             "estimate",
+    )
+    parser.add_argument(
+        "--visibility-threshold",
+        type=float,
+        default=None,
+        help="peak_t / peak_query ratio above which a point counts visible",
     )
     parser.add_argument(
         "--save-mem",
@@ -118,6 +149,12 @@ def main(argv=None):
         overrides["save_mem"] = args.save_mem
     if args.hard_prop is not None:
         overrides["hard_prop"] = args.hard_prop
+    if args.decode_impl:
+        overrides["decode_impl"] = args.decode_impl
+    if args.visibility_mode:
+        overrides["visibility_mode"] = args.visibility_mode
+    if args.visibility_threshold is not None:
+        overrides["visibility_threshold"] = args.visibility_threshold
     with trace(args.profile):
         results = run_task(
             args.task,
@@ -131,6 +168,7 @@ def main(argv=None):
             spatial_devices=args.spatial_devices,
             query_mode=args.query_mode,
             backbone=args.backbone,
+            model=args.model,
         )
     print(json.dumps(results, indent=2, default=float))
 

@@ -32,7 +32,10 @@ class TestConfig:
     tile: int = 32              # query tile edge; the kernel caps it at 16
     upload_format: str = "rgb"
     matmul_precision: str = "highest"
+    # 'heatmap': a point is visible at frame t where its propagated map's
+    # peak over its query frame's is >= visibility_threshold; 'none': never
     visibility_mode: str = "none"
+    visibility_threshold: float = 0.5
     preprocess: str = "lab"
 
 
@@ -45,12 +48,13 @@ BADJA_TEST_CFG = TestConfig(step=128)
 _NOT_PORTED = {
     "attention_impl": ("pallas", "slice 6 (other propagation modes)"),
     "with_first_neighbor": (True, "slice 6 (other propagation modes)"),
-    "decode_impl": ("upsample", "slice 5b (reproduce and host modes)"),
     "upload_format": ("rgb", "slice 5b (reproduce and host modes)"),
-    "visibility_mode": ("none", "slice 5b (reproduce and host modes)"),
 }
 
 PREPROCESS = ("lab", "imagenet")
+VISIBILITY_MODES = ("none", "heatmap")
+# 'window' decodes as 'upsample' does: fgvc_tpu's decode branches on 'coarse' only
+DECODE_IMPLS = ("upsample", "window", "coarse")
 
 
 MATMUL_PRECISIONS = ("highest", "high", "default")
@@ -58,8 +62,9 @@ MATMUL_PRECISIONS = ("highest", "high", "default")
 
 def check_ported(cfg: TestConfig) -> None:
     """Raise NotImplementedError for a knob set off the ported main path,
-    and ValueError for a matmul_precision outside the three modes or a
-    preprocess other than 'lab' and 'imagenet'."""
+    and ValueError for a matmul_precision outside the three modes, a
+    preprocess other than 'lab' and 'imagenet', a visibility_mode other than
+    'none' and 'heatmap', or a decode_impl outside DECODE_IMPLS."""
     if cfg.matmul_precision not in MATMUL_PRECISIONS:
         raise ValueError(
             f"matmul_precision must be one of {MATMUL_PRECISIONS}, "
@@ -69,6 +74,12 @@ def check_ported(cfg: TestConfig) -> None:
         raise ValueError(
             f"preprocess must be 'lab' or 'imagenet', got {cfg.preprocess!r}"
         )
+    if cfg.visibility_mode not in VISIBILITY_MODES:
+        raise ValueError(
+            f"visibility_mode must be 'none' or 'heatmap', got {cfg.visibility_mode!r}"
+        )
+    if cfg.decode_impl not in DECODE_IMPLS:
+        raise ValueError(f"decode_impl must be one of {DECODE_IMPLS}, got {cfg.decode_impl!r}")
     for name, (value, slice_name) in _NOT_PORTED.items():
         if getattr(cfg, name) != value:
             raise NotImplementedError(

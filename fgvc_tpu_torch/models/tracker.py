@@ -9,7 +9,10 @@ Three protocols share one propagation loop:
   points sharing a query frame, a loop over the following frames, each
   attending over frame 0 of the group plus the `precede_frames` preceding
   frames through the banked top-k attention kernel (K1, circle window) ->
-  bilinear upsample to the input size and top-5 soft-argmax.
+  bilinear upsample to the input size and top-5 soft-argmax (with
+  decode_impl 'coarse': the soft-argmax at feature resolution, scaled), and
+  the map's peak, whose ratio to the query frame's peak is the visibility
+  under visibility_mode 'heatmap'.
 * DAVIS VOS mask propagation: the first frame's label map, nearest-resized
   to feature resolution and one-hot encoded, propagates through K1 with the
   square window over the whole video's bank; with `save_mem` the features
@@ -251,11 +254,23 @@ class Tracker:
         return idx, valid
 
     def decode(self, logits: torch.Tensor, full_hw: Tuple[int, int]) -> torch.Tensor:
-        """(h, w, P) logits -> (P, 2): (x, y) at full resolution by bilinear
-        upsampling and top-5 soft-argmax.  (The JAX decode's third column,
-        the peak that visibility_mode 'heatmap' reads, comes with that
-        mode.)"""
-        return soft_argmax_topk(upsample(logits, full_hw), topk=5)
+        """(h, w, P) logits -> (P, 3): (x, y) at full resolution and the
+        peak of the logits over (h, w), which visibility_mode 'heatmap'
+        reads.  decode_impl 'coarse' takes the top-5 soft-argmax at feature
+        resolution scaled by (W / w, H / h) (-1 where a coordinate is
+        negative); 'upsample' and 'window' upsample bilinearly first."""
+        peak = logits.amax(dim=(0, 1))
+        if self.cfg.decode_impl == "coarse":
+            H, W = full_hw
+            h, w = logits.shape[:2]
+            c = soft_argmax_topk(logits.permute(2, 0, 1), topk=5)
+            # Python scalars: a tensor made from them here would be a host
+            # copy, which waits for the card's queue every frame
+            scaled = torch.stack([c[:, 0] * (W / w), c[:, 1] * (H / h)], dim=-1)
+            coords = torch.where(c < 0, -1.0, scaled)
+        else:
+            coords = soft_argmax_topk(upsample(logits, full_hw), topk=5)
+        return torch.cat([coords, peak[:, None]], dim=-1)
 
     def bank_entry(self, seg_logit: torch.Tensor) -> torch.Tensor:
         """What a propagated frame leaves in the value buffer (the emitted
@@ -429,8 +444,10 @@ class Tracker:
         self, bank, t0: int, length: int, pts: torch.Tensor,
         feat_hw: Tuple[int, int], full_hw: Tuple[int, int],
     ) -> torch.Tensor:
-        """One query-frame group: gaussian maps, propagation, decode.  Row 0
-        decodes the full-resolution gaussian."""
+        """One query-frame group: gaussian maps, propagation, decode; (T', P,
+        3) rows.  Row 0 holds the full-resolution gaussian's coordinates and
+        the peak of the feature-resolution maps that propagation starts
+        from (the denominator of the visibility ratio)."""
         H, W = full_hw
         stride = H // feat_hw[0]
         init_maps = draw_gaussian_maps(pts, H, W, sigma=self.cfg.sigma, stride=stride)
@@ -440,7 +457,9 @@ class Tracker:
             lambda seg: self.decode(seg, full_hw),
         )
         full_maps = draw_gaussian_maps(pts, H, W, sigma=self.cfg.sigma, stride=1)
-        return torch.stack([soft_argmax_topk(full_maps, topk=5), *rows])
+        row0 = torch.cat([soft_argmax_topk(full_maps, topk=5),
+                          init_maps.amax(dim=(1, 2))[:, None]], dim=-1)
+        return torch.stack([row0, *rows])
 
     # ------------------------------------------------------------------ #
     # TAP-Vid protocol
@@ -471,14 +490,28 @@ class Tracker:
             pending.append((int(t), sel, rows))
         return {"pending": pending, "T": T, "P": query_points.shape[0]}
 
+    @staticmethod
+    def peak_ratios(rows: np.ndarray) -> np.ndarray:
+        """Each frame's peak over the query frame's for one group's (T', n,
+        3) decode rows (row 0 the query frame): the statistic that
+        visibility_mode 'heatmap' thresholds."""
+        peaks = np.asarray(rows)[..., 2]
+        return peaks / np.maximum(peaks[0], 1e-12)
+
     def track_points_collect(self, disp: Dict) -> Dict[str, np.ndarray]:
         """Trajectories (T, P, 2); frames before a point's query frame stay
-        0.  Visibilities are all False (visibility_mode 'none')."""
+        0.  Visibilities: under visibility_mode 'heatmap', peak ratio >=
+        cfg.visibility_threshold from the query frame on (False before it);
+        under 'none', all False."""
         T, P = disp["T"], disp["P"]
         traj = np.zeros((T, P, 2), dtype=np.float32)
+        vis = np.zeros((T, P), dtype=bool)
         for t, sel, rows in disp["pending"]:
-            traj[t:, sel] = rows.cpu().numpy()
-        return {"trajectories": traj, "visibilities": np.zeros((T, P), dtype=bool)}
+            arr = rows.cpu().numpy()
+            traj[t:, sel] = arr[..., :2]
+            if self.cfg.visibility_mode == "heatmap":
+                vis[t:, sel] = self.peak_ratios(arr) >= self.cfg.visibility_threshold
+        return {"trajectories": traj, "visibilities": vis}
 
     def track_points(
         self, video: np.ndarray, query_points: np.ndarray,
@@ -509,8 +542,9 @@ class Tracker:
         del feats  # the bank holds every frame
         maps = torch.from_numpy(np.ascontiguousarray(ref_maps, np.float32)).to(self.device)
         propagate = self.propagate if self.spatial_devices is None else self.propagate_sp
-        rows = propagate(bank, 0, video.shape[0], resize_maps(maps, (h, w)).contiguous(),
-                         lambda seg: self.decode(seg, tuple(decode_hw)), mask_shape="square")
+        emit = lambda seg: self.decode(seg, tuple(decode_hw))[:, :2]  # noqa: E731
+        rows = propagate(bank, 0, video.shape[0], resize_maps(maps, (h, w)).contiguous(), emit,
+                         mask_shape="square")
         # frame 0 decodes the reference maps themselves at decode_hw
         ref_up = resize_maps(maps, tuple(decode_hw)).permute(2, 0, 1)
         return {"coords": [soft_argmax_topk(ref_up, topk=5), *rows]}

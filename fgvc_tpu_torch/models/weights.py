@@ -14,6 +14,9 @@ zoo's converters).
   mmcv HRNet state dict with the keys dropped that fgvc_tpu's converters
   drop; the port's modules carry the released names, so the rest loads
   as it is.
+* ``raft_state_dict_from_flax``: the JAX ``RAFT``'s variables onto the
+  port's RAFT, which carries the official princeton-vl names.
+* ``load_raft_pth``: an official RAFT ``.pth`` as the port's state dict.
 * ``load_weights``: a state dict into a module, failing on any gap.
 
 Orbax checkpoints of the JAX package are not read: they reach the port as an
@@ -287,3 +290,81 @@ def load_weights(model: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Modu
         raise ValueError(f"weights do not fit the model: missing {missing[:8]}, "
                          f"unexpected {unexpected[:8]}")
     return model
+
+
+# ---------------------------------------------------------------------- #
+# RAFT
+# ---------------------------------------------------------------------- #
+# fgvc_tpu RAFT module -> the official name (fgvc_tpu/models/raft_convert.py)
+_RAFT_MODULES = {
+    "motion.conv_c1": "update_block.encoder.convc1",
+    "motion.conv_c2": "update_block.encoder.convc2",
+    "motion.conv_f1": "update_block.encoder.convf1",
+    "motion.conv_f2": "update_block.encoder.convf2",
+    "motion.conv": "update_block.encoder.conv",
+    **{f"gru.conv{g}_{d}": f"update_block.gru.conv{g}{i}"
+       for g in "zrq" for d, i in (("h", 1), ("v", 2))},
+    "flow_head.conv1": "update_block.flow_head.conv1",
+    "flow_head.conv2": "update_block.flow_head.conv2",
+    "mask_head.conv1": "update_block.mask.0",
+    "mask_head.conv2": "update_block.mask.2",
+}
+
+
+def _raft_name(path: str) -> str:
+    """An encoder's ``layer{i}_{j}`` -> ``layer{i+1}.{j}``, its ``down`` and
+    ``norm3`` -> ``downsample.0`` and ``.1``; the update block's modules as
+    _RAFT_MODULES says."""
+    if path in _RAFT_MODULES:
+        return _RAFT_MODULES[path]
+    m = re.fullmatch(r"(fnet|cnet)\.layer(\d)_(\d)\.(\w+)", path)
+    if m:
+        enc, i, j, mod = m.groups()
+        mod = {"down": "downsample.0", "norm3": "downsample.1"}.get(mod, mod)
+        return f"{enc}.layer{int(i) + 1}.{j}.{mod}"
+    if re.fullmatch(r"(fnet|cnet)\.(conv1|norm1|conv2)", path):
+        return path
+    raise ValueError(f"flax RAFT variable {path!r} has no place in the port's RAFT")
+
+
+def raft_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX RAFT's {'params'[, 'batch_stats']} (numpy) as the port's
+    state dict: conv kernels HWIO -> OIHW, BatchNorm scale/bias/mean/var ->
+    weight/bias/running_*.  The instance norms (flax GroupNorms, no
+    statistics) have no parameters in the port: their scale and bias must be
+    flax's identity, or this raises."""
+    stats = _flatten(variables.get("batch_stats", {}))
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(variables["params"]).items():
+        mod, _, field = path.rpartition(".")
+        x = np.asarray(leaf)
+        if field == "kernel":
+            out[f"{_raft_name(mod)}.weight"] = _tensor(np.transpose(x, (3, 2, 0, 1)))
+        elif f"{mod}.mean" in stats:
+            out[f"{_raft_name(mod)}.{'weight' if field == 'scale' else 'bias'}"] = _tensor(x)
+        elif field == "bias" and not mod.endswith(("norm1", "norm2", "norm3")):
+            out[f"{_raft_name(mod)}.bias"] = _tensor(x)
+        elif not np.array_equal(x, np.full_like(x, 1.0 if field == "scale" else 0.0)):
+            raise ValueError(f"flax RAFT instance norm {path!r} is not the identity; the "
+                             "port's instance norm has no parameters")
+    for path, leaf in stats.items():
+        mod, _, field = path.rpartition(".")
+        out[f"{_raft_name(mod)}.running_{field}"] = _tensor(leaf)
+    return out
+
+
+def load_raft_pth(path: str) -> Dict[str, torch.Tensor]:
+    """An official RAFT ``.pth`` (princeton-vl names, ``module.`` prefixed
+    or not) as the port's state dict, for a strict ``load_weights`` into
+    RAFT(cnet_norm='batch').  The official ResidualBlock registers a
+    stride-2 block's BatchNorm twice, as ``norm3`` and as
+    ``downsample.1``, so its state dict holds that module under both names;
+    the ``norm3`` copy is dropped where it equals the ``downsample.1`` one
+    and refused where it differs."""
+    state = {k.removeprefix("module."): v for k, v in read_pth(path).items()}
+    for key in [k for k in state if ".norm3." in k]:
+        twin = key.replace(".norm3.", ".downsample.1.")
+        if twin not in state or not torch.equal(state[key], state[twin]):
+            raise ValueError(f"RAFT checkpoint key {key!r} does not repeat {twin!r}")
+        del state[key]
+    return state

@@ -120,6 +120,7 @@ def test_port_imports_neither_jax_nor_fgvc_tpu():
     for dirpath, _, names in os.walk(os.path.join(ROOT, "fgvc_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    assert os.path.join(ROOT, "fgvc_tpu_torch", "models", "raft.py") in files
     offenders = []
     for path in files:
         with open(path) as f:
@@ -148,8 +149,7 @@ def test_unported_knobs_raise():
     from fgvc_tpu_torch.apis.test import build_tracker, run_task
     from fgvc_tpu_torch.config import DAVIS_TEST_CFG
 
-    for knob, value in [("attention_impl", "tiled"), ("decode_impl", "coarse"),
-                        ("upload_format", "yuv420"), ("visibility_mode", "heatmap"),
+    for knob, value in [("attention_impl", "tiled"), ("upload_format", "yuv420"),
                         ("with_first_neighbor", False)]:
         cfg = dataclasses.replace(DAVIS_TEST_CFG, **{knob: value})
         with pytest.raises(NotImplementedError, match="slice"):

@@ -134,7 +134,7 @@ def test_dispatch_reads_each_group_once(setup):
     tracker, video, query_points, _ = setup
     disp = tracker.track_points_dispatch(video, query_points)
     groups = [(t, list(sel), tuple(rows.shape)) for t, sel, rows in disp["pending"]]
-    assert groups == [(0, [0, 1, 2], (T, 3, 2)), (2, [3], (T - 2, 1, 2))]
+    assert groups == [(0, [0, 1, 2], (T, 3, 3)), (2, [3], (T - 2, 1, 3))]  # x, y, peak
 
 
 def test_port_counts_one_attention_call_per_propagated_frame(setup, monkeypatch):
