@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,
                                     modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,profile,
-                                    train]
+                                    serve,export,doctor,train]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -174,6 +174,30 @@ Phases, each of which raises on failure (exit code != 0):
   profile   python -m fgvc_tpu_torch.cli.test --task davis --profile DIR on
             one e2e pickle: the Chrome trace holds the propagate[0] and
             collect[0] spans and both CUDA kernels of K1;
+  serve     python -m fgvc_tpu_torch.cli.serve's server (serve_tracker: the
+            davis preset at 256 x 256, heatmap visibility, seeded
+            ResNet-18-d1 at full width, warmed) on an ephemeral port, over
+            HTTP: (a) /v1/track with e2e video 0 (48 frames, 32 points
+            queried at frames 0, 10, 20): 111 K1 launches, the reply equal
+            to track_points bit for bit; (b) the same video at 480 x 854:
+            equal to track_points on the host-resized frames with the
+            points scaled, the query-frame rows on the client's points; (c)
+            (a) and (b) at once from two threads, each equal to its serial
+            answer; (d) /v1/vos with a 24-frame 480 x 854 video and a
+            3-object mask: 23 K1 square launches at 128 x 128, masks equal
+            to track_masks label for label, the reply's encode timed apart;
+            (e) /healthz, /stats, a 400, a 413 and a 404.  Each request's
+            server ms, frames/s and peak device memory; then K1 square at
+            128 x 128, Cv 4 against its plain version, timed and bounded;
+  export    the serving step exported on the card (256 x 256 frame, 6 key
+            slots, Cv 8), saved and loaded: one K2 launch (circle window)
+            through the operator fgvc_tpu_torch::topk_attention, the loaded
+            program equal to the step bit for bit and to the plain version
+            by the kernel rule; the operator timed and bounded, the step's
+            ms by CUDA events, the artifact's MB; then cli.export --check
+            and --format torch;
+  doctor    python -m fgvc_tpu_torch.cli.doctor --json: exit 0, this card's
+            name, nvcc, K1 against its plain version;
   train     the mixed training recipe (fgvc_tpu_torch.apis.train.train_model
             on structured synthetic data): (a) the TrainConfig defaults at
             full width (crop 256, batch 4, radius 24, 'high', all three
@@ -997,7 +1021,8 @@ class SyntheticDavis:
         orig = np.array(orig, dtype=np.float64)
         margin = 2 * T
         yy, xx = np.mgrid[:h0, :w0]
-        self.videos, self.gt, self.preds = [], [], {}
+        # frames at the original size, at the reader's size, label maps
+        self.originals, self.videos, self.gt, self.preds = [], [], [], {}
         for _ in range(n_videos):
             tex = _texture(rng, max(h0, w0) + 2 * margin)
             vel = rng.uniform(-1.5, 1.5, 2)
@@ -1015,6 +1040,7 @@ class SyntheticDavis:
                     frames[t][inside] = sprite[(yy[inside] - int(cy)) % 256,
                                                (xx[inside] - int(cx)) % 256]
                     labels[t][inside] = k
+            self.originals.append(frames)
             self.videos.append(resize_frames(frames, INPUT_SIZE))
             self.gt.append(labels)
 
@@ -1737,6 +1763,303 @@ def run_profile(data_root):
             raise AssertionError(f"profile: the trace lacks {[k for k, v in found.items() if not v]}")
 
 
+
+# phase serve: the client's VOS resolution, and the labels of a 3-object mask
+SERVE_ORIG = (480, 854)
+SERVE_CV = VOS_OBJECTS + 1
+# phase export: the value channels of the exported step
+EXPORT_CV = 8
+
+
+def _post_npz(port, path, **arrays):
+    """POST an npz body to the server on `port`: (reply, client wall s,
+    request MB, the client's JSON decode s)."""
+    import io
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    body = buf.getvalue()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body, method="POST")
+    t0 = time.time()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        raw = r.read()
+    t1 = time.time()
+    reply = json.loads(raw)
+    t2 = time.time()
+    return reply, t2 - t0, len(body) / 1e6, t2 - t1
+
+
+def _http_status(port, path, method="GET", **arrays):
+    """The HTTP status of a request (an error status included)."""
+    import io
+    import urllib.error
+    import urllib.request
+
+    data = None
+    if method == "POST":
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        data = buf.getvalue()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _same_track(label, reply, traj, vis):
+    """A /v1/track reply against the direct call's (T, P, 2) float64
+    trajectories and (T, P) visibilities, bit for bit."""
+    got = np.asarray(reply["trajectories"])
+    got_vis = np.asarray(reply["visibilities"])
+    if got.shape != traj.shape or not np.array_equal(got, traj) \
+            or not np.array_equal(got_vis, vis):
+        diff = np.abs(got - traj).max() if got.shape == traj.shape else got.shape
+        raise AssertionError(f"{label}: the reply differs from the direct call ({diff})")
+
+
+def run_serve(data_root, records):
+    """Phase serve: fgvc_tpu_torch.cli.serve's server on an ephemeral port
+    over the tracker serve_tracker builds (the davis preset at 256 x 256,
+    heatmap visibility, seeded ResNet-18-d1 at full width, warmed), then
+    (a)-(e) over HTTP; each request's launches counted from 0."""
+    import threading
+
+    import torch
+
+    from fgvc_tpu_torch.cli import serve
+    from fgvc_tpu_torch.datasets.image_io import resize_frames
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    t_phase = time.time()
+    tracker, summary = serve.serve_tracker(serve.build_parser().parse_args(["--port", "0"]))
+    if tracker.cfg.visibility_mode != "heatmap" or tracker.cfg.input_size != (256, 256):
+        raise AssertionError(f"serve: unexpected serving config {tracker.cfg}")
+    server, stats = serve.make_server(tracker, 0, summary)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    print(f"serve: tracker built and warmed in {time.time() - t_phase:.1f} s, {summary}, "
+          f"on 127.0.0.1:{port}", flush=True)
+
+    def request(label, path, launches, **arrays):
+        k1.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reply, wall, mb, decode = _post_npz(port, path, **arrays)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check_launches(f"serve {label}", "highest", launches, "banked")
+        n = len(arrays["video"])
+        print(f"serve {label}: {n} frames, request {mb:.1f} MB; server ms {reply['ms']:.2f} "
+              f"= {1e3 * n / reply['ms']:.1f} frames/s; client wall {1e3 * wall:.1f} ms "
+              f"(reply JSON decode {1e3 * decode:.1f} ms); peak device memory {peak:.2f} GB",
+              flush=True)
+        return reply
+
+    try:
+        s = TapVidDataset(data_root)[0]
+        video, pts = s["video"], s["query_points"]
+        T = len(video)
+        expect = sum(T - int(t) - 1 for t in np.unique(pts[:, 0].astype(int)))
+        # (a) e2e video 0 at the model's size
+        a = request("(a) /v1/track 256x256", "/v1/track", expect, video=video, query_points=pts)
+        direct = tracker.track_points(video, pts)
+        _same_track("serve (a)", a, direct["trajectories"].astype(np.float64),
+                    direct["visibilities"])
+        # (b) the same video at 480 x 854: resized on the host, points scaled
+        h0, w0 = SERVE_ORIG
+        big = resize_frames(video, SERVE_ORIG)
+        pts_big = pts.copy()
+        pts_big[:, 1] *= w0 / 256
+        pts_big[:, 2] *= h0 / 256
+        b = request("(b) /v1/track 480x854", "/v1/track", expect, video=big,
+                    query_points=pts_big)
+        spts = pts_big.copy()
+        spts[:, 1] *= 256 / w0
+        spts[:, 2] *= 256 / h0
+        want = tracker.track_points(resize_frames(big, (256, 256)), spts)
+        traj = want["trajectories"].astype(np.float64) * np.array([w0 / 256, h0 / 256])
+        _same_track("serve (b)", b, traj, want["visibilities"])
+        got = np.asarray(b["trajectories"])
+        qt = pts_big[:, 0].astype(int)
+        at_query = np.abs(got[qt, np.arange(len(qt))] - pts_big[:, 1:]).max()
+        moved = np.median(np.abs(got / np.array([w0 / 256, h0 / 256])
+                                 - np.asarray(a["trajectories"])))
+        print(f"serve (b): equals track_points on the host-resized frames and scaled points "
+              f"bit for bit; query-frame rows within {at_query:.3f} px of the client's query "
+              f"points; median |(b) - (a)| {moved:.3f} model px (two resamplings)", flush=True)
+        if not at_query <= w0 / 256:
+            raise AssertionError(f"serve (b): query-frame rows {at_query} px off the points")
+        # (c) (a) and (b) at once, from two threads
+        replies = [None, None]
+
+        def post(i, arrays):
+            replies[i] = _post_npz(port, "/v1/track", **arrays)[0]
+
+        k1.reset_launches()
+        threads = [threading.Thread(target=post, args=(0, dict(video=video, query_points=pts))),
+                   threading.Thread(target=post, args=(1, dict(video=big, query_points=pts_big)))]
+        t0 = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        dt = time.time() - t0
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("serve (c): a request did not return")
+        check_launches("serve (c)", "highest", 2 * expect, "banked")
+        for r, ref, name in zip(replies, (a, b), "ab"):
+            if r is None or r["trajectories"] != ref["trajectories"] \
+                    or r["visibilities"] != ref["visibilities"]:
+                raise AssertionError(f"serve (c): request ({name}) differs from its serial answer")
+        print(f"serve (c): (a) and (b) at once in {1e3 * dt:.1f} ms (server ms "
+              f"{replies[0]['ms']:.2f}, {replies[1]['ms']:.2f}); each equals its serial answer",
+              flush=True)
+        # (d) /v1/vos: 24 frames at 480 x 854, three objects
+        vos = SyntheticDavis(n_videos=1)
+        frames, mask0 = vos.originals[0], vos.gt[0][0]
+        n_obj = int(mask0.max())
+        d = request("(d) /v1/vos 480x854", "/v1/vos", len(frames) - 1, video=frames,
+                    first_mask=mask0)
+        records["K1_square_serve"]["launches"] = len(frames) - 1
+        masks = np.asarray(d["masks"])
+        want = tracker.track_masks(resize_frames(frames, (256, 256)), mask0, SERVE_ORIG, n_obj)
+        if d["num_objects"] != n_obj or masks.shape != want.shape or not np.array_equal(masks, want):
+            raise AssertionError("serve (d): the masks differ from track_masks")
+        t0 = time.perf_counter()
+        body = serve.encode_reply({"masks": np.asarray(want).tolist(), "num_objects": n_obj,
+                                   "ms": d["ms"]})
+        encode_ms = 1e3 * (time.perf_counter() - t0)
+        print(f"serve (d): masks equal track_masks label for label ({masks.size} labels); the "
+              f"reply's encode (tolist + json.dumps) {encode_ms:.1f} ms for {len(body) / 1e6:.1f} "
+              f"MB, beside {d['ms']:.2f} ms of resize and propagation", flush=True)
+        # (e) liveness, counters, errors
+        health, st = _http_status(port, "/healthz")[1], _http_status(port, "/stats")[1]
+        bad = _http_status(port, "/v1/track", "POST", video=video[..., 0], query_points=pts)
+        # small bodies where the server replies without reading them
+        tiny = dict(video=video[:2, :16, :16], query_points=pts[:1])
+        stats["config"]["max_request_mb"] = 0
+        try:
+            big_body = _http_status(port, "/v1/track", "POST", **tiny)
+        finally:
+            stats["config"]["max_request_mb"] = 512
+        missing = _http_status(port, "/v1/nothing", "POST", **tiny)
+        print(f"serve (e): /healthz {health}; /stats {st}; no channel axis -> {bad[0]} "
+              f"{bad[1]['error'][:60]!r}; body over max_request_mb -> {big_body[0]}; unknown "
+              f"path -> {missing[0]}", flush=True)
+        if health.get("status") != "ok" or st["requests"] != 5 \
+                or st["frames"] != 4 * T + len(frames):
+            raise AssertionError(f"serve (e): /healthz {health}, /stats {st}")
+        if (bad[0], big_body[0], missing[0]) != (400, 413, 404):
+            raise AssertionError("serve (e): wrong error statuses")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    del tracker
+    torch.cuda.empty_cache()
+    # the kernel at /v1/vos's shape against its plain version, timed and bounded
+    check_shape_kernels(records, {"K1_square_serve": (
+        f"K1_square_serve {H}x{W} Cv {SERVE_CV}", H, W, C, SERVE_CV, "square")}, seed=4)
+    print(f"serve phase {time.time() - t_phase:.1f} s", flush=True)
+
+
+def run_export(records):
+    """Phase export: the serving step exported on the card (256 x 256
+    frame, 6 key slots, Cv 8), saved, loaded and run: K2 (circle) launched
+    once through the operator, the loaded program equal to the step bit for
+    bit and to the plain version by the kernel rule; timed; then the CLI
+    with --check, and --format torch."""
+    import torch
+
+    from fgvc_tpu_torch.cli import export as export_cli
+    from fgvc_tpu_torch.config import TestConfig
+    from fgvc_tpu_torch.core.export import export_flagship, load_exported, save_exported
+    from fgvc_tpu_torch.models.weights import export_reference_state_dict, read_pth
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    t_phase = time.time()
+    exported, step, args = export_flagship(TestConfig(), value_dim=EXPORT_CV, device="cuda")
+    t_export = time.time() - t_phase
+    ops = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
+    if ops.count("fgvc_tpu_torch.topk_attention.default") != 1:
+        raise AssertionError("export: the program lacks the operator's node")
+    record = records["K2_circle_export"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        path = os.path.join(tmp, "step.pt2")
+        size = save_exported(exported, path)
+        program = load_exported(path).module()
+        k1.reset_launches()
+        with torch.no_grad():
+            got = program(*args)
+        torch.cuda.synchronize()
+        counts = (k1.launches, k1.unbanked_launches, k1.row_block_launches, dict(k1.mode_launches))
+        print(f"export: the loaded program's launches (banked, unbanked, row blocks, by mode) "
+              f"{counts}", flush=True)
+        if counts != (0, 1, 0, {"float32": 1, "high": 0, "bfloat16": 0}):
+            raise AssertionError(f"export: launches {counts}, expected one unbanked 'float32'")
+        record["launches"] = 1
+        with torch.no_grad():
+            direct = step(*args)
+            x = step.preprocess(args[0][None]).permute(0, 3, 1, 2).contiguous()
+            query = step.backbone(x).permute(0, 2, 3, 1)[0].contiguous()
+        if not torch.equal(got, direct):
+            raise AssertionError(f"export: the loaded program differs from the step by "
+                                 f"{float((got - direct).abs().max())}")
+        kw = dict(query=query, key=args[1], value=args[2], radius=RADIUS, temperature=TEMPERATURE,
+                  topk=TOPK, normalize=True, tile=TILE, mask_shape="circle",
+                  key_valid=[True] * SLOTS, compute_dtype="float32")
+        ref = k1.topk_attention_plain(**kw)
+        check_rows("export: loaded program vs plain", got, ref, KERNEL_TOL,
+                   lambda: k1.near_tie_rows_plain_unbanked(**kw))
+        del ref
+        nbytes = 4.0 * (H * W * C + SLOTS * H * W * C + SLOTS * H * W * EXPORT_CV
+                        + H * W * EXPORT_CV)
+        check_entry("K2 circle (exported step)", record, k1.topk_attention,
+                    k1.topk_attention_plain, k1.near_tie_rows_plain_unbanked,
+                    {"distinct": (kw, kw["key_valid"])}, H, W, "circle", nbytes, "float32")
+        with torch.no_grad():
+            step_ms = _events_ms(lambda: program(*args), 20)
+            direct_ms = _events_ms(lambda: step(*args), 20)
+        print(f"export: artifact {size / 1e6:.2f} MB, exported in {t_export:.1f} s; the loaded "
+              f"step {step_ms:.3f} ms, the module {direct_ms:.3f} ms (CUDA events; 256 x 256 "
+              f"frame, {SLOTS} slots, Cv {EXPORT_CV}); equal bit for bit", flush=True)
+        export_cli.main(["--out", os.path.join(tmp, "cli.pt2"), "--check",
+                         "--value-dim", str(EXPORT_CV)])
+        pth, out = os.path.join(tmp, "seeded.pth"), os.path.join(tmp, "student.pth")
+        torch.save({"state_dict": export_reference_state_dict(step.backbone.state_dict())}, pth)
+        export_cli.main(["--format", "torch", "--checkpoint", pth, "--out", out])
+        a, b = read_pth(pth), read_pth(out)
+        if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError("export --format torch: the re-normalised .pth differs")
+    print(f"export phase {time.time() - t_phase:.1f} s", flush=True)
+
+
+def run_doctor():
+    """Phase doctor: python -m fgvc_tpu_torch.cli.doctor --json exits 0 and
+    reports this card, nvcc and K1 against its plain version."""
+    import torch
+
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", "fgvc_tpu_torch.cli.doctor", "--json"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"doctor exited {out.returncode}:\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    rep = json.loads(out.stdout)
+    dev, nvcc = rep["checks"]["device"], rep["checks"]["nvcc"]
+    print(f"doctor: exit 0 in {time.time() - t0:.1f} s; {dev['name']} ({dev['card']}); first op "
+          f"{dev['first_op_s']} s; 1 MiB round trip {dev['transfer_MBps']} MB/s; build "
+          f"{dev['build_s']} s; K1 vs plain {dev['k1']}; nvcc {nvcc.get('version')}; kernel "
+          f"build {rep['checks']['kernel_build']['note']}; torch {rep['env']['torch']}, CUDA "
+          f"{rep['env']['cuda']}", flush=True)
+    if dev["name"] != torch.cuda.get_device_name(0) or not dev["k1"]["ok"] or not nvcc["ok"]:
+        raise AssertionError(f"doctor: unexpected report {rep}")
+
 def make_kinetics_pickle(root, T=KIN_T, orig=KIN_ORIG, n_tracks=KIN_TRACKS, seed=0):
     """One TAP-Vid-Kinetics shard ({name: record}, as the release's are):
     a texture panning slowly at the original 360 x 640, every track inside
@@ -2413,7 +2736,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,"
                                         "modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,"
-                                        "profile,train")
+                                        "profile,serve,export,doctor,train")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2467,6 +2790,13 @@ def main():
         for cut, line in (("a", 229), ("ab", 324)):
             records[f"K5_{cut}_{tag}"] = kernel_record(
                 f"K5 topk_attention debug_passes='{cut}', '{mode}'", f"{pallas}:{line}")
+    # the deployment entry points: K1 square behind /v1/vos at the serving
+    # size, and K2 with the circle window inside the exported step
+    records["K1_square_serve"] = kernel_record(
+        f"K1 topk_attention_banked, square, /v1/vos {H}x{W} Cv {SERVE_CV}", f"{pallas}:597")
+    records["K2_circle_export"] = kernel_record(
+        f"K2 topk_attention (unbanked), circle, exported step {H}x{W} Cv {EXPORT_CV}",
+        f"{pallas}:424")
     # K6: the overlap microbenchmark (make :31 -> pallas_call :92)
     for kind in ("mxu", "vpu", "mixed"):
         records[f"K6_{kind}"] = kernel_record(
@@ -2487,7 +2817,8 @@ def main():
         check_row_blocks(records)
     e2e_metrics = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_root:
-        if {"e2e", "plain", "raft", "decode", "modes", "sp", "profile", "zoo"} & set(phases):
+        if {"e2e", "plain", "raft", "decode", "modes", "sp", "profile", "zoo",
+                "serve"} & set(phases):
             make_tapvid_pickles(data_root)
         if "e2e" in phases:
             phase("e2e")
@@ -2556,6 +2887,17 @@ def main():
         if "profile" in phases:
             phase("profile")
             run_profile(data_root)
+        if "serve" in phases:
+            phase("serve")
+            run_serve(data_root, records)
+    if "export" in phases:
+        phase("export")
+        run_export(records)
+    if "doctor" in phases:
+        phase("doctor")
+        t_doctor = time.time()
+        run_doctor()
+        print(f"doctor phase {time.time() - t_doctor:.1f} s", flush=True)
     if "train" in phases:
         phase("train")
         run_train()

@@ -5,6 +5,8 @@ zoo's converters).
   variables (as numpy arrays) onto the port's module names.
 * ``load_reference_pth``: the reference's released ``.pth``, in its mmcv
   ConvModule naming or in torchvision naming.
+* ``export_reference_state_dict``: the way back, the port's ResNet names to
+  the reference's mmcv names (``cli/export.py --format torch``).
 * ``trainer_state_from_flax``: the JAX MixedTrainer's state (student,
   BatchNorm statistics, discriminators) and teacher variables onto the
   port's MixedTrainer modules.
@@ -152,6 +154,42 @@ def convert_reference_state_dict(
             f"unconverted checkpoint keys (naming mismatch?): {leftover[:8]}"
             f"{' ...' if len(leftover) > 8 else ''}"
         )
+    return out
+
+
+def export_reference_state_dict(
+    state: Mapping[str, torch.Tensor], prefix: str = "backbone."
+) -> Dict[str, torch.Tensor]:
+    """The inverse of convert_reference_state_dict: a ResNet state dict in
+    the port's names -> the reference's mmcv ConvModule names under
+    `prefix` (conv1.conv / conv1.bn, layerX.Y.convN.conv / .bn,
+    downsample.conv / .bn), what fgvc_tpu's export_resnet_state_dict
+    writes: float32 copies, and each BatchNorm's num_batches_tracked as a
+    0-d int64 zero.  Raises on a key it cannot place (num_batches_tracked
+    aside, which is rewritten)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def module(name: str) -> str:
+        if name == "conv1":
+            return "conv1.conv"
+        if name == "bn1":
+            return "conv1.bn"
+        m = re.fullmatch(r"(layer\d+\.\d+)\.(conv\d|bn\d|downsample\.[01])", name)
+        if m is None:
+            raise ValueError(f"{name!r} has no place in the reference's ResNet")
+        base, part = m.groups()
+        part = {"downsample.0": "downsample.conv", "downsample.1": "downsample.bn"}.get(
+            part, part.replace("bn", "conv") + (".bn" if part.startswith("bn") else ".conv"))
+        return f"{base}.{part}"
+
+    for key, value in state.items():
+        name, _, field = key.rpartition(".")
+        if field == "num_batches_tracked":
+            continue
+        dst = f"{prefix}{module(name)}"
+        out[f"{dst}.{field}"] = value.detach().to("cpu", torch.float32).clone()
+        if dst.endswith("bn") and field == "weight":
+            out[f"{dst}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return out
 
 

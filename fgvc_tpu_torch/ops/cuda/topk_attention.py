@@ -15,6 +15,10 @@ bank comes from ``pad_key_bank(..., grid_rows=)``, and the result is the
 block's (hb, W, Cv) rows, zero at and past H.  Blocks assemble to the
 unsharded result bit for bit.
 
+``topk_attention_op`` registers K2 as the operator
+``fgvc_tpu_torch::topk_attention``, the one node of the exported serving step
+that holds the kernel (core/export.py).
+
 ``topk_attention(..., debug_passes='a'|'ab')`` is K5, the Pallas kernel's
 profiling cut-downs (``fused_topk_attention(debug_passes=)``, which
 tools/bench/pass_breakdown.py times): 'a' runs pass A alone and returns slot
@@ -312,6 +316,41 @@ def topk_attention(
     unbanked_launches += 1
     mode_launches[compute_dtype] += 1
     return out
+
+
+@torch.library.custom_op("fgvc_tpu_torch::topk_attention", mutates_args=())
+def topk_attention_op(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    radius: float,
+    temperature: float,
+    topk: int,
+    normalize: bool,
+    tile: int,
+    mask_shape: str,
+    key_valid: Sequence[bool],
+    compute_dtype: str,
+) -> torch.Tensor:
+    """K2 as a registered operator (``torch.ops.fgvc_tpu_torch.topk_attention``),
+    which torch.export carries as one node of an exported program
+    (core/export.py): ``topk_attention`` on contiguous inputs, counted as
+    that wrapper counts.  CPU tensors take the plain version; CUDA tensors
+    take the kernel, or raise."""
+    # an exported program may hand over strided views: the wrapper normalises
+    # the query over C, whose sum order follows the layout
+    return topk_attention(
+        query.contiguous(), key.contiguous(), value.contiguous(), radius=radius,
+        temperature=temperature, topk=topk, normalize=normalize, tile=tile,
+        mask_shape=mask_shape, key_valid=key_valid, compute_dtype=compute_dtype,
+    )
+
+
+@topk_attention_op.register_fake
+def _(query, key, value, radius, temperature, topk, normalize, tile, mask_shape, key_valid,
+      compute_dtype):
+    # the (H, W, Cv) float32 result's shape only: touches no device
+    return query.new_empty((*query.shape[:2], value.shape[-1]), dtype=torch.float32)
 
 
 class _Params(ctypes.Structure):

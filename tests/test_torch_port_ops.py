@@ -121,6 +121,8 @@ def test_port_imports_neither_jax_nor_fgvc_tpu():
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
     assert os.path.join(ROOT, "fgvc_tpu_torch", "models", "raft.py") in files
+    for entry in ("cli/serve.py", "cli/export.py", "cli/doctor.py", "core/export.py"):
+        assert os.path.join(ROOT, "fgvc_tpu_torch", *entry.split("/")) in files
     offenders = []
     for path in files:
         with open(path) as f:
