@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,
                                     modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,profile,
-                                    serve,export,doctor,train]
+                                    serve,export,doctor,train,propmodes]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -210,7 +210,32 @@ Phases, each of which raises on failure (exit code != 0):
             (c) 2 steps + resume + 2 against 4 steps on the card: parameters
             and statistics within 1e-4; (d) mid-training validation
             (make_synthetic_val_fn) on the student: K1 launched, metrics
-            finite.
+            finite;
+  propmodes the propagation modes beside the kernel (plain PyTorch: no
+            attention kernel launches in them), seeded ResNet-18-d1 at full
+            width, DAVIS_TEST_CFG, e2e video 0 (48 frames at 256 x 256, 32
+            tracks, queries at frames 0, 10, 20) through run_task('davis'):
+            first one frame of 'tiled' against K1 on the same features (each
+            query pixel within 1e-4 but K1's near-tie rows, at most 0.1%);
+            (a) 'tiled' in each topk_impl against 'pallas' (K1), (b) 'dense'
+            against 'tiled' 'exact': median trajectory |diff| <= 1e-3 px and
+            <D within 0.1.  Where distinct keys tie exactly at the k-th
+            value (the pan moves the texture by whole pixels, so features
+            recur across key frames), 'exact' takes lax.top_k's members and
+            K1, 'segmented' and 'certified' split the tie: 'exact' against
+            K1 is held to the median, its <D gap printed; 'approx', which
+            weighs every tied affinity in full, is reported, not held; (c) with_first_neighbor=False ('dense' with frame
+            0 unmasked), 'c2f', 'flow_guided' and track_points_forward at
+            full width, then each on an 8-frame 128 x 128 cut of the video
+            on the card against the CPU (median |diff| <= 1e-3 px); (d) one
+            synthetic VOS video (24 frames at 480 x 880) with 'tiled',
+            banked and save_mem, against K1 and K2: label maps agree on
+            >= 99.999% of pixels, J&F-Mean within 1e-4; (e) 'tiled' with the
+            card listed twice (two row blocks a frame) against the
+            unsharded run: max |diff| <= 1e-6 px.  Each run prints ms per
+            video (CUDA events from dispatch to collect), frames/s, ms per
+            propagated frame and peak device memory beside the card's name
+            and power limit.
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -219,6 +244,7 @@ fgvc_tpu_torch package beside this file, it exits with an error.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import pickle
@@ -2732,11 +2758,292 @@ def run_train():
         print(f"train phase {time.time() - t0:.1f} s", flush=True)
 
 
+# --------------------------------------------------------------------- #
+# propmodes: the propagation modes beside the kernel (plain PyTorch)
+# --------------------------------------------------------------------- #
+# the cut of video 0 that propmodes runs on the card and on the CPU:
+# frames, and the side of its central square
+PROP_CUT_T, PROP_CUT_SIZE = 8, 128
+
+
+@contextlib.contextmanager
+def _recording(kind):
+    """Tracker.track_{kind}_dispatch and _collect wrapped for the block:
+    each video's output and its device ms from the dispatch (features,
+    propagation, decode) to the end of the collect, by CUDA events."""
+    import torch
+
+    from fgvc_tpu_torch.models.tracker import Tracker
+
+    names = (f"track_{kind}_dispatch", f"track_{kind}_collect")
+    dispatch, collect = (getattr(Tracker, n) for n in names)
+    rec = {"outs": [], "ms": []}
+
+    def timed_dispatch(self, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        disp = dispatch(self, *args, **kw)
+        disp["_start"] = start
+        return disp
+
+    def timed_collect(self, disp):
+        out = collect(self, disp)
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        rec["ms"].append(disp["_start"].elapsed_time(end))
+        rec["outs"].append(out)
+        return out
+
+    setattr(Tracker, names[0], timed_dispatch)
+    setattr(Tracker, names[1], timed_collect)
+    try:
+        yield rec
+    finally:
+        setattr(Tracker, names[0], dispatch)
+        setattr(Tracker, names[1], collect)
+
+
+def _video0_propagated(ds):
+    s = ds[0]
+    return sum(len(s["video"]) - int(t) - 1
+               for t in np.unique(s["query_points"][:, 0].astype(int)))
+
+
+def _prop_line(label, ms, T, frames, peak, card):
+    return (f"propmodes {label}: {ms:.1f} ms per video ({T} frames, {frames} propagated; "
+            f"features, propagation and decode by CUDA events), {1e3 * T / ms:.2f} frames/s, "
+            f"{ms / frames:.3f} ms per propagated frame, peak device memory {peak:.2f} GB "
+            f"[{card}]")
+
+
+def _prop_tapvid(data_root, label, card, spatial=None, **overrides):
+    """run_task('davis', max_videos=1) on video 0 in one mode: trajectories,
+    metrics, device ms, peak memory, the attention kernel's launches."""
+    import dataclasses
+
+    import torch
+
+    from fgvc_tpu_torch.apis.test import run_task
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    ds = TapVidDataset(data_root)
+    cfg = dataclasses.replace(DAVIS_TEST_CFG, **overrides)
+    k1.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _recording("points") as rec:
+        t0 = time.time()
+        metrics = run_task("davis", data_root, test_cfg=cfg, device="cuda", seed=0,
+                           max_videos=1, spatial_devices=spatial)
+        wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_metrics(metrics)
+    frames = _video0_propagated(ds)
+    print(_prop_line(label, rec["ms"][0], len(ds[0]["video"]), frames, peak, card)
+          + f"; run_task wall {wall:.2f} s; <D {metrics['average_pts_within_thresh']:.4f}",
+          flush=True)
+    launches = {"banked": k1.launches, "unbanked": k1.unbanked_launches,
+                "row_block": k1.row_block_launches}
+    return {"traj": rec["outs"][0]["trajectories"], "metrics": metrics, "launches": launches,
+            "frames": frames}
+
+
+def _hold_tracks(label, run, ref, median_px=TRAJ_TOL_PX, delta_d=DELTA_D_TOL):
+    """Trajectories median |diff| <= median_px and <D within delta_d (the
+    <D gap printed only where delta_d is None)."""
+    diff = np.abs(run["traj"] - ref["traj"])
+    med = float(np.median(diff))
+    d = [r["metrics"]["average_pts_within_thresh"] for r in (run, ref)]
+    print(f"propmodes {label}: trajectories median |diff| {med:.3e} px, max {diff.max():.3e} px "
+          f"({int((diff > median_px).sum())} coordinates beyond {median_px}); <D {d[0]:.4f} "
+          f"vs {d[1]:.4f} (limits {median_px} px, {delta_d or 'none on <D'})", flush=True)
+    if not med <= median_px:
+        raise AssertionError(f"{label}: median trajectory difference {med} px > {median_px}")
+    if delta_d is not None and not abs(d[0] - d[1]) <= delta_d:
+        raise AssertionError(f"{label}: <D differs by {abs(d[0] - d[1])} > {delta_d}")
+
+
+def _no_kernel(label, run):
+    if any(run["launches"].values()):
+        raise AssertionError(f"{label}: the attention kernel launched: {run['launches']}")
+
+
+def check_tiled_frame():
+    """One frame of 'tiled' (tile 32) against K1 (tile 16) on the same
+    normalised TAP-Vid-shaped features and values (128 x 128 x 256, 6
+    distinct slots, circle, top-10): each query pixel within 1e-4, rows
+    beyond it all K1's near-tie rows, at most 0.1% of the rows."""
+    import torch
+
+    from fgvc_tpu_torch.ops import windowed_attention as wa
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    feats = torch.randn((SLOTS + 1, H, W, C), device="cuda", generator=g)
+    value = torch.rand((SLOTS, H, W, CV), device="cuda", generator=g)
+    kw = dict(radius=RADIUS, temperature=TEMPERATURE, topk=TOPK)
+    kbank = k1.pad_key_bank(feats, RADIUS, tile=TILE)
+    halo, Hp, Wp, _, _ = k1.bank_geometry(H, W, RADIUS, TILE)
+    kargs = dict(frame_idx=list(range(SLOTS)), key_valid=[True] * SLOTS, H=H, W=W, tile=TILE,
+                 **kw)
+    qpad = kbank[SLOTS, halo:halo + Hp, halo:halo + Wp].contiguous()
+    ref = k1.topk_attention_banked(qpad, kbank, value, **kargs)
+    tbank = wa.pad_key_bank(feats, RADIUS, 32)
+    out = wa.masked_topk_attention_tiled(
+        tbank[SLOTS, halo:halo + H, halo:halo + W], tbank, value, normalize=False, tile=32,
+        frame_idx=list(range(SLOTS)), key_valid=[True] * SLOTS, **kw)
+    check_rows("propmodes one frame 'tiled' vs K1", out, ref, KERNEL_TOL,
+               lambda: k1.near_tie_rows_plain(qpad, kbank, value, **kargs))
+
+
+def run_propmodes(data_root, card_name):
+    """The phase `propmodes` (module docstring): (a)-(e)."""
+    import dataclasses
+
+    import torch
+
+    from fgvc_tpu_torch.apis.test import build_tracker, eval_vos
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG, TOPK_IMPLS
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    t_phase = time.time()
+    card = torch.device("cuda", torch.cuda.current_device())
+    check_tiled_frame()
+    # (a) 'tiled' in each topk_impl against K1
+    k1_run = _prop_tapvid(data_root, "'pallas' (K1)", card_name)
+    if k1_run["launches"]["banked"] != k1_run["frames"]:
+        raise AssertionError(f"K1 launches {k1_run['launches']}, expected {k1_run['frames']}")
+    tiled = {}
+    for impl in TOPK_IMPLS:
+        label = f"'tiled' topk_impl '{impl}'"
+        tiled[impl] = _prop_tapvid(data_root, label, card_name, attention_impl="tiled",
+                                   topk_impl=impl)
+        _no_kernel(label, tiled[impl])
+        if impl == "approx":
+            # every affinity tied at the k-th value weighs in fully (no tie
+            # split), so it leaves K1 where features tie; reported only
+            diff = np.abs(tiled[impl]["traj"] - k1_run["traj"])
+            print(f"propmodes {label} vs K1 (not held): trajectories median |diff| "
+                  f"{np.median(diff):.3e} px, max {diff.max():.3e} px; <D "
+                  f"{tiled[impl]['metrics']['average_pts_within_thresh']:.4f}", flush=True)
+        else:
+            # 'exact' takes lax.top_k's members where distinct keys tie at
+            # the k-th value, K1 splits the tie: the pan moves the texture
+            # by whole pixels, so features recur exactly across key frames
+            # and the two rules move <D; its median is held
+            _hold_tracks(f"{label} vs K1", tiled[impl], k1_run,
+                         delta_d=None if impl == "exact" else DELTA_D_TOL)
+    # (b) 'dense' against 'tiled' 'exact'
+    dense = _prop_tapvid(data_root, "'dense'", card_name, attention_impl="dense")
+    _no_kernel("'dense'", dense)
+    _hold_tracks("'dense' vs 'tiled' 'exact'", dense, tiled["exact"])
+    # (c) the other modes at full width, then card against CPU on the cut
+    others = {"with_first_neighbor=False": dict(with_first_neighbor=False),
+              "'c2f'": dict(attention_impl="c2f"),
+              "'flow_guided'": dict(attention_impl="flow_guided")}
+    for label, overrides in others.items():
+        _no_kernel(label, _prop_tapvid(data_root, label, card_name, **overrides))
+    ds = TapVidDataset(data_root)
+    s = ds[0]
+    tracker = build_tracker(seed=0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    k1.reset_launches()
+    t0 = time.time()
+    fwd = tracker.track_points_forward(s["video"], s["query_points"])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.time() - t0)
+    frames = _video0_propagated(ds)
+    print(_prop_line("track_points_forward (host clock)", ms, len(s["video"]), frames,
+                     torch.cuda.max_memory_allocated() / 1e9, card_name)
+          + f"; finite {bool(np.isfinite(fwd['trajectories']).all())}", flush=True)
+    _no_kernel("track_points_forward", {"launches": {"banked": k1.launches}})
+    _prop_cut_card_vs_cpu(s, others)
+    # (d) VOS 'tiled', banked and save_mem, against K1 and K2
+    vos = SyntheticDavis(n_videos=1)
+    for save_mem in (False, True):
+        path = "save_mem" if save_mem else "banked"
+        runs = {}
+        for impl in ("pallas", "tiled"):
+            cfg = dataclasses.replace(DAVIS_TEST_CFG, attention_impl=impl, save_mem=save_mem)
+            tracker = build_tracker(cfg, seed=0, device="cuda")
+            k1.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            with _recording("masks") as rec:
+                res = eval_vos(tracker, vos)
+            launched = k1.launches + k1.unbanked_launches
+            if (impl == "tiled") == bool(launched):
+                raise AssertionError(f"vos {impl} {path}: {launched} attention kernel launches")
+            T = len(vos.videos[0])
+            print(_prop_line(f"vos '{impl}' {path}", rec["ms"][0], T, T - 1,
+                             torch.cuda.max_memory_allocated() / 1e9, card_name)
+                  + f"; J&F-Mean {res['J&F-Mean']:.6f}", flush=True)
+            runs[impl] = (res["J&F-Mean"], rec["outs"][0])
+            del tracker
+            torch.cuda.empty_cache()
+        agree = _agreement([runs["tiled"][1]], [runs["pallas"][1]])
+        djf = abs(runs["tiled"][0] - runs["pallas"][0])
+        print(f"propmodes vos {path} 'tiled' vs the kernel: label maps agree on "
+              f"{100 * agree:.5f}% of pixels (limit {100 * PLAIN_MASK_AGREE}%), J&F-Mean "
+              f"|diff| {djf:.2e} (limit {JF_TOL})", flush=True)
+        if not (agree >= PLAIN_MASK_AGREE and djf <= JF_TOL):
+            raise AssertionError(f"vos {path}: 'tiled' vs the kernel {agree}, {djf}")
+    # (e) spatial-parallel 'tiled', the card listed twice
+    sp = _prop_tapvid(data_root, "'tiled' S = 2 row blocks", card_name, spatial=[card] * 2,
+                      attention_impl="tiled")
+    _no_kernel("'tiled' S = 2", sp)
+    diff = float(np.abs(sp["traj"] - tiled["exact"]["traj"]).max())
+    print(f"propmodes 'tiled' S = 2 vs unsharded: max |diff| {diff:.3e} px (limit "
+          f"{SP_TRAJ_TOL_PX}; bit for bit: {diff == 0.0})", flush=True)
+    if not diff <= SP_TRAJ_TOL_PX:
+        raise AssertionError(f"'tiled' row blocks differ from the unsharded run by {diff} px")
+    print(f"propmodes phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
+
+
+def _prop_cut_card_vs_cpu(s, others):
+    """Video 0 cut to PROP_CUT_T frames and its central PROP_CUT_SIZE^2,
+    with the frame-0 queries inside it: each mode of `others` and
+    track_points_forward on the card against the same module on the CPU,
+    median |diff| <= 1e-3 px."""
+    import dataclasses
+
+    from fgvc_tpu_torch.apis.test import build_tracker
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+
+    n, o = PROP_CUT_SIZE, (s["video"].shape[1] - PROP_CUT_SIZE) // 2
+    video = np.ascontiguousarray(s["video"][:PROP_CUT_T, o:o + n, o:o + n])
+    q = s["query_points"]
+    q = q[(q[:, 0] == 0) & (q[:, 1:] >= o + 4).all(1) & (q[:, 1:] < o + n - 4).all(1)]
+    if not len(q):
+        raise AssertionError("no frame-0 query inside the cut")
+    q = q - np.array([0, o, o], np.float32)
+    runs = dict(others, **{"track_points_forward": {}})
+    for label, overrides in runs.items():
+        cfg = dataclasses.replace(DAVIS_TEST_CFG, input_size=(n, n), **overrides)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            tracker = build_tracker(cfg, seed=0, device=dev)
+            t0 = time.time()
+            fn = tracker.track_points_forward if label == "track_points_forward" \
+                else tracker.track_points
+            out[dev] = (fn(video, q)["trajectories"], time.time() - t0)
+        diff = np.abs(out["cuda"][0] - out["cpu"][0])
+        med = float(np.median(diff))
+        print(f"propmodes {label}, {PROP_CUT_T}-frame {n}x{n} cut ({len(q)} points): card vs "
+              f"CPU median |diff| {med:.3e} px, max {diff.max():.3e} px (limit {TRAJ_TOL_PX}); "
+              f"card {out['cuda'][1]:.2f} s, CPU {out['cpu'][1]:.2f} s", flush=True)
+        if not med <= TRAJ_TOL_PX:
+            raise AssertionError(f"{label}: card vs CPU median {med} px > {TRAJ_TOL_PX}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,"
                                         "modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,"
-                                        "profile,serve,export,doctor,train")
+                                        "profile,serve,export,doctor,train,propmodes")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2804,7 +3111,8 @@ def main():
             source="fgvc_tpu_torch/csrc/mxu_vpu_overlap.cu", affinity=False)
     t_start = time.time()
     phase("card")
-    print(card_info(), flush=True)  # name, power limit
+    card_name = card_info()
+    print(card_name, flush=True)  # name, power limit
     if "build" in phases:
         phase("build")
         build_kernels()
@@ -2818,7 +3126,7 @@ def main():
     e2e_metrics = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_root:
         if {"e2e", "plain", "raft", "decode", "modes", "sp", "profile", "zoo",
-                "serve"} & set(phases):
+                "serve", "propmodes"} & set(phases):
             make_tapvid_pickles(data_root)
         if "e2e" in phases:
             phase("e2e")
@@ -2890,6 +3198,9 @@ def main():
         if "serve" in phases:
             phase("serve")
             run_serve(data_root, records)
+        if "propmodes" in phases:
+            phase("propmodes")
+            run_propmodes(data_root, card_name)
     if "export" in phases:
         phase("export")
         run_export(records)

@@ -13,9 +13,9 @@ kernel (K2) as the registered operator ``fgvc_tpu_torch::topk_attention``.
 
 ``--device`` takes the place of fgvc_tpu's ``--platforms``: a torch.export
 program keeps its weights on the device it was exported on, so the artifact
-runs there (the CUDA card by default).  ``--attention-impl`` exports
-'pallas' (the kernel) only; 'tiled', 'dense' and 'c2f' are refused until
-they are ported.
+runs there (the CUDA card by default).  ``--attention-impl`` 'pallas' (the
+default here) exports the kernel as the operator; 'tiled' (fgvc_tpu's
+default), 'dense' and 'c2f' export their plain PyTorch.
 
 ``--format torch`` writes the encoder as a reference-compatible ``.pth``
 instead ({'state_dict': ...}, mmcv names under ``backbone.``), from a
@@ -45,9 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="propagated channels (points per group / classes)")
     parser.add_argument("--attention-impl", default="pallas",
                         choices=["tiled", "dense", "pallas", "c2f"],
-                        help="only 'pallas' (the top-k attention kernel) is ported")
+                        help="pallas: the top-k attention kernel as the operator; "
+                             "tiled, dense, c2f: their plain PyTorch")
     parser.add_argument("--precision", default=None, choices=["highest", "high", "default"],
-                        help="the kernel's compute mode (default: highest)")
+                        help="the attention's matmul precision (default: highest)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="the device the program is exported on, and runs on")
     parser.add_argument("--check", action="store_true",

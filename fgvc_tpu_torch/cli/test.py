@@ -11,6 +11,8 @@ and DAVIS-2017 VOS.
         [--max-videos N] [--output-dir DIR] \
         [--config cfg.json] [--input-size N] \
         [--precision highest|high|default] [--spatial-devices S] \
+        [--attention-impl pallas|tiled|dense|c2f|flow_guided] \
+        [--topk-impl exact|segmented|certified|approx] \
         [--device cuda|cpu] [--profile LOGDIR]
     python -m fgvc_tpu_torch.cli.test --task jhmdb --data-root <JHMDB root> \
         [--list-path <dir of val_list.txt>] [...]
@@ -19,7 +21,10 @@ and DAVIS-2017 VOS.
     python -m fgvc_tpu_torch.cli.test --task vos --data-root <DAVIS tree> \
         [--list-path val.txt] [--save-mem] [--hard-prop] [...]
 
---model raft tracks TAP-Vid points by chaining RAFT's flows (an official
+--attention-impl picks the propagation's attention: 'pallas' (the top-k
+attention kernel, the default), 'tiled', 'dense', 'c2f' or 'flow_guided';
+--topk-impl the top-k of 'tiled' ('approx' and 'certified' take exact
+candidates off the TPU).  --model raft tracks TAP-Vid points by chaining RAFT's flows (an official
 RAFT .pth as --checkpoint, or seeded weights).  Prints the task's metrics as
 JSON.  Runs on the CUDA card unless --device cpu is given.  --profile
 writes a torch.profiler trace of the whole run
@@ -77,6 +82,21 @@ def main(argv=None):
         choices=["highest", "high", "default"],
         help="affinity matmul precision (task preset: highest; "
              "default = bf16 multiplies)",
+    )
+    parser.add_argument(
+        "--attention-impl",
+        default=None,
+        choices=["pallas", "tiled", "dense", "c2f", "flow_guided"],
+        help="propagation attention: the top-k attention kernel (pallas, the "
+             "task preset), tiled windows, dense query chunks, coarse-to-fine, "
+             "or flow-guided windows",
+    )
+    parser.add_argument(
+        "--topk-impl",
+        default=None,
+        choices=["exact", "segmented", "certified", "approx"],
+        help="top-k implementation of attention_impl 'tiled' (the pallas "
+             "kernel is always exact)",
     )
     parser.add_argument(
         "--decode-impl",
@@ -149,6 +169,10 @@ def main(argv=None):
         overrides["save_mem"] = args.save_mem
     if args.hard_prop is not None:
         overrides["hard_prop"] = args.hard_prop
+    if args.attention_impl:
+        overrides["attention_impl"] = args.attention_impl
+    if args.topk_impl:
+        overrides["topk_impl"] = args.topk_impl
     if args.decode_impl:
         overrides["decode_impl"] = args.decode_impl
     if args.visibility_mode:

@@ -1,10 +1,13 @@
 """Configuration of the port (fgvc_tpu/config.py): the test settings of the
 ported slices, and the training recipe.
 
-Field names and defaults follow fgvc_tpu.config's.  Test knobs whose other
-settings this package does not run yet keep their field, and
-``check_ported`` raises NotImplementedError for a value other than the main
-path's, naming the slice of ROADMAP.md that ports it.
+Field names and defaults follow fgvc_tpu.config's.  Every propagation mode
+is ported: attention_impl 'pallas' (the top-k attention kernel), 'tiled',
+'dense', 'c2f' and 'flow_guided' (plain PyTorch, as XLA code in fgvc_tpu),
+the four topk_impl, and with_first_neighbor=False.  ``check_ported`` raises
+ValueError for a value no package accepts, and NotImplementedError for
+upload_format 'yuv420', which waits for the slice of ROADMAP.md that ports
+it.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ class TestConfig:
     attention_impl: str = "pallas"
     save_mem: bool = False
     decode_impl: str = "upsample"
-    tile: int = 32              # query tile edge; the kernel caps it at 16
+    tile: int = 32              # query tile edge: 'tiled' takes it, the kernel caps it at 16
     upload_format: str = "rgb"
     matmul_precision: str = "highest"
     # 'heatmap': a point is visible at frame t where its propagated map's
@@ -37,6 +40,21 @@ class TestConfig:
     visibility_mode: str = "none"
     visibility_threshold: float = 0.5
     preprocess: str = "lab"
+    # top-k of attention_impl 'tiled': 'exact' (lax.top_k's members),
+    # 'segmented' (segment-max prefiltered, thresholded value mix), 'approx'
+    # and 'certified' (jax.lax.approx_max_k, which is exact off the TPU:
+    # both take exact candidates here, and 'certified' always certifies)
+    topk_impl: str = "exact"
+    # attention_impl 'c2f': coarse stage on c2f_scale x average-pooled
+    # features, fine patches of (2 * radius_fine + 1)^2 around each coarse
+    # match, c2f_step query pixels a chunk
+    c2f_scale: int = 4
+    radius_fine: int = 12
+    c2f_step: int = 256
+    # attention_impl 'flow_guided': a (2 * flow_radius + 1)^2 window per key
+    # frame around the chained feature flow, flow_step query pixels a chunk
+    flow_radius: int = 6
+    flow_step: int = 1024
 
 
 DAVIS_TEST_CFG = TestConfig(step=512)
@@ -46,10 +64,11 @@ BADJA_TEST_CFG = TestConfig(step=128)
 
 # knob -> (the main path's value, the ROADMAP.md slice that ports the others)
 _NOT_PORTED = {
-    "attention_impl": ("pallas", "slice 6 (other propagation modes)"),
-    "with_first_neighbor": (True, "slice 6 (other propagation modes)"),
     "upload_format": ("rgb", "slice 5b (reproduce and host modes)"),
 }
+
+ATTENTION_IMPLS = ("pallas", "tiled", "dense", "c2f", "flow_guided")
+TOPK_IMPLS = ("exact", "segmented", "certified", "approx")
 
 PREPROCESS = ("lab", "imagenet")
 VISIBILITY_MODES = ("none", "heatmap")
@@ -61,10 +80,11 @@ MATMUL_PRECISIONS = ("highest", "high", "default")
 
 
 def check_ported(cfg: TestConfig) -> None:
-    """Raise NotImplementedError for a knob set off the ported main path,
-    and ValueError for a matmul_precision outside the three modes, a
-    preprocess other than 'lab' and 'imagenet', a visibility_mode other than
-    'none' and 'heatmap', or a decode_impl outside DECODE_IMPLS."""
+    """Raise NotImplementedError for a knob set off the ported slices, and
+    ValueError for a matmul_precision outside the three modes, a preprocess
+    other than 'lab' and 'imagenet', a visibility_mode other than 'none' and
+    'heatmap', a decode_impl outside DECODE_IMPLS, an attention_impl outside
+    ATTENTION_IMPLS or a topk_impl outside TOPK_IMPLS."""
     if cfg.matmul_precision not in MATMUL_PRECISIONS:
         raise ValueError(
             f"matmul_precision must be one of {MATMUL_PRECISIONS}, "
@@ -80,6 +100,12 @@ def check_ported(cfg: TestConfig) -> None:
         )
     if cfg.decode_impl not in DECODE_IMPLS:
         raise ValueError(f"decode_impl must be one of {DECODE_IMPLS}, got {cfg.decode_impl!r}")
+    if cfg.attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(
+            f"attention_impl must be one of {ATTENTION_IMPLS}, got {cfg.attention_impl!r}"
+        )
+    if cfg.topk_impl not in TOPK_IMPLS:
+        raise ValueError(f"topk_impl must be one of {TOPK_IMPLS}, got {cfg.topk_impl!r}")
     for name, (value, slice_name) in _NOT_PORTED.items():
         if getattr(cfg, name) != value:
             raise NotImplementedError(

@@ -10,13 +10,13 @@ code:
         top-k attention against the bank (circle window, every key slot
         valid) -> propagated (h, w, Cv) maps.
 
-The attention is K2, the unbanked entry of the top-k attention kernel,
-through its registered operator ``fgvc_tpu_torch::topk_attention``
-(ops/cuda/topk_attention.py): the program holds it as one node, and a
-process that loads the program imports that module first, which registers
-it.  Only attention_impl 'pallas' (the kernel) is exported; fgvc_tpu's
-default 'tiled' and its other implementations are refused by check_ported
-until they are ported.
+With attention_impl 'pallas' (the port's default) the attention is K2, the
+unbanked entry of the top-k attention kernel, through its registered
+operator ``fgvc_tpu_torch::topk_attention`` (ops/cuda/topk_attention.py):
+the program holds it as one node, and a process that loads the program
+imports that module first, which registers it.  fgvc_tpu's default 'tiled',
+and 'dense' and 'c2f', export as the plain PyTorch of the Tracker's
+attention_step (models/tracker.py), traced into the program.
 
 fgvc_tpu's ``platforms`` has no counterpart: a torch.export program holds
 its weights as tensors on the device it was exported on, so the artifact
@@ -35,6 +35,7 @@ from torch import nn
 from fgvc_tpu_torch.config import TestConfig, check_ported
 from fgvc_tpu_torch.device import resolve_device, set_matmul_precision
 from fgvc_tpu_torch.models.resnet import init_random, resnet18_d1
+from fgvc_tpu_torch.models.tracker import Tracker
 from fgvc_tpu_torch.models.weights import load_weights
 from fgvc_tpu_torch.ops.color import preprocess_fn
 # importing topk_attention_op registers fgvc_tpu_torch::topk_attention
@@ -48,13 +49,16 @@ class FlagshipStep(nn.Module):
     """forward(frame (H, W, 3) uint8, keys (P+1, h, w, 256), values (P+1,
     h, w, Cv) float32) -> (h, w, Cv) float32: the frame's features attend
     over the raw keys (normalised per call when cfg.with_norm) with the
-    circle window, every key slot valid, and mix the values."""
+    circle window, every key slot valid, and mix the values: through the
+    operator for 'pallas' (with with_first_neighbor), else through the
+    Tracker's attention_step, as fgvc_tpu's step calls _attention_step."""
 
     def __init__(self, cfg: TestConfig, backbone: nn.Module):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
         self.backbone = backbone.eval()
+        self.tracker = Tracker(backbone, cfg, next(backbone.parameters()).device)
         self.preprocess = preprocess_fn(cfg.preprocess)
         self.n_keys = cfg.precede_frames + 1
         self.compute_dtype = pallas_compute_dtype(cfg.matmul_precision)
@@ -67,6 +71,9 @@ class FlagshipStep(nn.Module):
         x = self.preprocess(frame[None])
         f = self.backbone(x.permute(0, 3, 1, 2).contiguous())
         query = f.permute(0, 2, 3, 1)[0].contiguous()
+        if cfg.attention_impl != "pallas" or not cfg.with_first_neighbor:
+            return self.tracker.attention_step(query, keys, values, [True] * self.n_keys,
+                                               "circle")
         return torch.ops.fgvc_tpu_torch.topk_attention(
             query, keys, values, float(cfg.neighbor_range // 2), cfg.temperature, cfg.topk,
             cfg.with_norm, min(cfg.tile, 16), "circle", [True] * self.n_keys,

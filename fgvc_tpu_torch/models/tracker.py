@@ -1,52 +1,71 @@
-"""Label-propagation tracker (fgvc_tpu/models/tracker.py, attention_impl
-'pallas').
+"""Label-propagation tracker (fgvc_tpu/models/tracker.py).
 
 Three protocols share one propagation loop:
 
 * TAP-Vid point tracking: uint8 frames -> Lab (or ImageNet-normalised RGB,
   by cfg.preprocess) -> encoder features (16-frame chunks, on the device)
-  -> one normalised, halo-padded key bank per video -> for each group of
-  points sharing a query frame, a loop over the following frames, each
-  attending over frame 0 of the group plus the `precede_frames` preceding
-  frames through the banked top-k attention kernel (K1, circle window) ->
+  -> one key bank per video -> for each group of points sharing a query
+  frame, a loop over the following frames, each attending over frame 0 of
+  the group plus the `precede_frames` preceding frames (circle window) ->
   bilinear upsample to the input size and top-5 soft-argmax (with
   decode_impl 'coarse': the soft-argmax at feature resolution, scaled), and
   the map's peak, whose ratio to the query frame's peak is the visibility
   under visibility_mode 'heatmap'.
 * DAVIS VOS mask propagation: the first frame's label map, nearest-resized
-  to feature resolution and one-hot encoded, propagates through K1 with the
-  square window over the whole video's bank; with `save_mem` the features
-  are instead computed one frame at a time inside the loop and the keys go
-  through the unbanked entry (K2), so no bank of the whole video exists.
-  Each frame decodes by bilinear upsampling to the original size and an
-  argmax; frame 0 is the given mask.  `hard_prop` re-encodes each propagated
-  frame as a one-hot before it enters the value buffer.
+  to feature resolution and one-hot encoded, propagates with the square
+  window over the whole video's bank; with `save_mem` the features are
+  instead computed one frame at a time inside the loop and roll through a
+  key buffer, so no bank of the whole video exists.  Each frame decodes by
+  bilinear upsampling to the original size and an argmax; frame 0 is the
+  given mask.  `hard_prop` re-encodes each propagated frame as a one-hot
+  before it enters the value buffer.
 * JHMDB / BADJA keypoint propagation: reference heatmaps, resized to
   feature resolution as jax.image.resize does (antialiased), propagate from
-  frame 0 through K1 with the square window; each frame decodes as in
-  TAP-Vid, at the reader's decode size.
+  frame 0 with the square window; each frame decodes as in TAP-Vid, at the
+  reader's decode size.
 
-cfg.matmul_precision picks the kernel's compute mode (K3), as
-pallas_compute_dtype maps it: 'highest' runs 'float32', 'high' the bf16x3
-'high' and 'default' 'bfloat16', with the bank stored in bfloat16.  It reaches
-only the attention; the backbone runs in full float32 in every mode.
+The attention of a propagated frame (cfg.attention_impl, as the JAX Tracker
+picks it):
+* 'pallas': the top-k attention kernel over a bank normalised and
+  halo-padded once (K1; K2, the unbanked entry, with save_mem).
+  cfg.matmul_precision picks its compute mode (K3), as pallas_compute_dtype
+  maps it: 'highest' runs 'float32', 'high' the bf16x3 'high' and 'default'
+  'bfloat16', with the bank stored in bfloat16.
+* 'tiled': ops/windowed_attention.py over a bank normalised and
+  halo-padded once (tile = cfg.tile, not capped), by cfg.topk_impl.
+* 'dense': ops/attention.py masked_topk_attention, cfg.step query pixels
+  a chunk; every attention_impl runs it where with_first_neighbor is False
+  (frame 0's key slot exempt from the radius window), as in fgvc_tpu.
+* 'c2f': ops/c2f.py on c2f_scale x average-pooled features (renormalised)
+  and the features, lifted back to the feature grid bilinearly.
+* 'flow_guided': ops/c2f.py flow_guided_topk_attention around the key
+  window's flows, chained (ops/warp.py chain_window_flows) from adjacent
+  feature flows (`adjacent_feature_flows`); not with save_mem.
+matmul_precision reaches only the attention; the backbone runs in full
+float32 in every mode.
 
 Spatial-parallel propagation (`spatial_devices`, the JAX Tracker's
-`spatial_mesh`): each frame's query rows are cut into S row blocks, one per
-listed device, and each block runs the kernel's row-block mode (K4) against
-its device's replica of a bank over-padded to S blocks; the blocks are
-gathered on the first device (the primary), cut to the feature height, and
-copied back to every device to roll its value ring, so the result equals the
-unsharded propagation bit for bit.  A device may be listed more than once:
-each distinct device holds one replica of the backbone, the bank and the
-rings, and runs its blocks one after another on its current stream, so one
-card listed S times runs the same path as S cards.  Feature extraction splits
-each 16-frame chunk over the distinct devices.
+`spatial_mesh`; attention_impl 'pallas' or 'tiled'): each frame's query rows
+are cut into S row blocks, one per listed device, and each block runs the
+kernel's row-block mode (K4), or 'tiled''s, against its device's replica of
+a bank over-padded to S blocks; the blocks are gathered on the first device
+(the primary), cut to the feature height, and copied back to every device to
+roll its value ring, so the result equals the unsharded propagation bit for
+bit.  A device may be listed more than once: each distinct device holds one
+replica of the backbone, the bank and the rings, and runs its blocks one
+after another on its current stream, so one card listed S times runs the
+same path as S cards.  Feature extraction splits each 16-frame chunk over
+the distinct devices.
+
+`track_points_forward` tracks points by forward-warping a coordinate map
+instead (the reference's HRVanillaTracker forward_test_forward).
 
 Differences from the JAX Tracker that leave the results unchanged: frames
 and points are not padded to buckets (PyTorch runs eagerly; bucketing exists
 for jit's static shapes, and windows only look backward), the bank is built
-once per video instead of once per group, and the scan is a Python loop.
+once per video instead of once per group, 'tiled' always reads the window's
+frames from the bank (fgvc_tpu gathers them first past 160 frames, for the
+TPU's gather locality), and the scan is a Python loop.
 """
 
 from __future__ import annotations
@@ -61,7 +80,9 @@ from torch import nn
 
 from fgvc_tpu_torch.config import TestConfig, check_ported
 from fgvc_tpu_torch.device import set_matmul_precision
-from fgvc_tpu_torch.ops.attention import l2_normalize
+from fgvc_tpu_torch.ops import windowed_attention
+from fgvc_tpu_torch.ops.attention import l2_normalize, masked_topk_attention
+from fgvc_tpu_torch.ops.c2f import flow_guided_topk_attention, masked_attention_c2f
 from fgvc_tpu_torch.ops.color import preprocess_fn
 from fgvc_tpu_torch.ops.cuda.topk_attention import (
     bank_geometry,
@@ -71,9 +92,13 @@ from fgvc_tpu_torch.ops.cuda.topk_attention import (
     topk_attention_banked,
 )
 from fgvc_tpu_torch.ops.grids import draw_gaussian_maps, soft_argmax_topk
+from fgvc_tpu_torch.ops.local_corr import local_correlation
 from fgvc_tpu_torch.ops.misc import resize_bilinear
+from fgvc_tpu_torch.ops.topk import top_k
+from fgvc_tpu_torch.ops.warp import bilinear_sample, chain_window_flows
 
 EXTRACT_CHUNK = 16  # frames per backbone call
+FLOW_PAIRS = 8      # frame pairs a local-correlation call of adjacent_feature_flows
 
 
 def hard_onehot(seg_logit: torch.Tensor) -> torch.Tensor:
@@ -134,8 +159,8 @@ class Tracker:
       backbone: module mapping (N, 3, H, W) preprocessed frames to (N, C, h,
         w): normalised Lab where cfg.preprocess is 'lab', ImageNet-normalised
         RGB where it is 'imagenet'.
-      cfg: propagation settings (only the main path's are ported).
-      device: where the backbone, the bank and the kernels run.
+      cfg: propagation settings.
+      device: where the backbone, the bank and the attention run.
       spatial_devices: S devices for spatial-parallel propagation, one row
         block each (repeats allowed); the first must be `device`.
     """
@@ -148,10 +173,10 @@ class Tracker:
         self.spatial_devices = None
         if spatial_devices is not None:
             # checked before check_ported: JAX refuses these with ValueError
-            if cfg.attention_impl != "pallas":
+            if cfg.attention_impl not in ("pallas", "tiled"):
                 raise ValueError(
                     "spatial-parallel propagation supports attention_impl "
-                    f"'pallas', not {cfg.attention_impl!r}"
+                    f"'pallas'/'tiled', not {cfg.attention_impl!r}"
                 )
             if not cfg.with_first_neighbor:
                 raise ValueError(
@@ -182,8 +207,13 @@ class Tracker:
             for dev in self.devices
         }
         self.radius = cfg.neighbor_range // 2
-        # the kernel's query tile (the Pallas kernel capped it at 16 too)
-        self.tile = min(cfg.tile, 16)
+        # the loop that reads the bank: the kernel's and 'tiled''s over a
+        # padded bank, 'flow_guided''s over chained flows, and the loop of
+        # every other mode over the normalised features (_scan_propagate)
+        impl = cfg.attention_impl if cfg.with_first_neighbor else "dense"
+        self.path = {"pallas": "kernel", "tiled": "tiled", "flow_guided": "flow"}.get(impl, "legacy")
+        # the query tile: the kernel caps it at 16 (the Pallas kernel did too)
+        self.tile = cfg.tile if cfg.attention_impl == "tiled" else min(cfg.tile, 16)
         self.compute_dtype = pallas_compute_dtype(cfg.matmul_precision)
         self.preprocess = preprocess_fn(cfg.preprocess)
 
@@ -220,14 +250,34 @@ class Tracker:
             parts += [f.to(self.device) for f in feats]
         return torch.cat(parts).contiguous()
 
+    def pad_features(self, feats: torch.Tensor, normalize: bool,
+                     grid_rows: Optional[int] = None) -> torch.Tensor:
+        """(Tb, h, w, C) features halo-padded for the bank-reading loops,
+        normalised first where `normalize`: the kernel's geometry and dtype
+        (bfloat16 for compute mode 'bfloat16') for 'pallas', 'tiled''s
+        (float32) otherwise; `grid_rows` over-pads the rows for row
+        blocks."""
+        if self.path == "kernel":
+            return pad_key_bank(
+                feats, float(self.radius), tile=self.tile, normalize=normalize,
+                compute_dtype=self.compute_dtype, grid_rows=grid_rows,
+            )
+        if normalize:
+            return windowed_attention.pad_key_bank(feats, float(self.radius), self.tile,
+                                                   grid_rows=grid_rows)
+        h, w = feats.shape[1:3]
+        halo = int(self.radius)
+        Hp = _bucket(h, self.tile) if grid_rows is None else grid_rows
+        return F.pad(feats, (0, 0, halo, halo + _bucket(w, self.tile) - w, halo, halo + Hp - h))
+
     def build_bank(self, feats: torch.Tensor, grid_rows: Optional[int] = None) -> torch.Tensor:
-        """The normalised, halo-padded bank, in bfloat16 for compute mode
-        'bfloat16' and float32 otherwise; `grid_rows` over-pads its rows for
-        row blocks."""
-        return pad_key_bank(
-            feats, float(self.radius), tile=self.tile, normalize=self.cfg.with_norm,
-            compute_dtype=self.compute_dtype, grid_rows=grid_rows,
-        )
+        """What the propagation loop reads for a video's features: for
+        'pallas' and 'tiled' (with_first_neighbor) the bank, normalised
+        where cfg.with_norm and halo-padded once (pad_features); for the
+        other modes the features, normalised where cfg.with_norm."""
+        if self.path in ("kernel", "tiled"):
+            return self.pad_features(feats, self.cfg.with_norm, grid_rows)
+        return l2_normalize(feats) if self.cfg.with_norm else feats
 
     def row_blocks(self, h: int) -> Tuple[int, int, List[int]]:
         """(hb, gridH, row0 of each block) of the spatial devices' row blocks
@@ -277,57 +327,189 @@ class Tracker:
         decode always reads the soft logits)."""
         return hard_onehot(seg_logit) if self.cfg.hard_prop else seg_logit
 
+    def attention_step(
+        self, query: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
+        key_valid: List[bool], mask_shape: str, pre_normalized: bool = False,
+    ) -> torch.Tensor:
+        """One frame's attention over raw (or `pre_normalized`) key features
+        (the JAX Tracker's _attention_step), by cfg.attention_impl; the
+        save_mem loop and every mode but 'pallas', 'tiled' and
+        'flow_guided' with with_first_neighbor take it."""
+        cfg = self.cfg
+        radius = float(self.radius)
+        non_mask_len = 0 if cfg.with_first_neighbor else 1
+        do_norm = cfg.with_norm and not pre_normalized
+        impl = cfg.attention_impl
+        if impl == "flow_guided":
+            raise ValueError(
+                "attention_impl='flow_guided' needs with_first_neighbor=True and runs "
+                "in the bank propagation loop (track_points/track_heatmaps/track_masks "
+                "without save_mem)"
+            )
+        if impl == "c2f" and non_mask_len == 0:
+            return self._c2f_step(query, keys, values, key_valid, do_norm)
+        if impl == "pallas" and non_mask_len == 0:
+            return topk_attention(
+                query, keys, values, radius=radius, temperature=cfg.temperature,
+                topk=cfg.topk, normalize=do_norm, tile=self.tile, mask_shape=mask_shape,
+                key_valid=key_valid, compute_dtype=self.compute_dtype,
+            )
+        if impl == "tiled" and non_mask_len == 0:
+            return windowed_attention.masked_topk_attention_tiled(
+                query, keys, values, radius=radius, temperature=cfg.temperature,
+                topk=cfg.topk, normalize=do_norm, tile=cfg.tile, mask_shape=mask_shape,
+                key_valid=key_valid, precision=cfg.matmul_precision, topk_impl=cfg.topk_impl,
+            )
+        return masked_topk_attention(
+            query, keys, values, radius=radius, temperature=cfg.temperature,
+            topk=cfg.topk, normalize=do_norm, step=cfg.step, non_mask_len=non_mask_len,
+            mask_shape=mask_shape, key_valid=key_valid, precision=cfg.matmul_precision,
+        )
+
+    def _c2f_step(self, query, keys, values, key_valid, do_norm):
+        """'c2f': the coarse stage on c2f_scale x average-pooled features
+        (renormalised under with_norm), the fine stage on the features; the
+        coarse grid's output lifted to the feature grid as
+        jax.image.resize(..., 'bilinear') does."""
+        cfg = self.cfg
+        s = cfg.c2f_scale
+        h, w = query.shape[:2]
+        if h % s or w % s:
+            raise ValueError(
+                f"attention_impl='c2f' needs feature dims divisible by c2f_scale={s}; "
+                f"got {h}x{w} (pick an input_size whose stride-2 feature map is a "
+                f"multiple of {s})"
+            )
+        qf, kf = (l2_normalize(query), l2_normalize(keys)) if do_norm else (query, keys)
+
+        def pool(x):
+            return x.reshape(*x.shape[:-3], h // s, s, w // s, s, x.shape[-1]).mean(dim=(-4, -2))
+
+        qc, kc = pool(qf), pool(kf)
+        if cfg.with_norm:
+            qc, kc = l2_normalize(qc), l2_normalize(kc)
+        out_c = masked_attention_c2f(
+            qc, kc, qf, kf, values, radius=float(self.radius) / s, radius_fine=cfg.radius_fine,
+            temperature=cfg.temperature, topk=cfg.topk, normalize=False, key_valid=key_valid,
+            step=cfg.c2f_step,
+        )
+        return resize_bilinear(out_c.permute(2, 0, 1), (h, w)).permute(1, 2, 0).contiguous()
+
     def propagate(
         self,
-        bank: torch.Tensor,       # padded bank of the whole video
+        bank: torch.Tensor,       # build_bank of the whole video
         t0: int,                  # first frame of the group
         length: int,              # frames t0 .. t0 + length - 1
         first: torch.Tensor,      # (h, w, P) value map of frame t0
         emit: Callable[[torch.Tensor], torch.Tensor],
         mask_shape: str = "circle",
     ) -> List[torch.Tensor]:
-        """Banked propagation (K1) over frames 1 .. length - 1 of the group;
-        returns emit(logits) of each."""
+        """Propagation over frames 1 .. length - 1 of the group; returns
+        emit(logits) of each.  The key slots of frame t are frame 0 of the
+        group and the `precede_frames` before t (window_indices); the value
+        ring holds the logits (or hard_prop's one-hots) of those frames.
+        'pallas' (K1) and 'tiled' read the slots' frames from the padded
+        bank at global indices; 'flow_guided' attends around the window's
+        chained flows; the other modes take attention_step over the
+        normalised features."""
         cfg = self.cfg
         h, w = first.shape[:2]
+        radius = float(self.radius)
         halo, Hp, Wp, _, _ = bank_geometry(h, w, self.radius, self.tile)
+        if self.path == "flow" and length > 1:
+            feats = bank[t0:t0 + length]
+            wflows = chain_window_flows(self.adjacent_feature_flows(feats), cfg.precede_frames)
         buf = [first] * cfg.precede_frames                # value ring buffer
         outs = []
         for t in range(1, length):
             idx, valid = self.window_indices(t, length)
-            qpad = bank[t0 + t, halo : halo + Hp, halo : halo + Wp].contiguous()
-            seg = topk_attention_banked(
-                qpad, bank, torch.stack([first, *buf]),
-                frame_idx=[t0 + i for i in idx], key_valid=valid, H=h, W=w,
-                radius=float(self.radius), temperature=cfg.temperature,
-                topk=cfg.topk, tile=self.tile, mask_shape=mask_shape,
-                compute_dtype=self.compute_dtype,
-            )
+            values = torch.stack([first, *buf])
+            if self.path == "kernel":
+                seg = topk_attention_banked(
+                    bank[t0 + t, halo:halo + Hp, halo:halo + Wp].contiguous(), bank, values,
+                    frame_idx=[t0 + i for i in idx], key_valid=valid, H=h, W=w, radius=radius,
+                    temperature=cfg.temperature, topk=cfg.topk, tile=self.tile,
+                    mask_shape=mask_shape, compute_dtype=self.compute_dtype,
+                )
+            elif self.path == "tiled":
+                seg = windowed_attention.masked_topk_attention_tiled(
+                    bank[t0 + t, halo:halo + h, halo:halo + w], bank, values, radius=radius,
+                    temperature=cfg.temperature, topk=cfg.topk, normalize=False,
+                    tile=self.tile, mask_shape=mask_shape, key_valid=valid,
+                    precision=cfg.matmul_precision, topk_impl=cfg.topk_impl,
+                    frame_idx=[t0 + i for i in idx],
+                )
+            elif self.path == "flow":
+                seg = flow_guided_topk_attention(
+                    feats[t], torch.stack([feats[i] for i in idx]), values, wflows[t - 1],
+                    radius=cfg.flow_radius, temperature=cfg.temperature, topk=cfg.topk,
+                    normalize=False, key_valid=valid, step=cfg.flow_step,
+                )
+            else:
+                seg = self.attention_step(
+                    bank[t0 + t], torch.stack([bank[t0 + i] for i in idx]), values, valid,
+                    mask_shape, pre_normalized=cfg.with_norm,
+                )
             buf = buf[1:] + [self.bank_entry(seg)]
             outs.append(emit(seg))
         return outs
 
+    def adjacent_feature_flows(self, featsn: torch.Tensor) -> torch.Tensor:
+        """(T-1, h, w, 2) backward flows t+1 -> t of (T, h, w, C) features
+        (normalised under with_norm): each frame-(t+1) pixel's top-k
+        softmax expected displacement over its neighbor_range local
+        correlation against frame t (FLOW_PAIRS pairs a call)."""
+        cfg = self.cfg
+        r = self.radius
+        win = 2 * r + 1
+        h, w = featsn.shape[1:3]
+        flows = []
+        for i in range(0, featsn.shape[0] - 1, FLOW_PAIRS):
+            j = min(featsn.shape[0] - 1, i + FLOW_PAIRS)
+            corr = local_correlation(featsn[i + 1:j + 1], featsn[i:j], r)
+            wts, idx = top_k(corr.reshape(j - i, h, w, win * win), cfg.topk)
+            wts = torch.softmax(wts / cfg.temperature, dim=-1)
+            di = torch.div(idx, win, rounding_mode="floor").float() - r
+            dj = (idx % win).float() - r
+            flows.append(torch.stack([torch.sum(wts * dj, -1), torch.sum(wts * di, -1)], -1))
+        return torch.cat(flows)
+
+    def _block(self, bank, q, frame_idx, valid, values, hw, row0, mask_shape):
+        """Row block `row0` of frame `q` of a bank over-padded to the row
+        blocks' grid: (hb, w, Cv) rows, K4's or 'tiled''s; rows at or past h
+        are zero (K4) or garbage ('tiled'), cut by the caller."""
+        cfg = self.cfg
+        h, w = hw
+        hb, gridH, _ = self.row_blocks(h)
+        halo, _, Wp, _, _ = bank_geometry(h, w, self.radius, self.tile, gridH)
+        if self.path == "tiled":
+            return windowed_attention.masked_topk_attention_tiled(
+                bank[q, halo + row0:halo + row0 + hb, halo:halo + w], bank, values,
+                radius=float(self.radius), temperature=cfg.temperature, topk=cfg.topk,
+                normalize=False, tile=self.tile, mask_shape=mask_shape, key_valid=valid,
+                precision=cfg.matmul_precision, topk_impl=cfg.topk_impl, frame_idx=frame_idx,
+                row_offset=row0, full_h=h, grid_rows=gridH,
+            )
+        return topk_attention_banked(
+            bank[q, halo + row0:halo + row0 + hb, halo:halo + Wp].contiguous(), bank, values,
+            frame_idx=frame_idx, key_valid=valid, H=h, W=w, radius=float(self.radius),
+            temperature=cfg.temperature, topk=cfg.topk, tile=self.tile, mask_shape=mask_shape,
+            compute_dtype=self.compute_dtype, row0=row0, grid_rows=gridH,
+        )
+
     def _sp_frame(self, banks, q, frame_idx, valid, firsts, bufs, hw, mask_shape):
         """One frame of spatial-parallel propagation: every row block attends
-        from frame `q` of its device's bank (K4); the blocks are gathered on
-        the primary and cut to h rows (the JAX all_gather(...)[:h]), and the
-        frame's value entry rolls every device's value ring `bufs` (after
-        `firsts`, frame 0's values).  Returns the gathered logits."""
-        h, w = hw
-        hb, gridH, row0s = self.row_blocks(h)
-        halo, _, Wp, _, _ = bank_geometry(h, w, self.radius, self.tile, gridH)
+        from frame `q` of its device's bank (K4, or 'tiled''s row blocks);
+        the blocks are gathered on the primary and cut to h rows (the JAX
+        all_gather(...)[:h]), and the frame's value entry rolls every
+        device's value ring `bufs` (after `firsts`, frame 0's values).
+        Returns the gathered logits."""
         values = {dev: torch.stack([firsts[dev], *bufs[dev]]) for dev in self.devices}
-        blocks = []
-        for dev, row0 in zip(self.spatial_devices, row0s):
-            bank = banks[dev]
-            qblk = bank[q, halo + row0 : halo + row0 + hb, halo : halo + Wp]
-            blocks.append(topk_attention_banked(
-                qblk.contiguous(), bank, values[dev], frame_idx=frame_idx, key_valid=valid,
-                H=h, W=w, radius=float(self.radius), temperature=self.cfg.temperature,
-                topk=self.cfg.topk, tile=self.tile, mask_shape=mask_shape,
-                compute_dtype=self.compute_dtype, row0=row0, grid_rows=gridH,
-            ))
-        seg = torch.cat([b.to(self.device) for b in blocks])[:h]
+        blocks = [
+            self._block(banks[dev], q, frame_idx, valid, values[dev], hw, row0, mask_shape)
+            for dev, row0 in zip(self.spatial_devices, self.row_blocks(hw[0])[2])
+        ]
+        seg = torch.cat([b.to(self.device) for b in blocks])[:hw[0]]
         entries = self.replicate(self.bank_entry(seg))
         for dev in self.devices:
             bufs[dev] = bufs[dev][1:] + [entries[dev]]
@@ -342,7 +524,7 @@ class Tracker:
         emit: Callable[[torch.Tensor], torch.Tensor],
         mask_shape: str = "circle",
     ) -> List[torch.Tensor]:
-        """Spatial-parallel banked propagation (K4): `propagate` with each
+        """Spatial-parallel banked propagation: `propagate` with each
         frame's query rows cut into one row block per spatial device."""
         firsts = self.replicate(first)
         bufs = {dev: [firsts[dev]] * self.cfg.precede_frames for dev in self.devices}
@@ -362,11 +544,11 @@ class Tracker:
         emit: Callable[[torch.Tensor], torch.Tensor],
         mask_shape: str = "square",
     ) -> List[torch.Tensor]:
-        """save_mem propagation (K2): each frame's features are computed
-        once, at batch 1, when it becomes the query, and roll through a
-        `precede_frames`-deep key buffer; no bank of the whole video.  The
-        buffer keeps float32 normalised features in every mode; the entry
-        casts them per call."""
+        """save_mem propagation: each frame's features are computed once, at
+        batch 1, when it becomes the query, and roll through a
+        `precede_frames`-deep key buffer of float32 normalised features; no
+        bank of the whole video.  Each frame takes attention_step ('pallas':
+        the unbanked entry K2, which casts the keys per call)."""
         cfg = self.cfg
         P = cfg.precede_frames
         norm = l2_normalize if cfg.with_norm else (lambda x: x)
@@ -376,11 +558,9 @@ class Tracker:
         for t in range(1, video.shape[0]):
             q = norm(self.extract_features(video[t : t + 1])[0])
             valid = [cfg.with_first] + [t - P + i >= 0 for i in range(P)]
-            seg = topk_attention(
-                q, torch.stack([f0, *feat_buf]), torch.stack([first, *value_buf]),
-                radius=float(self.radius), temperature=cfg.temperature,
-                topk=cfg.topk, normalize=False, tile=self.tile,
-                mask_shape=mask_shape, key_valid=valid, compute_dtype=self.compute_dtype,
+            seg = self.attention_step(
+                q, torch.stack([f0, *feat_buf]), torch.stack([first, *value_buf]), valid,
+                mask_shape, pre_normalized=cfg.with_norm,
             )
             feat_buf = feat_buf[1:] + [q]
             value_buf = value_buf[1:] + [self.bank_entry(seg)]
@@ -395,28 +575,26 @@ class Tracker:
         emit: Callable[[torch.Tensor], torch.Tensor],
         mask_shape: str = "square",
     ) -> List[torch.Tensor]:
-        """Spatial-parallel save_mem propagation (K4), the JAX
-        _scan_propagate_streaming_sp: every distinct device runs the backbone
-        on the full frame and keeps a key ring of kernel-padded entries over
-        the row blocks' grid, in the mode's dtype (bfloat16 in 'bfloat16');
-        each block attends over frame 0 and the `precede_frames` previous
-        frames of that ring as a mini-bank.  The ring has 2 + P entries: 0
-        holds frame 0, and frame j >= 1 lands in entry 1 + j % (P + 1) when
-        it becomes the query, whose block is cut from it; the key slots read
-        their entries through frame_idx, so no mini-bank is copied."""
+        """Spatial-parallel save_mem propagation (the JAX
+        _scan_propagate_streaming_sp): every distinct device runs the backbone
+        on the full frame and keeps a key ring of padded entries over the row
+        blocks' grid (pad_features: the kernel's layout and the mode's dtype,
+        bfloat16 in 'bfloat16', or 'tiled''s); each block attends over frame 0
+        and the `precede_frames` previous frames of that ring as a mini-bank.
+        The ring has 2 + P entries: 0 holds frame 0, and frame j >= 1 lands in
+        entry 1 + j % (P + 1) when it becomes the query, whose block is cut
+        from it; the key slots read their entries through frame_idx, so no
+        mini-bank is copied."""
         cfg = self.cfg
         P = cfg.precede_frames
         norm = l2_normalize if cfg.with_norm else (lambda x: x)
         h, w = f0.shape[:2]
         gridH = self.row_blocks(h)[1]
-        halo = bank_geometry(h, w, self.radius, self.tile, gridH)[0]
+        halo = int(self.radius)
         rings = {}
         for dev in self.devices:
             f = norm(f0 if dev == self.device else self.features_on(video[:1], dev)[0])
-            rings[dev] = pad_key_bank(
-                f[None].expand(2 + P, -1, -1, -1), float(self.radius), tile=self.tile,
-                normalize=False, compute_dtype=self.compute_dtype, grid_rows=gridH,
-            )
+            rings[dev] = self.pad_features(f[None].expand(2 + P, -1, -1, -1), False, gridH)
         firsts = self.replicate(first)
         bufs = {dev: [firsts[dev]] * P for dev in self.devices}
         outs = []
@@ -432,9 +610,9 @@ class Tracker:
         return outs
 
     def video_bank(self, feats: torch.Tensor):
-        """The bank `propagate` reads, or with spatial devices the bank
-        over-padded to the row blocks' grid, per distinct device, that
-        `propagate_sp` reads."""
+        """The bank `propagate` reads (build_bank), or with spatial devices
+        the bank over-padded to the row blocks' grid, per distinct device,
+        that `propagate_sp` reads."""
         if self.spatial_devices is None:
             return self.build_bank(feats)
         gridH = self.row_blocks(feats.shape[1])[1]
@@ -520,6 +698,60 @@ class Tracker:
         return self.track_points_collect(
             self.track_points_dispatch(video, query_points, feats=feats)
         )
+
+    # ------------------------------------------------------------------ #
+    # forward-warp coordinate tracking
+    # ------------------------------------------------------------------ #
+    def forward_coords(self, feats: torch.Tensor, init_coords: torch.Tensor,
+                       full_hw: Tuple[int, int]) -> torch.Tensor:
+        """(T, P, 2) positions of (P, 2) (x, y) full-resolution points from
+        frame 0 of (T, h, w, C) features (the reference's HRVanillaTracker
+        forward_test_forward): each frame's square-window correlation
+        against the window's first frame (t - precede_frames, clipped to 0)
+        gives every pixel of that frame the top-k softmax expected
+        full-resolution position in frame t (window slots outside the image
+        count as (0, 0), the reference's zero padding); each point samples
+        that map bilinearly at its running position."""
+        cfg = self.cfg
+        T, h, w, _ = feats.shape
+        scale = full_hw[0] // h
+        r = self.radius
+        win = 2 * r + 1
+        featsn = l2_normalize(feats) if cfg.with_norm else feats
+        gy, gx = torch.meshgrid(torch.arange(h, device=feats.device, dtype=torch.float32),
+                                torch.arange(w, device=feats.device, dtype=torch.float32),
+                                indexing="ij")
+        coord, rows = init_coords, [init_coords]
+        for t in range(1, T):
+            corr = local_correlation(featsn[max(t - cfg.precede_frames, 0)], featsn[t], r)
+            wts, idx = top_k(corr.reshape(h, w, win * win), cfg.topk)
+            wts = torch.softmax(wts / cfg.temperature, dim=-1)
+            ky = gy[..., None] + (torch.div(idx, win, rounding_mode="floor").float() - r)
+            kx = gx[..., None] + ((idx % win).float() - r)
+            inside = (ky >= 0) & (ky <= h - 1) & (kx >= 0) & (kx <= w - 1)
+            cy = torch.where(inside, ky * scale, 0.0)
+            cx = torch.where(inside, kx * scale, 0.0)
+            cmap = torch.stack([torch.sum(wts * cx, -1), torch.sum(wts * cy, -1)], -1)
+            coord = bilinear_sample(cmap[None], (coord / float(scale))[None])[0]
+            rows.append(coord)
+        return torch.stack(rows)
+
+    @torch.no_grad()
+    def track_points_forward(self, video: np.ndarray,
+                             query_points: np.ndarray) -> Dict[str, np.ndarray]:
+        """Forward-warp tracking of (P, 3) (t, x, y) query points, each group
+        from its query frame (forward_coords); trajectories (T, P, 2), 0
+        before a point's query frame; visibilities all False."""
+        T, H, W, _ = video.shape
+        feats = self.extract_features(video)
+        qt = query_points[:, 0].astype(np.int64)
+        traj = np.zeros((T, query_points.shape[0], 2), dtype=np.float32)
+        for t in np.unique(qt):
+            sel = np.nonzero(qt == t)[0]
+            pts = torch.from_numpy(
+                np.ascontiguousarray(query_points[sel, 1:], dtype=np.float32)).to(self.device)
+            traj[int(t):, sel] = self.forward_coords(feats[int(t):], pts, (H, W)).cpu().numpy()
+        return {"trajectories": traj, "visibilities": np.zeros((T, len(qt)), dtype=bool)}
 
     # ------------------------------------------------------------------ #
     # JHMDB / BADJA keypoint heatmap protocol

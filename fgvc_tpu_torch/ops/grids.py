@@ -4,7 +4,8 @@
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+from fgvc_tpu_torch.ops.topk import top_k, topk_segmented
 
 
 def draw_gaussian_maps(
@@ -27,29 +28,6 @@ def draw_gaussian_maps(
     return torch.exp(-d2 / (2.0 * sigma**2))
 
 
-def top_k(x: torch.Tensor, k: int):
-    """jax.lax.top_k: the k largest along the last axis, in descending
-    order, equal values in index order (a stable sort; torch.topk may order
-    ties otherwise and so pick other positions at the k-th value)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
-def top_k_segmented(x: torch.Tensor, k: int, seg: int = 512):
-    """fgvc_tpu/ops/topk.py topk_segmented on a 2-D array: the k segments of
-    `seg` columns with the largest maxima (top_k's order), then top_k over
-    those segments' columns in that order; the same values as top_k, ties
-    broken by segment order, then position, as fgvc_tpu breaks them."""
-    S, K = x.shape
-    n_seg = -(-K // seg)
-    a = F.pad(x, (0, n_seg * seg - K), value=float("-inf")).reshape(S, n_seg, seg)
-    _, seg_idx = top_k(a.amax(-1), min(k, n_seg))
-    cand = torch.gather(a, 1, seg_idx[:, :, None].expand(-1, -1, seg)).reshape(S, -1)
-    vals, ci = top_k(cand, k)
-    seg_of = torch.gather(seg_idx, 1, torch.div(ci, seg, rounding_mode="floor"))
-    return vals, seg_of * seg + ci % seg
-
-
 def soft_argmax_topk(heatmaps: torch.Tensor, topk: int = 5) -> torch.Tensor:
     """(..., H, W) heatmaps -> (..., 2) (x, y): the weighted mean position of
     the top-k activations.  All-zero maps decode to (-1, -1).
@@ -61,7 +39,7 @@ def soft_argmax_topk(heatmaps: torch.Tensor, topk: int = 5) -> torch.Tensor:
     width = heatmaps.shape[-1]
     flat = heatmaps.reshape(*heatmaps.shape[:-2], -1)
     if flat.shape[-1] > 4096 and flat.ndim == 2:
-        vals, idx = top_k_segmented(flat, topk)
+        vals, idx = topk_segmented(flat, topk, seg=512)
     else:
         vals, idx = top_k(flat, topk)
     w = vals / (torch.sum(vals, dim=-1, keepdim=True) + 1e-9)

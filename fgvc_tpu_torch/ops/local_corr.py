@@ -1,4 +1,5 @@
-"""Local (displacement-window) correlation of the training recipe
+"""Local (displacement-window) correlation of the training recipe and of the
+tracker's flows, and the sparse unfold at fractional centres
 (fgvc_tpu/ops/local_corr.py).
 
     corr[b, i, j, di, dj] = sum_c tar[b, i, j, c] * ref[b, i+di-R, j+dj-R, c]
@@ -31,7 +32,7 @@ import torch.nn.functional as F
 
 from fgvc_tpu_torch.config import MATMUL_PRECISIONS
 
-__all__ = ["local_correlation", "extract_displacement_windows"]
+__all__ = ["local_correlation", "extract_displacement_windows", "part_unfold"]
 
 
 def _parts(x: torch.Tensor, precision: str, dim: int, order: str) -> torch.Tensor:
@@ -138,3 +139,16 @@ def extract_displacement_windows(x: torch.Tensor, radius: int) -> torch.Tensor:
     cols = F.unfold(x.permute(0, 3, 1, 2), win, padding=radius)  # (B, C*win*win, H*W)
     out = cols.reshape(B, C, win, win, H, W).permute(0, 4, 5, 2, 3, 1)
     return out[0] if squeeze else out
+
+
+def part_unfold(x: torch.Tensor, coords: torch.Tensor, radius: int) -> torch.Tensor:
+    """(H, W, C) map, (N, 2) (x, y) float centres -> (N, 2R+1, 2R+1, C): the
+    window around each centre, bilinearly sampled (0 outside the image)."""
+    from fgvc_tpu_torch.ops.warp import bilinear_sample
+
+    win = 2 * radius + 1
+    offs = torch.arange(-radius, radius + 1, dtype=torch.float32, device=x.device)
+    owin = torch.stack([offs.repeat(win), offs.repeat_interleave(win)], dim=-1)  # (win^2, 2)
+    pts = coords[:, None, :] + owin[None]
+    out = bilinear_sample(x[None], pts[None])[0]
+    return out.reshape(coords.shape[0], win, win, x.shape[-1])

@@ -7,8 +7,11 @@ key slot valid) against JAX's make_flagship_step with attention_impl
 'pallas' (its kernel interpreted on the CPU), from one flax init on JAX's
 example arguments: each query pixel within 1e-4 (float32 sums through the
 backbone and the attention), near-tie rows excepted (at most 0.1% of the
-rows), in 'highest' and 'high'.  The torch.export program holds the
-operator's node and round-trips through save and load bit for bit; the
+rows), in 'highest' and 'high'; with attention_impl 'tiled' (fgvc_tpu's
+export default), 'dense' and 'c2f' the saved and loaded program (plain
+PyTorch, no operator) within 1e-5 of JAX's step in the same mode.  The
+torch.export program holds the operator's node and round-trips through
+save and load bit for bit; the
 CLI's --check passes; --format torch writes fgvc_tpu's
 export_resnet_state_dict key for key and value for value, and loads back
 through load_reference_pth.
@@ -24,6 +27,7 @@ H = W = 32
 SMALL = dict(input_size=(H, W), neighbor_range=6, tile=8)
 VALUE_DIM = 3
 STEP_TOL = 1e-4
+PLAIN_STEP_TOL = 1e-5
 NEAR_TIE_SHARE = 1e-3
 
 
@@ -85,6 +89,36 @@ def test_step_matches_jax_pallas_step(variables, precision):
     assert not (beyond & ~near).any(), float(d.max())
     assert beyond.sum() <= NEAR_TIE_SHARE * d.size
     print(f"step vs JAX '{precision}': max|diff| {d.max():.3e}, {int(beyond.sum())} rows beyond")
+
+
+@pytest.mark.parametrize("impl", ["tiled", "dense", "c2f"])
+def test_plain_attention_program_matches_jax_step(variables, impl, tmp_path):
+    """fgvc_tpu's export default 'tiled', and 'dense' and 'c2f': the saved
+    and loaded .pt2 (no operator node: the attention is traced PyTorch)
+    against JAX's make_flagship_step in the same attention_impl, within
+    1e-5 (float32 sums through the backbone and the attention)."""
+    import jax
+
+    from fgvc_tpu.config import TestConfig as JaxTestConfig
+    from fgvc_tpu.core.export import make_flagship_step as jax_make_step
+    from fgvc_tpu_torch.config import TestConfig
+    from fgvc_tpu_torch.core.export import export_flagship, load_exported, save_exported
+
+    fn, jax_args = jax_make_step(
+        dataclasses.replace(JaxTestConfig(), **SMALL, attention_impl=impl), variables,
+        value_dim=VALUE_DIM)
+    ref = np.asarray(jax.jit(fn)(*jax_args))
+    cfg = dataclasses.replace(TestConfig(), **SMALL, attention_impl=impl)
+    exported, step, args = export_flagship(cfg, _port_state(variables), value_dim=VALUE_DIM,
+                                           device="cpu")
+    targets = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
+    assert "fgvc_tpu_torch.topk_attention.default" not in targets
+    path = str(tmp_path / "step.pt2")
+    save_exported(exported, path)
+    with torch.no_grad():
+        got = load_exported(path).module()(*args)
+    assert got.shape == (H // 2, W // 2, VALUE_DIM)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=PLAIN_STEP_TOL)
 
 
 def test_program_round_trips_and_holds_the_operator(variables, tmp_path):
@@ -163,10 +197,9 @@ def test_unported_attention_impls_and_no_card_are_refused(monkeypatch):
     from fgvc_tpu_torch.config import TestConfig
     from fgvc_tpu_torch.core.export import export_flagship
 
-    for impl in ("tiled", "dense", "c2f"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            export_flagship(dataclasses.replace(TestConfig(), **SMALL, attention_impl=impl),
-                            device="cpu")
+    for cfg in (dict(attention_impl="flash"), dict(upload_format="yuv420")):
+        with pytest.raises((ValueError, NotImplementedError), match="attention_impl|slice"):
+            export_flagship(dataclasses.replace(TestConfig(), **SMALL, **cfg), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         export_flagship(dataclasses.replace(TestConfig(), **SMALL))

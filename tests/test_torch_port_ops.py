@@ -151,11 +151,15 @@ def test_unported_knobs_raise():
     from fgvc_tpu_torch.apis.test import build_tracker, run_task
     from fgvc_tpu_torch.config import DAVIS_TEST_CFG
 
-    for knob, value in [("attention_impl", "tiled"), ("upload_format", "yuv420"),
-                        ("with_first_neighbor", False)]:
-        cfg = dataclasses.replace(DAVIS_TEST_CFG, **{knob: value})
-        with pytest.raises(NotImplementedError, match="slice"):
-            build_tracker(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice"):
+        build_tracker(dataclasses.replace(DAVIS_TEST_CFG, upload_format="yuv420"), device="cpu")
+    # every propagation mode is ported; other names are refused
+    for knob, value in [("attention_impl", "tiled"), ("attention_impl", "flow_guided"),
+                        ("with_first_neighbor", False), ("topk_impl", "approx")]:
+        build_tracker(dataclasses.replace(DAVIS_TEST_CFG, **{knob: value}), device="cpu")
+    for knob in ("attention_impl", "topk_impl"):
+        with pytest.raises(ValueError, match=f"{knob} must be one of"):
+            build_tracker(dataclasses.replace(DAVIS_TEST_CFG, **{knob: "fast"}), device="cpu")
     # both preprocessings are ported; any other is refused as fgvc_tpu does
     with pytest.raises(ValueError, match="preprocess must be 'lab' or 'imagenet'"):
         build_tracker(dataclasses.replace(DAVIS_TEST_CFG, preprocess="yuv"), device="cpu")

@@ -345,7 +345,7 @@ def test_sp_save_mem_default_matches_unsharded(weights, vos_video, monkeypatch):
 # refusals, harness and CLI
 # --------------------------------------------------------------------- #
 @pytest.mark.parametrize("bad,match", [
-    (dict(attention_impl="tiled"), "spatial-parallel propagation supports"),
+    (dict(attention_impl="dense"), "spatial-parallel propagation supports"),
     (dict(with_first_neighbor=False), "requires with_first_neighbor"),
 ])
 def test_sp_refuses_unsupported_configs(weights, bad, match):
