@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,
                                     modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,profile,
-                                    serve,export,doctor,train,propmodes]
+                                    serve,export,doctor,train,propmodes,dp,bank,mp]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -235,7 +235,33 @@ Phases, each of which raises on failure (exit code != 0):
             unsharded run: max |diff| <= 1e-6 px.  Each run prints ms per
             video (CUDA events from dispatch to collect), frames/s, ms per
             propagated frame and peak device memory beside the card's name
-            and power limit.
+            and power limit;
+  dp        the single-process round-robin (--local-devices) with this card
+            listed twice: run_task('davis') on the e2e pickles with
+            local_devices=[card] * 2 launches K1 as many times as the
+            single-device run (one per frame propagated) and gives its <D
+            exactly; [[card] * 2] * 2 (two groups of two row blocks, dp x sp)
+            launches only K4, two per frame propagated, with the same <D;
+            two synthetic VOS videos through eval_vos on [card] * 2 give the
+            single-device label maps on 100% of pixels.  Wall times beside the
+            single device's (printed, not held).  With two cards or more (four
+            for dp x sp), the same on distinct cards;
+  bank      bank-parallel propagation (--bank-devices, attention_impl
+            'tiled'): K1's trajectories of e2e video 0 first, then with K1's
+            counters at 0 to the end of the phase: video 0 with the card
+            listed 2 and 3 times (uneven shards) against the unsharded 'tiled'
+            run with topk_impl 'certified' (the same tie split) and against
+            K1: median |diff| <= 1e-3 px each (max printed), <D within 0.1 of
+            K1's; one synthetic VOS video banked on [card] * 2 against the
+            unsharded 'tiled' run: >= 99.999% of pixels agree; one 250-frame
+            256 x 256 video, one query group, on [card] * 2: each shard's
+            bytes against the whole bank's, peak device memory, wall time;
+  mp        python -m fgvc_tpu_torch.cli.test --task davis on the e2e
+            pickles as one process, then as two ranks started by python -m
+            fgvc_tpu_torch.cli.launch --nprocs 2 (gloo on localhost, both
+            ranks on this card): both ranks print metrics equal to the single
+            process's, rank 1 writes no output directory, the ranks' K1
+            launches add up to the single process's; both wall times.
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -2555,6 +2581,241 @@ def run_sp_jhmdb(root, images, record, card):
         raise AssertionError("sp jhmdb: row blocks differ from the unsharded run")
 
 
+
+def _add_launches(record, n):
+    record["launches"] = (record["launches"] or 0) + n
+
+
+def _timed(fn):
+    """(fn(), host seconds to the end of the card's work)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def run_dp(data_root, records, card):
+    """Phase dp: the round-robin fleet on the e2e pickles.  run_task('davis',
+    local_devices=[card] * 2) launches K1 exactly as the single-device run
+    and gives its <D exactly; [[card] * 2] * 2 (dp x sp) launches only K4,
+    two per frame propagated, and the same <D; two synthetic VOS videos
+    through eval_vos on [card] * 2 give the single-device label maps.  Wall
+    times beside the single device's (printed, not held); with two cards or
+    more (four for dp x sp) the same runs on distinct cards."""
+    import torch
+
+    from fgvc_tpu_torch.apis.test import build_tracker, eval_vos, run_task
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    expect = frames_propagated(TapVidDataset(data_root))
+    k1.reset_launches()
+    single, dt0 = _timed(lambda: run_task("davis", data_root, seed=0, device=card))
+    check_launches("dp davis single device", "highest", expect, "banked")
+    d0 = single["average_pts_within_thresh"]
+    n_cards = torch.cuda.device_count()
+    runs = [("[card] * 2", dict(local_devices=[card] * 2), expect, "banked", "K1_circle"),
+            ("[[card] * 2] * 2 (dp x sp)", dict(local_devices=[[card] * 2] * 2), 2 * expect,
+             "row_block", "K4_circle")]
+    if n_cards >= 2:
+        runs.append((f"2 distinct cards of {n_cards}", dict(local_devices=2), expect, "banked",
+                     "K1_circle"))
+    if n_cards >= 4:
+        runs.append(("2 groups of 2 distinct cards", dict(local_devices=2, spatial_devices=2),
+                     2 * expect, "row_block", "K4_circle"))
+    for label, kw, n, entry, key in runs:
+        k1.reset_launches()
+        (metrics, peak), dt = _timed(lambda: _peak_gb_of(
+            lambda: run_task("davis", data_root, seed=0, **kw)))
+        check_launches(f"dp davis {label}", "highest", n, entry)
+        check_metrics(metrics)
+        _add_launches(records[key], n)
+        d1 = metrics["average_pts_within_thresh"]
+        print(f"dp davis {label}: <D {d1:.6f} vs single device {d0:.6f}; wall {dt:.2f} s vs "
+              f"{dt0:.2f} s (model build and data reading included); peak device memory "
+              f"{peak:.2f} GB", flush=True)
+        if d1 != d0:
+            raise AssertionError(f"dp davis {label}: <D {d1} differs from the single device's {d0}")
+    vos = SyntheticDavis()
+    frames = sum(len(v) - 1 for v in vos.videos)
+    tracker = build_tracker(seed=0, device=card)
+    fleets = [("[card] * 2", [card] * 2)]
+    if n_cards >= 2:
+        fleets.append(("2 distinct cards", [torch.device("cuda", i) for i in range(2)]))
+    k1.reset_launches()
+    res0, dt0 = _timed(lambda: eval_vos(tracker, vos))
+    check_launches("dp vos single device", "highest", frames, "banked")
+    pred0 = [vos.preds[i] for i in range(len(vos))]
+    for label, devices in fleets:
+        k1.reset_launches()
+        res1, dt1 = _timed(lambda: eval_vos(tracker, vos, devices=devices))
+        check_launches(f"dp vos {label}", "highest", frames, "banked")
+        _add_launches(records["K1_square"], frames)
+        agree = _agreement([vos.preds[i] for i in range(len(vos))], pred0)
+        print(f"dp vos {label}, {len(vos)} videos: label maps agree on {100 * agree:.5f}% of "
+              f"pixels (must be 100%); J&F-Mean {res1['J&F-Mean']:.6f} vs "
+              f"{res0['J&F-Mean']:.6f}; wall {dt1:.2f} s vs {dt0:.2f} s (scoring included)",
+              flush=True)
+        if agree != 1.0:
+            raise AssertionError(f"dp vos {label}: label maps differ from the single device's")
+
+
+BANK_LONG_T = 250
+
+
+def run_bank(data_root, card):
+    """Phase bank: bank-parallel propagation ('tiled') with `card` listed n
+    times.  K1's trajectories of e2e video 0 are taken first; from there on
+    K1's counters must stay 0.  Video 0 with bank_devices=[card] * 2 and
+    [card] * 3 (uneven shards: 48 frames in 16 and 16, and in 24 and 24)
+    against the unsharded 'tiled' run with topk_impl 'certified' (the same tie
+    split) and against K1: median |diff| <= 1e-3 px each, <D within 0.1 of
+    K1's.  One synthetic VOS video banked on [card] * 2 against the unsharded
+    'tiled' run: >= 99.999% of pixels agree.  One 250-frame 256 x 256 video,
+    one query group at frame 0, on [card] * 2: each shard's bytes beside the
+    whole bank's, the peak device memory and the wall time."""
+    import dataclasses
+
+    import torch
+
+    from fgvc_tpu_torch.apis.test import build_tracker, eval_vos
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    ds = TapVidDataset(data_root)
+    s = ds[0]
+    args = (s["video"], s["query_points"])
+    k1_out = build_tracker(seed=0, device=card).track_points(*args)
+    d_k1 = _score(ds, s, k1_out)["average_pts_within_thresh"]
+    k1.reset_launches()
+    cfg = dataclasses.replace(DAVIS_TEST_CFG, attention_impl="tiled")
+    ref, dt_ref = _timed(lambda: build_tracker(
+        dataclasses.replace(cfg, topk_impl="certified"), seed=0, device=card).track_points(*args))
+    for n in (2, 3):
+        tracker = build_tracker(cfg, seed=0, bank_devices=[card] * n)
+        (out, peak), dt = _timed(lambda: _peak_gb_of(lambda: tracker.track_points(*args)))
+        d_bank = _score(ds, s, out)["average_pts_within_thresh"]
+        for against, other in (("unsharded 'tiled' 'certified'", ref), ("K1", k1_out)):
+            diff = np.abs(out["trajectories"] - other["trajectories"])
+            med = float(np.median(diff))
+            print(f"bank n={n} video 0 vs {against}: median |diff| {med:.3e} px (limit "
+                  f"{TRAJ_TOL_PX}), max {diff.max():.3e} px", flush=True)
+            if not med <= TRAJ_TOL_PX:
+                raise AssertionError(f"bank n={n} vs {against}: median |diff| {med} px")
+        print(f"bank n={n} video 0: <D {d_bank:.4f} vs K1 {d_k1:.4f}; {dt:.2f} s vs "
+              f"{dt_ref:.2f} s unsharded (features, propagation, decode); peak device memory "
+              f"{peak:.2f} GB", flush=True)
+        if not abs(d_bank - d_k1) <= DELTA_D_TOL:
+            raise AssertionError(f"bank n={n}: <D {d_bank} vs K1 {d_k1}")
+        del tracker
+    vos = SyntheticDavis(n_videos=1)
+    preds = {}
+    for label, kw in (("unsharded", dict(device=card)), ("n=2", dict(bank_devices=[card] * 2))):
+        res, dt = _timed(lambda: eval_vos(build_tracker(cfg, seed=0, **kw), vos))
+        preds[label] = (vos.preds[0], res["J&F-Mean"], dt)
+    agree = _agreement([preds["n=2"][0]], [preds["unsharded"][0]])
+    print(f"bank vos n=2 vs unsharded 'tiled': label maps agree on {100 * agree:.5f}% of pixels "
+          f"(limit {100 * PLAIN_MASK_AGREE:g}%); J&F-Mean {preds['n=2'][1]:.6f} vs "
+          f"{preds['unsharded'][1]:.6f}; {preds['n=2'][2]:.2f} s vs {preds['unsharded'][2]:.2f} s "
+          "(scoring included)", flush=True)
+    if not agree >= PLAIN_MASK_AGREE:
+        raise AssertionError(f"bank vos: label maps agree on {agree}")
+    # the long video: one query group from frame 0 over 250 frames
+    rng = np.random.default_rng(7)
+    tex = _texture(rng, 256 + 2 * BANK_LONG_T)
+    off = (np.arange(BANK_LONG_T) * 0.7).astype(int) + BANK_LONG_T
+    video = np.stack([tex[o:o + 256, o:o + 256] for o in off])
+    queries = np.concatenate([np.zeros((32, 1)), rng.uniform(16, 240, (32, 2))], 1)
+    tracker = build_tracker(cfg, seed=0, bank_devices=[card] * 2)
+    shard_bytes = []
+    real = tracker.bank_shards
+
+    def bank_shards(*a, **kw):
+        shards, hw = real(*a, **kw)
+        shard_bytes.extend(x.numel() * x.element_size() for x in shards)
+        return shards, hw
+
+    tracker.bank_shards = bank_shards
+    (out, peak), dt = _timed(lambda: _peak_gb_of(
+        lambda: tracker.track_points(video, queries.astype(np.float32))))
+    finite = bool(np.isfinite(out["trajectories"]).all())
+    whole = BANK_LONG_T * shard_bytes[0] / -(-BANK_LONG_T // 2)
+    print(f"bank n=2 long video ({BANK_LONG_T} frames at 256 x 256, one group of 32 points): "
+          f"shard bytes {[f'{b / 1e9:.3f} GB' for b in shard_bytes]} against "
+          f"{whole / 1e9:.3f} GB for the whole bank; peak device memory {peak:.2f} GB (one card "
+          f"holds both shards here); {dt:.2f} s, {1e3 * dt / (BANK_LONG_T - 1):.2f} ms per "
+          f"propagated frame; trajectories finite {finite}", flush=True)
+    if not finite:
+        raise AssertionError("bank long video: trajectories not finite")
+    check_no_launches("bank phase after K1's reference")
+
+
+# one rank of phase mp: python -c MP_RANK OUT_DIR ARGS...; the CLI's stdout
+# goes to OUT_DIR/rank_<FGVC_PROCESS_ID or single>.txt, then K1's launches
+MP_RANK = """
+import contextlib, os, sys
+from fgvc_tpu_torch.cli.test import main
+from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+out_dir, argv = sys.argv[1], sys.argv[2:]
+rank = os.environ.get("FGVC_PROCESS_ID", "single")
+with open(os.path.join(out_dir, f"rank_{rank}.txt"), "w") as f, contextlib.redirect_stdout(f):
+    main(argv + ["--output-dir", os.path.join(out_dir, f"out_{rank}")])
+    print("K1_LAUNCHES", k1.launches)
+"""
+MP_TIMEOUT_S = 300
+
+
+def run_mp(data_root, record):
+    """Phase mp: python -m fgvc_tpu_torch.cli.test --task davis on the e2e
+    pickles as one process, then as two ranks started by
+    python -m fgvc_tpu_torch.cli.launch --nprocs 2 (a gloo group on
+    localhost; both ranks on this card): each rank prints metrics equal to
+    the single process's, rank 1 writes no output directory, and the ranks'
+    K1 launches add up to the single process's; wall times of both."""
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+
+    expect = frames_propagated(TapVidDataset(data_root))
+    args = ["--task", "davis", "--data-root", data_root]
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mp_") as out:
+        for label, prefix in (("one process", []),
+                              ("two ranks", ["-m", "fgvc_tpu_torch.cli.launch", "--nprocs", "2",
+                                             "--", sys.executable])):
+            t0 = time.time()
+            proc = subprocess.run([sys.executable, *prefix, "-c", MP_RANK, out, *args], cwd=ROOT,
+                                  capture_output=True, text=True, timeout=MP_TIMEOUT_S)
+            runs[label] = time.time() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"mp {label}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        results = {}
+        for rank in ("single", "0", "1"):
+            with open(os.path.join(out, f"rank_{rank}.txt")) as f:
+                text = f.read()
+            results[rank] = (json.loads(text[text.index("{\n"):text.rindex("}") + 1]),
+                             int(text.rsplit("K1_LAUNCHES", 1)[1]))
+        wrote = {rank: os.path.isdir(os.path.join(out, f"out_{rank}")) for rank in ("0", "1")}
+    launches = [results[r][1] for r in ("single", "0", "1")]
+    print(f"mp davis: wall {runs['two ranks']:.2f} s for two ranks on one card against "
+          f"{runs['one process']:.2f} s for one process (process start, model build and data "
+          f"reading included); K1 launches single {launches[0]}, rank 0 {launches[1]}, rank 1 "
+          f"{launches[2]}; output directory written by rank 0 {wrote['0']}, rank 1 "
+          f"{wrote['1']}", flush=True)
+    for rank in ("0", "1"):
+        if results[rank][0] != results["single"][0]:
+            raise AssertionError(f"mp rank {rank}: metrics {results[rank][0]} differ from one "
+                                 f"process's {results['single'][0]}")
+    if launches[0] != expect or launches[1] + launches[2] != expect:
+        raise AssertionError(f"mp: K1 launches {launches}, expected {expect} in all")
+    if not wrote["0"] or wrote["1"]:
+        raise AssertionError(f"mp: output directories written {wrote}; only rank 0 writes")
+    _add_launches(record, launches[1] + launches[2])
+    print(f"mp davis: both ranks' metrics equal one process's: <D "
+          f"{results['single'][0]['average_pts_within_thresh']:.6f}", flush=True)
+
 TRAIN_STEPS = 8           # full-width steps of phase train (a)
 TRAIN_PROFILED = 3        # steps under torch.profiler
 TRAIN_LOSS_RTOL = 1e-4    # (b) card against CPU, 'highest'
@@ -3043,7 +3304,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,"
                                         "modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,"
-                                        "profile,serve,export,doctor,train,propmodes")
+                                        "profile,serve,export,doctor,train,propmodes,dp,bank,"
+                                        "mp")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -3126,7 +3388,7 @@ def main():
     e2e_metrics = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_root:
         if {"e2e", "plain", "raft", "decode", "modes", "sp", "profile", "zoo",
-                "serve", "propmodes"} & set(phases):
+                "serve", "propmodes", "dp", "bank", "mp"} & set(phases):
             make_tapvid_pickles(data_root)
         if "e2e" in phases:
             phase("e2e")
@@ -3201,6 +3463,15 @@ def main():
         if "propmodes" in phases:
             phase("propmodes")
             run_propmodes(data_root, card_name)
+        card = torch.device("cuda", torch.cuda.current_device())
+        for name, run in (("dp", lambda: run_dp(data_root, records, card)),
+                          ("bank", lambda: run_bank(data_root, card)),
+                          ("mp", lambda: run_mp(data_root, records["K1_circle"]))):
+            if name in phases:
+                phase(name)
+                t_phase = time.time()
+                run()
+                print(f"{name} phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
     if "export" in phases:
         phase("export")
         run_export(records)

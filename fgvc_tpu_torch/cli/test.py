@@ -11,6 +11,8 @@ and DAVIS-2017 VOS.
         [--max-videos N] [--output-dir DIR] \
         [--config cfg.json] [--input-size N] \
         [--precision highest|high|default] [--spatial-devices S] \
+        [--local-devices G] [--bank-devices N] \
+        [--coordinator HOST:PORT --num-processes N --process-id I] \
         [--attention-impl pallas|tiled|dense|c2f|flow_guided] \
         [--topk-impl exact|segmented|certified|approx] \
         [--device cuda|cpu] [--profile LOGDIR]
@@ -30,6 +32,19 @@ JSON.  Runs on the CUDA card unless --device cpu is given.  --profile
 writes a torch.profiler trace of the whole run
 (LOGDIR/trace.json, with the harness's propagate[i] and collect[i] spans and
 the CUDA kernels).
+
+The scaling axes: --local-devices G round-robins whole videos over G cards
+(with --spatial-devices S: G groups of S cards each); --spatial-devices S
+shards each frame's query rows; --bank-devices N shards the feature bank's
+frames (--attention-impl tiled only).  With --device cpu a count means that
+many copies of the CPU.  Several processes, started by
+
+    python -m fgvc_tpu_torch.cli.launch --nprocs N -- python -m fgvc_tpu_torch.cli.test ...
+
+(or given --coordinator, --num-processes and --process-id each), join a gloo
+group, evaluate the videos [rank::world] and print the metrics of all of
+them; only rank 0 writes --output-dir.  Without device flags rank r runs on
+cuda:{r % device count}.
 """
 
 import argparse
@@ -138,8 +153,34 @@ def main(argv=None):
         default=None,
         help="spatial-parallel propagation: shard each frame's query rows "
              "over the first S cards (with --device cpu: S row blocks on "
-             "the CPU)",
+             "the CPU). With --local-devices G: G video groups x S-way row "
+             "sharding (needs G*S cards)",
     )
+    parser.add_argument(
+        "--local-devices",
+        type=int,
+        default=None,
+        help="single-process data-parallel eval over N cards (videos "
+             "round-robin; all five tasks; with --device cpu: N copies of the CPU)",
+    )
+    parser.add_argument(
+        "--bank-devices",
+        type=int,
+        default=None,
+        help="bank-parallel propagation: shard the feature bank's FRAMES "
+             "over N cards (memory scaling for long videos; distributed exact "
+             "top-k). attention_impl 'tiled' only; exclusive with "
+             "--spatial-devices and --local-devices",
+    )
+    parser.add_argument(
+        "--coordinator",
+        default=None,
+        help="multi-process: HOST:PORT of rank 0's gloo rendezvous (videos "
+             "shard rank::world; results allgather before scoring); "
+             "cli.launch sets it through FGVC_COORDINATOR",
+    )
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where the tracker runs (the counterpart of "
                              "fgvc_tpu's --platform)")
@@ -151,10 +192,25 @@ def main(argv=None):
     )
     args = parser.parse_args(argv)
 
+    from fgvc_tpu_torch.parallel import dist
+
+    # before anything touches a card
+    dist.initialize_from_flags(args.coordinator, num_processes=args.num_processes,
+                               process_id=args.process_id)
+    try:
+        _run(args)
+    finally:
+        dist.finalize()
+
+
+def _run(args):
     import dataclasses
+
+    import torch
 
     from fgvc_tpu_torch.apis.test import TASK_CONFIGS, run_task
     from fgvc_tpu_torch.config import config_from_file
+    from fgvc_tpu_torch.parallel.dist import process_info
     from fgvc_tpu_torch.utils.profiler import trace
 
     base = TASK_CONFIGS[args.task]
@@ -179,6 +235,11 @@ def main(argv=None):
         overrides["visibility_mode"] = args.visibility_mode
     if args.visibility_threshold is not None:
         overrides["visibility_threshold"] = args.visibility_threshold
+    device = args.device
+    rank, world = process_info()
+    if (world > 1 and device == "cuda" and torch.cuda.is_available()
+            and not (args.local_devices or args.spatial_devices or args.bank_devices)):
+        device = f"cuda:{rank % torch.cuda.device_count()}"
     with trace(args.profile):
         results = run_task(
             args.task,
@@ -188,8 +249,10 @@ def main(argv=None):
             max_videos=args.max_videos,
             output_dir=args.output_dir,
             test_cfg=dataclasses.replace(base, **overrides),
-            device=args.device,
+            device=device,
             spatial_devices=args.spatial_devices,
+            local_devices=args.local_devices,
+            bank_devices=args.bank_devices,
             query_mode=args.query_mode,
             backbone=args.backbone,
             model=args.model,

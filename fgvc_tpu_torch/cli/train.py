@@ -10,8 +10,9 @@ Settings layer as in the JAX CLI: TrainConfig defaults, then --config (a
 JSON object of TrainConfig fields), then explicit flags.  Runs on the CUDA
 card unless --device cpu is given.  Real YouTube-VOS / FlyingThings3D data
 (--ytv-root, --flyingthings-root), multi-process runs (--coordinator,
---num-processes, --process-id) and --platform tpu are refused with the
-reason.
+--num-processes, --process-id, or a rank of cli.launch) and --platform tpu
+are refused with the reason: DDP training is not ported, though the eval
+CLI runs several processes (parallel/dist.py).
 """
 
 import argparse
@@ -121,7 +122,7 @@ def main(argv=None):
         cfg,
         data_roots=() if args.synthetic else (args.ytv_root, args.flyingthings_root),
         multi_process=bool(args.coordinator or (args.num_processes or 1) > 1
-                           or args.process_id),
+                           or args.process_id or os.environ.get("FGVC_COORDINATOR")),
     )
     resolve_device(device)  # no card and no --device cpu: refuse before any work
 

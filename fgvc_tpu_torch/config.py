@@ -190,7 +190,8 @@ def check_train_ported(cfg: TrainConfig, *, data_roots=(), multi_process: bool =
     if multi_process:
         raise NotImplementedError(
             "multi-process training (DDP + SyncBN) is not ported to "
-            "fgvc_tpu_torch yet (ROADMAP.md item 31); run one process"
+            "fgvc_tpu_torch yet (ROADMAP.md item 31); run one process (only the "
+            "eval CLI, fgvc_tpu_torch.cli.test, runs several)"
         )
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(

@@ -57,6 +57,17 @@ after another on its current stream, so one card listed S times runs the
 same path as S cards.  Feature extraction splits each 16-frame chunk over
 the distinct devices.
 
+Bank-parallel propagation (`bank_devices`, the JAX Tracker's `bank_mesh`;
+attention_impl 'tiled' only): the bank's frames are cut into n contiguous
+shards of ceil(T / n) frames, one per listed device, and each device
+extracts, normalises and pads only its own frames (16 a chunk), so no device
+holds the whole bank; shards past the video are zeros.  Each frame's query
+comes from its owner shard, the value ring stays on the primary, and the
+attention takes each shard's local top-k on its device and merges them on the
+primary (ops/windowed_attention.py
+masked_topk_attention_tiled_bank_sharded).  As with spatial devices, one card
+listed n times runs the path of n cards.
+
 `track_points_forward` tracks points by forward-warping a coordinate map
 instead (the reference's HRVanillaTracker forward_test_forward).
 
@@ -140,12 +151,17 @@ def decode_labels(logits: torch.Tensor, full_hw: Tuple[int, int]) -> torch.Tenso
     return upsample(logits, full_hw).argmax(0).to(torch.int32)
 
 
-def _full_device(device: Union[str, torch.device]) -> torch.device:
+def full_device(device: Union[str, torch.device]) -> torch.device:
     """A device with its index: 'cuda' names the current card."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _check_video(video: np.ndarray) -> None:
+    if video.dtype != np.uint8 or video.ndim != 4:
+        raise ValueError(f"expected (T, H, W, 3) uint8 frames, got {video.dtype} {video.shape}")
 
 
 def _bucket(x: int, m: int) -> int:
@@ -163,14 +179,39 @@ class Tracker:
       device: where the backbone, the bank and the attention run.
       spatial_devices: S devices for spatial-parallel propagation, one row
         block each (repeats allowed); the first must be `device`.
+      bank_devices: n devices for bank-parallel propagation, one frame shard
+        each (repeats allowed); the first must be `device`.
     """
 
     def __init__(
         self, backbone: nn.Module, cfg: TestConfig, device: torch.device,
         spatial_devices: Optional[Sequence[Union[str, torch.device]]] = None,
+        bank_devices: Optional[Sequence[Union[str, torch.device]]] = None,
     ):
-        self.device = _full_device(device)
-        self.spatial_devices = None
+        self.device = full_device(device)
+        self.spatial_devices = self.bank_devices = None
+        if spatial_devices is not None and bank_devices is not None:
+            raise ValueError(
+                "spatial_devices and bank_devices are separate scaling axes; "
+                "pass at most one (composition is not implemented)"
+            )
+        if bank_devices is not None:
+            # fgvc_tpu's checks and messages, before check_ported as there
+            if cfg.attention_impl != "tiled":
+                raise ValueError(
+                    "bank-parallel propagation supports attention_impl "
+                    f"'tiled', not {cfg.attention_impl!r}"
+                )
+            if cfg.topk is None:
+                raise ValueError("bank-parallel propagation requires topk")
+            if not cfg.with_first_neighbor:
+                raise ValueError("bank-parallel propagation requires with_first_neighbor")
+            if cfg.save_mem:
+                raise ValueError(
+                    "bank_devices shards the feature BANK; save_mem streaming "
+                    "keeps no bank (use spatial_devices there instead)"
+                )
+            self.bank_devices = self._device_list(bank_devices, "bank_devices")
         if spatial_devices is not None:
             # checked before check_ported: JAX refuses these with ValueError
             if cfg.attention_impl not in ("pallas", "tiled"):
@@ -182,26 +223,14 @@ class Tracker:
                 raise ValueError(
                     "spatial-parallel propagation requires with_first_neighbor"
                 )
-            devs = [torch.device(d) for d in spatial_devices]
-            if not devs:
-                raise ValueError("spatial_devices is empty")
-            if len({d.type for d in devs}) > 1:
-                raise ValueError(
-                    f"spatial_devices mixes device types: {[str(d) for d in devs]}"
-                )
-            devs = [_full_device(d) for d in devs]
-            if devs[0] != self.device:
-                raise ValueError(
-                    f"the first of spatial_devices ({devs[0]}) must be the "
-                    f"tracker's device ({self.device})"
-                )
-            self.spatial_devices = devs
+            self.spatial_devices = self._device_list(spatial_devices, "spatial_devices")
         check_ported(cfg)
         set_matmul_precision(cfg.matmul_precision)
         self.cfg = cfg
         self.backbone = backbone.to(self.device).eval()
         # each distinct device, the primary first, with its backbone replica
-        self.devices = list(dict.fromkeys(self.spatial_devices or [self.device]))
+        self.devices = list(dict.fromkeys(
+            self.spatial_devices or self.bank_devices or [self.device]))
         self.backbones = {
             dev: self.backbone if dev == self.device else copy.deepcopy(self.backbone).to(dev)
             for dev in self.devices
@@ -216,6 +245,21 @@ class Tracker:
         self.tile = cfg.tile if cfg.attention_impl == "tiled" else min(cfg.tile, 16)
         self.compute_dtype = pallas_compute_dtype(cfg.matmul_precision)
         self.preprocess = preprocess_fn(cfg.preprocess)
+
+    def _device_list(self, devices, name: str) -> List[torch.device]:
+        """`devices` with their indices: one type, the tracker's device
+        first."""
+        devs = [torch.device(d) for d in devices]
+        if not devs:
+            raise ValueError(f"{name} is empty")
+        if len({d.type for d in devs}) > 1:
+            raise ValueError(f"{name} mixes device types: {[str(d) for d in devs]}")
+        devs = [full_device(d) for d in devs]
+        if devs[0] != self.device:
+            raise ValueError(
+                f"the first of {name} ({devs[0]}) must be the tracker's device ({self.device})"
+            )
+        return devs
 
     # ------------------------------------------------------------------ #
     # features and bank
@@ -238,10 +282,7 @@ class Tracker:
         device; preprocessing runs on the device too.  Each 16-frame chunk is
         split over the distinct devices (frame-parallel, the JAX Tracker's
         sharded upload) and gathered on the primary."""
-        if video.dtype != np.uint8 or video.ndim != 4:
-            raise ValueError(
-                f"expected (T, H, W, 3) uint8 frames, got {video.dtype} {video.shape}"
-            )
+        _check_video(video)
         parts = []
         for i in range(0, video.shape[0], EXTRACT_CHUNK):
             chunk = video[i : i + EXTRACT_CHUNK]
@@ -411,7 +452,10 @@ class Tracker:
         'pallas' (K1) and 'tiled' read the slots' frames from the padded
         bank at global indices; 'flow_guided' attends around the window's
         chained flows; the other modes take attention_step over the
-        normalised features."""
+        normalised features.  With bank devices `bank` is the list of frame
+        shards, and propagate_bank runs the group."""
+        if self.bank_devices is not None:
+            return self.propagate_bank(bank, t0, length, first, emit, mask_shape)
         cfg = self.cfg
         h, w = first.shape[:2]
         radius = float(self.radius)
@@ -450,6 +494,41 @@ class Tracker:
                     bank[t0 + t], torch.stack([bank[t0 + i] for i in idx]), values, valid,
                     mask_shape, pre_normalized=cfg.with_norm,
                 )
+            buf = buf[1:] + [self.bank_entry(seg)]
+            outs.append(emit(seg))
+        return outs
+
+    def propagate_bank(
+        self,
+        shards: List[torch.Tensor],  # bank_shards: frames [i * Ts, (i + 1) * Ts) each
+        t0: int,
+        length: int,
+        first: torch.Tensor,
+        emit: Callable[[torch.Tensor], torch.Tensor],
+        mask_shape: str = "circle",
+    ) -> List[torch.Tensor]:
+        """Bank-parallel propagation (the JAX _scan_propagate_bank): frames are
+        addressed globally from t0 and never sliced out of the shards; each
+        frame's query is read from the shard that owns it, and its attention
+        merges the shards' top-k (masked_topk_attention_tiled_bank_sharded);
+        the value ring stays on the primary."""
+        cfg = self.cfg
+        h, w = first.shape[:2]
+        halo = int(self.radius)
+        Ts = shards[0].shape[0]
+        shard_lo = [i * Ts for i in range(len(shards))]
+        buf = [first] * cfg.precede_frames
+        outs = []
+        for t in range(1, length):
+            idx, valid = self.window_indices(t, length)
+            g = t0 + t
+            query = shards[g // Ts][g % Ts, halo:halo + h, halo:halo + w].to(self.device)
+            seg = windowed_attention.masked_topk_attention_tiled_bank_sharded(
+                query, shards, torch.stack([first, *buf]), frame_idx=[t0 + i for i in idx],
+                shard_lo=shard_lo, key_valid=valid, radius=float(self.radius),
+                temperature=cfg.temperature, topk=cfg.topk, tile=self.tile,
+                mask_shape=mask_shape, precision=cfg.matmul_precision,
+            )
             buf = buf[1:] + [self.bank_entry(seg)]
             outs.append(emit(seg))
         return outs
@@ -609,14 +688,48 @@ class Tracker:
             outs.append(emit(seg))
         return outs
 
-    def video_bank(self, feats: torch.Tensor):
-        """The bank `propagate` reads (build_bank), or with spatial devices
-        the bank over-padded to the row blocks' grid, per distinct device,
-        that `propagate_sp` reads."""
+    def video_bank(self, video: np.ndarray, feats: Optional[torch.Tensor] = None):
+        """What the propagation reads for a video, and its feature grid (h, w):
+        build_bank of its features (extracted here unless `feats` are given);
+        with spatial devices that bank over-padded to the row blocks' grid,
+        per distinct device, that `propagate_sp` reads; with bank devices its
+        frame shards (bank_shards)."""
+        if self.bank_devices is not None:
+            return self.bank_shards(video, feats)
+        if feats is None:
+            feats = self.extract_features(video)
+        hw = tuple(feats.shape[1:3])
         if self.spatial_devices is None:
-            return self.build_bank(feats)
-        gridH = self.row_blocks(feats.shape[1])[1]
-        return self.replicate(self.build_bank(feats, grid_rows=gridH))
+            return self.build_bank(feats), hw
+        gridH = self.row_blocks(hw[0])[1]
+        return self.replicate(self.build_bank(feats, grid_rows=gridH)), hw
+
+    @torch.no_grad()
+    def bank_shards(self, video: np.ndarray, feats: Optional[torch.Tensor] = None):
+        """The bank born sharded, and the feature grid (h, w): shard i holds
+        frames [i * Ts, (i + 1) * Ts), Ts = ceil(T / n), normalised and
+        halo-padded (build_bank) on bank_devices[i], which extracts them
+        itself, 16 frames a call (or takes them from `feats`); a shard past
+        the video is zeros.  A device's high-water mark is its shard and one
+        chunk, never the whole bank."""
+        if feats is None:
+            _check_video(video)
+        T = len(video) if feats is None else feats.shape[0]
+        Ts = -(-T // len(self.bank_devices))
+        shards, hw = [], None
+        for i, dev in enumerate(self.bank_devices):
+            lo, hi = i * Ts, min(T, (i + 1) * Ts)
+            shard = None
+            for j in range(lo, hi, EXTRACT_CHUNK):
+                k = min(hi, j + EXTRACT_CHUNK)
+                f = self.features_on(video[j:k], dev) if feats is None else feats[j:k].to(dev)
+                hw = hw or tuple(f.shape[1:3])
+                b = self.build_bank(f)
+                if shard is None:
+                    shard = b.new_zeros((Ts, *b.shape[1:]))
+                shard[j - lo:k - lo] = b
+            shards.append(shard if shard is not None else torch.zeros_like(shards[0], device=dev))
+        return shards, hw
 
     def track_group(
         self, bank, t0: int, length: int, pts: torch.Tensor,
@@ -652,10 +765,7 @@ class Tracker:
         """Queue the whole forward test on the device; `track_points_collect`
         reads the results, once per group."""
         T, H, W, _ = video.shape
-        if feats is None:
-            feats = self.extract_features(video)
-        feat_hw = tuple(feats.shape[1:3])
-        bank = self.video_bank(feats)
+        bank, feat_hw = self.video_bank(video, feats)
         del feats  # the bank holds every frame (a 250-frame video's features are 4.2 GB)
         qt = query_points[:, 0].astype(np.int64)
         pending = []
@@ -767,10 +877,7 @@ class Tracker:
         """Queue heatmap propagation on the device (square window: K1, or K4
         with spatial devices); `track_heatmaps_collect` reads the
         coordinates."""
-        if feats is None:
-            feats = self.extract_features(video)
-        h, w = feats.shape[1:3]
-        bank = self.video_bank(feats)
+        bank, (h, w) = self.video_bank(video, feats)
         del feats  # the bank holds every frame
         maps = torch.from_numpy(np.ascontiguousarray(ref_maps, np.float32)).to(self.device)
         propagate = self.propagate if self.spatial_devices is None else self.propagate_sp
@@ -817,10 +924,7 @@ class Tracker:
             f0 = self.extract_features(video[:1])[0]   # frame 0 at batch 1
             h, w = f0.shape[:2]
         else:
-            feats = self.extract_features(video)
-            h, w = feats.shape[1:3]
-            bank = self.video_bank(feats)
-            del feats  # the bank holds every frame; free the unpadded copy
+            bank, (h, w) = self.video_bank(video)
         labels = torch.from_numpy(np.asarray(ref_mask, np.int32)).to(self.device)
         small = resize_labels(labels, (h, w))
         # one-hot as jax.nn.one_hot: a label above num_objects maps to zeros

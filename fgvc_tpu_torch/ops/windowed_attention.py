@@ -35,6 +35,9 @@ topk_impl (the top-k of mode 'softmax'):
   'approx'     the top-k values by approx_max_k (exact here too), every
                affinity at or above the k-th value weighted, no tie split.
 Their TPU-only approximation (recall 0.95) has no counterpart on the card.
+
+`masked_topk_attention_tiled_bank_sharded` runs bank mode over a bank cut
+into frame shards on several devices (bank-parallel propagation).
 """
 
 from __future__ import annotations
@@ -226,6 +229,117 @@ def _mix(aff, v, topk, mode, topk_impl):
         cand = torch.topk(aff, min(max(32, 2 * topk), aff.shape[-1]), dim=-1).values
         return gather_free_value_matmul(aff, cand[..., :topk], v)
     return _approx_value_matmul(aff, torch.topk(aff, topk, dim=-1).values, v)
+
+
+def masked_topk_attention_tiled_bank_sharded(
+    query: torch.Tensor,
+    bank_shards: Sequence[torch.Tensor],
+    value: torch.Tensor,
+    *,
+    frame_idx: Sequence[int],
+    shard_lo: Sequence[int],
+    radius: float,
+    temperature: float = 1.0,
+    topk: int = 10,
+    tile: int = 32,
+    mask_shape: str = "circle",
+    key_valid: Optional[Sequence[bool]] = None,
+    precision: str = "highest",
+) -> torch.Tensor:
+    """Bank mode of `masked_topk_attention_tiled` over a bank cut into
+    contiguous frame shards, each on its own device (fgvc_tpu's
+    masked_topk_attention_tiled_bank_sharded, whose three collectives per
+    query tile become explicit moves): (H, W, Cv) on the query's device, the
+    primary.
+
+    query (H, W, C), pre-normalised, and value (Twin, H, W, Cv) on the
+    primary; bank_shards[i] (Tl_i, gridH + 2 * halo, Wp + 2 * halo, C), a
+    piece of the pad_key_bank output holding global frames shard_lo[i] ..
+    shard_lo[i] + Tl_i - 1, on any device (one may be listed more than once);
+    frame_idx the window slots' global frames.  For each piece of query
+    tiles:
+      1. each shard takes the affinities of the valid slots it owns (a slot
+         it does not own is -inf on it in fgvc_tpu, which changes no result)
+         and their top-k values on its device, padded with -inf where it
+         holds fewer than k live columns;
+      2. the lists, copied to the primary, give the global top-k values
+         there, and from them the softmax's max and normaliser and the
+         threshold (the k-th value);
+      3. the count of affinities at the threshold is summed over the shards,
+         so the tie split of `gather_free_value_matmul` is global;
+      4. each shard mixes its values with those weights on its device, and
+         the partial mixes are summed on the primary in shard order, so a
+         run repeats itself bit for bit.
+    The result equals the unsharded call with topk_impl 'segmented' or
+    'certified' up to the partial sums' order (like fgvc_tpu's sharded op,
+    which ignores topk_impl); it leaves 'exact' where distinct keys tie at the
+    k-th value (the tie split against lax.top_k's lowest index)."""
+    if topk is None:
+        raise ValueError("bank-sharded attention requires topk")
+    if len(bank_shards) != len(shard_lo):
+        raise ValueError(f"{len(bank_shards)} bank shards but {len(shard_lo)} shard_lo")
+    H, W, _ = query.shape
+    Twin, Cv = value.shape[0], value.shape[-1]
+    primary = query.device
+    frames = [int(f) for f in frame_idx]
+    valid = frame_mask(key_valid, Twin)
+    # each shard's owned valid slots: (slot, frame within the shard)
+    owned = [[(s, f - lo) for s, f in enumerate(frames)
+              if valid[s] and lo <= f < lo + bank.shape[0]]
+             for bank, lo in zip(bank_shards, shard_lo)]
+    devices = list(dict.fromkeys([primary] + [b.device for b in bank_shards]))
+    geo = {d: TileGeometry(H, W, tile, radius, mask_shape, device=d) for d in devices}
+    g = geo[primary]
+    win, S = g.win, g.S
+    qo = operand(g.pad_query(query), precision, "q")
+    vpad = g.pad_values(value)
+    qos = {d: qo.to(d) for d in devices}
+    vpads = {d: vpad.to(d) for d in devices}
+    per_call = max(1, min(g.ntw, TILE_BUDGET // (S * Twin * win * win)))
+    out = torch.zeros((g.nth, g.ntw, S, Cv), dtype=torch.float32, device=primary)
+    for i in range(g.nth):
+        r = i * tile
+        for c0 in range(0, g.ntw, per_call):
+            n = min(per_call, g.ntw - c0)
+            cols = slice(c0 * tile, None)
+            parts, lists = [], []
+            for bank, own in zip(bank_shards, owned):
+                if not own:  # its list would be all -inf
+                    continue
+                d = bank.device
+                q = qos[d][r:r + tile, c0 * tile:(c0 + n) * tile]
+                q = q.reshape(tile, n, tile, -1).transpose(0, 1).reshape(n, S, -1)
+                k = torch.cat([_windows(bank[lf][:, cols], r, n, tile, win) for _, lf in own], 1)
+                v = torch.cat([_windows(vpads[d][s][:, cols], r, n, tile, win) for s, _ in own], 1)
+                aff = affinity(q, operand(k, precision, "k")) / temperature
+                tc = torch.arange(c0, c0 + n, device=d) * tile
+                allowed = geo[d].allowed(torch.full_like(tc, r), tc)
+                aff.view(n, S, len(own), win * win).masked_fill_(~allowed[:, :, None, :], NINF)
+                kk = min(topk, aff.shape[-1])
+                w_loc = F.pad(torch.topk(aff, kk, dim=-1).values, (0, topk - kk), value=NINF)
+                lists.append(w_loc.to(primary))
+                parts.append((aff, v))
+            if not parts:  # no valid slot: nothing weighs in
+                continue
+            w10 = torch.topk(torch.cat(lists, -1), topk, dim=-1).values
+            m = torch.clamp_min(w10.amax(-1, keepdim=True), -1e30)
+            thresh = torch.clamp_min(w10.amin(-1, keepdim=True), -1e30)
+            z = torch.exp(w10 - m).sum(-1, keepdim=True) + 1e-30
+            n_sel = (w10 == thresh).float().sum(-1, keepdim=True)
+            n_at = 0.0
+            for aff, _ in parts:
+                n_at = n_at + (aff == thresh.to(aff.device)).float().sum(-1, keepdim=True).to(primary)
+            tie_frac = torch.where(n_at > 0, n_sel / torch.clamp_min(n_at, 1.0), 0.0)
+            mix = 0.0
+            for aff, v in parts:
+                d = aff.device
+                th = thresh.to(d)
+                weights = (torch.exp(aff - m.to(d))
+                           * ((aff > th).float() + tie_frac.to(d) * (aff == th).float()) / z.to(d))
+                mix = mix + (weights @ v).to(primary)
+            out[i, c0:c0 + n] = mix
+    out = out.reshape(g.nth, g.ntw, tile, tile, Cv).permute(0, 2, 1, 3, 4)
+    return out.reshape(g.Hp, g.Wp, Cv)[:H, :W]
 
 
 def pad_key_bank(bank: torch.Tensor, radius: float, tile: int = 32,
