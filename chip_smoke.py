@@ -2,8 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (fgvc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,
-                                    modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,profile,
-                                    serve,export,doctor,train,propmodes,dp,bank,mp]
+                                    codecs,modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,
+                                    profile,serve,export,doctor,train,propmodes,dp,bank,mp]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -94,6 +94,27 @@ Phases, each of which raises on failure (exit code != 0):
             with the propagation forced through the plain versions on the
             card: label maps agree with the kernels' on >= 99.999% of pixels
             and J&F-Mean within 1e-4;
+  codecs    the host codec library (fgvc_tpu_torch/csrc/fgpack.cpp, g++, no
+            nvcc): (a) built, with g++'s version and the build seconds; (b)
+            seeded 256 x 256 and 480 x 854 frames (integer arithmetic only,
+            the same bytes on every machine) encoded at quality 95 and
+            decoded: the sha256 of the bytes and of the pixels must equal
+            the constants CODEC_PINS, which tests/test_torch_port_codecs.py
+            holds to cv2's encode and PIL's decode (libjpeg); (c) host ms a
+            480 x 854 frame for JPEG decode on one thread and on
+            os.cpu_count() threads, encode, palette and RGB PNG decode and
+            I420, and FgPack.read_batch's MB/s over a 250-frame 256 x 256
+            JPEG pack in both layouts; (d) a DAVIS tree written by the port's
+            encoders (24 JPEG frames at 480 x 854, palette PNG annotations):
+            run_task('vos') through K1 square, its J&F equal to eval_vos's on
+            the tree's files and on the decoded arrays in memory, label maps
+            equal; a TAP-Vid pickle of JPEG bytes (the e2e videos encoded):
+            run_task('davis') through K1 circle, metrics equal to a uint8
+            pickle of the same decoded frames; (e) upload_format 'yuv420'
+            on the e2e pickles: K1 launches as many as 'rgb' (one per frame
+            propagated), <D and the bytes uploaded beside 'rgb''s; then an
+            8-frame 128 x 128 cut, card against CPU: median |diff| <= 1e-3
+            px;
   modes     K3 end to end: run_task('davis') on the e2e pickles with
             matmul_precision 'highest', 'high' and 'default', and eval_vos on
             one synthetic VOS video, banked and save_mem, in the same three;
@@ -126,18 +147,17 @@ Phases, each of which raises on failure (exit code != 0):
             median |diff| <= 1e-3 px, and K1's device ms per launch;
   jhmdb     run_task('jhmdb') on a JHMDB tree (val_list.txt, PNG frames
             written with zlib, a .mat of pos_img per video through
-            scipy.io) of two 40-frame 240 x 320 videos with 15 joints; the
-            frames come through a replaced read_image (the card's machine
-            has no PNG decoder yet), the one part that differs from a real
-            run.  K1 (square, 160 x 160, 15 values) launches one per frame
+            scipy.io) of two 40-frame 240 x 320 videos with 15 joints, read
+            from the files by the port's PNG decoder.  K1 (square, 160 x
+            160, 15 values) launches one per frame
             propagated; PCK@0.1-0.5 finite; then video 0 through K1 and
             through the plain version: median |diff| <= 1e-3 px, both PCKs
             printed, K1's device ms per launch;
   badja     the same for run_task('badja') on one 60-frame video with
-            frames at 1080 x 1920 (resized to 320 x 512 by the reader), 20
-            joints annotated on every 5th frame and palette segmentations
-            expanded to BGR as cv2 reads them (K1 square, 160 x 256, 20
-            values);
+            JPEG frames at 1080 x 1920 (written by the port's encoder,
+            resized to 320 x 512 by the reader), 20 joints annotated on every
+            5th frame and palette PNG segmentations expanded to BGR as cv2
+            reads them (K1 square, 160 x 256, 20 values);
   sp        spatial-parallel propagation (--spatial-devices) on this card
             listed S times: run_task('davis') on the e2e pickles at S = 2,
             whose trajectories equal the unsharded tracker's (<= 1e-6 px) and
@@ -364,6 +384,32 @@ JHMDB_CV, JHMDB_T, JHMDB_VIDEOS, JHMDB_ORIG = 15, 40, 2, (240, 320)
 # BADJA: (320, 512) input (160 x 256 features), 20 joints, frames at 1080 x 1920
 BADJA_H, BADJA_W = 160, 256
 BADJA_CV, BADJA_T, BADJA_EVERY, BADJA_ORIG = 20, 60, 5, (1080, 1920)
+# phase codecs: the cross-machine pins, sha256 of the JPEG bytes at quality
+# CODEC_PIN_QUALITY and of the decoded pixels of codec_pin_frame(h, w), as
+# cv2.imencode and PIL (libjpeg) give them (tests/test_torch_port_codecs.py)
+CODEC_PIN_SHAPES = ((256, 256), (480, 854))
+CODEC_PIN_QUALITY = 95
+CODEC_PINS = {
+    "256x256": ("01b56f06e3977f522d57240f79cf07953f4946b00fa7515dd234882e95a8fa8c",
+                "9a3379767225c1d0bae25dc39488791cd687d4652ad50d4b512920dce4759f46"),
+    "480x854": ("b958cb89e2a1572179deeb3ef5781e6028988c5679a21776e8bbb62756d4fbb7",
+                "c47cc3e4d1c24e7284fde1d891b1984f2643f3251397274d6185233c85b0523d"),
+}
+CODEC_HW, CODEC_FRAMES = (480, 854), 24     # host codec times: a VOS video's frames
+PACK_FRAMES, PACK_HW = 250, (256, 256)      # FgPack.read_batch MB/s
+
+
+def codec_pin_frame(h, w, seed=0):
+    """A seeded (h, w, 3) uint8 frame made with integer arithmetic only, so
+    every machine makes the same bytes: 8 x 8 random cells, box-blurred over
+    9 x 9 pixels, plus noise in [-6, 6]."""
+    rng = np.random.default_rng(seed)
+    cells = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2, 3), dtype=np.int64)
+    up = np.repeat(np.repeat(cells, 8, axis=0), 8, axis=1)[:h + 8, :w + 8]
+    c = np.pad(up, ((1, 0), (1, 0), (0, 0))).cumsum(axis=0).cumsum(axis=1)
+    box = (c[9:h + 9, 9:w + 9] - c[:h, 9:w + 9] - c[9:h + 9, :w] + c[:h, :w]) // 81
+    noise = rng.integers(-6, 7, (h, w, 3))
+    return np.clip(box + noise, 0, 255).astype(np.uint8)
 # the zoo (--backbone) beside ResNet-18-d1, and the K1 shapes it brings:
 # record -> (entry, h, w, C, Cv, window) at TAP-Vid's 256 x 256 and VOS's
 # 480 x 880
@@ -377,8 +423,17 @@ ZOO_SHAPES = {
 }
 
 
+_PHASE = {"name": None, "t": 0.0}
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    """Print the phase's header, and the seconds the one before it took."""
+    now = time.time()
+    if _PHASE["name"] is not None:
+        print(f"-- {_PHASE['name']} took {now - _PHASE['t']:.1f} s", flush=True)
+    _PHASE.update(name=name, t=now)
+    if name is not None:
+        print(f"== {name}", flush=True)
 
 
 def card_info() -> str:
@@ -2093,7 +2148,8 @@ def run_export(records):
 
 def run_doctor():
     """Phase doctor: python -m fgvc_tpu_torch.cli.doctor --json exits 0 and
-    reports this card, nvcc and K1 against its plain version."""
+    reports this card, nvcc, K1 against its plain version and the host codec
+    library's JPEG round trip."""
     import torch
 
     t0 = time.time()
@@ -2108,8 +2164,9 @@ def run_doctor():
           f"{dev['first_op_s']} s; 1 MiB round trip {dev['transfer_MBps']} MB/s; build "
           f"{dev['build_s']} s; K1 vs plain {dev['k1']}; nvcc {nvcc.get('version')}; kernel "
           f"build {rep['checks']['kernel_build']['note']}; torch {rep['env']['torch']}, CUDA "
-          f"{rep['env']['cuda']}", flush=True)
-    if dev["name"] != torch.cuda.get_device_name(0) or not dev["k1"]["ok"] or not nvcc["ok"]:
+          f"{rep['env']['cuda']}; host codecs {rep['checks']['fgpack_native']}", flush=True)
+    if (dev["name"] != torch.cuda.get_device_name(0) or not dev["k1"]["ok"] or not nvcc["ok"]
+            or not rep["checks"]["fgpack_native"]["ok"]):
         raise AssertionError(f"doctor: unexpected report {rep}")
 
 def make_kinetics_pickle(root, T=KIN_T, orig=KIN_ORIG, n_tracks=KIN_TRACKS, seed=0):
@@ -2388,31 +2445,6 @@ def encode_png(path, img, palette=None):
         f.write(b"".join(parts))
 
 
-class ImageHook:
-    """Replaces the JHMDB and BADJA readers' read_image by a lookup of the
-    arrays this script wrote (the card's machine has no PNG or JPEG
-    decoder yet, ROADMAP.md item 43): the one part of a run that differs
-    from a real one."""
-
-    def __init__(self, images):
-        self.images = images
-
-    def read(self, path, flags="color"):
-        return self.images[(path, flags)]
-
-    def __enter__(self):
-        from fgvc_tpu_torch.datasets import badja, jhmdb
-
-        self.saved = jhmdb.read_image, badja.read_image
-        jhmdb.read_image = badja.read_image = self.read
-        return self
-
-    def __exit__(self, *exc):
-        from fgvc_tpu_torch.datasets import badja, jhmdb
-
-        jhmdb.read_image, badja.read_image = self.saved
-
-
 def _panning(rng, T, orig, speed):
     """(T, h, w, 3) frames of a texture panning by up to `speed` pixels a
     frame and the (T, 2) (x, y) offsets from frame 0."""
@@ -2425,10 +2457,10 @@ def _panning(rng, T, orig, speed):
     return frames, (off - off[0]).astype(np.float64)
 
 
-def make_jhmdb_tree(root, images, n_videos=JHMDB_VIDEOS, T=JHMDB_T, orig=JHMDB_ORIG, seed=0):
+def make_jhmdb_tree(root, n_videos=JHMDB_VIDEOS, T=JHMDB_T, orig=JHMDB_ORIG, seed=0):
     """A JHMDB tree: PNG frames (written with zlib), a .mat of 1-based
     pos_img (2, 15, T) per video through scipy.io.savemat (15 joints
-    following the pan), val_list.txt; each frame also into `images`."""
+    following the pan), val_list.txt."""
     import scipy.io as sio
 
     rng = np.random.default_rng(seed)
@@ -2440,7 +2472,6 @@ def make_jhmdb_tree(root, images, n_videos=JHMDB_VIDEOS, T=JHMDB_T, orig=JHMDB_O
         for t, frame in enumerate(frames):
             path = os.path.join(vdir, f"{t + 1:05d}.png")
             encode_png(path, frame)
-            images[(path, "color")] = frame
         # joints within 20 px of the centre: PCK@0.1 is about 3 px
         j0 = np.array([orig[1] / 2, orig[0] / 2]) + rng.uniform(-20, 20, (15, 2))
         pos = (j0[None] - off[:, None]).transpose(2, 1, 0)  # (2, 15, T) (x; y)
@@ -2454,13 +2485,16 @@ def make_jhmdb_tree(root, images, n_videos=JHMDB_VIDEOS, T=JHMDB_T, orig=JHMDB_O
 DAVIS_PALETTE = np.array([[0, 0, 0], [128, 0, 0], [0, 128, 0]] + [[0, 0, 0]] * 253, np.uint8)
 
 
-def make_badja_tree(root, images, T=BADJA_T, orig=BADJA_ORIG, every=BADJA_EVERY, seed=0):
-    """A BADJA tree for one animal: joint_annotations/<animal>.json (37 SMAL
+def make_badja_tree(root, T=BADJA_T, orig=BADJA_ORIG, every=BADJA_EVERY, seed=0):
+    """A BADJA tree for one animal: JPEG frames at quality 95 (the port's
+    encoder, one thread a frame), joint_annotations/<animal>.json (37 SMAL
     joints (y, x) following the pan, on every 5th frame and the last) and
     palette PNG segmentations (written with zlib; the animal an ellipse,
-    label 1, a second object label 2).  `images` gets each frame and each
-    segmentation as cv2.imread(IMREAD_UNCHANGED) reads it, expanded through
-    the palette to BGR; the JPEG frames are not written (no encoder here)."""
+    label 1, a second object label 2)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fgvc_tpu_torch.data_io.fgpack import encode_jpeg
+
     rng = np.random.default_rng(seed)
     animal = "dog"
     adir = os.path.join(root, "Annotations", "Full-Resolution", animal)
@@ -2471,16 +2505,22 @@ def make_badja_tree(root, images, T=BADJA_T, orig=BADJA_ORIG, every=BADJA_EVERY,
     yy, xx = np.mgrid[:h0, :w0]
     j0 = np.array([h0 / 2, w0 / 2]) + rng.uniform(-100, 100, (37, 2))  # (y, x), on the animal
     entries = []
+    jdir = os.path.join(root, "JPEGImages", "Full-Resolution", animal)
+    os.makedirs(jdir, exist_ok=True)
+
+    def write_jpeg(t):
+        with open(os.path.join(jdir, f"{t:05d}.jpg"), "wb") as f:
+            f.write(encode_jpeg(frames[t], 95))
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(write_jpeg, range(T)))
     for t in range(T):
-        img = os.path.join(root, f"JPEGImages/Full-Resolution/{animal}/{t:05d}.jpg")
         seg = os.path.join(adir, f"{t:05d}.png")
         cy, cx = h0 / 2 - off[t, 1], w0 / 2 - off[t, 0]
         # radii 120 x 180 px: PCK@0.1 is about 7 px at 320 x 512
         labels = (((yy - cy) / 120) ** 2 + ((xx - cx) / 180) ** 2 <= 1).astype(np.uint8)
         labels[:200, :300] = 2
         encode_png(seg, labels, DAVIS_PALETTE)
-        images[(img, "color")] = frames[t]
-        images[(seg, "unchanged")] = DAVIS_PALETTE[labels][..., ::-1]
         if t % every == 0 or t == T - 1:
             entries.append({
                 "image_path": f"badja/JPEGImages/Full-Resolution/{animal}/{t:05d}.jpg",
@@ -2493,8 +2533,8 @@ def make_badja_tree(root, images, T=BADJA_T, orig=BADJA_ORIG, every=BADJA_EVERY,
     return len(entries)
 
 
-def run_keypoints(task, root, images, record, n_frames, decode_hw):
-    """run_task(task) ('jhmdb' or 'badja') through ImageHook: K1 (square)
+def run_keypoints(task, root, record, n_frames, decode_hw):
+    """run_task(task) ('jhmdb' or 'badja') on the tree's files: K1 (square)
     launches one per frame propagated, PCK finite; then video 0 profiled
     (K1 device ms per launch) and propagated again through the plain
     version on the same features: median |diff| <= 1e-3 px, PCK of both
@@ -2506,56 +2546,58 @@ def run_keypoints(task, root, images, record, n_frames, decode_hw):
     from fgvc_tpu_torch.datasets.jhmdb import JhmdbDataset
     from fgvc_tpu_torch.ops.cuda import topk_attention as k1
 
-    with ImageHook(images):
-        ds = JhmdbDataset(root, root) if task == "jhmdb" else BadjaDataset(root, root)
-        expect = sum(n - 1 for n in n_frames)
-        k1.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        metrics = run_task(task, root, device="cuda", seed=0)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        check_launches(task, "highest", expect, "banked")
-        if not all(np.isfinite(v) for v in metrics.values()):
-            raise AssertionError(f"{task}: PCK not finite: {metrics}")
-        record["launches"] = (record["launches"] or 0) + expect
-        print(f"{task} PCK (random weights): " + json.dumps(metrics))
-        print(f"{task}: {len(ds)} video(s), {sum(n_frames)} frames in {dt:.2f} s = "
-              f"{sum(n_frames) / dt:.2f} frames/s (model build, data reading and scoring "
-              f"included); {expect} K1 launches; peak device memory {peak:.2f} GB", flush=True)
+    ds = JhmdbDataset(root, root) if task == "jhmdb" else BadjaDataset(root, root)
+    expect = sum(n - 1 for n in n_frames)
+    k1.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    metrics = run_task(task, root, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_launches(task, "highest", expect, "banked")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{task}: PCK not finite: {metrics}")
+    record["launches"] = (record["launches"] or 0) + expect
+    print(f"{task} PCK (random weights): " + json.dumps(metrics))
+    print(f"{task}: {len(ds)} video(s), {sum(n_frames)} frames in {dt:.2f} s = "
+          f"{sum(n_frames) / dt:.2f} frames/s (model build, data reading and scoring "
+          f"included); {expect} K1 launches; peak device memory {peak:.2f} GB", flush=True)
 
-        s = ds[0]
-        tracker = build_tracker(TASK_CONFIGS[task], seed=0, device="cuda")
-        feats = tracker.extract_features(s["video"])
-        args = (s["video"], s["ref_maps"], tuple(s["original_shape"]))
-        ms = _kernel_ms_per_launch(lambda: tracker.track_heatmaps(*args, feats=feats),
-                                   n_frames[0] - 1)
-        t0 = time.time()
-        out_k = tracker.track_heatmaps(*args, feats=feats)
-        t_k = time.time() - t0
-        t0 = time.time()
-        out_p = _plain_propagation(lambda: tracker.track_heatmaps(*args, feats=feats))
-        t_p = time.time() - t0
-        diff = np.abs(out_k - out_p)
-        med = float(np.median(diff))
-        if task == "jhmdb":
-            pck = [ds.evaluate([np.transpose(o, (2, 1, 0))], indices=[0]) for o in (out_k, out_p)]
-        else:
-            pck = [ds.evaluate([o], indices=[0]) for o in (out_k, out_p)]
-        dpck = max(abs(pck[0][k] - pck[1][k]) for k in pck[0])
-        print(f"{task} video 0 ({n_frames[0]} frames, decode {decode_hw}): K1 device "
-              f"{_fmt_ms(ms)} per launch (torch.profiler); propagation+decode {1e3 * t_k:.1f} ms "
-              f"with K1, {1e3 * t_p:.1f} ms with the plain version; coordinates median |diff| "
-              f"{med:.3e} px, max {diff.max():.3e} px (median limit {TRAJ_TOL_PX}); PCK "
-              f"{json.dumps(pck[0])} vs plain {json.dumps(pck[1])} (largest |diff| {dpck})",
-              flush=True)
-        if not med <= TRAJ_TOL_PX:
-            raise AssertionError(f"{task}: median coordinate difference {med} px > {TRAJ_TOL_PX}")
+    t0 = time.time()
+    s = ds[0]
+    print(f"{task} video 0 read from its files (the port's decoders) in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    tracker = build_tracker(TASK_CONFIGS[task], seed=0, device="cuda")
+    feats = tracker.extract_features(s["video"])
+    args = (s["video"], s["ref_maps"], tuple(s["original_shape"]))
+    ms = _kernel_ms_per_launch(lambda: tracker.track_heatmaps(*args, feats=feats),
+                               n_frames[0] - 1)
+    t0 = time.time()
+    out_k = tracker.track_heatmaps(*args, feats=feats)
+    t_k = time.time() - t0
+    t0 = time.time()
+    out_p = _plain_propagation(lambda: tracker.track_heatmaps(*args, feats=feats))
+    t_p = time.time() - t0
+    diff = np.abs(out_k - out_p)
+    med = float(np.median(diff))
+    if task == "jhmdb":
+        pck = [ds.evaluate([np.transpose(o, (2, 1, 0))], indices=[0]) for o in (out_k, out_p)]
+    else:
+        pck = [ds.evaluate([o], indices=[0]) for o in (out_k, out_p)]
+    dpck = max(abs(pck[0][k] - pck[1][k]) for k in pck[0])
+    print(f"{task} video 0 ({n_frames[0]} frames, decode {decode_hw}): K1 device "
+          f"{_fmt_ms(ms)} per launch (torch.profiler); propagation+decode {1e3 * t_k:.1f} ms "
+          f"with K1, {1e3 * t_p:.1f} ms with the plain version; coordinates median |diff| "
+          f"{med:.3e} px, max {diff.max():.3e} px (median limit {TRAJ_TOL_PX}); PCK "
+          f"{json.dumps(pck[0])} vs plain {json.dumps(pck[1])} (largest |diff| {dpck})",
+          flush=True)
+    if not med <= TRAJ_TOL_PX:
+        raise AssertionError(f"{task}: median coordinate difference {med} px > {TRAJ_TOL_PX}")
     return metrics
 
 
-def run_sp_jhmdb(root, images, record, card):
+def run_sp_jhmdb(root, record, card):
     """JHMDB video 0 through track_heatmaps unsharded and with `card` listed
     twice (K4 square, two row blocks a frame): coordinates equal bit for
     bit."""
@@ -2564,8 +2606,7 @@ def run_sp_jhmdb(root, images, record, card):
     from fgvc_tpu_torch.ops.cuda import topk_attention as k1
 
     S = 2
-    with ImageHook(images):
-        s = JhmdbDataset(root, root)[0]
+    s = JhmdbDataset(root, root)[0]
     args = (s["video"], s["ref_maps"], tuple(s["original_shape"]))
     single = build_tracker(TASK_CONFIGS["jhmdb"], seed=0, device=card).track_heatmaps(*args)
     tracker = build_tracker(TASK_CONFIGS["jhmdb"], seed=0, spatial_devices=[card] * S)
@@ -2580,6 +2621,272 @@ def run_sp_jhmdb(root, images, record, card):
     if not np.array_equal(sp, single):
         raise AssertionError("sp jhmdb: row blocks differ from the unsharded run")
 
+
+
+def _sha256(data):
+    import hashlib
+
+    return hashlib.sha256(data).hexdigest()
+
+
+def _host_ms(fn, n, reps=3):
+    """Median host ms of fn() over reps calls, divided by the n items it
+    handles."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times)) / n
+
+
+def run_codec_build_and_pins():
+    """Build the host library with g++ (timed) and hold the codecs to the
+    CODEC_PINS; returns the build seconds."""
+    from fgvc_tpu_torch.data_io import fgpack
+
+    t0 = time.time()
+    lib = fgpack.build_library(force=True)
+    build_s = time.time() - t0
+    print(f"codecs: {os.path.relpath(lib, ROOT)} built in {build_s:.2f} s by "
+          f"{fgpack.compiler_version()} (g++ {' '.join(fgpack.CXX_FLAGS + fgpack.LINK_FLAGS)}; "
+          f"no nvcc)", flush=True)
+    for h, w in CODEC_PIN_SHAPES:
+        frame = codec_pin_frame(h, w)
+        enc = fgpack.encode_jpeg(frame, CODEC_PIN_QUALITY)
+        got = (_sha256(enc), _sha256(fgpack.decode_jpeg(enc).tobytes()))
+        want = CODEC_PINS[f"{h}x{w}"]
+        print(f"codecs pin {h}x{w} quality {CODEC_PIN_QUALITY}: {len(enc)} bytes; sha256 of "
+              f"the bytes {got[0][:16]}.., of the pixels {got[1][:16]}.. "
+              f"({'equal to' if got == want else 'NOT'} libjpeg's)", flush=True)
+        if got != want:
+            raise AssertionError(f"codecs pin {h}x{w}: sha256 {got}, expected {want}")
+    return build_s
+
+
+def run_codec_times(root, card_name):
+    """Host ms a CODEC_HW frame for each codec and FgPack.read_batch's MB/s
+    over a PACK_FRAMES-frame JPEG pack, one thread and os.cpu_count()."""
+    from fgvc_tpu_torch.data_io import fgpack
+    from fgvc_tpu_torch.datasets.image_io import read_image, read_png_indices
+
+    n_cpu = os.cpu_count() or 1
+    h, w = CODEC_HW
+    frames = np.stack([codec_pin_frame(h, w, seed=1 + i) for i in range(CODEC_FRAMES)])
+    bufs = [fgpack.encode_jpeg(f, 95) for f in frames]
+    times = {
+        "encode": _host_ms(lambda: [fgpack.encode_jpeg(f, 95) for f in frames], CODEC_FRAMES),
+        "decode_1": _host_ms(lambda: fgpack.decode_jpeg_batch(bufs, n_threads=1), CODEC_FRAMES),
+        f"decode_{n_cpu}": _host_ms(lambda: fgpack.decode_jpeg_batch(bufs, n_threads=n_cpu),
+                                    CODEC_FRAMES),
+        "i420": _host_ms(lambda: fgpack.rgb_to_i420_batch(frames), CODEC_FRAMES),
+    }
+    paths = []
+    for t, b in enumerate(bufs):
+        paths.append(os.path.join(root, f"frame_{t:05d}.jpg"))
+        with open(paths[-1], "wb") as f:
+            f.write(b)
+    rgb_png, pal_png = os.path.join(root, "rgb.png"), os.path.join(root, "palette.png")
+    encode_png(rgb_png, frames[0])
+    yy, xx = np.mgrid[:h, :w]
+    encode_png(pal_png, ((yy // 60 + xx // 90) % 3).astype(np.uint8), DAVIS_PALETTE)
+    times["png_rgb"] = _host_ms(lambda: [read_image(rgb_png) for _ in range(4)], 4)
+    times["png_palette"] = _host_ms(lambda: [read_png_indices(pal_png) for _ in range(4)], 4)
+    # the DAVIS reader's path: a video's JPEG files one after another
+    video_s = _host_ms(lambda: [read_image(p) for p in paths], 1000)
+    batch_s = _host_ms(lambda: fgpack.decode_jpeg_batch(bufs, n_threads=n_cpu), 1000)
+    print(f"codecs host ms a {h}x{w} frame ({card_name}; os.cpu_count() {n_cpu}; median of 3): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+          + f"; JPEG bytes a frame {np.mean([len(b) for b in bufs]) / 1e3:.1f} KB", flush=True)
+    print(f"codecs: a {CODEC_FRAMES}-frame {h}x{w} video decodes in {video_s:.3f} s file by file "
+          f"(read_image, the DAVIS reader's path) and {batch_s:.3f} s in one "
+          f"decode_jpeg_batch on {n_cpu} threads", flush=True)
+
+    pack_path = os.path.join(root, "frames.fgpack")
+    pack_frames = [codec_pin_frame(*PACK_HW, seed=100 + i) for i in range(PACK_FRAMES)]
+    t0 = time.perf_counter()
+    fgpack.write_fgpack(pack_path, pack_frames, codec="jpeg")
+    write_s = time.perf_counter() - t0
+    size_mb = os.path.getsize(pack_path) / 1e6
+    rates = {}
+    with fgpack.FgPack(pack_path) as pack:
+        idx = list(range(PACK_FRAMES))
+        for layout, bpp in (("hwc", 3.0), ("i420", 1.5)):
+            out_mb = PACK_FRAMES * PACK_HW[0] * PACK_HW[1] * bpp / 1e6
+            for threads in (1, n_cpu):
+                ms = _host_ms(lambda: pack.read_batch(idx, n_threads=threads, layout=layout), 1)
+                rates[f"{layout}_{threads}"] = out_mb / (ms / 1e3)
+    print(f"codecs pack: {PACK_FRAMES} JPEG frames {PACK_HW[0]}x{PACK_HW[1]} at q95, "
+          f"{size_mb:.2f} MB, written in {write_s:.2f} s; FgPack.read_batch decoded MB/s "
+          + ", ".join(f"{k} threads {v:.1f}" for k, v in rates.items()) + f" ({card_name})",
+          flush=True)
+    return times, rates
+
+
+class _KeptDavis:
+    """A DavisVosDataset whose score_video keeps the predicted label maps."""
+
+    def __init__(self, ds):
+        self.ds, self.preds = ds, {}
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        return self.ds[i]
+
+    def score_video(self, i, pred):
+        self.preds[i] = pred
+        return self.ds.score_video(i, pred)
+
+
+def run_codec_vos(root, records):
+    """A DAVIS tree written by the port's encoders (one synthetic video:
+    JPEG frames at quality 95, palette PNG annotations): run_task('vos')
+    through K1 square, then eval_vos on the tree and on the decoded arrays
+    in memory: label maps equal, J&F equal."""
+    import torch
+
+    from fgvc_tpu_torch.apis.test import TASK_CONFIGS, build_tracker, eval_vos, run_task
+    from fgvc_tpu_torch.data_io.fgpack import decode_jpeg_batch, encode_jpeg
+    from fgvc_tpu_torch.datasets.davis_vos import INPUT_SIZE, DavisVosDataset, resize_frames
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    syn = SyntheticDavis(n_videos=1, seed=3)
+    tree, seq = os.path.join(root, "davis"), "synthetic_0"
+    jdir = os.path.join(tree, "JPEGImages", "480p", seq)
+    adir = os.path.join(tree, "Annotations", "480p", seq)
+    for d in (jdir, adir, os.path.join(tree, "ImageSets", "2017")):
+        os.makedirs(d, exist_ok=True)
+    with open(os.path.join(tree, "ImageSets", "2017", "val.txt"), "w") as f:
+        f.write(seq + "\n")
+    bufs = []
+    for t, (frame, labels) in enumerate(zip(syn.originals[0], syn.gt[0])):
+        bufs.append(encode_jpeg(frame, 95))
+        with open(os.path.join(jdir, f"{t:05d}.jpg"), "wb") as f:
+            f.write(bufs[-1])
+        encode_png(os.path.join(adir, f"{t:05d}.png"), labels, DAVIS_PALETTE)
+    T = len(bufs)
+    k1.reset_launches()
+    t0 = time.time()
+    metrics = run_task("vos", tree, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    check_launches("codecs vos from files", "highest", T - 1, "banked")
+    _add_launches(records["K1_square"], T - 1)
+    # the same run fed the decoded arrays
+    mem = SyntheticDavis.__new__(SyntheticDavis)
+    mem.originals, mem.gt, mem.preds = syn.originals, syn.gt, {}
+    mem.videos = [resize_frames(decode_jpeg_batch(bufs), INPUT_SIZE)]
+    tracker = build_tracker(TASK_CONFIGS["vos"], seed=0, device="cuda")
+    files = _KeptDavis(DavisVosDataset(tree))
+    res_file, res_mem = eval_vos(tracker, files), eval_vos(tracker, mem)
+    same = np.array_equal(files.preds[0], mem.preds[0])
+    h0, w0 = syn.originals[0].shape[1:3]
+    print(f"codecs vos from files ({T} JPEG frames {h0}x{w0}, palette PNGs): run_task J&F-Mean "
+          f"{metrics['J&F-Mean']:.6f} in {dt:.2f} s (reading included); eval_vos on the files "
+          f"{res_file['J&F-Mean']:.6f}, on the decoded arrays {res_mem['J&F-Mean']:.6f}; label "
+          f"maps {'equal' if same else 'DIFFERENT'}", flush=True)
+    if not same or res_file != res_mem or metrics["J&F-Mean"] != res_mem["J&F-Mean"]:
+        raise AssertionError(f"codecs vos: files {res_file} / {metrics} vs arrays {res_mem}")
+
+
+def run_codec_tapvid(data_root, root, records):
+    """The e2e pickles with their frames as JPEG bytes (the port's encoder,
+    quality 95), and as a uint8 pickle of the same frames decoded:
+    run_task('davis') through K1 circle on each, metrics equal."""
+    import glob
+
+    import torch
+
+    from fgvc_tpu_torch.apis.test import run_task
+    from fgvc_tpu_torch.data_io.fgpack import decode_jpeg_batch, encode_jpeg
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    roots = {"jpeg": os.path.join(root, "tapvid_jpeg"), "uint8": os.path.join(root, "tapvid_u8")}
+    for d in roots.values():
+        os.makedirs(d)
+    nbytes = {"jpeg": 0, "uint8": 0}
+    for path in sorted(glob.glob(os.path.join(data_root, "*.pkl"))):
+        with open(path, "rb") as f:
+            rec = pickle.load(f)
+        bufs = [encode_jpeg(frame, 95) for frame in rec["video"]]
+        for kind, video in (("jpeg", bufs), ("uint8", decode_jpeg_batch(bufs))):
+            with open(os.path.join(roots[kind], os.path.basename(path)), "wb") as f:
+                pickle.dump(dict(rec, video=video), f)
+            nbytes[kind] += os.path.getsize(os.path.join(roots[kind], os.path.basename(path)))
+    expect = frames_propagated(TapVidDataset(roots["jpeg"]))
+    metrics = {}
+    for kind in ("jpeg", "uint8"):
+        k1.reset_launches()
+        t0 = time.time()
+        metrics[kind] = run_task("davis", roots[kind], device="cuda", seed=0)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        check_launches(f"codecs davis, {kind} pickles", "highest", expect, "banked")
+        _add_launches(records["K1_circle"], expect)
+        print(f"codecs davis, {kind} pickles ({nbytes[kind] / 1e6:.1f} MB): <D "
+              f"{metrics[kind]['average_pts_within_thresh']:.6f} in {dt:.2f} s (reading and "
+              f"decoding included)", flush=True)
+    if metrics["jpeg"] != metrics["uint8"]:
+        raise AssertionError(f"codecs davis: JPEG-byte metrics {metrics['jpeg']} differ from "
+                             f"the decoded frames' {metrics['uint8']}")
+
+
+def run_codec_yuv420(data_root, records):
+    """upload_format 'yuv420' against 'rgb' on the e2e pickles: K1 launches
+    one per frame propagated in both, <D and the bytes uploaded; then the
+    8-frame 128 x 128 cut on the card against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from fgvc_tpu_torch.apis.test import build_tracker, run_task
+    from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    ds = TapVidDataset(data_root)
+    expect = frames_propagated(ds)
+    videos = [ds[i]["video"] for i in range(len(ds))]
+    out = {}
+    for fmt in ("rgb", "yuv420"):
+        cfg = dataclasses.replace(DAVIS_TEST_CFG, upload_format=fmt)
+        tracker = build_tracker(cfg, seed=0, device="cuda")
+        nbytes = sum(tracker.upload_video(v).nbytes for v in videos)
+        t0 = time.perf_counter()
+        for v in videos:
+            tracker.upload_video(v)
+        host_ms = 1e3 * (time.perf_counter() - t0) / sum(len(v) for v in videos)
+        del tracker
+        k1.reset_launches()
+        t0 = time.time()
+        m = run_task("davis", data_root, device="cuda", seed=0, test_cfg=cfg)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        check_launches(f"codecs davis upload_format {fmt}", "highest", expect, "banked")
+        _add_launches(records["K1_circle"], expect)
+        out[fmt] = m["average_pts_within_thresh"]
+        print(f"codecs davis upload_format {fmt}: <D {out[fmt]:.6f}; {nbytes / 1e6:.2f} MB "
+              f"uploaded for {len(videos)} videos ({nbytes / sum(v.nbytes for v in videos):.2f} "
+              f"of RGB), host encode {host_ms:.3f} ms a frame; run {dt:.2f} s", flush=True)
+    print(f"codecs: 'yuv420' <D - 'rgb' <D = {out['yuv420'] - out['rgb']:+.6f}", flush=True)
+    _prop_cut_card_vs_cpu(ds[0], {"yuv420": dict(upload_format="yuv420")}, forward=False,
+                          tag="codecs")
+
+
+def run_codecs(data_root, records, card_name):
+    """Phase codecs (see the module's docstring)."""
+    t_phase = time.time()
+    build_s = run_codec_build_and_pins()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_codecs_") as root:
+        run_codec_times(root, card_name)
+        run_codec_vos(root, records)
+        run_codec_tapvid(data_root, root, records)
+    run_codec_yuv420(data_root, records)
+    print(f"codecs phase {time.time() - t_phase:.1f} s (host library build {build_s:.2f} s) "
+          f"[{card_name}]", flush=True)
 
 
 def _add_launches(record, n):
@@ -3264,11 +3571,11 @@ def run_propmodes(data_root, card_name):
     print(f"propmodes phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
 
 
-def _prop_cut_card_vs_cpu(s, others):
+def _prop_cut_card_vs_cpu(s, others, forward=True, tag="propmodes"):
     """Video 0 cut to PROP_CUT_T frames and its central PROP_CUT_SIZE^2,
-    with the frame-0 queries inside it: each mode of `others` and
-    track_points_forward on the card against the same module on the CPU,
-    median |diff| <= 1e-3 px."""
+    with the frame-0 queries inside it: each setting of `others` (and,
+    where `forward`, track_points_forward) on the card against the same
+    module on the CPU, median |diff| <= 1e-3 px."""
     import dataclasses
 
     from fgvc_tpu_torch.apis.test import build_tracker
@@ -3281,7 +3588,7 @@ def _prop_cut_card_vs_cpu(s, others):
     if not len(q):
         raise AssertionError("no frame-0 query inside the cut")
     q = q - np.array([0, o, o], np.float32)
-    runs = dict(others, **{"track_points_forward": {}})
+    runs = dict(others, **({"track_points_forward": {}} if forward else {}))
     for label, overrides in runs.items():
         cfg = dataclasses.replace(DAVIS_TEST_CFG, input_size=(n, n), **overrides)
         out = {}
@@ -3293,7 +3600,7 @@ def _prop_cut_card_vs_cpu(s, others):
             out[dev] = (fn(video, q)["trajectories"], time.time() - t0)
         diff = np.abs(out["cuda"][0] - out["cpu"][0])
         med = float(np.median(diff))
-        print(f"propmodes {label}, {PROP_CUT_T}-frame {n}x{n} cut ({len(q)} points): card vs "
+        print(f"{tag} {label}, {PROP_CUT_T}-frame {n}x{n} cut ({len(q)} points): card vs "
               f"CPU median |diff| {med:.3e} px, max {diff.max():.3e} px (limit {TRAJ_TOL_PX}); "
               f"card {out['cuda'][1]:.2f} s, CPU {out['cpu'][1]:.2f} s", flush=True)
         if not med <= TRAJ_TOL_PX:
@@ -3303,7 +3610,7 @@ def _prop_cut_card_vs_cpu(s, others):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,"
-                                        "modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,"
+                                        "codecs,modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,"
                                         "profile,serve,export,doctor,train,propmodes,dp,bank,"
                                         "mp")
     args = ap.parse_args()
@@ -3388,7 +3695,7 @@ def main():
     e2e_metrics = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_root:
         if {"e2e", "plain", "raft", "decode", "modes", "sp", "profile", "zoo",
-                "serve", "propmodes", "dp", "bank", "mp"} & set(phases):
+                "serve", "propmodes", "dp", "bank", "mp", "codecs"} & set(phases):
             make_tapvid_pickles(data_root)
         if "e2e" in phases:
             phase("e2e")
@@ -3411,6 +3718,9 @@ def main():
                 phase("vos_plain")
                 run_vos_plain(ds)
             del ds
+        if "codecs" in phases:
+            phase("codecs")
+            run_codecs(data_root, records, card_name)
         if "modes" in phases:
             phase("modes")
             run_modes_tapvid(data_root, records)
@@ -3426,28 +3736,27 @@ def main():
                 make_kinetics_pickle(kin_root)
                 run_kinetics(kin_root, records["K1_circle"])
         jhmdb_root = os.path.join(data_root, "jhmdb")
-        jhmdb_images = {}
         if "jhmdb" in phases or "sp" in phases:
             os.makedirs(jhmdb_root)
-            make_jhmdb_tree(jhmdb_root, jhmdb_images)
+            make_jhmdb_tree(jhmdb_root)
         if "jhmdb" in phases:
             phase("jhmdb")
-            run_keypoints("jhmdb", jhmdb_root, jhmdb_images, records["K1_square_jhmdb"],
+            run_keypoints("jhmdb", jhmdb_root, records["K1_square_jhmdb"],
                           [JHMDB_T] * JHMDB_VIDEOS, JHMDB_ORIG)
         if "badja" in phases:
             phase("badja")
             badja_root = os.path.join(data_root, "badja")
-            badja_images = {}
-            make_badja_tree(badja_root, badja_images)
-            run_keypoints("badja", badja_root, badja_images, records["K1_square_badja"],
+            t_write = time.time()
+            make_badja_tree(badja_root)
+            print(f"badja tree written in {time.time() - t_write:.2f} s", flush=True)
+            run_keypoints("badja", badja_root, records["K1_square_badja"],
                           [BADJA_T], (320, 512))
-            del badja_images
         if "sp" in phases:
             phase("sp")
             card = torch.device("cuda", torch.cuda.current_device())
             run_sp_tapvid(data_root, records["K4_circle"], card, e2e_metrics)
             run_sp_vos(records["K4_square"], card)
-            run_sp_jhmdb(jhmdb_root, jhmdb_images, records["K4_square"], card)
+            run_sp_jhmdb(jhmdb_root, records["K4_square"], card)
         if "passes" in phases:
             phase("passes")
             run_passes(records)
@@ -3483,6 +3792,7 @@ def main():
     if "train" in phases:
         phase("train")
         run_train()
+    phase(None)
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

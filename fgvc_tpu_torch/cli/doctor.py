@@ -7,14 +7,15 @@ subprocess, so the doctor itself always returns: the device answers a
 first operation, a 256² matrix product is exact, a 1 MiB round trip to the
 device is timed, and on CUDA the kernels are built with nvcc and the top-k
 attention kernel (K1) is launched on a small input and held to its plain
-version (1e-4 a query pixel, near-tie rows excepted).  Then: nvcc, the
-kernel build directory (built or cold), the optional imports, and the
-environment (utils/env.collect_env).
+version (1e-4 a query pixel, near-tie rows excepted).  Then: the host codec
+library (data_io/fgpack.py: built with g++ into build/host, loaded, one JPEG
+encode and decode round trip), nvcc, the kernel build directory (built or
+cold), the optional imports, and the environment (utils/env.collect_env).
 
     python -m fgvc_tpu_torch.cli.doctor [--device cuda|cpu] [--probe-timeout 300] [--json]
 
 Exit code 0 when the device responds (and, on CUDA, K1 agrees with its
-plain version), 1 when it does not.
+plain version) and the host codec library works, 1 when either does not.
 """
 
 from __future__ import annotations
@@ -35,10 +36,9 @@ PROBE_RADIUS, PROBE_TILE, PROBE_TOPK, PROBE_TEMPERATURE = 15.0, 16, 10, 0.07
 KERNEL_TOL = 1e-4
 
 OPTIONAL_IMPORTS = {
-    "PIL": "decodes the DAVIS, JHMDB and BADJA frames and TAP-Vid JPEG bytes",
-    "cv2": "optional: the readers reproduce cv2's resize in numpy",
     "tensorboardX": "optional: training's TensorBoard log",
 }
+ROUNDTRIP_HW, ROUNDTRIP_QUALITY, ROUNDTRIP_TOL = (64, 96), 95, 16
 
 
 def check_k1(dev) -> dict:
@@ -126,6 +126,35 @@ def _probe_check(probe_timeout: float, device: str) -> dict:
     return {"ok": ok, **rep}
 
 
+def _fgpack_check() -> dict:
+    """The host codec library: build (the g++ seconds where this call built
+    it), load, and a seeded smooth frame through encode_jpeg and
+    decode_jpeg (its size back, every pixel within ROUNDTRIP_TOL)."""
+    import numpy as np
+
+    from fgvc_tpu_torch.data_io import fgpack
+
+    try:
+        built_before = fgpack.library_path().exists()
+        t0 = time.perf_counter()
+        fgpack._load()
+        load_s = time.perf_counter() - t0
+        h, w = ROUNDTRIP_HW
+        yy, xx = np.mgrid[:h, :w]
+        frame = np.stack([(xx * 255 // (w - 1)), (yy * 255 // (h - 1)),
+                          ((xx + yy) * 255 // (h + w - 2))], -1).astype(np.uint8)
+        data = fgpack.encode_jpeg(frame, ROUNDTRIP_QUALITY)
+        back = fgpack.decode_jpeg(data)
+        err = int(np.abs(back.astype(np.int16) - frame).max())
+    except Exception as e:  # noqa: BLE001 (a report, not a crash)
+        return {"ok": False, "error": str(e)[-500:]}
+    return {"ok": back.shape == frame.shape and err <= ROUNDTRIP_TOL,
+            "library": fgpack.library_path().name, "compiler": fgpack.compiler_version(),
+            "build_s": round(load_s, 2) if not built_before else 0.0,
+            "note": "built now" if not built_before else "already built",
+            "jpeg_bytes": len(data), "roundtrip_max_abs": err}
+
+
 def _nvcc_check() -> dict:
     from fgvc_tpu_torch.ops.cuda.build import _nvcc
 
@@ -154,6 +183,7 @@ def run_checks(probe_timeout: float = 300.0, device: str = "cuda") -> dict:
         from fgvc_tpu_torch.utils.env import collect_env
 
         report["env"] = collect_env()
+    checks["fgpack_native"] = _fgpack_check()
     checks["nvcc"] = _nvcc_check()
     checks["kernel_build"] = _build_dir_check()
     for mod, need in OPTIONAL_IMPORTS.items():
@@ -162,7 +192,7 @@ def run_checks(probe_timeout: float = 300.0, device: str = "cuda") -> dict:
             checks[mod] = {"ok": True}
         except ImportError:
             checks[mod] = {"ok": False, "note": need}
-    report["ok"] = checks["device"]["ok"]
+    report["ok"] = checks["device"]["ok"] and checks["fgpack_native"]["ok"]
     return report
 
 

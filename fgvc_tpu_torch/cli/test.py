@@ -5,7 +5,7 @@ and DAVIS-2017 VOS.
 
     python -m fgvc_tpu_torch.cli.test --task davis|kinetics --data-root <pkls> \
         [--query-mode first|strided] [--model vanilla|raft] \
-        [--decode-impl upsample|window|coarse] \
+        [--decode-impl upsample|window|coarse] [--upload-format rgb|yuv420] \
         [--visibility-mode none|heatmap] [--visibility-threshold X] \
         [--backbone NAME] [--checkpoint ckpt.pth|WORK_DIR/latest] \
         [--max-videos N] [--output-dir DIR] \
@@ -121,6 +121,14 @@ def main(argv=None):
              "'window' decodes as it), or feature-res soft-argmax (coarse)",
     )
     parser.add_argument(
+        "--upload-format",
+        default=None,
+        choices=["rgb", "yuv420"],
+        help="host->device wire format: raw uint8 RGB (3 B/px) or I420 "
+             "chroma-subsampled planes (1.5 B/px), encoded on the host and "
+             "decoded on the device",
+    )
+    parser.add_argument(
         "--visibility-mode",
         default=None,
         choices=["none", "heatmap"],
@@ -231,6 +239,8 @@ def _run(args):
         overrides["topk_impl"] = args.topk_impl
     if args.decode_impl:
         overrides["decode_impl"] = args.decode_impl
+    if args.upload_format:
+        overrides["upload_format"] = args.upload_format
     if args.visibility_mode:
         overrides["visibility_mode"] = args.visibility_mode
     if args.visibility_threshold is not None:

@@ -4,10 +4,9 @@ ported slices, and the training recipe.
 Field names and defaults follow fgvc_tpu.config's.  Every propagation mode
 is ported: attention_impl 'pallas' (the top-k attention kernel), 'tiled',
 'dense', 'c2f' and 'flow_guided' (plain PyTorch, as XLA code in fgvc_tpu),
-the four topk_impl, and with_first_neighbor=False.  ``check_ported`` raises
-ValueError for a value no package accepts, and NotImplementedError for
-upload_format 'yuv420', which waits for the slice of ROADMAP.md that ports
-it.
+the four topk_impl, and with_first_neighbor=False; both upload formats,
+'rgb' and 'yuv420' (I420 planes encoded on the host, decoded on the device).
+``check_ported`` raises ValueError for a value no package accepts.
 """
 
 from __future__ import annotations
@@ -62,15 +61,12 @@ KINETICS_TEST_CFG = TestConfig(step=128)
 JHMDB_TEST_CFG = TestConfig(step=128, input_size=(320, 320))
 BADJA_TEST_CFG = TestConfig(step=128)
 
-# knob -> (the main path's value, the ROADMAP.md slice that ports the others)
-_NOT_PORTED = {
-    "upload_format": ("rgb", "slice 5b (reproduce and host modes)"),
-}
-
 ATTENTION_IMPLS = ("pallas", "tiled", "dense", "c2f", "flow_guided")
 TOPK_IMPLS = ("exact", "segmented", "certified", "approx")
 
 PREPROCESS = ("lab", "imagenet")
+# the host -> device wire format: uint8 RGB (3 B/px) or I420 planes (1.5 B/px)
+UPLOAD_FORMATS = ("rgb", "yuv420")
 VISIBILITY_MODES = ("none", "heatmap")
 # 'window' decodes as 'upsample' does: fgvc_tpu's decode branches on 'coarse' only
 DECODE_IMPLS = ("upsample", "window", "coarse")
@@ -80,11 +76,11 @@ MATMUL_PRECISIONS = ("highest", "high", "default")
 
 
 def check_ported(cfg: TestConfig) -> None:
-    """Raise NotImplementedError for a knob set off the ported slices, and
-    ValueError for a matmul_precision outside the three modes, a preprocess
-    other than 'lab' and 'imagenet', a visibility_mode other than 'none' and
-    'heatmap', a decode_impl outside DECODE_IMPLS, an attention_impl outside
-    ATTENTION_IMPLS or a topk_impl outside TOPK_IMPLS."""
+    """Raise ValueError for a matmul_precision outside the three modes, a
+    preprocess other than 'lab' and 'imagenet', a visibility_mode other than
+    'none' and 'heatmap', a decode_impl outside DECODE_IMPLS, an
+    attention_impl outside ATTENTION_IMPLS, a topk_impl outside TOPK_IMPLS or
+    an upload_format outside UPLOAD_FORMATS."""
     if cfg.matmul_precision not in MATMUL_PRECISIONS:
         raise ValueError(
             f"matmul_precision must be one of {MATMUL_PRECISIONS}, "
@@ -106,12 +102,10 @@ def check_ported(cfg: TestConfig) -> None:
         )
     if cfg.topk_impl not in TOPK_IMPLS:
         raise ValueError(f"topk_impl must be one of {TOPK_IMPLS}, got {cfg.topk_impl!r}")
-    for name, (value, slice_name) in _NOT_PORTED.items():
-        if getattr(cfg, name) != value:
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} is not ported to fgvc_tpu_torch "
-                f"yet (only {value!r}); it comes with {slice_name}"
-            )
+    if cfg.upload_format not in UPLOAD_FORMATS:
+        raise ValueError(
+            f"upload_format must be one of {UPLOAD_FORMATS}, got {cfg.upload_format!r}"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,8 +178,8 @@ def check_train_ported(cfg: TrainConfig, *, data_roots=(), multi_process: bool =
     if any(data_roots):
         raise NotImplementedError(
             "real-data training (YouTube-VOS + FlyingThings3D) is not ported to "
-            "fgvc_tpu_torch yet: it needs the datasets and card-side JPEG/PNG "
-            "readers (ROADMAP.md item 43); train on --synthetic data"
+            "fgvc_tpu_torch yet: it needs FlyingThingsYtvDataset and "
+            "datasets/transforms.py (ROADMAP.md item 29b); train on --synthetic data"
         )
     if multi_process:
         raise NotImplementedError(

@@ -1,0 +1,440 @@
+"""The port's host codec library (csrc/fgpack.cpp) through ctypes: FGPK
+packs, JPEG decode and encode, PNG decode, RGB -> I420
+(fgvc_tpu/data_io/fgpack.py, without libjpeg, PIL or cv2).
+
+The library is C++17 with pthread alone.  It is compiled with g++ at first
+use into ``build/host/libfgpack-<hash>.so`` at the root of the checkout
+(``build/`` is git-ignored; the hash covers the source and the flags):
+
+    g++ -O2 -std=c++17 -shared -fPIC -o build/host/libfgpack-<hash>.so \
+        fgvc_tpu_torch/csrc/fgpack.cpp -lpthread
+
+Its JPEG decoder gives libjpeg's default pixels (what PIL and cv2.imread
+give) and its encoder libjpeg's default bytes (what cv2.imencode and PIL's
+save write), so packs and frames are the same on every machine.  ctypes
+releases the GIL around every call.
+
+    write_fgpack("train.fgpack", frames)                      # raw uint8
+    write_fgpack("train.fgpack", frames, codec="jpeg")        # JPEG q 95
+    pack = FgPack("train.fgpack")
+    batch = pack.read_batch([3, 7, 11], n_threads=4)          # RGB HWC
+    planes = pack.read_batch(range(8), layout="i420")         # upload wire
+    video = decode_jpeg_batch(list_of_jpeg_bytes)             # TAP-Vid path
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import struct
+import subprocess
+import threading
+import zlib
+from pathlib import Path
+from typing import Iterable, List, NamedTuple, Optional, Sequence, Union
+
+import numpy as np
+
+_MAGIC = b"FGPK"
+_VERSION = 2
+_REC_FMT = "<QQIIII"  # offset, nbytes, h, w, c, codec
+_REC_SIZE = struct.calcsize(_REC_FMT)
+
+CODEC_RAW = 0
+CODEC_JPEG = 1
+_LAYOUTS = {"hwc": 0, "i420": 1}
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fgpack.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
+CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+LINK_FLAGS = ("-lpthread",)
+
+# the library's status codes (enum Status of csrc/fgpack.cpp)
+STATUS = {
+    -1: "corrupt JPEG data",
+    -2: "truncated JPEG data",
+    -3: "progressive JPEG is not supported",
+    -4: "arithmetic-coded JPEG is not supported",
+    -5: "lossless or hierarchical JPEG is not supported",
+    -6: "JPEG sample precision other than 8 bits is not supported",
+    -7: "JPEG with other than 1 or 3 components (CMYK, YCCK) is not supported",
+    -8: "JPEG sampling other than 4:4:4, 4:2:2 and 4:2:0 is not supported",
+    -9: "the frame's size differs from the batch's",
+    -10: "record index out of range",
+    -11: "the i420 layout needs even-sized (H, W, 3) frames",
+    -12: "unknown record codec",
+    -13: "no image in the JPEG data",
+    -14: "invalid arguments",
+    -15: "PNG filter type above 4",
+}
+
+_LIB = None
+_LOCK = threading.Lock()
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS + LINK_FLAGS).encode())
+    return BUILD_DIR / f"libfgpack-{digest.hexdigest()[:16]}.so"
+
+
+def compiler_version() -> str:
+    """The first line of `g++ --version`."""
+    out = subprocess.run(["g++", "--version"], capture_output=True, text=True, check=True)
+    return out.stdout.splitlines()[0].strip()
+
+
+def build_library(force: bool = False) -> str:
+    """Compile csrc/fgpack.cpp into build/host (once per source and flags);
+    returns the library's path.  The output is written under a temporary
+    name and renamed, so a process loading it during another's build never
+    sees half a file."""
+    out = library_path()
+    if out.exists() and not force:
+        return str(out)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE), *LINK_FLAGS],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {SOURCE.name}:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return str(out)
+
+
+def _load():
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        lib = ctypes.CDLL(build_library())
+        i64, ptr, u8p = ctypes.c_int64, ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        sig = {
+            "fgpack_open": (ptr, [ctypes.c_char_p]),
+            "fgpack_count": (i64, [ptr]),
+            "fgpack_record_info": (ctypes.c_int, [ptr, i64, i64p]),
+            "fgpack_read_batch": (ctypes.c_int, [ptr, i64p, i64, u8p, i64, ctypes.c_int,
+                                                 ctypes.c_int, i64p]),
+            "fgpack_jpeg_info": (ctypes.c_int, [ctypes.c_char_p, i64, i64p]),
+            "fgpack_decode_jpeg_batch": (ctypes.c_int, [ctypes.POINTER(ctypes.c_char_p), i64p,
+                                                        i64, i64, i64, u8p, i64, ctypes.c_int,
+                                                        ctypes.c_int, i64p]),
+            "fgpack_encode_jpeg": (ctypes.c_int, [u8p, i64, i64, ctypes.c_int,
+                                                  ctypes.POINTER(ptr), i64p]),
+            "fgpack_free": (None, [ptr]),
+            "fgpack_rgb_to_i420_batch": (ctypes.c_int, [u8p, i64, i64, i64, u8p]),
+            "fgpack_png_unfilter": (ctypes.c_int, [ctypes.c_char_p, i64, i64, ctypes.c_int,
+                                                   u8p]),
+            "fgpack_prefetch": (ctypes.c_int, [ptr, i64, i64]),
+            "fgpack_close": (None, [ptr]),
+        }
+        for name, (restype, argtypes) in sig.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _LIB = lib
+        return lib
+
+
+def _u8p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _status(rc: int) -> str:
+    return STATUS.get(rc, f"status {rc}")
+
+
+# --------------------------------------------------------------------- #
+# JPEG
+
+
+def jpeg_info(buf: bytes):
+    """(height, width, components) from a JPEG's SOF marker; ValueError for
+    what the decoder refuses (progressive, arithmetic, 12-bit, ...)."""
+    out = (ctypes.c_int64 * 3)()
+    rc = _load().fgpack_jpeg_info(buf, len(buf), out)
+    if rc != 0:
+        raise ValueError(_status(rc))
+    return int(out[0]), int(out[1]), int(out[2])
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W, 3) uint8 RGB -> baseline JPEG bytes, equal to
+    cv2.imencode('.jpg', rgb[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, quality])
+    (libjpeg's defaults: 4:2:0, the standard tables scaled to `quality`)."""
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_jpeg needs (H, W, 3) RGB, got {rgb.shape}")
+    lib = _load()
+    out = ctypes.c_void_p()
+    n = ctypes.c_int64()
+    rc = lib.fgpack_encode_jpeg(_u8p(rgb), rgb.shape[0], rgb.shape[1], int(quality),
+                                ctypes.byref(out), ctypes.byref(n))
+    if rc != 0:
+        raise ValueError(f"JPEG encode failed: {_status(rc)}")
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.fgpack_free(out)
+
+
+def _out_shape(h: int, w: int, c: int, layout: int):
+    if layout == 1:  # I420 planes
+        if c != 3 or h % 2 or w % 2:
+            raise ValueError("i420 layout needs even-sized (H, W, 3) records")
+        return (h * 3 // 2, w)
+    return (h, w, c)
+
+
+def decode_jpeg_batch(
+    bufs: Sequence[bytes],
+    layout: str = "hwc",
+    n_threads: int = 4,
+) -> np.ndarray:
+    """Decode same-sized in-memory JPEG frames to (N, H, W, 3) uint8 RGB, or
+    (N, H*3//2, W) I420 planes, in the library's thread pool (GIL-free).
+    The size comes from each frame's SOF marker; a frame of another size,
+    or one the decoder refuses, raises ValueError naming the frame."""
+    n = len(bufs)
+    if n == 0:
+        raise ValueError("empty batch")
+    lay = _LAYOUTS[layout]
+    h = w = None
+    for i, b in enumerate(bufs):
+        try:
+            hw = jpeg_info(b)[:2]
+        except ValueError as e:
+            raise ValueError(f"frame {i}: {e}") from None
+        h, w = (h, w) if h is not None else hw
+        if hw != (h, w):
+            raise ValueError(f"frame {i}: {_status(-9)} ({hw} vs {(h, w)})")
+    shape = _out_shape(h, w, 3, lay)
+    dst = np.empty((n, *shape), np.uint8)
+    arr = (ctypes.c_char_p * n)(*bufs)
+    sizes = (ctypes.c_int64 * n)(*[len(b) for b in bufs])
+    status = (ctypes.c_int64 * 2)()
+    rc = _load().fgpack_decode_jpeg_batch(arr, sizes, n, h, w, _u8p(dst), int(np.prod(shape)),
+                                          int(n_threads), lay, status)
+    if rc != 0:
+        raise ValueError(f"frame {status[0]}: {_status(int(status[1]))}")
+    return dst
+
+
+def decode_jpeg(buf: bytes) -> np.ndarray:
+    """One JPEG -> (H, W, 3) uint8 RGB (a grey JPEG as three equal channels)."""
+    return decode_jpeg_batch([buf], n_threads=1)[0]
+
+
+# --------------------------------------------------------------------- #
+# PNG
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+class PngImage(NamedTuple):
+    samples: np.ndarray            # (H, W, C) uint8 or uint16 (palette: indices)
+    color_type: int                # 0 grey, 2 RGB, 3 palette, 4 grey+alpha, 6 RGBA
+    bit_depth: int
+    palette: Optional[np.ndarray]  # (n, 3) uint8 RGB of a palette image
+    trns: Optional[bytes]          # the tRNS chunk's body
+
+
+def decode_png(data: bytes, name: str = "PNG") -> PngImage:
+    """PNG bytes -> samples: chunks checked (CRC), IDAT inflated by zlib,
+    rows unfiltered by the library, 1/2/4-bit samples unpacked (grey ones
+    scaled to 8 bits, as libpng's expand does; palette indices kept).
+    Adam7-interlaced images raise ValueError."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{name}: not a PNG file")
+    pos, ihdr, plte, trns, idat = 8, None, None, None, []
+    while pos + 8 <= len(data):
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError(f"{name}: truncated PNG chunk {tag!r}")
+        if struct.unpack(">I", crc)[0] != zlib.crc32(tag + body) & 0xFFFFFFFF:
+            raise ValueError(f"{name}: CRC error in PNG chunk {tag!r}")
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = body
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+        pos += 12 + length
+    if ihdr is None or not idat:
+        raise ValueError(f"{name}: PNG without IHDR or IDAT")
+    w, h, depth, ctype, _, _, interlace = ihdr
+    if interlace:
+        raise ValueError(f"{name}: Adam7-interlaced PNG is not supported")
+    if ctype not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16):
+        raise ValueError(f"{name}: unsupported PNG colour type {ctype} at {depth} bits")
+    if ctype == 3 and plte is None:
+        raise ValueError(f"{name}: palette PNG without PLTE")
+    ch = _PNG_CHANNELS[ctype]
+    rowbytes = (w * ch * depth + 7) // 8
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) < h * (rowbytes + 1):
+        raise ValueError(f"{name}: truncated PNG image data")
+    out = np.empty((h, rowbytes), np.uint8)
+    bpp = max(1, ch * depth // 8)
+    rc = _load().fgpack_png_unfilter(raw, h, rowbytes, bpp, _u8p(out))
+    if rc != 0:
+        raise ValueError(f"{name}: {_status(rc)}")
+    if depth == 16:
+        samples = out.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    elif depth == 8:
+        samples = out.reshape(h, w, ch)
+    else:  # 1, 2 or 4 bits: grey or palette, one channel
+        per = 8 // depth
+        shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+        vals = (out[:, :, None] >> shifts) & ((1 << depth) - 1)
+        samples = vals.reshape(h, -1)[:, :w, None].astype(np.uint8)
+        if ctype == 0:
+            samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    return PngImage(np.ascontiguousarray(samples), ctype, depth, plte, trns)
+
+
+# --------------------------------------------------------------------- #
+# I420
+
+
+def rgb_to_i420_batch(video: np.ndarray) -> np.ndarray:
+    """(T, H, W, 3) or (H, W, 3) uint8 RGB -> I420 planes (..., H*3//2, W),
+    equal to cv2.cvtColor(frame, cv2.COLOR_RGB2YUV_I420); one GIL-free call
+    for the whole video."""
+    single = video.ndim == 3
+    v = np.ascontiguousarray(video[None] if single else video, np.uint8)
+    n, h, w, c = v.shape
+    if c != 3 or h % 2 or w % 2:
+        raise ValueError("rgb_to_i420_batch needs even-sized RGB frames")
+    dst = np.empty((n, h * 3 // 2, w), np.uint8)
+    rc = _load().fgpack_rgb_to_i420_batch(_u8p(v), n, h, w, _u8p(dst))
+    if rc != 0:
+        raise ValueError(f"rgb_to_i420_batch: {_status(rc)}")
+    return dst[0] if single else dst
+
+
+# --------------------------------------------------------------------- #
+# packs
+
+
+def write_fgpack(
+    path: str,
+    frames: Iterable[np.ndarray],
+    codec: str = "raw",
+    quality: int = 95,
+) -> int:
+    """Pack (H, W, C) uint8 frames into `path`; returns the record count.
+    The bytes equal the JAX package's write_fgpack for the same frames
+    (its JPEG records are cv2.imencode's, which encode_jpeg equals).
+
+    codec='jpeg' stores JPEG blobs (RGB frames only); the reader decodes
+    them in its thread pool.  The index records the DECODED h/w/c."""
+    if codec not in ("raw", "jpeg"):
+        raise ValueError(f"unknown codec {codec!r}")
+    codec_id = CODEC_RAW if codec == "raw" else CODEC_JPEG
+    frames = list(frames)
+    n = len(frames)
+    header = _MAGIC + struct.pack("<I", _VERSION) + struct.pack("<Q", n)
+    offset = len(header) + n * _REC_SIZE
+    index, blobs = [], []
+    for f in frames:
+        f = np.ascontiguousarray(f, dtype=np.uint8)
+        h, w = f.shape[:2]
+        c = f.shape[2] if f.ndim == 3 else 1
+        if codec_id == CODEC_JPEG:
+            if c != 3:
+                raise ValueError("codec='jpeg' requires (H, W, 3) RGB frames")
+            blob = encode_jpeg(f, quality)
+        else:
+            blob = f.tobytes()
+        index.append(struct.pack(_REC_FMT, offset, len(blob), h, w, c, codec_id))
+        blobs.append(blob)
+        offset += len(blob)
+    with open(path, "wb") as fh:
+        fh.write(header)
+        fh.write(b"".join(index))
+        for b in blobs:
+            fh.write(b)
+    return n
+
+
+class FgPack:
+    """Reader of an FGPK pack over the library (mmap and a thread pool)."""
+
+    def __init__(self, path: Union[str, os.PathLike]):
+        self._lib = _load()
+        self._h = self._lib.fgpack_open(os.fsencode(path))
+        if not self._h:
+            raise IOError(f"cannot open fgpack file {path}")
+
+    def __len__(self) -> int:
+        return int(self._lib.fgpack_count(self._h))
+
+    def _info(self, i: int):
+        out = (ctypes.c_int64 * 5)()
+        if self._lib.fgpack_record_info(self._h, int(i), out) != 0:
+            raise IndexError(i)
+        return [int(v) for v in out]
+
+    def record_shape(self, i: int):
+        """Decoded (h, w, c) of record i."""
+        return tuple(self._info(i)[:3])
+
+    def record_codec(self, i: int) -> int:
+        return self._info(i)[4]
+
+    def prefetch(self, lo: int, hi: int) -> None:
+        self._lib.fgpack_prefetch(self._h, lo, hi)
+
+    def read_batch(
+        self,
+        indices: Sequence[int],
+        n_threads: int = 4,
+        layout: str = "hwc",
+    ) -> List[np.ndarray]:
+        """Threaded batch read and decode; the records must share one
+        decoded shape.  layout 'hwc': uint8 HWC (RGB for JPEG records);
+        'i420': YUV 4:2:0 planes (h*3//2, w), the upload wire format
+        (ops/color.py).  A failed record raises ValueError naming it."""
+        indices = [int(i) for i in indices]
+        h, w, c = self.record_shape(indices[0])
+        lay = _LAYOUTS[layout]
+        shape = _out_shape(h, w, c, lay)
+        n = len(indices)
+        dst = np.empty((n, *shape), np.uint8)
+        idx = (ctypes.c_int64 * n)(*indices)
+        status = (ctypes.c_int64 * 2)()
+        rc = self._lib.fgpack_read_batch(self._h, idx, n, _u8p(dst), int(np.prod(shape)),
+                                         int(n_threads), lay, status)
+        if rc != 0:
+            i = int(status[0])
+            raise ValueError(f"record {indices[i]} (slot {i}): {_status(int(status[1]))}")
+        return list(dst)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return self.read_batch([i], n_threads=1)[0]
+
+    def close(self):
+        if self._h:
+            self._lib.fgpack_close(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

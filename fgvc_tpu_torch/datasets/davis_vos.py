@@ -3,8 +3,9 @@ scoring (fgvc_tpu/datasets/davis_vos.py).
 
 Every video is resized to 480 x 880 whatever the configuration's input size,
 as the JAX harness does.  JPEG frames and palette PNG annotations are
-decoded with PIL; where PIL is missing, reading a video raises ImportError.
-Frames are resized by image_io.resize_frames, which equals cv2's
+decoded by the port's host library (image_io.read_image and
+read_png_indices, equal to cv2.imread and PIL's palette indices).  Frames are
+resized by image_io.resize_frames, which equals cv2's
 INTER_LINEAR bit for bit (re-exported here).
 """
 
@@ -18,7 +19,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from fgvc_tpu_torch.core.metrics.vos import aggregate_jf, evaluate_video_jf
-from fgvc_tpu_torch.datasets.image_io import pil_image, read_image, resize_frames
+from fgvc_tpu_torch.datasets.image_io import read_image, read_png_indices, resize_frames
 
 INPUT_SIZE = (480, 880)
 
@@ -95,8 +96,8 @@ class DavisVosDataset:
         )
 
     def load_mask(self, path: str) -> np.ndarray:
-        """Palette PNG -> integer label map."""
-        return np.array(pil_image().open(path))
+        """Palette PNG -> integer label map (its palette indices)."""
+        return read_png_indices(path)
 
     def __getitem__(self, idx: int) -> Dict:
         seq = self.sequences[idx]

@@ -1,55 +1,93 @@
-"""Image reading and resizing of the port's readers, in numpy.
+"""Image reading and resizing of the port's readers, without PIL or cv2.
 
+``read_image`` decodes a JPEG or PNG file (or its bytes) through the port's
+host library (data_io/fgpack.py: its JPEG decoder equals libjpeg's, its PNG
+decoder inflates with zlib and unfilters natively), as cv2.imread would
+return it; ``read_png_indices`` gives a palette PNG's indices.
 ``resize_frames`` and ``resize_nearest`` equal cv2.resize with INTER_LINEAR
-(uint8) and INTER_NEAREST bit for bit, so the readers give the JAX
-package's arrays without cv2, which the card's machine lacks.
-``read_image`` decodes a PNG or JPEG file (or its bytes) through PIL as
-cv2.imread would return it; where PIL is missing it raises ImportError.
+(uint8) and INTER_NEAREST bit for bit.
 """
 
 from __future__ import annotations
 
-import io
+import os
 from typing import Tuple, Union
 
 import numpy as np
 
-
-def pil_image():
-    """PIL.Image, or an ImportError that says what reads without it."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(
-            "decoding PNG and JPEG images needs PIL (Pillow), which is not "
-            "installed; decoding without it is ROADMAP.md Queue 1 item 43"
-        ) from e
-    return Image
+from fgvc_tpu_torch.data_io.fgpack import PNG_SIGNATURE, decode_jpeg, decode_png, jpeg_info
 
 
-def read_image(src: Union[str, bytes], flags: str = "color") -> np.ndarray:
-    """Decode an image file (a path, or its bytes) as cv2.imread does.
+def _read(src: Union[str, bytes, os.PathLike]) -> Tuple[bytes, str]:
+    if isinstance(src, (bytes, bytearray, memoryview)):
+        return bytes(src), "image bytes"
+    with open(src, "rb") as f:
+        return f.read(), str(src)
+
+
+def read_image(src: Union[str, bytes, os.PathLike], flags: str = "color") -> np.ndarray:
+    """Decode an image file (a path, or its bytes) as cv2.imread does; the
+    decoder is chosen by the magic bytes (JPEG FF D8, PNG's signature).
 
     flags 'color': (H, W, 3) uint8 RGB, what cv2.cvtColor(cv2.imread(p),
-    cv2.COLOR_BGR2RGB) gives.  flags 'unchanged': what cv2.imread(p,
-    cv2.IMREAD_UNCHANGED) gives, channels in BGR order: a grey image as
-    (H, W), a palette image expanded through its palette to 3 channels (4
-    where the palette has transparency), RGB as BGR and RGBA as BGRA; 16-bit
-    grey stays uint16."""
+    cv2.COLOR_BGR2RGB) gives: grey replicated, a palette expanded, alpha
+    dropped, 16-bit samples cut to their high byte.  flags 'unchanged': what
+    cv2.imread(p, cv2.IMREAD_UNCHANGED) gives, channels in BGR order: a grey
+    image as (H, W), a palette image expanded through its palette to 3
+    channels (4 where it has tRNS), grey+alpha as BGRA, RGB as BGR and RGBA
+    as BGRA; 16-bit PNG samples stay uint16.  Adam7-interlaced PNGs and
+    JPEGs the decoder refuses raise ValueError."""
     if flags not in ("color", "unchanged"):
         raise ValueError(f"flags must be 'color' or 'unchanged', got {flags!r}")
-    Image = pil_image()
-    with Image.open(io.BytesIO(src) if isinstance(src, bytes) else src) as im:
+    data, name = _read(src)
+    if data[:2] == b"\xff\xd8":
+        try:
+            rgb = decode_jpeg(data)
+            grey = flags == "unchanged" and jpeg_info(data)[2] == 1
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+        if grey:
+            return np.ascontiguousarray(rgb[..., 0])
+        return rgb if flags == "color" else np.ascontiguousarray(rgb[..., ::-1])
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{name}: neither a JPEG nor a PNG file")
+    png = decode_png(data, name)
+    a, ctype = png.samples, png.color_type
+    if ctype == 3:  # palette: expand through PLTE (and tRNS)
+        idx = a[..., 0]
+        if idx.max(initial=0) >= len(png.palette):
+            raise ValueError(f"{name}: palette index beyond PLTE")
         if flags == "color":
-            return np.array(im.convert("RGB"))
-        if im.mode == "P":
-            im = im.convert("RGBA" if "transparency" in im.info else "RGB")
-        elif im.mode == "LA":
-            im = im.convert("RGBA")
-        a = np.array(im)
-    if a.ndim == 3:  # RGB(A) -> BGR(A)
-        a = a[..., [2, 1, 0, *range(3, a.shape[2])]]
-    return np.ascontiguousarray(a)
+            return np.ascontiguousarray(png.palette[idx])
+        bgr = png.palette[idx][..., ::-1]
+        if png.trns is None:
+            return np.ascontiguousarray(bgr)
+        alpha = np.full(len(png.palette), 255, np.uint8)
+        t = np.frombuffer(png.trns, np.uint8)[: len(png.palette)]
+        alpha[: len(t)] = t
+        return np.ascontiguousarray(np.concatenate([bgr, alpha[idx][..., None]], axis=-1))
+    if flags == "color":
+        if a.dtype == np.uint16:  # libpng's strip_16, as cv2.imread: the high byte
+            a = (a >> 8).astype(np.uint8)
+        rgb = np.repeat(a[..., :1], 3, axis=-1) if ctype in (0, 4) else a[..., :3]
+        return np.ascontiguousarray(rgb)
+    if ctype == 0:
+        return np.ascontiguousarray(a[..., 0])
+    if ctype == 4:  # grey + alpha -> BGRA
+        return np.ascontiguousarray(np.concatenate([np.repeat(a[..., :1], 3, -1), a[..., 1:]], -1))
+    return np.ascontiguousarray(a[..., [2, 1, 0, *range(3, a.shape[2])]])
+
+
+def read_png_indices(src: Union[str, bytes, os.PathLike]) -> np.ndarray:
+    """A palette PNG's (H, W) uint8 indices (DAVIS's annotations), what
+    np.array(PIL.Image.open(p)) gives; an 8-bit grey PNG gives its values.
+    Other PNGs raise ValueError."""
+    data, name = _read(src)
+    png = decode_png(data, name)
+    if png.color_type not in (0, 3) or png.bit_depth > 8 or (
+            png.color_type == 0 and png.bit_depth != 8):
+        raise ValueError(f"{name}: not a palette (or 8-bit grey) PNG")
+    return np.ascontiguousarray(png.samples[..., 0])
 
 
 # cv2's fixed-point bilinear coefficients: 11 fractional bits

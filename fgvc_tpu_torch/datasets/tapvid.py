@@ -3,8 +3,9 @@ query sampling, evaluation (fgvc_tpu/datasets/tapvid.py).
 
 Each ``*.pkl`` holds one video: {'video': (T, H, W, 3) uint8 or a list of
 JPEG byte strings, 'points': (N, T, 2) (x, y) in [0, 1], 'occluded': (N, T)
-bool}.  JPEG bytes decode through image_io.read_image (PIL); frames at
-another size than the input size are resized as cv2's INTER_LINEAR does
+bool}.  JPEG bytes decode in one GIL-free call of the host library's thread
+pool (data_io/fgpack.py decode_jpeg_batch, equal to libjpeg's pixels); frames
+at another size than the input size are resized as cv2's INTER_LINEAR does
 (image_io.resize_frames, bit for bit).
 """
 
@@ -23,6 +24,7 @@ from fgvc_tpu_torch.core.metrics.tapvid import (
     aggregate_summaries,
     compute_point_summary,
 )
+from fgvc_tpu_torch.data_io.fgpack import decode_jpeg_batch, jpeg_info
 from fgvc_tpu_torch.datasets.image_io import read_image, resize_frames
 
 QUERY_MODES = ("first", "strided")
@@ -125,9 +127,15 @@ class TapVidDataset:
         return sample
 
     def _frames(self, video, path: str) -> np.ndarray:
-        """(T, H, W, 3) uint8 frames at the input size."""
+        """(T, H, W, 3) uint8 frames at the input size.  JPEG bytes of one
+        size decode in one decode_jpeg_batch call; frames of differing sizes
+        decode one by one by the same decoder (and then do not stack, as in
+        the JAX reader); a decode error raises ValueError."""
         if len(video) and isinstance(video[0], bytes):
-            video = np.stack([read_image(f) for f in video])
+            if video[0][:2] == b"\xff\xd8" and len({jpeg_info(f)[:2] for f in video}) == 1:
+                video = decode_jpeg_batch(video, n_threads=os.cpu_count() or 1)
+            else:
+                video = np.stack([read_image(f) for f in video])
         video = np.asarray(video)
         if video.dtype != np.uint8 or video.ndim != 4:
             raise ValueError(f"{path}: expected (T, H, W, 3) uint8 frames")

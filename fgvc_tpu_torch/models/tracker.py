@@ -71,6 +71,14 @@ listed n times runs the path of n cards.
 `track_points_forward` tracks points by forward-warping a coordinate map
 instead (the reference's HRVanillaTracker forward_test_forward).
 
+With cfg.upload_format 'yuv420' the bulk feature routes (extract_features:
+the bank, spatial devices, bank shards, forward tracking) encode an
+even-sized (T, H, W, 3) uint8 video to I420 planes on the host before the
+upload (ops/color.py rgb_to_yuv420_host), half the bytes of RGB, and
+features_on decodes planes on the device before cfg.preprocess; a (T, H*3/2,
+W) uint8 array is taken as planes as it is.  save_mem's streaming reads RGB
+frames, as the JAX Tracker's does.
+
 Differences from the JAX Tracker that leave the results unchanged: frames
 and points are not padded to buckets (PyTorch runs eagerly; bucketing exists
 for jit's static shapes, and windows only look backward), the bank is built
@@ -94,7 +102,7 @@ from fgvc_tpu_torch.device import set_matmul_precision
 from fgvc_tpu_torch.ops import windowed_attention
 from fgvc_tpu_torch.ops.attention import l2_normalize, masked_topk_attention
 from fgvc_tpu_torch.ops.c2f import flow_guided_topk_attention, masked_attention_c2f
-from fgvc_tpu_torch.ops.color import preprocess_fn
+from fgvc_tpu_torch.ops.color import preprocess_fns, rgb_to_yuv420_host
 from fgvc_tpu_torch.ops.cuda.topk_attention import (
     bank_geometry,
     pad_key_bank,
@@ -160,8 +168,11 @@ def full_device(device: Union[str, torch.device]) -> torch.device:
 
 
 def _check_video(video: np.ndarray) -> None:
-    if video.dtype != np.uint8 or video.ndim != 4:
-        raise ValueError(f"expected (T, H, W, 3) uint8 frames, got {video.dtype} {video.shape}")
+    if video.dtype != np.uint8 or video.ndim not in (3, 4):
+        raise ValueError(
+            f"expected (T, H, W, 3) uint8 frames or (T, H*3/2, W) uint8 I420 planes, "
+            f"got {video.dtype} {video.shape}"
+        )
 
 
 def _bucket(x: int, m: int) -> int:
@@ -244,7 +255,7 @@ class Tracker:
         # the query tile: the kernel caps it at 16 (the Pallas kernel did too)
         self.tile = cfg.tile if cfg.attention_impl == "tiled" else min(cfg.tile, 16)
         self.compute_dtype = pallas_compute_dtype(cfg.matmul_precision)
-        self.preprocess = preprocess_fn(cfg.preprocess)
+        self.preprocess, self.preprocess_yuv = preprocess_fns(cfg.preprocess)
 
     def _device_list(self, devices, name: str) -> List[torch.device]:
         """`devices` with their indices: one type, the tracker's device
@@ -266,22 +277,37 @@ class Tracker:
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def features_on(self, frames: np.ndarray, device: torch.device) -> torch.Tensor:
-        """(N, H, W, 3) uint8 RGB -> (N, h, w, C) float32 features, computed
-        on `device` (one of self.devices) by its backbone replica after
-        cfg.preprocess (every path, banked and streaming, comes here);
+        """(N, H, W, 3) uint8 RGB, or (N, H*3/2, W) uint8 I420 planes ->
+        (N, h, w, C) float32 features, computed on `device` (one of
+        self.devices) by its backbone replica after cfg.preprocess (planes
+        decoded first; every path, banked and streaming, comes here);
         contiguous, so that a norm over C sums in the same order on every
         path."""
-        x = torch.from_numpy(np.ascontiguousarray(frames))
-        x = self.preprocess(x.to(device))
+        x = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+        x = self.preprocess_yuv(x) if x.ndim == 3 else self.preprocess(x)
         f = self.backbones[device](x.permute(0, 3, 1, 2).contiguous())
         return f.permute(0, 2, 3, 1).contiguous()
 
+    def upload_video(self, video: np.ndarray) -> np.ndarray:
+        """What the bulk feature routes upload: under upload_format 'yuv420'
+        an even-sized (T, H, W, 3) uint8 video as I420 planes (T, H*3/2, W),
+        encoded on the host; anything else as it is."""
+        if (self.cfg.upload_format == "yuv420" and isinstance(video, np.ndarray)
+                and video.dtype == np.uint8 and video.ndim == 4
+                and video.shape[1] % 2 == 0 and video.shape[2] % 2 == 0):
+            return rgb_to_yuv420_host(video)
+        return video
+
     @torch.no_grad()
     def extract_features(self, video: np.ndarray) -> torch.Tensor:
-        """(T, H, W, 3) uint8 RGB -> (T, h, w, C) float32 features on the
-        device; preprocessing runs on the device too.  Each 16-frame chunk is
-        split over the distinct devices (frame-parallel, the JAX Tracker's
-        sharded upload) and gathered on the primary."""
+        """(T, H, W, 3) uint8 RGB, or (T, H*3/2, W) I420 planes -> (T, h, w,
+        C) float32 features on the device, the video uploaded as
+        upload_video gives it; preprocessing runs on the device.  Each
+        16-frame chunk is split over the distinct devices (frame-parallel, the
+        JAX Tracker's sharded upload) and gathered on the primary."""
+        return self._extract(self.upload_video(video))
+
+    def _extract(self, video: np.ndarray) -> torch.Tensor:
         _check_video(video)
         parts = []
         for i in range(0, video.shape[0], EXTRACT_CHUNK):
@@ -635,7 +661,7 @@ class Tracker:
         feat_buf, value_buf = [f0] * P, [first] * P
         outs = []
         for t in range(1, video.shape[0]):
-            q = norm(self.extract_features(video[t : t + 1])[0])
+            q = norm(self._extract(video[t : t + 1])[0])
             valid = [cfg.with_first] + [t - P + i >= 0 for i in range(P)]
             seg = self.attention_step(
                 q, torch.stack([f0, *feat_buf]), torch.stack([first, *value_buf]), valid,
@@ -713,6 +739,7 @@ class Tracker:
         the video is zeros.  A device's high-water mark is its shard and one
         chunk, never the whole bank."""
         if feats is None:
+            video = self.upload_video(video)
             _check_video(video)
         T = len(video) if feats is None else feats.shape[0]
         Ts = -(-T // len(self.bank_devices))
@@ -921,7 +948,7 @@ class Tracker:
         K2 with save_mem; K4 on either path with spatial devices);
         `track_masks_collect` reads the label maps."""
         if self.cfg.save_mem:
-            f0 = self.extract_features(video[:1])[0]   # frame 0 at batch 1
+            f0 = self._extract(video[:1])[0]   # frame 0 at batch 1, RGB
             h, w = f0.shape[:2]
         else:
             bank, (h, w) = self.video_bank(video)

@@ -1,12 +1,19 @@
-"""RGB -> CIE-Lab, the Lab and ImageNet eval normalisations
-(fgvc_tpu/ops/color.py).
+"""RGB -> CIE-Lab, the Lab and ImageNet eval normalisations, and the I420
+upload codec (fgvc_tpu/ops/color.py).
 
 Matches cv2.cvtColor(float32 RGB in [0, 1], COLOR_RGB2Lab), including the
 sRGB gamma decoding cv2 applies before the D65 XYZ matrix.  Channels-last.
+
+upload_format 'yuv420' halves the bytes a video takes to the device: the
+host encodes uint8 RGB frames to I420 planes (rgb_to_yuv420_host, the host
+library's rgb_to_i420_batch, equal to cv2.COLOR_RGB2YUV_I420), and the
+device decodes them (yuv420_to_rgb01: BT.601 studio swing, nearest chroma
+upsampling, as cv2.COLOR_YUV2RGB_I420) before the usual preprocessing.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # D65 reference white, OpenCV constants.
@@ -79,10 +86,57 @@ def preprocess_rgb_to_imagenet(rgb_uint8: torch.Tensor) -> torch.Tensor:
     return normalize(rgb_uint8.to(torch.float32) / 255.0, IMAGENET_MEAN, IMAGENET_STD)
 
 
-def preprocess_fn(preprocess: str):
-    """The uint8 -> float32 preprocessing of TestConfig.preprocess."""
+def rgb_to_yuv420_host(video: np.ndarray) -> np.ndarray:
+    """(T, H, W, 3) or (H, W, 3) uint8 RGB -> I420 planes (..., H*3//2, W),
+    on the host, H and W even: one GIL-free call of the host library."""
+    from fgvc_tpu_torch.data_io.fgpack import rgb_to_i420_batch
+
+    return rgb_to_i420_batch(video)
+
+
+def yuv420_to_rgb01(yuv: torch.Tensor) -> torch.Tensor:
+    """I420 planes (..., H*3//2, W) uint8 -> (..., H, W, 3) float32 RGB in
+    [0, 1], as cv2.COLOR_YUV2RGB_I420 decodes them: each chroma sample
+    covers its 2 x 2 pixels, and the luma excursion is clamped at zero
+    before scaling (cv2's fixed-point max(0, Y - 16)).  The U and V planes
+    are cut from the flat bytes, so any even H works."""
+    *lead, hp, w = yuv.shape
+    h = hp * 2 // 3
+    flat = yuv.to(torch.float32).reshape(*lead, hp * w)
+    n = h * w
+    y = flat[..., :n].reshape(*lead, h, w)
+    u = flat[..., n:n + n // 4].reshape(*lead, h // 2, w // 2)
+    v = flat[..., n + n // 4:n + n // 2].reshape(*lead, h // 2, w // 2)
+    u = u.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1) - 128.0
+    v = v.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1) - 128.0
+    yy = 1.16438356 * torch.clamp_min(y - 16.0, 0.0)
+    r = yy + 1.59602679 * v
+    g = yy - 0.39176229 * u - 0.81296765 * v
+    b = yy + 2.01723214 * u
+    return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 255.0) / 255.0
+
+
+def preprocess_yuv420_to_lab_normalized(yuv: torch.Tensor) -> torch.Tensor:
+    """I420 uint8 frame(s) -> normalised Lab float32 (decode, then the eval
+    preprocessing)."""
+    return normalize(rgb_to_lab(yuv420_to_rgb01(yuv)), LAB_MEAN, LAB_STD)
+
+
+def preprocess_yuv420_to_imagenet(yuv: torch.Tensor) -> torch.Tensor:
+    """I420 uint8 frame(s) -> ImageNet-normalised RGB float32."""
+    return normalize(yuv420_to_rgb01(yuv), IMAGENET_MEAN, IMAGENET_STD)
+
+
+def preprocess_fns(preprocess: str):
+    """(from RGB, from I420 planes): the uint8 -> float32 preprocessing of
+    TestConfig.preprocess for each upload format."""
     if preprocess == "imagenet":
-        return preprocess_rgb_to_imagenet
+        return preprocess_rgb_to_imagenet, preprocess_yuv420_to_imagenet
     if preprocess == "lab":
-        return preprocess_rgb_to_lab_normalized
+        return preprocess_rgb_to_lab_normalized, preprocess_yuv420_to_lab_normalized
     raise ValueError(f"preprocess must be 'lab' or 'imagenet', got {preprocess!r}")
+
+
+def preprocess_fn(preprocess: str):
+    """The uint8 RGB -> float32 preprocessing of TestConfig.preprocess."""
+    return preprocess_fns(preprocess)[0]

@@ -1,7 +1,8 @@
 """The port's environment doctor (fgvc_tpu_torch/cli/doctor.py) on the CPU,
 as tests/test_doctor.py drives fgvc_tpu's: the bounded device probe
-answers, the report carries the environment and the further checks (nvcc,
-the kernel build directory, the optional imports), and the exit code is 0
+answers, the report carries the environment and the further checks (the
+host codec library, nvcc, the kernel build directory, the optional
+imports), and the exit code is 0
 when the device responds and 1 when it does not (no card here, so
 --device cuda fails)."""
 
@@ -31,6 +32,7 @@ def test_doctor_cpu_probe_and_report():
     build = r["checks"]["kernel_build"]
     assert build["ok"] and build["note"] in ("warm", "cold (the first run builds with nvcc)")
     assert set(OPTIONAL_IMPORTS) <= set(r["checks"]) and "nvcc" in r["checks"]
+    assert r["checks"]["fgpack_native"]["ok"]
 
 
 def test_doctor_cli_exit_codes():
@@ -50,3 +52,28 @@ def test_doctor_probe_timeout_is_a_failure(monkeypatch):
     r = doctor.run_checks(probe_timeout=0.01, device="cpu")
     assert not r["ok"] and "no response" in r["checks"]["device"]["error"]
     assert "env" not in r
+
+
+def test_doctor_fgpack_native_check(monkeypatch):
+    """The host codec library's check: built (or found) in build/host,
+    loaded, a JPEG round trip within its tolerance; a library that fails to
+    load fails the check and the doctor."""
+    from fgvc_tpu_torch.cli import doctor
+    from fgvc_tpu_torch.data_io import fgpack
+
+    chk = doctor._fgpack_check()
+    assert chk["ok"], chk
+    assert chk["library"] == fgpack.library_path().name
+    assert 0 <= chk["roundtrip_max_abs"] <= doctor.ROUNDTRIP_TOL and chk["jpeg_bytes"] > 0
+    assert chk["compiler"] and chk["build_s"] >= 0
+
+    def broken():
+        raise RuntimeError("g++ failed for fgpack.cpp")
+
+    monkeypatch.setattr(fgpack, "_load", broken)
+    chk = doctor._fgpack_check()
+    assert not chk["ok"] and "g++ failed" in chk["error"]
+    monkeypatch.setattr(doctor, "_probe_check", lambda timeout, device: {"ok": True})
+    monkeypatch.setattr(doctor, "_nvcc_check", lambda: {"ok": False})
+    r = doctor.run_checks(device="cpu")
+    assert not r["ok"] and not r["checks"]["fgpack_native"]["ok"]

@@ -197,8 +197,8 @@ def test_unported_attention_impls_and_no_card_are_refused(monkeypatch):
     from fgvc_tpu_torch.config import TestConfig
     from fgvc_tpu_torch.core.export import export_flagship
 
-    for cfg in (dict(attention_impl="flash"), dict(upload_format="yuv420")):
-        with pytest.raises((ValueError, NotImplementedError), match="attention_impl|slice"):
+    for cfg in (dict(attention_impl="flash"), dict(upload_format="nv12")):
+        with pytest.raises((ValueError, NotImplementedError), match="attention_impl|upload_format"):
             export_flagship(dataclasses.replace(TestConfig(), **SMALL, **cfg), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

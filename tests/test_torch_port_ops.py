@@ -115,7 +115,10 @@ def test_tapvid_metrics_copy_matches_jax():
 
 
 def test_port_imports_neither_jax_nor_fgvc_tpu():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|fgvc_tpu(?!_torch))\b", re.M)
+    """No module of the port (nor chip_smoke.py) imports jax, flax, fgvc_tpu,
+    PIL or cv2, and no source of it includes or links libjpeg: the card's
+    machine has none of them, and the port decodes with its own codecs."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|fgvc_tpu(?!_torch)|PIL|cv2)\b", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "fgvc_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
@@ -131,6 +134,18 @@ def test_port_imports_neither_jax_nor_fgvc_tpu():
         offenders += [f"{path}: {m.group(0).strip()}" for m in pattern.finditer(src)]
         if re.search(r"fgvc_tpu(?!_torch)[.\w]*\s+import", src):
             offenders.append(f"{path}: imports from fgvc_tpu")
+        if re.search(r"""__import__\(\s*["'](PIL|cv2)|import_module\(\s*["'](PIL|cv2)""", src):
+            offenders.append(f"{path}: imports PIL or cv2 dynamically")
+    sources = []
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "fgvc_tpu_torch")):
+        sources += [os.path.join(dirpath, n) for n in names
+                    if n.endswith((".py", ".cpp", ".cu", ".h"))]
+    assert os.path.join(ROOT, "fgvc_tpu_torch", "csrc", "fgpack.cpp") in sources
+    for path in sources:
+        with open(path) as f:
+            src = f.read()
+        if re.search(r"#\s*include\s*[<\"]jpeglib\.h|-ljpeg\b", src):
+            offenders.append(f"{path}: includes or links libjpeg")
     assert not offenders, offenders
 
 
@@ -152,8 +167,10 @@ def test_unported_knobs_raise():
     from fgvc_tpu_torch.apis.test import build_tracker, run_task
     from fgvc_tpu_torch.config import DAVIS_TEST_CFG
 
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_tracker(dataclasses.replace(DAVIS_TEST_CFG, upload_format="yuv420"), device="cpu")
+    # both upload formats are ported; another is refused
+    build_tracker(dataclasses.replace(DAVIS_TEST_CFG, upload_format="yuv420"), device="cpu")
+    with pytest.raises(ValueError, match="upload_format must be one of"):
+        build_tracker(dataclasses.replace(DAVIS_TEST_CFG, upload_format="nv12"), device="cpu")
     # every propagation mode is ported; other names are refused
     for knob, value in [("attention_impl", "tiled"), ("attention_impl", "flow_guided"),
                         ("with_first_neighbor", False), ("topk_impl", "approx")]:

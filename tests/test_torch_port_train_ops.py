@@ -358,7 +358,7 @@ def test_train_config_file_and_refusals(tmp_path):
         check_train_ported(TrainConfig(compute_dtype="bfloat16"))
     with pytest.raises(ValueError):
         check_train_ported(TrainConfig(compute_dtype="float16"))
-    with pytest.raises(NotImplementedError, match="item 43"):
+    with pytest.raises(NotImplementedError, match="item 29b"):
         check_train_ported(TrainConfig(), data_roots=("ytv", None))
     with pytest.raises(NotImplementedError, match="item 31"):
         check_train_ported(TrainConfig(), multi_process=True)
