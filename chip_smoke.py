@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,
                                     codecs,modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,
-                                    profile,serve,export,doctor,train,propmodes,dp,bank,mp]
+                                    profile,serve,export,doctor,train,realtrain,propmodes,dp,
+                                    bank,mp]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -114,7 +115,18 @@ Phases, each of which raises on failure (exit code != 0):
             on the e2e pickles: K1 launches as many as 'rgb' (one per frame
             propagated), <D and the bytes uploaded beside 'rgb''s; then an
             8-frame 128 x 128 cut, card against CPU: median |diff| <= 1e-3
-            px;
+            px; (f) the committed files of tests/torch_port_fixtures made by
+            PIL and cv2 (progressive JPEG at 480 x 854 and at 256 x 256 with
+            restart markers, 4:4:0 and 4:1:1 JPEG, an Adam7 RGB PNG at 540 x
+            960) read by read_image: the sha256 of the pixels must equal
+            FIXTURE_PINS, PIL's and cv2's decode of the same bytes; the
+            port's encode_jpeg bytes with an APP1 Exif segment spliced in,
+            orientations 1-8 in both byte orders: read_image's shape and
+            pixels equal to the transform of the unrotated decode and to
+            EXIF_PINS (cv2.imread's), flags 'unchanged' and decode_jpeg
+            unrotated; host ms a 480 x 854 frame of the progressive decode
+            beside the baseline decode of the same pixels, on one thread and
+            os.cpu_count();
   modes     K3 end to end: run_task('davis') on the e2e pickles with
             matmul_precision 'highest', 'high' and 'default', and eval_vos on
             one synthetic VOS video, banked and save_mem, in the same three;
@@ -231,6 +243,22 @@ Phases, each of which raises on failure (exit code != 0):
             and statistics within 1e-4; (d) mid-training validation
             (make_synthetic_val_fn) on the student: K1 launched, metrics
             finite;
+  realtrain real-data training: a YouTube-VOS tree (8 videos x 6 JPEG frames
+            at 256 x 455, the port's encoder at quality 95, and a --ytv-list
+            JSON of every other frame) and a FlyingThings3D tree (2 scenes x
+            5 RGB PNG frames at 540 x 960 with their into-future and
+            into-past 'PF' flows) written here from integer-made frames:
+            (a) FlyingThingsYtvDataset's host ms a sample (the median of 20)
+            split into YouTube-VOS decode, PNG decode, PFM read, crop and
+            resize, blur and Lab, and ms a batch of 4; (b) python -m
+            fgvc_tpu_torch.cli.train --ytv-root --flyingthings-root
+            --ytv-list with the TrainConfig defaults for 8 steps and
+            --synthetic-val: finite losses, the median step ms from step 3
+            on beside phase train's synthetic step, the peak device memory,
+            K1's launches in the validation; then 3 steps with the reader in
+            the loop under torch.profiler (busy share); (c) at crop 64, 2
+            steps + resume + 2 against 4 steps on the card: parameters and
+            statistics within 1e-4, the resumed run's batches equal;
   propmodes the propagation modes beside the kernel (plain PyTorch: no
             attention kernel launches in them), seeded ResNet-18-d1 at full
             width, DAVIS_TEST_CFG, e2e video 0 (48 frames at 256 x 256, 32
@@ -396,6 +424,31 @@ CODEC_PINS = {
                 "c47cc3e4d1c24e7284fde1d891b1984f2643f3251397274d6185233c85b0523d"),
 }
 CODEC_HW, CODEC_FRAMES = (480, 854), 24     # host codec times: a VOS video's frames
+# phase codecs (f): the committed fixtures (tests/test_torch_port_codecs_more.py
+# makes them with PIL and cv2) and the sha256 of their RGB pixels as PIL and
+# cv2 decode them; the EXIF files' frame and the sha256 of cv2.imread's RGB
+# of exif_jpeg(frame, exif_tiff(o, little=o % 2 == 1)) for orientation o
+FIXTURE_DIR = os.path.join("tests", "torch_port_fixtures")
+FIXTURE_PINS = {
+    "adam7_rgb_540x960.png": "2ca691e27781fc54db6fe9f70c2501173ed73b37348eb0b39747aa11b73d0053",
+    "progressive_420_rst_256x256.jpg":
+        "16388e365539026fc88acb3188122341934c68830bb37c77c80b4a0fe4e87f7f",
+    "progressive_q95_480x854.jpg":
+        "51db63519290f1c4ef94c06d4bd8fae004dc614fed6c82b43bbfc1c433b84308",
+    "s411_q75_480x854.jpg": "af3aad0facc5c1247bac8bef6a9ef563fd14846a9fd2de4e49bfeeeee7349fc7",
+    "s440_q75_480x854.jpg": "d7ec5099405ca080d6a0c8061725a894efb1b500083a41a66ac1ea70edbe0984",
+}
+EXIF_HW, EXIF_SEED = (48, 80), 7
+EXIF_PINS = {
+    1: "025bdf573c274d8f277afb76889718f14eda1a625db2174f9065dbaa5848a8e2",
+    2: "65609a54d03f9d00cad333de19bb35d1d4f2562e517566a9378e50e7b674cc77",
+    3: "d3856b35f44b9fc364ae9816f9ee3d57d9dc129d3fabeae5d7baaf906726aedd",
+    4: "01c34738bcfa3db7ae332154ac60d960959bb76231b4eb9bd6e157ba57d971a1",
+    5: "93b0cddf5b5bfa0717d4c8d7b67a6bcb309e881b7b1cc0a5b84bb9b15ec0df51",
+    6: "b1412ba43e55e597cdf2a4140f408d22c62e53fa02787645f46ea23b85baef94",
+    7: "19437f1c17077d4e4931bce9c2cbbce1f93dd669d58c1388496931ffcbf5d75e",
+    8: "5c1a4bdab4739dbd6b949bba8120dbcd1b4aa73650119fb85d6e221aac3c8da4",
+}
 PACK_FRAMES, PACK_HW = 250, (256, 256)      # FgPack.read_batch MB/s
 
 
@@ -410,6 +463,29 @@ def codec_pin_frame(h, w, seed=0):
     box = (c[9:h + 9, 9:w + 9] - c[:h, 9:w + 9] - c[9:h + 9, :w] + c[:h, :w]) // 81
     noise = rng.integers(-6, 7, (h, w, 3))
     return np.clip(box + noise, 0, 255).astype(np.uint8)
+def exif_tiff(orientation, little=True):
+    """A TIFF header whose IFD0 holds Orientation and ImageLength entries."""
+    import struct
+
+    e = "<" if little else ">"
+    entries = (struct.pack(e + "HHIH", 0x0112, 3, 1, orientation) + b"\0\0"
+               + struct.pack(e + "HHII", 0x0101, 4, 1, 40))
+    return ((b"II*\0" if little else b"MM\0*") + struct.pack(e + "IH", 8, 2) + entries
+            + struct.pack(e + "I", 0))
+
+
+def exif_jpeg(img, tiff):
+    """The port's quality-95 JPEG of img with an APP1 'Exif' segment holding
+    `tiff` spliced in after its SOI and 18-byte JFIF APP0."""
+    import struct
+
+    from fgvc_tpu_torch.data_io.fgpack import encode_jpeg
+
+    jpg = encode_jpeg(img, 95)
+    body = b"Exif\0\0" + tiff
+    return jpg[:20] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body + jpg[20:]
+
+
 # the zoo (--backbone) beside ResNet-18-d1, and the K1 shapes it brings:
 # record -> (entry, h, w, C, Cv, window) at TAP-Vid's 256 x 256 and VOS's
 # 480 x 880
@@ -2876,6 +2952,62 @@ def run_codec_yuv420(data_root, records):
                           tag="codecs")
 
 
+def _exif_expected(img, orientation):
+    """cv2's EXIF transforms, written out with numpy's rotations."""
+    t = img.transpose(1, 0, 2)
+    return {1: img, 2: img[:, ::-1], 3: np.rot90(img, 2), 4: img[::-1], 5: t,
+            6: np.rot90(img, -1), 7: np.rot90(t, 2), 8: np.rot90(img, 1)}[orientation]
+
+
+def run_codec_fixtures(card_name):
+    """(f) The committed fixtures against FIXTURE_PINS; the EXIF files,
+    orientations 1-8, against the numpy transforms and EXIF_PINS; the
+    progressive decode's host ms beside the baseline decode's."""
+    from fgvc_tpu_torch.data_io import fgpack
+    from fgvc_tpu_torch.datasets.image_io import read_image
+
+    fixtures = {}
+    for name, pin in FIXTURE_PINS.items():
+        with open(os.path.join(ROOT, FIXTURE_DIR, name), "rb") as f:
+            fixtures[name] = f.read()
+        got = read_image(fixtures[name])
+        ok = _sha256(got.tobytes()) == pin
+        print(f"codecs fixture {name} ({len(fixtures[name])} bytes): {got.shape[0]}x"
+              f"{got.shape[1]}, sha256 of the pixels {'equal to' if ok else 'NOT'} PIL's and "
+              "cv2's", flush=True)
+        if not ok:
+            raise AssertionError(f"codecs fixture {name}: pixels differ from PIL's and cv2's")
+    img = codec_pin_frame(*EXIF_HW, seed=EXIF_SEED)
+    plain = fgpack.decode_jpeg(fgpack.encode_jpeg(img, 95))
+    shapes = {}
+    for o, pin in EXIF_PINS.items():
+        data = exif_jpeg(img, exif_tiff(o, little=o % 2 == 1))
+        got = read_image(data)
+        want = _exif_expected(plain, o)
+        shapes[o] = got.shape[:2]
+        if not (np.array_equal(got, want) and _sha256(got.tobytes()) == pin
+                and np.array_equal(read_image(data, "unchanged"), plain[..., ::-1])
+                and np.array_equal(fgpack.decode_jpeg(data), plain)):
+            raise AssertionError(f"codecs EXIF orientation {o}: read_image differs from cv2's")
+    print("codecs EXIF orientations 1-8 (II for odd, MM for even): read_image equal to the "
+          f"transforms and to cv2's pins, shapes {shapes}; 'unchanged' and decode_jpeg "
+          "unrotated", flush=True)
+    n_cpu = os.cpu_count() or 1
+    prog = fixtures["progressive_q95_480x854.jpg"]
+    base = fgpack.encode_jpeg(fgpack.decode_jpeg(prog), 95)
+    ms = {}
+    for label, data in (("progressive", prog), ("baseline", base)):
+        for threads in (1, n_cpu):
+            ms[f"{label}_{threads}"] = _host_ms(
+                lambda: fgpack.decode_jpeg_batch([data] * CODEC_FRAMES, n_threads=threads),
+                CODEC_FRAMES)
+    print(f"codecs host ms a 480x854 q95 frame ({card_name}; median of 3, {CODEC_FRAMES} "
+          f"frames a call): progressive {ms['progressive_1']:.2f} on 1 thread, "
+          f"{ms[f'progressive_{n_cpu}']:.2f} on {n_cpu}; baseline of the same pixels "
+          f"{ms['baseline_1']:.2f} and {ms[f'baseline_{n_cpu}']:.2f} ({len(prog) / 1e3:.1f} "
+          f"against {len(base) / 1e3:.1f} KB)", flush=True)
+
+
 def run_codecs(data_root, records, card_name):
     """Phase codecs (see the module's docstring)."""
     t_phase = time.time()
@@ -2885,6 +3017,7 @@ def run_codecs(data_root, records, card_name):
         run_codec_vos(root, records)
         run_codec_tapvid(data_root, root, records)
     run_codec_yuv420(data_root, records)
+    run_codec_fixtures(card_name)
     print(f"codecs phase {time.time() - t_phase:.1f} s (host library build {build_s:.2f} s) "
           f"[{card_name}]", flush=True)
 
@@ -3316,14 +3449,263 @@ def run_train_val(trainer, root):
 
 def run_train():
     """Phase train: (a) full width, (b) card against CPU, (c) resume, (d)
-    mid-training validation through K1."""
+    mid-training validation through K1.  Returns (a)'s median step ms."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
         t0 = time.time()
-        run_train_full_width(os.path.join(root, "full"))
+        step_ms, _ = run_train_full_width(os.path.join(root, "full"))
         run_train_card_vs_cpu()
         trainer = run_train_resume(root)
         run_train_val(trainer, root)
         print(f"train phase {time.time() - t0:.1f} s", flush=True)
+    return step_ms
+
+
+# --------------------------------------------------------------------- #
+# realtrain: FlyingThingsYtvDataset through the training CLI
+# --------------------------------------------------------------------- #
+RT_YTV_VIDEOS, RT_YTV_FRAMES, RT_YTV_HW = 8, 6, (256, 455)
+RT_FT_SCENES, RT_FT_FRAMES, RT_FT_HW = 2, 5, (540, 960)
+RT_SAMPLES = 20           # (a) samples timed, one at a time
+RT_BATCHES = 5            # (a) batches of the TrainConfig's size timed
+
+
+def write_pfm(path, flow):
+    """(H, W, 3) float32 as FlyingThings3D writes it: 'PF', a negative
+    (little-endian) scale, rows bottom-up."""
+    h, w = flow.shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"PF\n{w} {h}\n-1.0\n".encode()
+                + np.ascontiguousarray(flow[::-1], "<f4").tobytes())
+
+
+def make_real_trees(root):
+    """Phase realtrain's trees from integer-made frames: YouTube-VOS JPEGs
+    (the port's encoder, quality 95) with a --ytv-list of every other frame,
+    FlyingThings3D PNGs with flows in hundredths of a pixel up to 30 px.
+    Returns (ytv_root, flyingthings_root, ytv_list)."""
+    from fgvc_tpu_torch.data_io.fgpack import encode_jpeg
+
+    ytv, ft = os.path.join(root, "ytv"), os.path.join(root, "flyingthings")
+    listing = {}
+    for v in range(RT_YTV_VIDEOS):
+        vid = f"video{v:02d}"
+        d = os.path.join(ytv, "train", "JPEGImages_s256", vid)
+        os.makedirs(d)
+        names = [f"{5 * t:05d}.jpg" for t in range(RT_YTV_FRAMES)]
+        for t, name in enumerate(names):
+            with open(os.path.join(d, name), "wb") as f:
+                f.write(encode_jpeg(codec_pin_frame(*RT_YTV_HW, seed=1000 + 10 * v + t), 95))
+        listing[vid] = names[::2]
+    list_path = os.path.join(root, "ytv_list.json")
+    with open(list_path, "w") as f:
+        json.dump(listing, f)
+    rng = np.random.default_rng(0)
+    for sc in range(RT_FT_SCENES):
+        scene = os.path.join("A", f"{sc:04d}")
+        img_dir = os.path.join(ft, "frames_cleanpass", "TRAIN", scene, "left")
+        flow_dirs = {tag: os.path.join(ft, "optical_flow", "TRAIN", scene, sub, "left")
+                     for tag, sub in (("IntoFuture", "into_future"), ("IntoPast", "into_past"))}
+        for d in (img_dir, *flow_dirs.values()):
+            os.makedirs(d)
+        for n in range(6, 6 + RT_FT_FRAMES):
+            encode_png(os.path.join(img_dir, f"{n:04d}.png"),
+                       codec_pin_frame(*RT_FT_HW, seed=2000 + 10 * sc + n))
+            for tag, d in flow_dirs.items():
+                flow = (rng.integers(-3000, 3001, (*RT_FT_HW, 3)) / 100).astype(np.float32)
+                write_pfm(os.path.join(d, f"OpticalFlow{tag}_{n:04d}_L.pfm"), flow)
+    return ytv, ft, list_path
+
+
+# (a)'s split: the dataset module's functions timed, by what they do
+_RT_STAGES = {"read_flow_pfm": "PFM read", "resize_frames": "crop and resize",
+              "gaussian_blur": "blur", "rgb_to_lab_normalized": "Lab"}
+
+
+def run_realtrain_reader(trees, card_name):
+    """(a) The host ms of a sample split by stage (the dataset module's
+    read_image, read_flow_pfm, resize_frames, gaussian_blur and
+    rgb_to_lab_normalized wrapped in timers), the median of RT_SAMPLES; then
+    the ms of a batch of the TrainConfig's size (make_batches, no timers).
+    Returns the median batch ms."""
+    from fgvc_tpu_torch.config import TrainConfig
+    from fgvc_tpu_torch.datasets import flyingthings_ytv as ds_mod
+
+    cfg = TrainConfig()
+    ds = ds_mod.FlyingThingsYtvDataset(*trees[:2], ytv_list=trees[2], crop=cfg.crop_size,
+                                       seed=cfg.seed)
+    spent = {}
+
+    def timer(fn, stage_of):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            stage = stage_of(args)
+            spent[stage] = spent.get(stage, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapped
+
+    saved = {name: getattr(ds_mod, name) for name in ("read_image", *_RT_STAGES)}
+    per_sample = []
+    try:
+        ds_mod.read_image = timer(saved["read_image"], lambda a: "YouTube-VOS decode"
+                                  if str(a[0]).endswith(".jpg") else "PNG decode")
+        for name, stage in _RT_STAGES.items():
+            setattr(ds_mod, name, timer(saved[name], lambda a, stage=stage: stage))
+        for i in range(RT_SAMPLES):
+            spent.clear()
+            t0 = time.perf_counter()
+            ds[i]
+            total = time.perf_counter() - t0
+            per_sample.append({**spent, "rest": total - sum(spent.values()), "total": total})
+    finally:
+        for name, fn in saved.items():
+            setattr(ds_mod, name, fn)
+    stages = ("YouTube-VOS decode", "PNG decode", *_RT_STAGES.values(), "rest", "total")
+    med = {k: 1e3 * float(np.median([p.get(k, 0.0) for p in per_sample])) for k in stages}
+    batches = ds_mod.make_batches(ds, cfg.batch_size, RT_BATCHES)
+    batch_ms = []
+    for _ in range(RT_BATCHES):
+        t0 = time.perf_counter()
+        next(batches)
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"realtrain (a) host ms a sample (crop {cfg.crop_size}; {card_name}; median of "
+          f"{RT_SAMPLES}, one thread): " + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+          + f"; a batch of {cfg.batch_size}: median {float(np.median(batch_ms)):.1f} ms "
+          f"({[round(x, 1) for x in batch_ms]})", flush=True)
+    return float(np.median(batch_ms))
+
+
+def run_realtrain_cli(trees, work_dir, record, synth_step_ms, batch_ms, card_name):
+    """(b) python -m fgvc_tpu_torch.cli.train on the trees with the
+    TrainConfig defaults (in this process, so K1's counters see the
+    validation) for TRAIN_STEPS steps and --synthetic-val; then
+    TRAIN_PROFILED steps with the reader in the loop (make_batches on
+    prefetch_iter's thread, as train_model reads) under torch.profiler."""
+    import torch
+
+    from fgvc_tpu_torch.cli import train as cli_train
+    from fgvc_tpu_torch.config import TrainConfig
+    from fgvc_tpu_torch.core.train import MixedTrainer, step_generator
+    from fgvc_tpu_torch.data_io.prefetch import prefetch_iter
+    from fgvc_tpu_torch.datasets import flyingthings_ytv as ds_mod
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    ytv, ft, list_path = trees
+    k1.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rc = cli_train.main(["--ytv-root", ytv, "--flyingthings-root", ft, "--ytv-list", list_path,
+                         "--max-steps", str(TRAIN_STEPS), "--log-interval", "1",
+                         "--ckpt-interval", str(TRAIN_STEPS), "--synthetic-val",
+                         "--val-interval", str(TRAIN_STEPS), "--work-dir", work_dir])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = (k1.launches, k1.unbanked_launches, k1.row_block_launches)
+    lines = _read_log(work_dir)
+    logs = [r for r in lines if "loss" in r]
+    vals = [r["val"] for r in lines if "val" in r]
+    if rc != 0 or len(logs) != TRAIN_STEPS or len(vals) != 1:
+        raise AssertionError(f"realtrain (b): exit {rc}, {len(logs)} logged steps, "
+                             f"{len(vals)} validations")
+    for r in logs:
+        bad = [k for k in ("l1_loss", "sup_loss", "corr_da_loss", "loss") if not np.isfinite(r[k])]
+        if bad:
+            raise AssertionError(f"realtrain (b): non-finite {bad} at step {r['step']}")
+    check_metrics(vals[0])
+    if not launches[0] > 0 or launches[1] or launches[2]:
+        raise AssertionError(f"realtrain (b): validation launches (K1, K2, K4) {launches}")
+    _add_launches(record, launches[0])
+    step_ms = [1e3 / r["steps_per_sec"] for r in logs[2:]]
+    med = float(np.median(step_ms))
+    synth = f"{synth_step_ms:.1f} ms" if synth_step_ms else "not measured (phase train not run)"
+    print(f"realtrain (b) cli.train --ytv-root --flyingthings-root --ytv-list (TrainConfig "
+          f"defaults, {card_name}): {TRAIN_STEPS} steps in {wall:.1f} s (model build, cuDNN's "
+          f"search, checkpoint and validation included); step ms from step 3 "
+          f"{[round(x, 1) for x in step_ms]}, median {med:.1f} against phase train's synthetic "
+          f"{synth}; the reader's batch {batch_ms:.1f} ms; peak device memory {peak:.2f} GB; "
+          f"validation K1 launches {launches[0]}: " + json.dumps(
+              {k: vals[0][k] for k in ("average_pts_within_thresh", "average_jaccard")}),
+          flush=True)
+    print("realtrain (b) losses: " + json.dumps({k: logs[-1][k] for k in
+                                                 ("l1_loss", "sup_loss", "corr_da_loss", "loss")}))
+    cfg = TrainConfig()
+    ds = ds_mod.FlyingThingsYtvDataset(ytv, ft, ytv_list=list_path, crop=cfg.crop_size,
+                                       seed=cfg.seed)
+    trainer = MixedTrainer(cfg, "cuda").init(cfg.seed, 16)
+    batches = prefetch_iter(ds_mod.make_batches(ds, cfg.batch_size, 1 + TRAIN_PROFILED), depth=2)
+    trainer.train_step(next(batches), step_generator(cfg.seed, 0))  # outside the trace
+
+    def steps():
+        for b in batches:
+            trainer.train_step(b, step_generator(cfg.seed, trainer.step))
+
+    by_kernel, wall_ms = device_ms_by_kernel(steps)
+    busy = sum(by_kernel.values())
+    if busy:
+        print(f"realtrain (b) {TRAIN_PROFILED} profiled steps, the reader in the loop: wall "
+              f"{wall_ms:.1f} ms ({wall_ms / TRAIN_PROFILED:.1f} per step), device busy "
+              f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%); top kernels: "
+              + _top(by_kernel, 6), flush=True)
+    else:
+        print("realtrain (b) profile: device time not measured by torch.profiler")
+    del trainer
+    torch.cuda.empty_cache()
+    return med
+
+
+def run_realtrain_resume(trees, root):
+    """(c) At crop 64, radius 4, batch 2, 'highest' on the trees: 2 steps, a
+    checkpoint, 2 resumed steps against 4 straight steps on the card (the
+    largest parameter difference), and make_batches(skip=2) equal to the
+    last two batches of the full stream."""
+    import torch
+
+    from fgvc_tpu_torch.apis.train import train_model
+    from fgvc_tpu_torch.config import TrainConfig
+    from fgvc_tpu_torch.datasets import flyingthings_ytv as ds_mod
+
+    cfg = TrainConfig(**SMALL_TRAIN)
+    ds = ds_mod.FlyingThingsYtvDataset(*trees[:2], ytv_list=trees[2], crop=cfg.crop_size,
+                                       seed=cfg.seed)
+
+    def run(name, steps, skip, **kw):
+        return train_model(cfg, ds_mod.make_batches(ds, cfg.batch_size, steps, skip=skip),
+                           os.path.join(root, name), steps_per_epoch=16, max_steps=steps,
+                           device="cuda", **kw)
+
+    a = run("a", 4, 0, ckpt_interval=100, resume=False)
+    run("b", 2, 0, ckpt_interval=2, resume=False)
+    b = run("b", 4, 2, ckpt_interval=100, resume=True)
+    diff = 0.0
+    for name, module in a.trainable().items():
+        for v, w in zip(module.state_dict().values(), b.trainable()[name].state_dict().values()):
+            if v.is_floating_point():
+                diff = max(diff, float((v - w).abs().max()))
+    full = list(ds_mod.make_batches(ds, cfg.batch_size, 4))
+    tail = list(ds_mod.make_batches(ds, cfg.batch_size, 4, skip=2))
+    same = len(tail) == 2 and all(np.array_equal(x[k], y[k])
+                                  for x, y in zip(full[2:], tail) for k in x)
+    print(f"realtrain (c) 2 + resume + 2 against 4 steps on the card (crop 64): steps {a.step}, "
+          f"{b.step}; largest parameter/statistic difference {diff:.3e}; the resumed run's "
+          f"batches {'equal' if same else 'DIFFERENT'}", flush=True)
+    if a.step != 4 or b.step != 4 or not diff <= TRAIN_RESUME_TOL or not same:
+        raise AssertionError(f"realtrain (c): resumed run differs by {diff}, batches equal {same}")
+    torch.cuda.empty_cache()
+
+
+def run_realtrain(record, synth_step_ms, card_name):
+    """Phase realtrain (see the module's docstring)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_realtrain_") as root:
+        t0 = time.time()
+        trees = make_real_trees(os.path.join(root, "data"))
+        print(f"realtrain: trees written in {time.time() - t0:.2f} s", flush=True)
+        batch_ms = run_realtrain_reader(trees, card_name)
+        run_realtrain_cli(trees, os.path.join(root, "run"), record, synth_step_ms, batch_ms,
+                          card_name)
+        run_realtrain_resume(trees, root)
+        print(f"realtrain phase {time.time() - t0:.1f} s [{card_name}]", flush=True)
 
 
 # --------------------------------------------------------------------- #
@@ -3611,8 +3993,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,"
                                         "codecs,modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,"
-                                        "profile,serve,export,doctor,train,propmodes,dp,bank,"
-                                        "mp")
+                                        "profile,serve,export,doctor,train,realtrain,"
+                                        "propmodes,dp,bank,mp")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -3789,9 +4171,13 @@ def main():
         t_doctor = time.time()
         run_doctor()
         print(f"doctor phase {time.time() - t_doctor:.1f} s", flush=True)
+    synth_step_ms = None
     if "train" in phases:
         phase("train")
-        run_train()
+        synth_step_ms = run_train()
+    if "realtrain" in phases:
+        phase("realtrain")
+        run_realtrain(records["K1_circle"], synth_step_ms, card_name)
     phase(None)
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))

@@ -1,18 +1,26 @@
 #!/usr/bin/env python
 """Training CLI of the port (fgvc_tpu/cli/train.py): the mixed recipe on one
-card, on the procedural data of the JAX package.
+card, on YouTube-VOS + FlyingThings3D or on the JAX package's procedural
+data.
 
+    python -m fgvc_tpu_torch.cli.train --ytv-root <ytv> --flyingthings-root <ft> \
+        [--ytv-list youtube2018_train.json] --work-dir runs/mixed \
+        [--config f.json] [--teacher t.pth] [--synthetic-val | --val-data-root <pkls>] \
+        [--device cuda|cpu]
     python -m fgvc_tpu_torch.cli.train --synthetic --synthetic-mode structured \
-        --max-steps N --work-dir runs/mixed [--config f.json] [--teacher t.pth] \
-        [--synthetic-val | --val-data-root <pkls>] [--device cuda|cpu]
+        --max-steps N --work-dir runs/mixed ...
 
-Settings layer as in the JAX CLI: TrainConfig defaults, then --config (a
-JSON object of TrainConfig fields), then explicit flags.  Runs on the CUDA
-card unless --device cpu is given.  Real YouTube-VOS / FlyingThings3D data
-(--ytv-root, --flyingthings-root), multi-process runs (--coordinator,
---num-processes, --process-id, or a rank of cli.launch) and --platform tpu
-are refused with the reason: DDP training is not ported, though the eval
-CLI runs several processes (parallel/dist.py).
+As in the JAX CLI, --synthetic, or no --ytv-root, trains on procedural data;
+otherwise FlyingThingsYtvDataset reads the two trees (frames decoded by the
+port's own codecs; WebP FlyingThings frames are refused), an epoch is
+len(videos) // batch_size steps, and a resumed run skips the batches of
+the checkpointed steps.  Settings layer as in the JAX CLI: TrainConfig
+defaults, then --config (a JSON object of TrainConfig fields), then
+explicit flags.  Runs on the CUDA card unless --device cpu is given.
+Multi-process runs (--coordinator, --num-processes, --process-id, or a rank
+of cli.launch) and --platform tpu are refused with the reason: DDP training
+is not ported, though the eval CLI runs several processes
+(parallel/dist.py).
 """
 
 import argparse
@@ -23,9 +31,13 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="fgvc_tpu_torch mixed training")
-    parser.add_argument("--ytv-root", default=None)
-    parser.add_argument("--flyingthings-root", default=None)
-    parser.add_argument("--ytv-list", default=None)
+    parser.add_argument("--ytv-root", default=None,
+                        help="YouTube-VOS root (train/JPEGImages_s256/<video>/*.jpg)")
+    parser.add_argument("--flyingthings-root", default=None,
+                        help="FlyingThings3D root (frames_cleanpass/TRAIN, optical_flow/TRAIN)")
+    parser.add_argument("--ytv-list", default=None,
+                        help="JSON of {video: [frames]} (or {'videos': ...}) to train on; "
+                             "default: every *.jpg of each video directory")
     parser.add_argument("--work-dir", default="runs/mixed")
     parser.add_argument("--synthetic", action="store_true")
     parser.add_argument("--synthetic-mode", default="noise",
@@ -120,13 +132,19 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, **flag_overrides)
     check_train_ported(
         cfg,
-        data_roots=() if args.synthetic else (args.ytv_root, args.flyingthings_root),
         multi_process=bool(args.coordinator or (args.num_processes or 1) > 1
                            or args.process_id or os.environ.get("FGVC_COORDINATOR")),
     )
+    real = not args.synthetic and args.ytv_root
+    if real and not args.flyingthings_root:
+        parser.error("--ytv-root needs --flyingthings-root (the flow-labeled branch)")
     resolve_device(device)  # no card and no --device cpu: refuse before any work
 
-    if args.synthetic_mode == "movi":
+    if real:
+        dataset = ds_mod.FlyingThingsYtvDataset(args.ytv_root, args.flyingthings_root,
+                                                ytv_list=args.ytv_list, crop=cfg.crop_size,
+                                                seed=cfg.seed)
+    elif args.synthetic_mode == "movi":
         if not args.movi_root:
             parser.error("--synthetic-mode movi needs --movi-root")
         dataset = ds_mod.MoviMixedDataset(args.movi_root, crop=cfg.crop_size, seed=cfg.seed)

@@ -171,16 +171,10 @@ def config_from_file(path: str, base):
     return dataclasses.replace(base, **coerced)
 
 
-def check_train_ported(cfg: TrainConfig, *, data_roots=(), multi_process: bool = False) -> None:
+def check_train_ported(cfg: TrainConfig, *, multi_process: bool = False) -> None:
     """Raise NotImplementedError for what the port's training leaves out
-    (bfloat16 compute, real-data roots, multi-process runs), and ValueError
-    for a value no package accepts."""
-    if any(data_roots):
-        raise NotImplementedError(
-            "real-data training (YouTube-VOS + FlyingThings3D) is not ported to "
-            "fgvc_tpu_torch yet: it needs FlyingThingsYtvDataset and "
-            "datasets/transforms.py (ROADMAP.md item 29b); train on --synthetic data"
-        )
+    (bfloat16 compute, multi-process runs), and ValueError for a value no
+    package accepts."""
     if multi_process:
         raise NotImplementedError(
             "multi-process training (DDP + SyncBN) is not ported to "

@@ -3,13 +3,19 @@
 //
 //   * FGPK packs: one flat file of frame records and an index, mmapped, read
 //     in batches by a pthread pool (ctypes releases the GIL around a call).
-//   * A baseline JPEG decoder whose output equals libjpeg's default
-//     decompression to JCS_RGB: SOF0/SOF1, 8-bit, 1 or 3 components,
-//     sampling 4:4:4, 4:2:2 (h2v1) and 4:2:0 (h2v2), DRI/RSTn, 8- and 16-bit
-//     DQT; the islow integer IDCT (jidctint), fancy upsampling (jdsample's
-//     triangle filters and biases), jdcolor's fixed-point YCbCr -> RGB.  A
-//     grey JPEG decodes to three equal channels.  Progressive, arithmetic,
-//     lossless, 12-bit and 4-component files are refused with a status code.
+//   * A JPEG decoder whose output equals libjpeg's default decompression
+//     to JCS_RGB: baseline and extended (SOF0/SOF1) and progressive (SOF2,
+//     jdphuff's four scan kinds into a whole-image coefficient buffer),
+//     8-bit, 1 or 3 components, every integral sampling (jdsample's h2v1,
+//     h2v2 and h1v2 triangle filters and biases, int_upsample's box for
+//     the other ratios), DRI/RSTn, 8- and 16-bit DQT latched at a
+//     component's first scan; the islow integer IDCT (jidctint),
+//     jdcolor's fixed-point YCbCr -> RGB.  A grey JPEG decodes to three
+//     equal channels.  Arithmetic, lossless, hierarchical, 12-bit and
+//     4-component files, fractional samplings, and progressive files whose
+//     scans leave one of the first ten coefficients incomplete (libjpeg
+//     smooths those blocks, jdcoefct's smoothing_ok) are refused with a
+//     status code.
 //   * A baseline JPEG encoder whose bytes equal libjpeg's defaults (what
 //     cv2.imencode and PIL write): JFIF APP0, jcparam's quality scaling of
 //     the Annex K tables with force_baseline, jccolor's RGB -> YCbCr, 4:2:0
@@ -55,12 +61,12 @@ enum Status {
   kOk = 0,
   kErrCorrupt = -1,      // a malformed marker, segment or Huffman code
   kErrTruncated = -2,    // the entropy-coded data ends before the last MCU
-  kErrProgressive = -3,  // SOF2 / SOF6 / SOF10 / SOF14
-  kErrArithmetic = -4,   // SOF9 / SOF11 / SOF13 / SOF15
-  kErrLossless = -5,     // SOF3 / SOF7 (lossless, hierarchical)
+  kErrIncomplete = -3,   // progressive scans leave coefficients 1-9 incomplete
+  kErrArithmetic = -4,   // SOF9-SOF11 / SOF13-SOF15, DAC
+  kErrLossless = -5,     // SOF3 / SOF5-SOF7 (lossless, hierarchical)
   kErrPrecision = -6,    // sample precision other than 8 bits
   kErrComponents = -7,   // not 1 or 3 components (CMYK, YCCK)
-  kErrSampling = -8,     // sampling other than 4:4:4, 4:2:2, 4:2:0
+  kErrSampling = -8,     // a fractional sampling ratio
   kErrSize = -9,         // decoded size differs from the expected one
   kErrIndex = -10,       // record index out of range
   kErrLayout = -11,      // I420 of an odd-sized or non-RGB frame
@@ -427,7 +433,20 @@ struct Component {
   int plane_rows = 0;
   int ds_w = 0, ds_h = 0;  // downsampled_width / downsampled_height
   int blocks_w = 0, blocks_h = 0;  // blocks of a non-interleaved scan
+  int pad_w = 0, pad_h = 0;        // blocks of the MCU-padded grid
+  // the quantization table, latched at the component's first scan
+  // (jdinput's latch_quant_tables), natural order
+  uint16_t q[64] = {};
+  bool latched = false;
+  // progressive: the whole image's coefficients (pad_w x pad_h blocks of
+  // 64 JCOEF, zigzag-free natural order) and jdphuff's coef_bits per
+  // zigzag index (-1 until a scan sends it, then the scan's Al)
+  std::vector<int16_t> coef;
+  int coef_bits[64];
 };
+
+// natural positions of zigzag coefficients 0-9: jdcoefct's Q00..Q30_POS
+const uint8_t kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
 
 struct JpegDecoder {
   const uint8_t* data;
@@ -445,6 +464,7 @@ struct JpegDecoder {
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
   bool have_frame = false, have_scan = false;
+  bool progressive = false;
 
   JpegDecoder(const uint8_t* d, size_t n) : data(d), size(n) {}
 
@@ -492,10 +512,9 @@ struct JpegDecoder {
       if (ncomp == 1) {
         c.h = c.v = hmax = vmax = 1;  // one component: its factors do not matter
       }
+      // jdsample upsamples every integral ratio; "Fractional sampling not
+      // implemented" otherwise
       if (hmax % c.h || vmax % c.v) return kErrSampling;
-      const int hr = hmax / c.h, vr = vmax / c.v;
-      if (!((hr == 1 && vr == 1) || (hr == 2 && vr == 1) || (hr == 2 && vr == 2)))
-        return kErrSampling;
     }
     mcus_x = (width + 8 * hmax - 1) / (8 * hmax);
     mcus_y = (height + 8 * vmax - 1) / (8 * vmax);
@@ -505,11 +524,15 @@ struct JpegDecoder {
       c.ds_h = (height * c.v + vmax - 1) / vmax;
       c.blocks_w = (c.ds_w + 7) / 8;
       c.blocks_h = (c.ds_h + 7) / 8;
-      const int bw = mcus_x * c.h > c.blocks_w ? mcus_x * c.h : c.blocks_w;
-      const int bh = mcus_y * c.v > c.blocks_h ? mcus_y * c.v : c.blocks_h;
-      c.stride = static_cast<size_t>(bw) * 8;
-      c.plane_rows = bh * 8;
+      c.pad_w = mcus_x * c.h > c.blocks_w ? mcus_x * c.h : c.blocks_w;
+      c.pad_h = mcus_y * c.v > c.blocks_h ? mcus_y * c.v : c.blocks_h;
+      c.stride = static_cast<size_t>(c.pad_w) * 8;
+      c.plane_rows = c.pad_h * 8;
       c.plane.assign(c.stride * c.plane_rows, 0);
+      if (progressive) {
+        c.coef.assign(static_cast<size_t>(c.pad_w) * c.pad_h * 64, 0);
+        for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
+      }
     }
     have_frame = true;
     return kOk;
@@ -560,7 +583,7 @@ struct JpegDecoder {
     std::memset(coef, 0, sizeof(coef));
     const HuffTable& dct = dc[c.dc_tbl];
     const HuffTable& act = ac[c.ac_tbl];
-    const uint16_t* q = qt[c.tq];
+    const uint16_t* q = c.q;
     int s = decode_symbol(b, dct);
     if (s < 0 || s > 16) {
       *err = kErrCorrupt;
@@ -592,13 +615,110 @@ struct JpegDecoder {
                c.stride);
   }
 
+  // One progressive scan's work on one block (jdphuff.c's decode_mcu_DC_first,
+  // _DC_refine, _AC_first and _AC_refine); `eobrun` carries across blocks.
+  void decode_prog_block(BitReader* b, Component& c, int bx, int by, int ss, int se, int ah,
+                         int al, int* eobrun, int* err) {
+    int16_t* blk = c.coef.data() + (static_cast<size_t>(by) * c.pad_w + bx) * 64;
+    if (ss == 0) {
+      if (ah == 0) {
+        const int s = decode_symbol(b, dc[c.dc_tbl]);
+        if (s < 0 || s > 16) {
+          *err = kErrCorrupt;
+          return;
+        }
+        c.pred += s ? extend(b->get(s), s) : 0;
+        blk[0] = static_cast<int16_t>(static_cast<uint32_t>(c.pred) << al);
+      } else if (b->get(1)) {
+        blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+      }
+      return;
+    }
+    const HuffTable& act = ac[c.ac_tbl];
+    if (ah == 0) {  // AC first
+      if (*eobrun > 0) {
+        --*eobrun;
+        return;
+      }
+      for (int k = ss; k <= se; ++k) {
+        const int rs = decode_symbol(b, act);
+        if (rs < 0) {
+          *err = kErrCorrupt;
+          return;
+        }
+        int r = rs >> 4;
+        const int s = rs & 15;
+        if (s) {
+          k += r;
+          blk[kNatural[k]] =
+              static_cast<int16_t>(static_cast<uint32_t>(extend(b->get(s), s)) << al);
+        } else if (r == 15) {
+          k += 15;
+        } else {  // EOBr: a run of 2^r + r appended bits bands, this one included
+          *eobrun = (1 << r) + (r ? b->get(r) : 0) - 1;
+          break;
+        }
+      }
+      return;
+    }
+    // AC refine: one correction bit for each nonzero coefficient passed, a
+    // new coefficient of magnitude 1 << al after r zero ones
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int k = ss;
+    auto correct = [&](int16_t* coef) {
+      if (b->get(1) && (*coef & p1) == 0)
+        *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+    };
+    if (*eobrun == 0) {
+      for (; k <= se; ++k) {
+        const int rs = decode_symbol(b, act);
+        if (rs < 0) {
+          *err = kErrCorrupt;
+          return;
+        }
+        int r = rs >> 4;
+        int s = rs & 15;
+        if (s) {  // a size other than 1 is only a warning in libjpeg
+          s = b->get(1) ? p1 : m1;
+        } else if (r != 15) {
+          *eobrun = (1 << r) + (r ? b->get(r) : 0);
+          break;
+        }
+        do {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (*eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0) correct(coef);
+      }
+      --*eobrun;
+    }
+  }
+
   // One scan's entropy-coded data, from pos; leaves pos at the next marker.
-  int decode_scan(const int* ids, int ns) {
+  // Baseline blocks go through the IDCT at once; progressive ones (ss, se,
+  // ah, al: the scan's spectral band and successive approximation) update
+  // the coefficient buffer.
+  int decode_scan(const int* ids, int ns, int ss, int se, int ah, int al) {
     Component* sc[4];
     for (int i = 0; i < ns; ++i) sc[i] = &comp[ids[i]];
     for (int i = 0; i < ns; ++i) {
       Component& c = *sc[i];
-      if (!dc[c.dc_tbl].present || !ac[c.ac_tbl].present || !qt_present[c.tq])
+      // jdphuff's start_pass: a DC refinement needs no table, an AC scan no
+      // DC table and a DC scan no AC table
+      const bool need_dc = !progressive || (ss == 0 && ah == 0);
+      const bool need_ac = !progressive || ss > 0;
+      if ((need_dc && !dc[c.dc_tbl].present) || (need_ac && !ac[c.ac_tbl].present))
         return kErrCorrupt;
       c.pred = 0;
     }
@@ -608,7 +728,14 @@ struct JpegDecoder {
                               ? static_cast<int64_t>(mcus_x) * mcus_y
                               : static_cast<int64_t>(sc[0]->blocks_w) * sc[0]->blocks_h;
     int err = kOk;
+    int eobrun = 0;
     int64_t left = restart_interval;
+    auto block = [&](Component& c, int bx, int by) {
+      if (progressive)
+        decode_prog_block(&b, c, bx, by, ss, se, ah, al, &eobrun, &err);
+      else
+        decode_block(&b, c, bx, by, &err);
+    };
     for (int64_t m = 0; m < total; ++m) {
       if (restart_interval) {
         if (left == 0) {
@@ -620,6 +747,7 @@ struct JpegDecoder {
           b.p = data + pos;
           b.reset();
           for (int i = 0; i < ns; ++i) sc[i]->pred = 0;
+          eobrun = 0;
           left = restart_interval;
         }
         --left;
@@ -629,13 +757,11 @@ struct JpegDecoder {
         for (int i = 0; i < ns && err == kOk; ++i) {
           Component& c = *sc[i];
           for (int yy = 0; yy < c.v; ++yy)
-            for (int xx = 0; xx < c.h; ++xx)
-              decode_block(&b, c, mx * c.h + xx, my * c.v + yy, &err);
+            for (int xx = 0; xx < c.h; ++xx) block(c, mx * c.h + xx, my * c.v + yy);
         }
       } else {
         Component& c = *sc[0];
-        decode_block(&b, c, static_cast<int>(m % c.blocks_w),
-                     static_cast<int>(m / c.blocks_w), &err);
+        block(c, static_cast<int>(m % c.blocks_w), static_cast<int>(m / c.blocks_w));
       }
       if (err != kOk) return b.overrun() ? kErrTruncated : err;
     }
@@ -644,11 +770,42 @@ struct JpegDecoder {
     return kOk;
   }
 
+  // After a progressive file's last scan: refuse where libjpeg would smooth
+  // blocks (jdcoefct's smoothing_ok: every component's DC known and one of
+  // zigzag coefficients 1-9 incomplete somewhere), else dequantize and
+  // IDCT every block of each component's own grid.
+  int finish_progressive() {
+    bool smooth = true, useful = false;
+    for (int i = 0; i < ncomp && smooth; ++i) {
+      const Component& c = comp[i];
+      if (!c.latched || c.coef_bits[0] < 0) smooth = false;
+      for (int k = 0; k < 10 && smooth; ++k) {
+        if (c.q[kSmoothPos[k]] == 0) smooth = false;
+        if (k > 0 && c.coef_bits[k] != 0) useful = true;
+      }
+    }
+    if (smooth && useful) return kErrIncomplete;
+    int32_t deq[64];
+    for (int i = 0; i < ncomp; ++i) {
+      Component& c = comp[i];
+      for (int by = 0; by < c.blocks_h; ++by)
+        for (int bx = 0; bx < c.blocks_w; ++bx) {
+          const int16_t* blk = c.coef.data() + (static_cast<size_t>(by) * c.pad_w + bx) * 64;
+          for (int z = 0; z < 64; ++z) deq[z] = blk[z] * static_cast<int32_t>(c.q[z]);
+          idct_islow(deq, c.plane.data() + static_cast<size_t>(by) * 8 * c.stride + bx * 8,
+                     c.stride);
+        }
+    }
+    return kOk;
+  }
+
   int parse_sos(size_t seg, size_t len) {
     if (!have_frame) return kErrNoImage;
     if (len < 1) return kErrCorrupt;
     const int ns = data[seg];
     if (ns < 1 || ns > ncomp || len < 4 + 2 * static_cast<size_t>(ns)) return kErrCorrupt;
+    const size_t sp = seg + 1 + 2 * static_cast<size_t>(ns);
+    const int ss = data[sp], se = data[sp + 1], ah = data[sp + 2] >> 4, al = data[sp + 2] & 15;
     int ids[4];
     for (int i = 0; i < ns; ++i) {
       const int cid = data[seg + 1 + 2 * i];
@@ -667,21 +824,43 @@ struct JpegDecoder {
       for (int i = 0; i < ns; ++i) blocks += comp[ids[i]].h * comp[ids[i]].v;
       if (blocks > 10) return kErrCorrupt;
     }
+    for (int i = 0; i < ns; ++i) {
+      Component& c = comp[ids[i]];
+      if (c.latched) continue;
+      if (!qt_present[c.tq]) return kErrCorrupt;
+      std::memcpy(c.q, qt[c.tq], sizeof(c.q));
+      c.latched = true;
+    }
+    if (progressive) {
+      // jdphuff's start_pass_phuff_decoder: the scan's parameters, then
+      // each coefficient's bit position (an out-of-order progression is
+      // only a warning there)
+      const bool bad = (ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1)) ||
+                       (ah != 0 && al != ah - 1) || al > 13;
+      if (bad) return kErrCorrupt;
+      for (int i = 0; i < ns; ++i)
+        for (int k = ss; k <= se; ++k) comp[ids[i]].coef_bits[k] = al;
+    }
     pos = seg + len;
-    const int rc = decode_scan(ids, ns);
+    const int rc = decode_scan(ids, ns, ss, se, ah, al);
     if (rc == kOk) have_scan = true;
     return rc;
   }
 
+  // The markers up to EOI (or the end of the data: what was decoded stands,
+  // as in libjpeg); a progressive file's blocks are reconstructed at the end.
   int parse() {
+    const int rc = parse_markers();
+    if (rc != kOk || !progressive) return rc;
+    return finish_progressive();
+  }
+
+  int parse_markers() {
     if (size < 4 || data[0] != 0xFF || data[1] != 0xD8) return kErrCorrupt;
     pos = 2;
     for (;;) {
       const int m = next_marker();
-      if (m < 0) {
-        // the data ends without EOI: what was decoded stands, as in libjpeg
-        return have_scan ? kOk : (have_frame ? kErrTruncated : kErrNoImage);
-      }
+      if (m < 0) return have_scan ? kOk : (have_frame ? kErrTruncated : kErrNoImage);
       if (m == 0xD9) return have_scan ? kOk : kErrNoImage;  // EOI
       if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
       int len = 0;
@@ -692,21 +871,21 @@ struct JpegDecoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
           if (have_frame) return kErrCorrupt;
+          progressive = m == 0xC2;
           rc = parse_sof(seg, seg_len);
           break;
-        case 0xC2:
-        case 0xC6:
-        case 0xCA:
-        case 0xCE:
-          return kErrProgressive;
         case 0xC9:
+        case 0xCA:
         case 0xCB:
         case 0xCD:
+        case 0xCE:
         case 0xCF:
           return kErrArithmetic;
         case 0xC3:
         case 0xC5:
+        case 0xC6:
         case 0xC7:
           return kErrLossless;
         case 0xC4:
@@ -752,19 +931,34 @@ struct JpegDecoder {
   }
 
   // The upsampled output row y of component c into out (>= width + 2 bytes
-  // of room beyond 2 * ds_w): jdsample's fullsize copy, h2v1 and h2v2
-  // fancy upsampling, with jdmainct's context rows (the row above row 0 is
-  // row 0, the rows past the last are the last).
+  // of room beyond 2 * ds_w), as jinit_upsampler chooses: the fullsize
+  // copy; h2v1 and h2v2 fancy upsampling where downsampled_width > 2; h1v2
+  // fancy upsampling; int_upsample's box for every other ratio (h2v1 and
+  // h2v2 of a component at most 2 samples wide among them).  The context
+  // rows are jdmainct's: the row above row 0 is row 0, the rows past the
+  // last are the last.
   void upsample_row(const Component& c, int y, uint8_t* out) const {
     const int hr = hmax / c.h, vr = vmax / c.v;
-    if (hr == 1) {
+    if (hr == 1 && vr == 1) {
       std::memcpy(out, c.plane.data() + static_cast<size_t>(y) * c.stride, width);
       return;
     }
+    if (hr == 1 && vr == 2) {  // h1v2: bias 1 towards the row above, 2 below
+      const int row = y >> 1;
+      int far_row = (y & 1) ? row + 1 : row - 1;
+      if (far_row < 0) far_row = 0;
+      if (far_row > c.ds_h - 1) far_row = c.ds_h - 1;
+      const uint8_t* in0 = c.plane.data() + static_cast<size_t>(row) * c.stride;
+      const uint8_t* in1 = c.plane.data() + static_cast<size_t>(far_row) * c.stride;
+      const int bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < width; ++x)
+        out[x] = static_cast<uint8_t>((in0[x] * 3 + in1[x] + bias) >> 2);
+      return;
+    }
     const int dw = c.ds_w;
-    if (dw <= 2) {  // jinit_upsampler: fancy only where downsampled_width > 2
+    if (hr != 2 || vr > 2 || dw <= 2) {  // int_upsample, h2v1_upsample, h2v2_upsample
       const uint8_t* in = c.plane.data() + static_cast<size_t>(y / vr) * c.stride;
-      for (int i = 0; i < dw; ++i) out[2 * i] = out[2 * i + 1] = in[i];
+      for (int x = 0; x < width; ++x) out[x] = in[x / hr];
       return;
     }
     if (vr == 1) {  // h2v1
@@ -873,10 +1067,10 @@ int jpeg_info(const uint8_t* src, size_t nbytes, int64_t* out) {
     int len = 0;
     if (!d.read_u16(d.pos, &len) || len < 2 || d.pos + len > nbytes) return kErrTruncated;
     const size_t seg = d.pos + 2;
-    if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE) return kErrProgressive;
-    if (m == 0xC9 || m == 0xCB || m == 0xCD || m == 0xCF) return kErrArithmetic;
-    if (m == 0xC3 || m == 0xC5 || m == 0xC7) return kErrLossless;
-    if (m == 0xC0 || m == 0xC1) {
+    if (m == 0xC9 || m == 0xCA || m == 0xCB || m == 0xCD || m == 0xCE || m == 0xCF)
+      return kErrArithmetic;
+    if (m == 0xC3 || m == 0xC5 || m == 0xC6 || m == 0xC7) return kErrLossless;
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
       if (len < 8) return kErrCorrupt;
       if (src[seg] != 8) return kErrPrecision;
       out[0] = (src[seg + 1] << 8) | src[seg + 2];

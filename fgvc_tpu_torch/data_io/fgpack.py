@@ -54,12 +54,13 @@ LINK_FLAGS = ("-lpthread",)
 STATUS = {
     -1: "corrupt JPEG data",
     -2: "truncated JPEG data",
-    -3: "progressive JPEG is not supported",
+    -3: "progressive JPEG whose scans leave one of the first ten coefficients incomplete "
+        "(libjpeg would smooth its blocks) is not supported",
     -4: "arithmetic-coded JPEG is not supported",
     -5: "lossless or hierarchical JPEG is not supported",
     -6: "JPEG sample precision other than 8 bits is not supported",
     -7: "JPEG with other than 1 or 3 components (CMYK, YCCK) is not supported",
-    -8: "JPEG sampling other than 4:4:4, 4:2:2 and 4:2:0 is not supported",
+    -8: "JPEG with a fractional chroma sampling ratio is not supported",
     -9: "the frame's size differs from the batch's",
     -10: "record index out of range",
     -11: "the i420 layout needs even-sized (H, W, 3) frames",
@@ -151,7 +152,7 @@ def _status(rc: int) -> str:
 
 def jpeg_info(buf: bytes):
     """(height, width, components) from a JPEG's SOF marker; ValueError for
-    what the decoder refuses (progressive, arithmetic, 12-bit, ...)."""
+    what the decoder refuses (arithmetic, lossless, 12-bit, ...)."""
     out = (ctypes.c_int64 * 3)()
     rc = _load().fgpack_jpeg_info(buf, len(buf), out)
     if rc != 0:
@@ -231,6 +232,9 @@ def decode_jpeg(buf: bytes) -> np.ndarray:
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7's seven passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 class PngImage(NamedTuple):
@@ -239,16 +243,41 @@ class PngImage(NamedTuple):
     bit_depth: int
     palette: Optional[np.ndarray]  # (n, 3) uint8 RGB of a palette image
     trns: Optional[bytes]          # the tRNS chunk's body
+    exif: Optional[bytes] = None   # the eXIf chunk's body (a TIFF header on)
+
+
+def _png_pass(raw: bytes, at: int, h: int, w: int, ch: int, depth: int, name: str):
+    """Unfilter the (h, w) sub-image whose filtered rows start at raw[at:];
+    returns its (h, w, ch) samples (1/2/4-bit ones unpacked, not scaled)
+    and the offset past its rows."""
+    rowbytes = (w * ch * depth + 7) // 8
+    end = at + h * (rowbytes + 1)
+    if len(raw) < end:
+        raise ValueError(f"{name}: truncated PNG image data")
+    out = np.empty((h, rowbytes), np.uint8)
+    rc = _load().fgpack_png_unfilter(raw[at:end], h, rowbytes, max(1, ch * depth // 8),
+                                     _u8p(out))
+    if rc != 0:
+        raise ValueError(f"{name}: {_status(rc)}")
+    if depth == 16:
+        return out.view(">u2").astype(np.uint16).reshape(h, w, ch), end
+    if depth == 8:
+        return out.reshape(h, w, ch), end
+    per = 8 // depth  # 1, 2 or 4 bits: grey or palette, one channel
+    shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
+    vals = (out[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :w, None].astype(np.uint8), end
 
 
 def decode_png(data: bytes, name: str = "PNG") -> PngImage:
     """PNG bytes -> samples: chunks checked (CRC), IDAT inflated by zlib,
     rows unfiltered by the library, 1/2/4-bit samples unpacked (grey ones
-    scaled to 8 bits, as libpng's expand does; palette indices kept).
-    Adam7-interlaced images raise ValueError."""
+    scaled to 8 bits, as libpng's expand does; palette indices kept).  An
+    Adam7-interlaced image is unfiltered pass by pass, each on its own
+    sub-image, and each pass scattered to its pixels."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
-    pos, ihdr, plte, trns, idat = 8, None, None, None, []
+    pos, ihdr, plte, trns, exif, idat = 8, None, None, None, None, []
     while pos + 8 <= len(data):
         length, tag = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
@@ -263,6 +292,8 @@ def decode_png(data: bytes, name: str = "PNG") -> PngImage:
             plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif tag == b"tRNS":
             trns = body
+        elif tag == b"eXIf":
+            exif = body
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
@@ -271,34 +302,27 @@ def decode_png(data: bytes, name: str = "PNG") -> PngImage:
     if ihdr is None or not idat:
         raise ValueError(f"{name}: PNG without IHDR or IDAT")
     w, h, depth, ctype, _, _, interlace = ihdr
-    if interlace:
-        raise ValueError(f"{name}: Adam7-interlaced PNG is not supported")
     if ctype not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16):
         raise ValueError(f"{name}: unsupported PNG colour type {ctype} at {depth} bits")
+    if interlace > 1:
+        raise ValueError(f"{name}: unknown PNG interlace method {interlace}")
     if ctype == 3 and plte is None:
         raise ValueError(f"{name}: palette PNG without PLTE")
     ch = _PNG_CHANNELS[ctype]
-    rowbytes = (w * ch * depth + 7) // 8
     raw = zlib.decompress(b"".join(idat))
-    if len(raw) < h * (rowbytes + 1):
-        raise ValueError(f"{name}: truncated PNG image data")
-    out = np.empty((h, rowbytes), np.uint8)
-    bpp = max(1, ch * depth // 8)
-    rc = _load().fgpack_png_unfilter(raw, h, rowbytes, bpp, _u8p(out))
-    if rc != 0:
-        raise ValueError(f"{name}: {_status(rc)}")
-    if depth == 16:
-        samples = out.view(">u2").astype(np.uint16).reshape(h, w, ch)
-    elif depth == 8:
-        samples = out.reshape(h, w, ch)
-    else:  # 1, 2 or 4 bits: grey or palette, one channel
-        per = 8 // depth
-        shifts = (8 - depth * (np.arange(per) + 1)).astype(np.uint8)
-        vals = (out[:, :, None] >> shifts) & ((1 << depth) - 1)
-        samples = vals.reshape(h, -1)[:, :w, None].astype(np.uint8)
-        if ctype == 0:
-            samples = samples * np.uint8(255 // ((1 << depth) - 1))
-    return PngImage(np.ascontiguousarray(samples), ctype, depth, plte, trns)
+    if not interlace:
+        samples, _ = _png_pass(raw, 0, h, w, ch, depth, name)
+    else:
+        samples = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue  # an empty pass has no rows, not even filter bytes
+            samples[y0::dy, x0::dx], at = _png_pass(raw, at, ph, pw, ch, depth, name)
+    if depth < 8 and ctype == 0:
+        samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    return PngImage(np.ascontiguousarray(samples), ctype, depth, plte, trns, exif)
 
 
 # --------------------------------------------------------------------- #

@@ -3,14 +3,16 @@
 ``read_image`` decodes a JPEG or PNG file (or its bytes) through the port's
 host library (data_io/fgpack.py: its JPEG decoder equals libjpeg's, its PNG
 decoder inflates with zlib and unfilters natively), as cv2.imread would
-return it; ``read_png_indices`` gives a palette PNG's indices.
-``resize_frames`` and ``resize_nearest`` equal cv2.resize with INTER_LINEAR
-(uint8) and INTER_NEAREST bit for bit.
+return it, the EXIF orientation applied in colour mode;
+``read_png_indices`` gives a palette PNG's indices.  ``resize_frames`` and
+``resize_nearest`` equal cv2.resize with INTER_LINEAR (uint8) and
+INTER_NEAREST bit for bit, ``gaussian_blur`` cv2.GaussianBlur on uint8.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from typing import Tuple, Union
 
 import numpy as np
@@ -25,18 +27,81 @@ def _read(src: Union[str, bytes, os.PathLike]) -> Tuple[bytes, str]:
         return f.read(), str(src)
 
 
+def tiff_orientation(tiff: bytes) -> int:
+    """The Orientation tag (0x0112) of a TIFF header's IFD0, as OpenCV's
+    ExifReader reads it: 'II' little endian and anything else big endian,
+    the header's 42 checked, IFD0's entries read in order until one lies
+    past the data (the entries before it stand).  1 where there is none."""
+    order, n = ("<" if tiff[:2] == b"II" else ">"), len(tiff)
+
+    def u(at, size):
+        if at + size > n:
+            raise IndexError(at)
+        return int.from_bytes(tiff[at:at + size], "little" if order == "<" else "big")
+
+    try:
+        if u(2, 2) != 42:
+            return 1
+        at = u(4, 4)
+        for e in range(u(at, 2)):
+            entry = at + 2 + 12 * e
+            if u(entry, 2) == 0x0112:
+                return u(entry + 8, 2)
+    except IndexError:
+        pass
+    return 1
+
+
+def jpeg_exif(data: bytes) -> bytes:
+    """The TIFF data of a JPEG's first APP1 segment before its first scan
+    (the 6 bytes of 'Exif\\0\\0' skipped unread, as OpenCV does), or b''."""
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            return b""
+        marker = data[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+            pos += 2
+            continue
+        if marker in (0xDA, 0xD9):
+            return b""
+        length = struct.unpack_from(">H", data, pos + 2)[0]
+        if marker == 0xE1:
+            body = data[pos + 4:pos + 2 + length]
+            return body[6:] if len(body) > 6 else b""
+        pos += 2 + length
+    return b""
+
+
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """The EXIF orientation transform cv2.imread applies in colour mode:
+    2 fliplr, 3 rotate 180, 4 flipud, 5 transpose, 6 rotate 90 clockwise, 7
+    transverse, 8 rotate 90 counter-clockwise; other values leave it."""
+    if orientation in (5, 6, 7, 8):
+        img = img.transpose(1, 0, *range(2, img.ndim))
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    for axis in flip:
+        img = np.flip(img, axis)
+    return np.ascontiguousarray(img)
+
+
 def read_image(src: Union[str, bytes, os.PathLike], flags: str = "color") -> np.ndarray:
     """Decode an image file (a path, or its bytes) as cv2.imread does; the
     decoder is chosen by the magic bytes (JPEG FF D8, PNG's signature).
 
     flags 'color': (H, W, 3) uint8 RGB, what cv2.cvtColor(cv2.imread(p),
     cv2.COLOR_BGR2RGB) gives: grey replicated, a palette expanded, alpha
-    dropped, 16-bit samples cut to their high byte.  flags 'unchanged': what
-    cv2.imread(p, cv2.IMREAD_UNCHANGED) gives, channels in BGR order: a grey
-    image as (H, W), a palette image expanded through its palette to 3
-    channels (4 where it has tRNS), grey+alpha as BGRA, RGB as BGR and RGBA
-    as BGRA; 16-bit PNG samples stay uint16.  Adam7-interlaced PNGs and
-    JPEGs the decoder refuses raise ValueError."""
+    dropped, 16-bit samples cut to their high byte, and the EXIF orientation
+    (a JPEG's APP1 Exif, a PNG's eXIf chunk) applied.  flags 'unchanged':
+    what cv2.imread(p, cv2.IMREAD_UNCHANGED) gives, channels in BGR order
+    and the orientation ignored: a grey image as (H, W), a palette image
+    expanded through its palette to 3 channels (4 where it has tRNS),
+    grey+alpha as BGRA, RGB as BGR and RGBA as BGRA; 16-bit PNG samples stay
+    uint16.  JPEGs the decoder refuses (arithmetic, lossless, 12-bit, CMYK)
+    raise ValueError."""
     if flags not in ("color", "unchanged"):
         raise ValueError(f"flags must be 'color' or 'unchanged', got {flags!r}")
     data, name = _read(src)
@@ -48,17 +113,18 @@ def read_image(src: Union[str, bytes, os.PathLike], flags: str = "color") -> np.
             raise ValueError(f"{name}: {e}") from None
         if grey:
             return np.ascontiguousarray(rgb[..., 0])
-        return rgb if flags == "color" else np.ascontiguousarray(rgb[..., ::-1])
+        if flags == "color":
+            return apply_orientation(rgb, tiff_orientation(jpeg_exif(data)))
+        return np.ascontiguousarray(rgb[..., ::-1])
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{name}: neither a JPEG nor a PNG file")
     png = decode_png(data, name)
+    if flags == "color":
+        rgb = _png_rgb(png, name)
+        return apply_orientation(rgb, tiff_orientation(png.exif)) if png.exif else rgb
     a, ctype = png.samples, png.color_type
     if ctype == 3:  # palette: expand through PLTE (and tRNS)
-        idx = a[..., 0]
-        if idx.max(initial=0) >= len(png.palette):
-            raise ValueError(f"{name}: palette index beyond PLTE")
-        if flags == "color":
-            return np.ascontiguousarray(png.palette[idx])
+        idx = _palette_indices(png, name)
         bgr = png.palette[idx][..., ::-1]
         if png.trns is None:
             return np.ascontiguousarray(bgr)
@@ -66,16 +132,28 @@ def read_image(src: Union[str, bytes, os.PathLike], flags: str = "color") -> np.
         t = np.frombuffer(png.trns, np.uint8)[: len(png.palette)]
         alpha[: len(t)] = t
         return np.ascontiguousarray(np.concatenate([bgr, alpha[idx][..., None]], axis=-1))
-    if flags == "color":
-        if a.dtype == np.uint16:  # libpng's strip_16, as cv2.imread: the high byte
-            a = (a >> 8).astype(np.uint8)
-        rgb = np.repeat(a[..., :1], 3, axis=-1) if ctype in (0, 4) else a[..., :3]
-        return np.ascontiguousarray(rgb)
     if ctype == 0:
         return np.ascontiguousarray(a[..., 0])
     if ctype == 4:  # grey + alpha -> BGRA
         return np.ascontiguousarray(np.concatenate([np.repeat(a[..., :1], 3, -1), a[..., 1:]], -1))
     return np.ascontiguousarray(a[..., [2, 1, 0, *range(3, a.shape[2])]])
+
+
+def _palette_indices(png, name: str) -> np.ndarray:
+    idx = png.samples[..., 0]
+    if idx.max(initial=0) >= len(png.palette):
+        raise ValueError(f"{name}: palette index beyond PLTE")
+    return idx
+
+
+def _png_rgb(png, name: str) -> np.ndarray:
+    """A decoded PNG as (H, W, 3) uint8 RGB, before any orientation."""
+    a, ctype = png.samples, png.color_type
+    if ctype == 3:
+        return np.ascontiguousarray(png.palette[_palette_indices(png, name)])
+    if a.dtype == np.uint16:  # libpng's strip_16, as cv2.imread: the high byte
+        a = (a >> 8).astype(np.uint8)
+    return np.ascontiguousarray(np.repeat(a[..., :1], 3, axis=-1) if ctype in (0, 4) else a[..., :3])
 
 
 def read_png_indices(src: Union[str, bytes, os.PathLike]) -> np.ndarray:
@@ -135,6 +213,68 @@ def resize_frames(frames: np.ndarray, size) -> np.ndarray:
         v = (((rows[y0] * b0) >> 16) + ((rows[y1] * b1) >> 16) + 2) >> 2
         out[t] = np.clip(v, 0, 255)
     return out
+
+
+def gaussian_kernel_q8(sigma: float) -> np.ndarray:
+    """cv2.GaussianBlur's kernel for uint8 images at size k = 2 int(4 sigma
+    + 0.5) + 1, in OpenCV's fixed point with 8 fractional bits (int64, sum
+    256): weights exp(-(i - c)^2 / (2 sigma^2)) in float64 normalised by
+    their sum, then rounded by error diffusion from the tails in (half to
+    even), the centre 256 minus the rest (getGaussianKernelBitExact and
+    getGaussianKernelFixedPoint_ED)."""
+    n = 2 * int(4 * sigma + 0.5) + 1
+    half = n // 2
+    scale2 = -0.125 / (float(sigma) * float(sigma))
+    values = [float(np.exp(float((x * x)) * scale2)) for x in range(1 - n, 0, 2)]
+    total = 2.0 * sum(values) + 1.0
+    mul = 1.0 / total
+    out = np.empty(n, np.int64)
+    err, acc = 0.0, 0
+    for i, v in enumerate(values):
+        adj = v * mul * 256.0 + err
+        q = int(np.rint(adj))
+        err = adj - q
+        out[i] = out[n - 1 - i] = q
+        acc += q
+    out[half] = 256 - 2 * acc
+    return out
+
+
+def _reflect101(n: int, r: int) -> np.ndarray:
+    """Source index of each of positions -r .. n - 1 + r under
+    BORDER_REFLECT_101, reflected again while past an edge (cv2's
+    borderInterpolate; a length of 1 reads index 0)."""
+    p = np.arange(-r, n + r)
+    if n == 1:
+        return np.zeros_like(p)
+    while True:
+        low, high = p < 0, p >= n
+        if not (low.any() or high.any()):
+            return p
+        p = np.where(low, -p, np.where(high, 2 * (n - 1) - p, p))
+
+
+def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """(H, W[, C]) uint8 -> the same, equal to cv2.GaussianBlur(img, (k, k),
+    sigma) with k = 2 int(4 sigma + 0.5) + 1 bit for bit: the 8-bit
+    fixed-point kernel (gaussian_kernel_q8), integer row sums then column
+    sums over BORDER_REFLECT_101, then (x + 2^15) >> 16."""
+    img = np.asarray(img)
+    k = gaussian_kernel_q8(sigma).astype(np.int32)
+    r = len(k) // 2
+    src = img.astype(np.int32)  # at most 255 * 256 * 256 after both passes
+    cols = _reflect101(img.shape[1], r)
+    rows = _reflect101(img.shape[0], r)
+    h, w = img.shape[:2]
+    padded = src[:, cols]
+    acc = padded[:, r:r + w] * k[r]
+    for j in range(r):
+        acc += (padded[:, j:j + w] + padded[:, 2 * r - j:2 * r - j + w]) * k[j]
+    padded = acc[rows]
+    out = padded[r:r + h] * k[r]
+    for j in range(r):
+        out += (padded[j:j + h] + padded[2 * r - j:2 * r - j + h]) * k[j]
+    return np.clip((out + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
 
 
 def _nearest_index(n_src: int, n_dst: int) -> np.ndarray:

@@ -5,8 +5,8 @@ here as oracles only:
 
 * JPEG decode equal bit for bit to PIL's and cv2.imdecode's, on seeded
   smooth and noisy frames at odd and even sizes, qualities 50-100, 4:2:0,
-  4:2:2, 4:4:4 and grey, with restart intervals; progressive and truncated
-  files raise ValueError;
+  4:2:2, 4:4:4 and grey, with restart intervals; arithmetic-coded, 12-bit,
+  fractionally sampled and truncated files raise ValueError;
 * JPEG encode: bytes equal to cv2.imencode's and PIL's save at quality 75
   and 95; chip_smoke.py's cross-machine sha256 pins hold for cv2's bytes
   and PIL's pixels;
@@ -118,10 +118,19 @@ def test_refused_and_broken_jpegs_raise_value_error():
     from fgvc_tpu_torch.data_io.fgpack import decode_jpeg, decode_jpeg_batch
 
     img = _frames(48, 64, seed=4)["smooth"]
-    prog = _pil_jpeg(img, 90, 2, progressive=True)
-    with pytest.raises(ValueError, match="frame 0: progressive"):
-        decode_jpeg(prog)
     good = _pil_jpeg(img, 90, 2)
+    # hand-patched SOF0 (FF C0, length, precision, h, w, 3 x (id, hv, tq)):
+    # arithmetic coding, 12-bit samples, luma 3x2 against chroma 2x1 (3 / 2)
+    sof = good.index(b"\xff\xc0")
+    for at, byte, match in ((sof + 1, 0xC9, "frame 0: arithmetic"),
+                            (sof + 4, 12, "frame 0: JPEG sample precision"),
+                            (sof + 11, 0x32, "frame 0: JPEG with a fractional chroma sampling")):
+        patched = bytearray(good)
+        patched[at] = byte
+        if byte == 0x32:
+            patched[sof + 14] = 0x21  # Cb 2x1: 3 % 2 != 0
+        with pytest.raises(ValueError, match=match):
+            decode_jpeg(bytes(patched))
     for cut in (len(good) // 2, len(good) - 100):
         with pytest.raises(ValueError, match="truncated"):
             decode_jpeg(good[:cut])
@@ -329,8 +338,8 @@ def test_png_written_by_pil_and_cv2(tmp_path):
 def test_png_refusals(tmp_path):
     from fgvc_tpu_torch.datasets.image_io import read_image
 
-    _write_png(str(tmp_path / "i.png"), np.zeros((8, 8, 3), np.uint8), 2, 8, (0,), interlace=1)
-    with pytest.raises(ValueError, match="Adam7"):
+    _write_png(str(tmp_path / "i.png"), np.zeros((8, 8, 3), np.uint8), 2, 8, (0,), interlace=2)
+    with pytest.raises(ValueError, match="unknown PNG interlace method 2"):
         read_image(str(tmp_path / "i.png"))
     good = str(tmp_path / "g.png")
     _write_png(good, np.zeros((3, 4, 3), np.uint8), 2, 8, (0,))

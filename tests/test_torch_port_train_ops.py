@@ -358,8 +358,7 @@ def test_train_config_file_and_refusals(tmp_path):
         check_train_ported(TrainConfig(compute_dtype="bfloat16"))
     with pytest.raises(ValueError):
         check_train_ported(TrainConfig(compute_dtype="float16"))
-    with pytest.raises(NotImplementedError, match="item 29b"):
-        check_train_ported(TrainConfig(), data_roots=("ytv", None))
+    assert check_train_ported(TrainConfig()) is None  # real-data training is ported
     with pytest.raises(NotImplementedError, match="item 31"):
         check_train_ported(TrainConfig(), multi_process=True)
     assert os.path.exists(path)
