@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,
                                     codecs,modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,
                                     profile,serve,export,doctor,train,realtrain,propmodes,dp,
-                                    bank,mp]
+                                    bank,mp,ddp]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -118,7 +118,9 @@ Phases, each of which raises on failure (exit code != 0):
             px; (f) the committed files of tests/torch_port_fixtures made by
             PIL and cv2 (progressive JPEG at 480 x 854 and at 256 x 256 with
             restart markers, 4:4:0 and 4:1:1 JPEG, an Adam7 RGB PNG at 540 x
-            960) read by read_image: the sha256 of the pixels must equal
+            960, WebP: cv2's lossy q90 at 540 x 960 and lossless at 216 x
+            384, PIL's lossy with alpha at 120 x 160) read by read_image,
+            each WebP's decode ms printed: the sha256 of the pixels must equal
             FIXTURE_PINS, PIL's and cv2's decode of the same bytes; the
             port's encode_jpeg bytes with an APP1 Exif segment spliced in,
             orientations 1-8 in both byte orders: read_image's shape and
@@ -242,7 +244,11 @@ Phases, each of which raises on failure (exit code != 0):
             (c) 2 steps + resume + 2 against 4 steps on the card: parameters
             and statistics within 1e-4; (d) mid-training validation
             (make_synthetic_val_fn) on the student: K1 launched, metrics
-            finite;
+            finite; (e) compute_dtype 'bfloat16' at full width: losses at
+            init within 1% of float32's (same weights, batch, channels), 8
+            steps with parameters, statistics and Adam's moments float32,
+            the median step ms, peak memory and 3 profiled steps' busy
+            share beside (a)'s;
   realtrain real-data training: a YouTube-VOS tree (8 videos x 6 JPEG frames
             at 256 x 455, the port's encoder at quality 95, and a --ytv-list
             JSON of every other frame) and a FlyingThings3D tree (2 scenes x
@@ -258,7 +264,11 @@ Phases, each of which raises on failure (exit code != 0):
             K1's launches in the validation; then 3 steps with the reader in
             the loop under torch.profiler (busy share); (c) at crop 64, 2
             steps + resume + 2 against 4 steps on the card: parameters and
-            statistics within 1e-4, the resumed run's batches equal;
+            statistics within 1e-4, the resumed run's batches equal; (d)
+            the FlyingThings3D tree again with WebP cleanpass frames (each
+            the committed 540 x 960 lossy fixture; the card's machine has no
+            WebP encoder): (a)'s split with WebP decode in PNG's place, and
+            cli.train on it for 4 steps at full width;
   propmodes the propagation modes beside the kernel (plain PyTorch: no
             attention kernel launches in them), seeded ResNet-18-d1 at full
             width, DAVIS_TEST_CFG, e2e video 0 (48 frames at 256 x 256, 32
@@ -310,6 +320,16 @@ Phases, each of which raises on failure (exit code != 0):
             ranks on this card): both ranks print metrics equal to the single
             process's, rank 1 writes no output directory, the ranks' K1
             launches add up to the single process's; both wall times.
+  ddp       python -m fgvc_tpu_torch.cli.launch --nprocs 2 running python -m
+            fgvc_tpu_torch.cli.train --synthetic at full width (global batch
+            4, two per rank) over gloo on this card, 5 steps and validation
+            at the end: step 1's losses within 1e-4 of one process's (the
+            later steps' differences printed), K1 launched by rank 0's
+            validation alone; a SIGTERM to a second launcher after step 1
+            while an uninterrupted twin runs beside it: both ranks stop at
+            one step, the restart resumes there, the log reads 1..5, the
+            losses within 1e-4 of the twin's; step ms of two ranks and of
+            one process.
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -319,9 +339,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -437,6 +459,9 @@ FIXTURE_PINS = {
         "51db63519290f1c4ef94c06d4bd8fae004dc614fed6c82b43bbfc1c433b84308",
     "s411_q75_480x854.jpg": "af3aad0facc5c1247bac8bef6a9ef563fd14846a9fd2de4e49bfeeeee7349fc7",
     "s440_q75_480x854.jpg": "d7ec5099405ca080d6a0c8061725a894efb1b500083a41a66ac1ea70edbe0984",
+    "lossy_q90_540x960.webp": "873246679aa68612a4fde51d00b81b0f70fa1206d7be49cd7f4767c83e0af924",
+    "lossless_216x384.webp": "812c36575d48742172a266faa1752f58152d49b44961750468c6cababfd802e1",
+    "alpha_q80_120x160.webp": "b430698a2823b94ae9653b56a1d9ee6b406e5955296893df372e70f6329c0974",
 }
 EXIF_HW, EXIF_SEED = (48, 80), 7
 EXIF_PINS = {
@@ -2962,7 +2987,8 @@ def _exif_expected(img, orientation):
 def run_codec_fixtures(card_name):
     """(f) The committed fixtures against FIXTURE_PINS; the EXIF files,
     orientations 1-8, against the numpy transforms and EXIF_PINS; the
-    progressive decode's host ms beside the baseline decode's."""
+    progressive decode's host ms beside the baseline decode's; the WebP
+    fixtures' decode ms."""
     from fgvc_tpu_torch.data_io import fgpack
     from fgvc_tpu_torch.datasets.image_io import read_image
 
@@ -3006,6 +3032,11 @@ def run_codec_fixtures(card_name):
           f"{ms[f'progressive_{n_cpu}']:.2f} on {n_cpu}; baseline of the same pixels "
           f"{ms['baseline_1']:.2f} and {ms[f'baseline_{n_cpu}']:.2f} ({len(prog) / 1e3:.1f} "
           f"against {len(base) / 1e3:.1f} KB)", flush=True)
+    webp_ms = {name: _host_ms(lambda data=data: read_image(data), 1, reps=5)
+               for name, data in fixtures.items() if name.endswith(".webp")}
+    print(f"codecs WebP host ms a frame ({card_name}; read_image, median of 5, one thread): "
+          + ", ".join(f"{name} ({len(fixtures[name]) / 1e3:.1f} KB) {v:.2f}"
+                      for name, v in webp_ms.items()), flush=True)
 
 
 def run_codecs(data_root, records, card_name):
@@ -3262,6 +3293,7 @@ TRAIN_LOSS_RTOL = 1e-4    # (b) card against CPU, 'highest'
 TRAIN_GRAD_RTOL = 1e-3    # (b) relative L2 per gradient leaf
 TRAIN_RESUME_TOL = 1e-4   # (c) largest parameter difference
 SMALL_TRAIN = dict(crop_size=64, radius=4, batch_size=2, matmul_precision="highest")
+BF16_LOSS_SHARE = 0.01    # (e) bfloat16 losses at init against float32's (tests/test_train.py:560)
 
 
 def _train_model(cfg, steps, work_dir, **kw):
@@ -3447,15 +3479,100 @@ def run_train_val(trainer, root):
         raise AssertionError("train (d): the validation launched no K1")
 
 
+def _float32_state(trainer):
+    """Names of the parameters, buffers and Adam moments that are not
+    float32."""
+    import torch
+
+    bad = [name for module in (*trainer.trainable().values(), trainer.teacher)
+           for name, t in (*module.named_parameters(), *module.named_buffers())
+           if t.is_floating_point() and t.dtype != torch.float32]
+    bad += [k for state in trainer.optimizer.adam.state.values() for k, v in state.items()
+            if torch.is_tensor(v) and v.is_floating_point() and v.dtype != torch.float32]
+    return bad
+
+
+def run_train_bf16(work_dir, f32_step_ms, f32_peak):
+    """(e) compute_dtype 'bfloat16' at full width: one loss_fn from the same
+    init, batch and dropped channels in float32 and in bfloat16 (the
+    losses within BF16_LOSS_SHARE of each other); then TRAIN_STEPS steps
+    through train_model (median step ms from step 3, peak memory) with
+    parameters, statistics and Adam's moments float32 after them, and
+    TRAIN_PROFILED steps under torch.profiler (busy share, top kernels)."""
+    import dataclasses
+
+    import torch
+
+    from fgvc_tpu_torch.config import TrainConfig
+    from fgvc_tpu_torch.core.train import MixedTrainer, step_generator
+    from fgvc_tpu_torch.datasets.flyingthings_ytv import (StructuredSyntheticMixedDataset,
+                                                          make_batches)
+
+    cfg = dataclasses.replace(TrainConfig(), compute_dtype="bfloat16")
+    batch = next(make_batches(StructuredSyntheticMixedDataset(crop=cfg.crop_size, seed=3),
+                              cfg.batch_size, 1))
+    losses = {}
+    for dtype in ("float32", "bfloat16"):
+        trainer = MixedTrainer(dataclasses.replace(cfg, compute_dtype=dtype), "cuda").init(0, 16)
+        with torch.no_grad():
+            _, parts = trainer.loss_fn(trainer.to_device(batch), (1, 2))
+        losses[dtype] = {k: float(v) for k, v in parts.items()}
+        del trainer
+    share = max(abs(losses["bfloat16"][k] - v) / abs(v) for k, v in losses["float32"].items())
+    print(f"train (e) bfloat16 at init against float32 (full width, same weights, batch and "
+          f"channels): bfloat16 {losses['bfloat16']}, float32 {losses['float32']}; largest "
+          f"relative difference {share:.2e}", flush=True)
+    if not share <= BF16_LOSS_SHARE:
+        raise AssertionError(f"train (e): bfloat16 losses {share:.2e} from float32's")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _train_model(cfg, TRAIN_STEPS, work_dir, log_interval=1, ckpt_interval=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    logs = [r for r in _read_log(work_dir) if "loss" in r]
+    if len(logs) != TRAIN_STEPS or not all(np.isfinite(r["loss"]) for r in logs):
+        raise AssertionError(f"train (e): {len(logs)} logged steps or non-finite losses")
+    bad = _float32_state(trainer)
+    if bad:
+        raise AssertionError(f"train (e): state not float32: {bad[:5]}")
+    step_ms = [1e3 / r["steps_per_sec"] for r in logs[2:]]
+    med = float(np.median(step_ms))
+    f32 = f"{f32_step_ms:.1f} ms and {f32_peak:.2f} GB" if f32_step_ms else "not measured"
+    print(f"train (e) bfloat16 full width: step ms from step 3 {[round(x, 1) for x in step_ms]}, "
+          f"median {med:.1f} ms; peak device memory {peak:.2f} GB (float32, (a): {f32}); "
+          f"parameters, statistics and Adam moments float32", flush=True)
+    ds = StructuredSyntheticMixedDataset(crop=cfg.crop_size, seed=cfg.seed + 1)
+    batches = [trainer.to_device(b) for b in make_batches(ds, cfg.batch_size, TRAIN_PROFILED)]
+
+    def steps():
+        for b in batches:
+            trainer.train_step(b, step_generator(cfg.seed, trainer.step))
+
+    by_kernel, wall_ms = device_ms_by_kernel(steps)
+    busy = sum(by_kernel.values())
+    if busy:
+        print(f"train (e) bfloat16 {TRAIN_PROFILED} profiled steps: wall {wall_ms:.1f} ms "
+              f"({wall_ms / TRAIN_PROFILED:.1f} per step), device busy {busy:.1f} ms "
+              f"({100 * busy / wall_ms:.1f}%); top kernels: " + _top(by_kernel, 6), flush=True)
+    else:
+        print("train (e) profile: device time not measured by torch.profiler")
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+
 def run_train():
     """Phase train: (a) full width, (b) card against CPU, (c) resume, (d)
-    mid-training validation through K1.  Returns (a)'s median step ms."""
+    mid-training validation through K1, (e) bfloat16.  Returns (a)'s median
+    step ms."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
         t0 = time.time()
-        step_ms, _ = run_train_full_width(os.path.join(root, "full"))
+        step_ms, peak = run_train_full_width(os.path.join(root, "full"))
         run_train_card_vs_cpu()
         trainer = run_train_resume(root)
         run_train_val(trainer, root)
+        del trainer
+        run_train_bf16(os.path.join(root, "bf16"), step_ms, peak)
         print(f"train phase {time.time() - t0:.1f} s", flush=True)
     return step_ms
 
@@ -3519,6 +3636,58 @@ def make_real_trees(root):
 # (a)'s split: the dataset module's functions timed, by what they do
 _RT_STAGES = {"read_flow_pfm": "PFM read", "resize_frames": "crop and resize",
               "gaussian_blur": "blur", "rgb_to_lab_normalized": "Lab"}
+RT_WEBP_FIXTURE = "lossy_q90_540x960.webp"   # (d) every FlyingThings frame of the WebP tree
+RT_WEBP_STEPS = 4                            # (d) cli.train steps on it
+
+
+def _decode_stage(args):
+    path = str(args[0])
+    if path.endswith(".jpg"):
+        return "YouTube-VOS decode"
+    return "WebP decode" if path.endswith(".webp") else "PNG decode"
+
+
+def make_webp_tree(root, trees):
+    """The FlyingThings3D tree again with its cleanpass frames as WebP (the
+    published form beside PNG): each frame the committed 540 x 960 lossy
+    fixture (the card's machine has no WebP encoder), the flows those of the
+    PNG tree.  Returns (ytv_root, flyingthings_root, ytv_list)."""
+    ytv, ft, list_path = trees
+    webp_ft = os.path.join(root, "flyingthings_webp")
+    with open(os.path.join(ROOT, FIXTURE_DIR, RT_WEBP_FIXTURE), "rb") as f:
+        frame = f.read()
+    for png in sorted(glob.glob(os.path.join(ft, "frames_cleanpass", "TRAIN", "*", "*", "left",
+                                             "*.png"))):
+        rel = os.path.relpath(png, ft)
+        dst = os.path.join(webp_ft, rel[:-4] + ".webp")
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        with open(dst, "wb") as f:
+            f.write(frame)
+    os.symlink(os.path.join(ft, "optical_flow"), os.path.join(webp_ft, "optical_flow"))
+    return ytv, webp_ft, list_path
+
+
+def run_realtrain_webp_cli(trees, work_dir, synth_step_ms, card_name):
+    """(d) python -m fgvc_tpu_torch.cli.train on the WebP tree with the
+    TrainConfig defaults for RT_WEBP_STEPS steps: finite losses, step ms."""
+    from fgvc_tpu_torch.cli import train as cli_train
+
+    ytv, ft, list_path = trees
+    t0 = time.time()
+    rc = cli_train.main(["--ytv-root", ytv, "--flyingthings-root", ft, "--ytv-list", list_path,
+                         "--max-steps", str(RT_WEBP_STEPS), "--log-interval", "1",
+                         "--ckpt-interval", str(RT_WEBP_STEPS), "--work-dir", work_dir])
+    logs = [r for r in _read_log(work_dir) if "loss" in r]
+    if rc != 0 or len(logs) != RT_WEBP_STEPS or not all(np.isfinite(r["loss"]) for r in logs):
+        raise AssertionError(f"realtrain (d): exit {rc}, {len(logs)} logged steps or "
+                             "non-finite losses")
+    step_ms = [1e3 / r["steps_per_sec"] for r in logs[2:]]
+    synth = f"{synth_step_ms:.1f} ms" if synth_step_ms else "not measured"
+    print(f"realtrain (d) cli.train on the WebP cleanpass tree ({card_name}): "
+          f"{RT_WEBP_STEPS} steps in {time.time() - t0:.1f} s; step ms from step 3 "
+          f"{[round(x, 1) for x in step_ms]} (synthetic {synth}); losses "
+          + json.dumps({k: logs[-1][k] for k in ("l1_loss", "sup_loss", "corr_da_loss", "loss")}),
+          flush=True)
 
 
 def run_realtrain_reader(trees, card_name):
@@ -3547,8 +3716,7 @@ def run_realtrain_reader(trees, card_name):
     saved = {name: getattr(ds_mod, name) for name in ("read_image", *_RT_STAGES)}
     per_sample = []
     try:
-        ds_mod.read_image = timer(saved["read_image"], lambda a: "YouTube-VOS decode"
-                                  if str(a[0]).endswith(".jpg") else "PNG decode")
+        ds_mod.read_image = timer(saved["read_image"], _decode_stage)
         for name, stage in _RT_STAGES.items():
             setattr(ds_mod, name, timer(saved[name], lambda a, stage=stage: stage))
         for i in range(RT_SAMPLES):
@@ -3560,7 +3728,8 @@ def run_realtrain_reader(trees, card_name):
     finally:
         for name, fn in saved.items():
             setattr(ds_mod, name, fn)
-    stages = ("YouTube-VOS decode", "PNG decode", *_RT_STAGES.values(), "rest", "total")
+    frames = "WebP decode" if trees[1].endswith("webp") else "PNG decode"
+    stages = ("YouTube-VOS decode", frames, *_RT_STAGES.values(), "rest", "total")
     med = {k: 1e3 * float(np.median([p.get(k, 0.0) for p in per_sample])) for k in stages}
     batches = ds_mod.make_batches(ds, cfg.batch_size, RT_BATCHES)
     batch_ms = []
@@ -3705,7 +3874,180 @@ def run_realtrain(record, synth_step_ms, card_name):
         run_realtrain_cli(trees, os.path.join(root, "run"), record, synth_step_ms, batch_ms,
                           card_name)
         run_realtrain_resume(trees, root)
+        webp_trees = make_webp_tree(os.path.join(root, "data"), trees)
+        run_realtrain_reader(webp_trees, card_name)
+        run_realtrain_webp_cli(webp_trees, os.path.join(root, "run_webp"), synth_step_ms,
+                               card_name)
         print(f"realtrain phase {time.time() - t0:.1f} s [{card_name}]", flush=True)
+
+
+# --------------------------------------------------------------------- #
+# ddp: data-parallel training, two ranks on this card
+# --------------------------------------------------------------------- #
+DDP_STEPS = 5             # steps of each run, validation at the last
+DDP_LOSS_RTOL = 1e-4      # step 1 (before any update): two ranks against one process
+DDP_LATER_RTOL = 3e-3     # steps 2..DDP_STEPS: two ranks against one process
+DDP_TIMEOUT_S = 300
+# a rank of the training CLI that prints its K1 launches (the validation's)
+# and the sha256 of its trained state (parameters and BatchNorm buffers)
+DDP_RANK = """
+import hashlib, os, sys
+import torch
+from fgvc_tpu_torch.apis import train as api
+from fgvc_tpu_torch.cli.train import main
+from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+train_model = api.train_model
+def hashed(*a, **kw):
+    trainer = train_model(*a, **kw)
+    h = hashlib.sha256()
+    for name, module in sorted(trainer.trainable().items()):
+        for v in module.state_dict().values():
+            h.update(v.detach().reshape(-1).cpu().view(torch.uint8).numpy().tobytes())
+    print("STATE_SHA256", os.environ.get("FGVC_PROCESS_ID"), h.hexdigest(), flush=True)
+    return trainer
+api.train_model = hashed
+rc = main(sys.argv[1:])
+print("K1_LAUNCHES", os.environ.get("FGVC_PROCESS_ID"), k1.launches, flush=True)
+sys.exit(rc)
+"""
+
+
+def _ddp_args(work_dir):
+    return ["--synthetic", "--synthetic-mode", "structured", "--batch-size", "4",
+            "--max-steps", str(DDP_STEPS), "--log-interval", "1",
+            "--ckpt-interval", str(DDP_STEPS), "--synthetic-val",
+            "--val-interval", str(DDP_STEPS), "--work-dir", work_dir]
+
+
+def _launch_ddp(work_dir):
+    # two runs of two ranks share the host's cores beside this process
+    return subprocess.Popen([sys.executable, "-m", "fgvc_tpu_torch.cli.launch", "--nprocs", "2",
+                             "--", sys.executable, "-c", DDP_RANK, *_ddp_args(work_dir)],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=dict(os.environ, OMP_NUM_THREADS="2"))
+
+
+def _ddp_finish(proc, label):
+    try:
+        out, _ = proc.communicate(timeout=DDP_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    if proc.returncode != 0:
+        raise AssertionError(f"ddp {label}: exit {proc.returncode}\n{out[-3000:]}")
+    return out
+
+
+# the ranks share one pipe, so a print of one may land inside a line of the
+# other: what a rank reports is found anywhere in the output, not by lines
+def _k1_by_rank(out):
+    return {int(r): int(n) for r, n in re.findall(r"K1_LAUNCHES (\d+) (\d+)", out)}
+
+
+def _state_by_rank(out):
+    """{rank: digest of its trained state} from the STATE_SHA256 reports."""
+    return {int(r): d for r, d in re.findall(r"STATE_SHA256 (\d+) ([0-9a-f]{64})", out)}
+
+
+def run_ddp(record, card_name):
+    """Phase ddp: python -m fgvc_tpu_torch.cli.launch --nprocs 2 running
+    python -m fgvc_tpu_torch.cli.train --synthetic at full width (the
+    TrainConfig defaults, global batch 4, two per rank) on this card over
+    gloo, against one process: step 1's logged losses (before any update)
+    within DDP_LOSS_RTOL, the later steps' within DDP_LATER_RTOL (Adam's
+    first update is lr * sign(g), so rounding moves later losses); the two
+    ranks' trained states bit-equal in every two-rank run; validation on
+    rank 0 alone (K1).  Then a SIGTERM to a launcher after step 1 while an
+    uninterrupted twin runs beside it: both ranks stop at one step with a
+    checkpoint, the restarted command resumes there, the log reads exactly
+    1..DDP_STEPS, and its losses are compared with the twin's."""
+    import signal
+
+    from fgvc_tpu_torch.cli import train as cli_train
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    keys = ("l1_loss", "sup_loss", "corr_da_loss", "loss")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as root:
+        one, main_dir, twin_dir = (os.path.join(root, d) for d in ("one", "main", "twin"))
+        k1.reset_launches()
+        t0 = time.time()
+        if cli_train.main(_ddp_args(one)) != 0:
+            raise AssertionError("ddp: the one-process run failed")
+        one_s, one_k1 = time.time() - t0, k1.launches
+        t0 = time.time()
+        twin = _launch_ddp(twin_dir)
+        main = _launch_ddp(main_dir)
+        while not [r for r in _maybe_log(main_dir) if "loss" in r] and main.poll() is None \
+                and time.time() - t0 < DDP_TIMEOUT_S:
+            time.sleep(0.05)
+        main.send_signal(signal.SIGTERM)
+        out1 = _ddp_finish(main, "preempted run")
+        out_twin = _ddp_finish(twin, "twin")
+        twin_s = time.time() - t0
+        stops = [int(k) for k in re.findall(r"preempted: stopping at step (\d+)", out1)]
+        if len(stops) != 2 or stops[0] != stops[1] or not 1 <= stops[0] < DDP_STEPS:
+            raise AssertionError(f"ddp: stop steps {stops}\n{out1[-2000:]}")
+        backends = sorted(set(re.findall(r"rank \d+ of \d+ on \S+, backend (\w+)", out_twin)))
+        t1 = time.time()
+        out2 = _ddp_finish(_launch_ddp(main_dir), "resumed run")
+        resume_s = time.time() - t1
+        if f"(step {stops[0]})" not in out2:
+            raise AssertionError(f"ddp: the restart did not resume at {stops[0]}")
+        logs = {name: [r for r in _read_log(d) if "loss" in r]
+                for name, d in (("one", one), ("twin", twin_dir), ("main", main_dir))}
+        steps = [r["step"] for r in logs["main"]]
+        if steps != list(range(1, DDP_STEPS + 1)):
+            raise AssertionError(f"ddp: the resumed log reads steps {steps}")
+        rel = [max(abs(a[k] - b[k]) / abs(b[k]) for k in keys)
+               for a, b in zip(logs["twin"], logs["one"])]
+        resumed = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(logs["main"], logs["twin"])
+                      for k in keys)
+        k1_ranks = {**_k1_by_rank(out_twin)}
+        states = {label: _state_by_rank(out) for label, out in
+                  (("twin", out_twin), ("preempted", out1), ("resumed", out2))}
+        val = [r["val"] for r in _read_log(twin_dir) if "val" in r]
+    step_ms = {name: float(np.median([1e3 / r["steps_per_sec"] for r in logs[name][2:]]))
+               for name in ("one", "twin")}
+    print(f"ddp two ranks on one card ({card_name}; {', '.join(backends)}): losses against one "
+          f"process, largest relative difference by step {[f'{x:.2e}' for x in rel]}; step ms "
+          f"from step 3, median: two ranks {step_ms['twin']:.1f}, one process "
+          f"{step_ms['one']:.1f}; wall {twin_s:.1f} s for the twin and the preempted run side "
+          f"by side, {resume_s:.1f} s for the resumed run, {one_s:.1f} s for one process "
+          "(in this process)", flush=True)
+    print(f"ddp SIGTERM to the launcher: both ranks stopped at step {stops[0]}; the resumed "
+          f"log reads 1..{DDP_STEPS}; largest relative loss difference from the uninterrupted "
+          f"twin {resumed:.3e}; K1 launches of the validation: one process {one_k1}, ranks "
+          f"{k1_ranks}; " + json.dumps({k: val[0][k] for k in ("average_pts_within_thresh",
+                                                                "average_jaccard")}),
+          flush=True)
+    split = [label for label, st in states.items() if len(st) != 2 or len(set(st.values())) != 1]
+    print("ddp trained state of the two ranks (sha256 of parameters and BatchNorm buffers): "
+          + "; ".join(f"{label} {'equal' if label not in split else st}"
+                      for label, st in states.items())
+          + f"; resumed run {'equal' if states['resumed'] == states['twin'] else 'unequal'} to "
+          "the twin's", flush=True)
+    if backends != ["gloo"]:
+        raise AssertionError(f"ddp: backends {backends}; ranks sharing a card must use gloo")
+    if not rel[0] <= DDP_LOSS_RTOL:
+        raise AssertionError(f"ddp: step 1 losses {rel[0]:.2e} from one process's")
+    if not max(rel[1:]) <= DDP_LATER_RTOL:
+        raise AssertionError(f"ddp: steps 2..{DDP_STEPS} losses {max(rel[1:]):.2e} from one "
+                             "process's")
+    if split:
+        raise AssertionError(f"ddp: the ranks' trained states differ in {split}")
+    if not resumed <= DDP_LOSS_RTOL:
+        raise AssertionError(f"ddp: the resumed run's losses {resumed:.2e} from the twin's")
+    if not (one_k1 > 0 and k1_ranks.get(0, 0) > 0 and k1_ranks.get(1) == 0 and len(val) == 1):
+        raise AssertionError(f"ddp: validation K1 launches one {one_k1}, ranks {k1_ranks}")
+    check_metrics(val[0])
+    _add_launches(record, one_k1 + sum(k1_ranks.values()))
+
+
+def _maybe_log(work_dir):
+    try:
+        return _read_log(work_dir)
+    except (OSError, ValueError):
+        return []
 
 
 # --------------------------------------------------------------------- #
@@ -3994,7 +4336,7 @@ def main():
     ap.add_argument("--phases", default="card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,"
                                         "codecs,modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,"
                                         "profile,serve,export,doctor,train,realtrain,"
-                                        "propmodes,dp,bank,mp")
+                                        "propmodes,dp,bank,mp,ddp")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -4178,6 +4520,11 @@ def main():
     if "realtrain" in phases:
         phase("realtrain")
         run_realtrain(records["K1_circle"], synth_step_ms, card_name)
+    if "ddp" in phases:
+        phase("ddp")
+        t_phase = time.time()
+        run_ddp(records["K1_circle"], card_name)
+        print(f"ddp phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
     phase(None)
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))

@@ -4,7 +4,15 @@ MixedTrainer.
     train_model(cfg, batches, work_dir, steps_per_epoch, max_steps=None,
                 device=None, val_fn=None, ...)
 
-* one process, one device (the card unless `device` names another);
+* one device a process (the card unless `device` names another); under a
+  process group of several (fgvc_tpu_torch.cli.launch, --coordinator)
+  each process steps on its slice of the global batch (MixedTrainer's
+  data-parallel step), process 0 alone writes the log, TensorBoard, the
+  checkpoints and the best pointer while the others wait at a barrier,
+  validation runs on process 0 (the others pass no val_fn) and its metrics
+  are broadcast, and a SIGTERM
+  to any process stops them all at one step boundary (parallel.dist
+  sync_stop, the JAX loop's _sync_stop);
 * per global step a generator derived from (seed + 1, step) alone, and the
   loader resumed at the checkpointed step (make_batches(skip=)), so a
   resumed run repeats the uninterrupted one step for step;
@@ -46,6 +54,7 @@ from fgvc_tpu_torch.core.checkpoint import (
 )
 from fgvc_tpu_torch.core.train import MixedTrainer, step_generator
 from fgvc_tpu_torch.data_io.prefetch import prefetch_iter
+from fgvc_tpu_torch.parallel.dist import alone, barrier, broadcast_object, sync_stop
 
 
 @torch.no_grad()
@@ -58,9 +67,12 @@ def ema_update(teacher: torch.nn.Module, student: torch.nn.Module, momentum: flo
 
 
 def _student_copy(trainer: MixedTrainer) -> torch.nn.Module:
-    """The student's current weights as an eval-mode module (the reference
-    eval hook's copy_params -> eval twin)."""
-    return copy.deepcopy(trainer.backbone).eval()
+    """The student's current weights as a float32 eval-mode module (the
+    reference eval hook's copy_params -> eval twin; JAX's validation builds
+    a float32 resnet18_d1 whatever the compute dtype)."""
+    model = copy.deepcopy(trainer.backbone).eval()
+    model.compute_dtype = None
+    return model
 
 
 def make_tapvid_val_fn(data_root: str, test_cfg=None, max_videos: int = 4,
@@ -122,22 +134,34 @@ def _teacher_state(teacher_init: str):
 
 
 def _log_val(work_dir, log_path, step, metrics, key, rule, best, trainer):
-    """Append the metrics; on a new best, checkpoint and point `best` at it.
+    """Append the metrics; on a new best, checkpoint and point `best` at it
+    (the files on process 0 alone; every process keeps the best value).
     Returns the best value so far."""
-    with open(log_path, "a") as f:
-        f.write(json.dumps({"step": step, "val": metrics}, default=float) + "\n")
-    print(f"[val @ {step}] {metrics}", flush=True)
+    lead = trainer.rank == 0
+    if lead:
+        with open(log_path, "a") as f:
+            f.write(json.dumps({"step": step, "val": metrics}, default=float) + "\n")
+        print(f"[val @ {step}] {metrics}", flush=True)
     cur = metrics.get(key)
     if cur is None:
         return best
     if best is not None and not (cur > best if rule == "greater" else cur < best):
         return best
-    save_checkpoint(work_dir, trainer)
-    write_pointer(work_dir, "best", step)
-    with open(os.path.join(work_dir, "best.json"), "w") as f:
-        json.dump({"step": step, "metric": key, "value": float(cur)}, f)
-    print(f"[best @ {step}] {key}={float(cur)}", flush=True)
+    if lead:
+        save_checkpoint(work_dir, trainer)
+        write_pointer(work_dir, "best", step)
+        with open(os.path.join(work_dir, "best.json"), "w") as f:
+            json.dump({"step": step, "metric": key, "value": float(cur)}, f)
+        print(f"[best @ {step}] {key}={float(cur)}", flush=True)
+    barrier()
     return float(cur)
+
+
+def _save(work_dir, trainer, note="saved") -> None:
+    """Checkpoint on process 0 while the others wait."""
+    if trainer.rank == 0:
+        print(f"{note} {save_checkpoint(work_dir, trainer)}", flush=True)
+    barrier()
 
 
 def train_model(
@@ -161,8 +185,11 @@ def train_model(
     from the resumed step on); returns the trainer."""
     from fgvc_tpu_torch.models.weights import load_weights
 
-    os.makedirs(work_dir, exist_ok=True)
     trainer = MixedTrainer(cfg, device).init(cfg.seed, steps_per_epoch)
+    lead = trainer.rank == 0
+    if lead:
+        os.makedirs(work_dir, exist_ok=True)
+    barrier()
     if teacher_init:
         load_weights(trainer.teacher, _teacher_state(teacher_init))
         print(f"teacher <- {teacher_init}", flush=True)
@@ -170,7 +197,8 @@ def train_model(
     best_metric = None
     if resume and (path := latest_checkpoint(work_dir)):
         restore_checkpoint(path, trainer)
-        print(f"resumed from {path} (step {trainer.step})", flush=True)
+        if lead:
+            print(f"resumed from {path} (step {trainer.step})", flush=True)
         best_path = os.path.join(work_dir, "best.json")
         if os.path.exists(best_path):
             with open(best_path) as f:
@@ -180,6 +208,8 @@ def train_model(
 
     total = max_steps or cfg.max_epochs * steps_per_epoch
     ckpt_interval = ckpt_interval or max(total // 2, 1)
+    # process 0 alone holds val_fn; the others learn from it when it validates
+    val_interval = broadcast_object(val_interval if val_fn is not None else None)
     preempt = {"flag": False}
 
     def _on_sigterm(signum, frame):
@@ -196,10 +226,11 @@ def train_model(
     log_path = os.path.join(work_dir, "train_log.jsonl")
     tb = None
     try:
-        from tensorboardX import SummaryWriter
+        if lead:
+            from tensorboardX import SummaryWriter
 
-        tb = SummaryWriter(os.path.join(work_dir, "tb"))
-        restore.callback(tb.close)
+            tb = SummaryWriter(os.path.join(work_dir, "tb"))
+            restore.callback(tb.close)
     except Exception:
         pass
 
@@ -218,7 +249,7 @@ def train_model(
                 ema_update(trainer.teacher, trainer.backbone, teacher_ema)
             step = trainer.step
 
-            if step % log_interval == 0 or step == total:
+            if lead and (step % log_interval == 0 or step == total):
                 vals = {k: float(v) for k, v in losses.items()}
                 vals["step"] = step
                 vals["steps_per_sec"] = (step - last_logged) / max(time.time() - t0, 1e-9)
@@ -231,13 +262,17 @@ def train_model(
                 print(f"step {step}/{total} " + " ".join(f"{k}={v:.4f}" for k, v in vals.items()),
                       flush=True)
             if step % ckpt_interval == 0 or step == total:
-                print(f"saved {save_checkpoint(work_dir, trainer)}", flush=True)
-            if val_fn is not None and val_interval and (step % val_interval == 0 or step == total):
-                best_metric = _log_val(work_dir, log_path, step, val_fn(trainer),
+                _save(work_dir, trainer)
+            if val_interval and (step % val_interval == 0 or step == total):
+                if lead:
+                    with alone():  # the others wait in the broadcast
+                        metrics = val_fn(trainer)
+                metrics = broadcast_object(metrics if lead else None)
+                best_metric = _log_val(work_dir, log_path, step, metrics,
                                        val_metric_key, val_rule, best_metric, trainer)
-            if preempt["flag"]:
+            if sync_stop(preempt["flag"], trainer.collective_device):
                 if step % ckpt_interval != 0 and step != total:
-                    print(f"preempted: saved {save_checkpoint(work_dir, trainer)}", flush=True)
+                    _save(work_dir, trainer, "preempted: saved")
                 print(f"preempted: stopping at step {step}", flush=True)
                 break
     return trainer

@@ -9,11 +9,12 @@ FGVC_PROCESS_ID:
 
 `fgvc_tpu_torch.cli.test` reads them through
 `parallel.dist.initialize_from_flags` and joins a gloo process group at
-tcp://localhost:<port>; any script can do the same before it touches a
-card.  Each rank runs on cuda:{rank % device count} unless given device
-lists, so on a machine with one card every rank shares it.  Training is
-single-process in the port (`fgvc_tpu_torch.cli.train` refuses a
-coordinator), and the other entry points would run N uncoordinated copies.
+tcp://localhost:<port>; `fgvc_tpu_torch.cli.train` joins a data-parallel
+group (NCCL where every rank has a card of its own, else gloo); any script
+can do the same before it touches a card.  Each rank runs on
+cuda:{rank % device count} unless given device lists, so on a machine with
+one card every rank shares it.  The other entry points would run N
+uncoordinated copies.
 
 The launcher imports neither torch nor the package: it spawns the ranks,
 polls all of them, terminates the rest as soon as one fails (its exit code

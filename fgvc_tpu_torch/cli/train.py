@@ -10,17 +10,23 @@ data.
     python -m fgvc_tpu_torch.cli.train --synthetic --synthetic-mode structured \
         --max-steps N --work-dir runs/mixed ...
 
+    python -m fgvc_tpu_torch.cli.launch --nprocs N -- \
+        python -m fgvc_tpu_torch.cli.train ... [--device cpu]
+
 As in the JAX CLI, --synthetic, or no --ytv-root, trains on procedural data;
 otherwise FlyingThingsYtvDataset reads the two trees (frames decoded by the
-port's own codecs; WebP FlyingThings frames are refused), an epoch is
+port's own codecs: JPEG, PNG and the WebP cleanpass), an epoch is
 len(videos) // batch_size steps, and a resumed run skips the batches of
 the checkpointed steps.  Settings layer as in the JAX CLI: TrainConfig
-defaults, then --config (a JSON object of TrainConfig fields), then
+defaults, then --config (a JSON object of TrainConfig fields, e.g.
+{"compute_dtype": "bfloat16"}, which has no flag in either CLI), then
 explicit flags.  Runs on the CUDA card unless --device cpu is given.
-Multi-process runs (--coordinator, --num-processes, --process-id, or a rank
-of cli.launch) and --platform tpu are refused with the reason: DDP training
-is not ported, though the eval CLI runs several processes
-(parallel/dist.py).
+
+Several processes (a rank of cli.launch, or --coordinator, --num-processes
+and --process-id) train data-parallel: --batch-size is the global batch,
+rank r makes its slice and runs on cuda:(r % cards) (or the CPU), over NCCL
+where every rank has a card of its own and gloo otherwise (the backend is
+printed); process 0 writes the work directory.  --platform tpu is refused.
 """
 
 import argparse
@@ -112,6 +118,7 @@ def main(argv=None):
     from fgvc_tpu_torch.core.checkpoint import latest_checkpoint
     from fgvc_tpu_torch.datasets import flyingthings_ytv as ds_mod
     from fgvc_tpu_torch.device import resolve_device
+    from fgvc_tpu_torch.parallel import dist
     from fgvc_tpu_torch.utils.profiler import trace
 
     cfg = TrainConfig()
@@ -130,15 +137,21 @@ def main(argv=None):
         if v is not None
     }
     cfg = dataclasses.replace(cfg, **flag_overrides)
-    check_train_ported(
-        cfg,
-        multi_process=bool(args.coordinator or (args.num_processes or 1) > 1
-                           or args.process_id or os.environ.get("FGVC_COORDINATOR")),
-    )
+    coords = dist.coordinates_from_flags(args.coordinator, args.num_processes, args.process_id)
+    rank, world = (coords[2], coords[1]) if coords else (0, 1)
+    check_train_ported(cfg, world=world)
     real = not args.synthetic and args.ytv_root
     if real and not args.flyingthings_root:
         parser.error("--ytv-root needs --flyingthings-root (the flow-labeled branch)")
     resolve_device(device)  # no card and no --device cpu: refuse before any work
+    if coords:
+        device = dist.rank_device(device, rank)
+        if device != "cpu":
+            import torch
+
+            torch.cuda.set_device(device)
+        backend = dist.initialize_training(*coords, device=device)
+        print(f"rank {rank} of {world} on {device}, backend {backend}", flush=True)
 
     if real:
         dataset = ds_mod.FlyingThingsYtvDataset(args.ytv_root, args.flyingthings_root,
@@ -159,29 +172,33 @@ def main(argv=None):
     skip = 0
     if not args.no_resume and (latest := latest_checkpoint(args.work_dir)):
         skip = min(int(os.path.basename(latest).split("_")[-1]), total)
-    batches = ds_mod.make_batches(dataset, cfg.batch_size, total, skip=skip)
+    batches = ds_mod.make_batches(dataset, cfg.batch_size, total, skip=skip, rank=rank,
+                                  world=world)
 
-    if args.val_data_root:
+    if rank != 0 or not (args.val_data_root or args.synthetic_val):
+        val_fn = None  # process 0 validates and broadcasts the metrics
+    elif args.val_data_root:
         val_fn = make_tapvid_val_fn(args.val_data_root, max_videos=args.val_videos, device=device)
-    elif args.synthetic_val:
-        val_fn = make_synthetic_val_fn(args.work_dir, seed=cfg.seed, device=device)
     else:
-        val_fn = None
-    with trace(args.profile):
-        train_model(
-            cfg, batches, args.work_dir,
-            steps_per_epoch=steps_per_epoch,
-            max_steps=args.max_steps,
-            log_interval=args.log_interval,
-            ckpt_interval=args.ckpt_interval,
-            resume=not args.no_resume,
-            teacher_init=args.teacher,
-            teacher_ema=args.teacher_ema,
-            val_fn=val_fn,
-            val_interval=args.val_interval
-            or (steps_per_epoch * max(cfg.max_epochs // 2, 1) if val_fn else None),
-            device=device,
-        )
+        val_fn = make_synthetic_val_fn(args.work_dir, seed=cfg.seed, device=device)
+    try:
+        with trace(args.profile if rank == 0 else None):
+            train_model(
+                cfg, batches, args.work_dir,
+                steps_per_epoch=steps_per_epoch,
+                max_steps=args.max_steps,
+                log_interval=args.log_interval,
+                ckpt_interval=args.ckpt_interval,
+                resume=not args.no_resume,
+                teacher_init=args.teacher,
+                teacher_ema=args.teacher_ema,
+                val_fn=val_fn,
+                val_interval=args.val_interval
+                or (steps_per_epoch * max(cfg.max_epochs // 2, 1) if val_fn else None),
+                device=device,
+            )
+    finally:
+        dist.finalize()
     return 0
 
 

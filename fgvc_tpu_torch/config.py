@@ -171,24 +171,14 @@ def config_from_file(path: str, base):
     return dataclasses.replace(base, **coerced)
 
 
-def check_train_ported(cfg: TrainConfig, *, multi_process: bool = False) -> None:
-    """Raise NotImplementedError for what the port's training leaves out
-    (bfloat16 compute, multi-process runs), and ValueError for a value no
-    package accepts."""
-    if multi_process:
-        raise NotImplementedError(
-            "multi-process training (DDP + SyncBN) is not ported to "
-            "fgvc_tpu_torch yet (ROADMAP.md item 31); run one process (only the "
-            "eval CLI, fgvc_tpu_torch.cli.test, runs several)"
-        )
+def check_train_ported(cfg: TrainConfig, *, world: int = 1) -> None:
+    """Raise ValueError for a value no package accepts: a compute dtype
+    other than float32 or bfloat16, an unknown matmul precision or warmup,
+    or a global batch that does not divide over the `world` processes of a
+    data-parallel run (JAX's batch sharding fails there too)."""
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(
             f"compute_dtype must be 'float32' or 'bfloat16', got {cfg.compute_dtype!r}"
-        )
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' is not ported to fgvc_tpu_torch yet; the "
-            "backbone trains in float32 (ROADMAP.md, slice 7 remnants)"
         )
     if cfg.matmul_precision not in MATMUL_PRECISIONS:
         raise ValueError(
@@ -197,3 +187,7 @@ def check_train_ported(cfg: TrainConfig, *, multi_process: bool = False) -> None
         )
     if cfg.warmup not in (None, "linear"):
         raise ValueError(f"warmup must be None or 'linear', got {cfg.warmup!r}")
+    if world < 1 or cfg.batch_size % world:
+        raise ValueError(
+            f"the global batch of {cfg.batch_size} does not divide over {world} processes"
+        )

@@ -4,16 +4,31 @@
     losses = trainer.train_step(batch, generator)
 
 The student (a ResNet-18-d1 in training mode), the two gradient-reversal
-discriminators and Adam are the trainer's state; the teacher is a frozen
-ResNet-18-d1 in eval mode.  Batches are dicts of channels-last float32
-arrays as `datasets.flyingthings_ytv` makes them: imgs and imgs_sup (B, 2,
-H, W, 3) Lab-normalised, flow and flow_back (B, H, W, 2).
+discriminators and Adam are the trainer's state (`train_state()`, the JAX
+TrainState's four fields); the teacher is a frozen ResNet-18-d1 in eval
+mode.  Batches are dicts of channels-last float32 arrays as
+`datasets.flyingthings_ytv` makes them: imgs and imgs_sup (B, 2, H, W, 3)
+Lab-normalised, flow and flow_back (B, H, W, 2).
+
+* compute_dtype 'bfloat16': the student and the teacher compute in bfloat16
+  (flax's dtype), their features are float32 from the backbone's boundary
+  on; losses, correlation volumes and the discriminators stay float32, and
+  so do parameters, BatchNorm statistics and Adam's moments.
+* make_multi_optimizer: per-module optimizers over the top-level names of
+  `trainable()` (optax.multi_transform), the default ScheduledAdam for the
+  rest.
+* Data-parallel: under a process group of W processes each one steps on its
+  slice of the global batch; BatchNorm statistics are the global batch's,
+  gradients are averaged before the unscale, the clip and Adam, and the
+  losses returned are the global batch's, so every process holds the
+  one-process run's state.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,6 +46,21 @@ from fgvc_tpu_torch.models.mixed_tracker import (
 )
 from fgvc_tpu_torch.models.resnet import batch_stats_updates, init_flax_like, resnet18_d1
 from fgvc_tpu_torch.models.weights import load_weights
+from fgvc_tpu_torch.parallel.dist import all_mean_, group_backend, process_info
+
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The JAX TrainState's four fields, from the trainer's checkpoint
+    payload: params {'backbone', 'corr_disc', 'feat_disc'} state dicts, the
+    student's BatchNorm buffers, the optimizer's state and the step."""
+
+    params: Dict[str, Dict[str, torch.Tensor]]
+    batch_stats: Dict[str, torch.Tensor]
+    opt_state: Dict[str, Any]
+    step: int
 
 
 def cosine_decay(init_value: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:
@@ -120,6 +150,63 @@ def make_optimizer(params, cfg: TrainConfig, steps_per_epoch: int) -> ScheduledA
     return ScheduledAdam(params, cfg, steps_per_epoch)
 
 
+class MultiOptimizer:
+    """Per-module optimizers (fgvc_tpu/core/train.py make_multi_optimizer,
+    optax.multi_transform): the parameters of each module named in
+    `overrides` step with the optimizer its factory makes, every other one
+    with the default ScheduledAdam (its clip covers its own gradients, as the
+    default transformation sees only its leaves).  state_dict keeps the
+    default's keys ('adam', 'count') and adds 'overrides'."""
+
+    def __init__(self, modules: Mapping[str, torch.nn.Module], cfg: TrainConfig,
+                 steps_per_epoch: int, overrides: Mapping[str, Callable[[List], Any]]):
+        unknown = sorted(set(overrides) - set(modules))
+        if unknown:
+            raise ValueError(f"overrides for unknown modules {unknown}; known: {sorted(modules)}")
+        self.params = [p for m in modules.values() for p in m.parameters()]
+        default = [p for k, m in modules.items() if k not in overrides for p in m.parameters()]
+        self.default = ScheduledAdam(default, cfg, steps_per_epoch) if default else None
+        self.overrides = {k: make(list(modules[k].parameters())) for k, make in overrides.items()}
+
+    def _all(self):
+        return ([self.default] if self.default else []) + list(self.overrides.values())
+
+    def step(self) -> None:
+        for opt in self._all():
+            opt.step()
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def state_dict(self) -> Dict:
+        state = self.default.state_dict() if self.default else {}
+        state["overrides"] = {k: opt.state_dict() for k, opt in self.overrides.items()}
+        return state
+
+    def load_state_dict(self, state: Mapping) -> None:
+        if self.default:
+            self.default.load_state_dict(state)
+        for k, opt in self.overrides.items():
+            opt.load_state_dict(state["overrides"][k])
+
+
+def make_multi_optimizer(modules: Mapping[str, torch.nn.Module], cfg: TrainConfig,
+                         steps_per_epoch: int,
+                         overrides: Mapping[str, Callable[[List], Any]]) -> MultiOptimizer:
+    """Per-module optimizers keyed by the top-level names of
+    MixedTrainer.trainable() ('backbone', 'corr_disc', 'feat_disc'): each
+    override is a factory params -> optimizer (e.g. lambda ps:
+    torch.optim.SGD(ps, lr=0.0)); the rest take make_optimizer's."""
+    return MultiOptimizer(modules, cfg, steps_per_epoch, overrides)
+
+
+def _float32(x: torch.Tensor) -> torch.Tensor:
+    """Features at the backbone's boundary: bfloat16 (or float16) to
+    float32; wider dtypes pass."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
 def step_generator(seed: int, step: int) -> torch.Generator:
     """The generator of global step `step` of a run seeded `seed`: derived
     from (seed + 1, step) alone, as the JAX loop folds the step into its
@@ -134,23 +221,28 @@ def draw_channels(generator: torch.Generator) -> Tuple[int, int]:
 
 
 class MixedTrainer:
-    """The modules, optimizer and step of the mixed recipe on one device."""
+    """The modules, optimizer and step of the mixed recipe on one device of
+    each process (the processes of a group share the global batch)."""
 
     def __init__(self, cfg: TrainConfig, device: Optional[Union[str, torch.device]] = None):
-        check_train_ported(cfg)
+        self.rank, self.world = process_info()
+        check_train_ported(cfg, world=self.world)
         self.cfg = cfg
         self.device = resolve_device(device)
         set_matmul_precision(cfg.matmul_precision)
         set_deterministic()
         win2 = (2 * cfg.radius + 1) ** 2
-        self.backbone = resnet18_d1().to(self.device)
-        self.teacher = resnet18_d1().to(self.device).eval().requires_grad_(False)
+        dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+        self.backbone = resnet18_d1(dtype).to(self.device)
+        self.teacher = resnet18_d1(dtype).to(self.device).eval().requires_grad_(False)
         self.corr_disc = GradReverseDiscriminator(win2).to(self.device)
         # the feature-level discriminator of the reference; its loss weight
         # is 0 in the recipe, so it only rides along in checkpoints
         self.feat_disc = GradReverseDiscriminator(256).to(self.device)
         self.optimizer: Optional[ScheduledAdam] = None
         self.step = 0
+        # where the group's backend reduces host flags: the card under NCCL
+        self.collective_device = self.device if group_backend() == "nccl" else None
 
     # ------------------------------------------------------------------ #
     def trainable(self) -> Dict[str, torch.nn.Module]:
@@ -173,9 +265,17 @@ class MixedTrainer:
             load_weights(module, states[name])
         return self
 
-    def reset_optimizer(self, steps_per_epoch: int) -> "MixedTrainer":
-        params = [p for m in self.trainable().values() for p in m.parameters()]
-        self.optimizer = make_optimizer(params, self.cfg, steps_per_epoch)
+    def reset_optimizer(self, steps_per_epoch: int,
+                        overrides: Optional[Mapping[str, Callable[[List], Any]]] = None
+                        ) -> "MixedTrainer":
+        """A fresh optimizer at step 0: make_optimizer's, or with `overrides`
+        make_multi_optimizer's."""
+        if overrides:
+            self.optimizer = make_multi_optimizer(self.trainable(), self.cfg, steps_per_epoch,
+                                                  overrides)
+        else:
+            params = [p for m in self.trainable().values() for p in m.parameters()]
+            self.optimizer = make_optimizer(params, self.cfg, steps_per_epoch)
         self.step = 0
         return self
 
@@ -186,9 +286,10 @@ class MixedTrainer:
 
     # ------------------------------------------------------------------ #
     def student(self, frames: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) -> (N, h, w, C) student features in training mode;
-        with cfg.remat the activations are recomputed in the backward (the
-        recomputation leaves the BN statistics alone)."""
+        """(N, H, W, 3) -> (N, h, w, C) float32 student features in training
+        mode (computed in cfg.compute_dtype); with cfg.remat the activations
+        are recomputed in the backward (the recomputation issues the same
+        collectives and leaves the BN statistics alone)."""
         self.backbone.train()
         x = frames.permute(0, 3, 1, 2)
         if self.cfg.remat:
@@ -202,7 +303,7 @@ class MixedTrainer:
             out = checkpoint(run, x, use_reentrant=False)
         else:
             out = self.backbone(x)
-        return out.permute(0, 2, 3, 1)
+        return _float32(out.permute(0, 2, 3, 1))
 
     def loss_fn(self, batch: Mapping[str, torch.Tensor],
                 channels: Tuple[int, int]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -237,7 +338,8 @@ class MixedTrainer:
             losses["l1_loss"] = zero
         if c.loss_weight_sup > 0:
             with torch.no_grad():
-                teacher_feat = self.teacher(imgs_sup[:, 0].permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+                teacher_feat = self.teacher(imgs_sup[:, 0].permute(0, 3, 1, 2))
+                teacher_feat = _float32(teacher_feat.permute(0, 2, 3, 1))
             losses["sup_loss"] = c.loss_weight_sup * supervised_distillation_loss(
                 feats_sup, teacher_feat, batch["flow"], batch["flow_back"], c)
         else:
@@ -250,9 +352,10 @@ class MixedTrainer:
         return total, losses
 
     def train_step(self, batch: Mapping, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        """One optimizer step on `batch` (numpy or tensors), the dropped
-        channels drawn from `generator`.  Returns the losses (device
-        tensors; with cfg.check_numerics also 'all_finite')."""
+        """One optimizer step on `batch` (numpy or tensors; this process's
+        slice of the global batch), the dropped channels drawn from
+        `generator`.  Returns the global batch's losses (device tensors; with
+        cfg.check_numerics also 'all_finite')."""
         batch = self.to_device(batch)
         channels = draw_channels(generator)
         self.optimizer.zero_grad()
@@ -261,6 +364,15 @@ class MixedTrainer:
         (total * scale if scale != 1.0 else total).backward()
         params = self.optimizer.params
         grads = [p.grad for p in params if p.grad is not None]
+        if self.world > 1:
+            # the global batch's gradient, before the unscale, the clip and
+            # Adam; and its losses (each loss is the mean of the processes')
+            all_mean_(grads)
+            names = list(losses)
+            stacked = torch.stack([losses[k].detach() for k in names])
+            all_mean_([stacked])
+            losses = dict(zip(names, stacked.unbind()))
+            total = losses["loss"]
         if scale != 1.0:
             # unscale before the clip and the update (Fp16OptimizerHook order)
             torch._foreach_div_(grads, scale)
@@ -273,22 +385,29 @@ class MixedTrainer:
         return {k: v.detach() for k, v in losses.items()}
 
     # ------------------------------------------------------------------ #
-    def state_dict(self) -> Dict:
-        """The checkpoint payload (core/checkpoint.py), on the CPU."""
+    def train_state(self) -> TrainState:
+        """The trainer's state as the JAX TrainState's fields, on the CPU."""
         cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
         student = self.backbone.state_dict()
         buffers = {k for k, _ in self.backbone.named_buffers()}
-        return {
-            "params": {
+        return TrainState(
+            params={
                 "backbone": cpu({k: v for k, v in student.items() if k not in buffers}),
                 "corr_disc": cpu(self.corr_disc.state_dict()),
                 "feat_disc": cpu(self.feat_disc.state_dict()),
             },
-            "batch_stats": cpu({k: v for k, v in student.items() if k in buffers}),
-            "opt_state": self.optimizer.state_dict(),
-            "step": self.step,
-            "teacher": cpu(self.teacher.state_dict()),
-        }
+            batch_stats=cpu({k: v for k, v in student.items() if k in buffers}),
+            opt_state=self.optimizer.state_dict(),
+            step=self.step,
+        )
+
+    def state_dict(self) -> Dict:
+        """The checkpoint payload (core/checkpoint.py): the TrainState's
+        fields and the teacher, on the CPU."""
+        state = self.train_state()
+        payload = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+        payload["teacher"] = {k: v.detach().cpu() for k, v in self.teacher.state_dict().items()}
+        return payload
 
     def load_state_dict(self, payload: Mapping) -> None:
         p = payload["params"]

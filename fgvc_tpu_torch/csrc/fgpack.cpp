@@ -23,6 +23,12 @@
 //     forward DCT (jfdctint), rounding quantisation (jcdctmgr), the standard
 //     Huffman tables.
 //   * PNG unfiltering (filters 0-4); inflate stays with the caller.
+//   * A WebP decoder whose BGR output equals libwebp's WebPDecodeBGRInto
+//     (cv2.imread's colour mode): the RIFF container with its VP8, VP8L and
+//     VP8X chunks (ALPH, ICCP, EXIF and XMP skipped; animations refused),
+//     lossy VP8 key frames to RFC 6386 with libwebp's fancy upsampling and
+//     fixed-point YUV -> RGB, and lossless VP8L (its four transforms, meta
+//     prefix codes, colour cache and LZ77 with the distance map).
 //   * RGB -> I420 planes, OpenCV's BT.601 fixed point (cv2.COLOR_RGB2YUV_I420
 //     bit for bit).
 //
@@ -74,6 +80,10 @@ enum Status {
   kErrNoImage = -13,     // no SOF, or no scan
   kErrArgs = -14,        // invalid arguments
   kErrFilter = -15,      // PNG filter type above 4
+  kErrWebpCorrupt = -16,    // a malformed RIFF container or WebP bitstream
+  kErrWebpTruncated = -17,  // the WebP data ends before the image does
+  kErrWebpAnimation = -18,  // an animated WebP (ANIM / ANMF)
+  kErrWebpAlpha = -19,      // a lossy frame's ALPH plane (not decoded)
 };
 
 struct RecordMeta {
@@ -1583,6 +1593,1872 @@ void report(const BatchError& e, int64_t* status) {
   }
 }
 
+// ---------------------------------------------------------------------- //
+// WebP: the RIFF container, lossy VP8 (RFC 6386) and lossless VP8L, decoded
+// to what libwebp's WebPDecodeBGRInto gives (cv2.imread's colour mode).
+// Lossy frames go through libwebp's default output path: "fancy" 9-3-3-1
+// chroma upsampling (UpsampleRgbLinePair) and its 14-bit fixed-point
+// YUV -> RGB (VP8YUVToR/G/B).  The tables below are RFC 6386's normative
+// ones, in libwebp's order of the 4x4 intra modes (DC, TM, VE, HE, RD, VR,
+// LD, VL, HD, HU).
+
+namespace webp {
+
+const uint8_t kCoeffsProba0[4][8][3][11] = {
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    253, 136, 254, 255, 228, 219, 128, 128, 128, 128, 128,
+    189, 129, 242, 255, 227, 213, 255, 219, 128, 128, 128,
+    106, 126, 227, 252, 214, 209, 255, 255, 128, 128, 128,
+    1, 98, 248, 255, 236, 226, 255, 255, 128, 128, 128,
+    181, 133, 238, 254, 221, 234, 255, 154, 128, 128, 128,
+    78, 134, 202, 247, 198, 180, 255, 219, 128, 128, 128,
+    1, 185, 249, 255, 243, 255, 128, 128, 128, 128, 128,
+    184, 150, 247, 255, 236, 224, 128, 128, 128, 128, 128,
+    77, 110, 216, 255, 236, 230, 128, 128, 128, 128, 128,
+    1, 101, 251, 255, 241, 255, 128, 128, 128, 128, 128,
+    170, 139, 241, 252, 236, 209, 255, 255, 128, 128, 128,
+    37, 116, 196, 243, 228, 255, 255, 255, 128, 128, 128,
+    1, 204, 254, 255, 245, 255, 128, 128, 128, 128, 128,
+    207, 160, 250, 255, 238, 128, 128, 128, 128, 128, 128,
+    102, 103, 231, 255, 211, 171, 128, 128, 128, 128, 128,
+    1, 152, 252, 255, 240, 255, 128, 128, 128, 128, 128,
+    177, 135, 243, 255, 234, 225, 128, 128, 128, 128, 128,
+    80, 129, 211, 255, 194, 224, 128, 128, 128, 128, 128,
+    1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    246, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    255, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    198, 35, 237, 223, 193, 187, 162, 160, 145, 155, 62,
+    131, 45, 198, 221, 172, 176, 220, 157, 252, 221, 1,
+    68, 47, 146, 208, 149, 167, 221, 162, 255, 223, 128,
+    1, 149, 241, 255, 221, 224, 255, 255, 128, 128, 128,
+    184, 141, 234, 253, 222, 220, 255, 199, 128, 128, 128,
+    81, 99, 181, 242, 176, 190, 249, 202, 255, 255, 128,
+    1, 129, 232, 253, 214, 197, 242, 196, 255, 255, 128,
+    99, 121, 210, 250, 201, 198, 255, 202, 128, 128, 128,
+    23, 91, 163, 242, 170, 187, 247, 210, 255, 255, 128,
+    1, 200, 246, 255, 234, 255, 128, 128, 128, 128, 128,
+    109, 178, 241, 255, 231, 245, 255, 255, 128, 128, 128,
+    44, 130, 201, 253, 205, 192, 255, 255, 128, 128, 128,
+    1, 132, 239, 251, 219, 209, 255, 165, 128, 128, 128,
+    94, 136, 225, 251, 218, 190, 255, 255, 128, 128, 128,
+    22, 100, 174, 245, 186, 161, 255, 199, 128, 128, 128,
+    1, 182, 249, 255, 232, 235, 128, 128, 128, 128, 128,
+    124, 143, 241, 255, 227, 234, 128, 128, 128, 128, 128,
+    35, 77, 181, 251, 193, 211, 255, 205, 128, 128, 128,
+    1, 157, 247, 255, 236, 231, 255, 255, 128, 128, 128,
+    121, 141, 235, 255, 225, 227, 255, 255, 128, 128, 128,
+    45, 99, 188, 251, 195, 217, 255, 224, 128, 128, 128,
+    1, 1, 251, 255, 213, 255, 128, 128, 128, 128, 128,
+    203, 1, 248, 255, 255, 128, 128, 128, 128, 128, 128,
+    137, 1, 177, 255, 224, 255, 128, 128, 128, 128, 128,
+    253, 9, 248, 251, 207, 208, 255, 192, 128, 128, 128,
+    175, 13, 224, 243, 193, 185, 249, 198, 255, 255, 128,
+    73, 17, 171, 221, 161, 179, 236, 167, 255, 234, 128,
+    1, 95, 247, 253, 212, 183, 255, 255, 128, 128, 128,
+    239, 90, 244, 250, 211, 209, 255, 255, 128, 128, 128,
+    155, 77, 195, 248, 188, 195, 255, 255, 128, 128, 128,
+    1, 24, 239, 251, 218, 219, 255, 205, 128, 128, 128,
+    201, 51, 219, 255, 196, 186, 128, 128, 128, 128, 128,
+    69, 46, 190, 239, 201, 218, 255, 228, 128, 128, 128,
+    1, 191, 251, 255, 255, 128, 128, 128, 128, 128, 128,
+    223, 165, 249, 255, 213, 255, 128, 128, 128, 128, 128,
+    141, 124, 248, 255, 255, 128, 128, 128, 128, 128, 128,
+    1, 16, 248, 255, 255, 128, 128, 128, 128, 128, 128,
+    190, 36, 230, 255, 236, 255, 128, 128, 128, 128, 128,
+    149, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    1, 226, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    247, 192, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    240, 128, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    1, 134, 252, 255, 255, 128, 128, 128, 128, 128, 128,
+    213, 62, 250, 255, 255, 128, 128, 128, 128, 128, 128,
+    55, 93, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    128, 128, 128, 128, 128, 128, 128, 128, 128, 128, 128,
+    202, 24, 213, 235, 186, 191, 220, 160, 240, 175, 255,
+    126, 38, 182, 232, 169, 184, 228, 174, 255, 187, 128,
+    61, 46, 138, 219, 151, 178, 240, 170, 255, 216, 128,
+    1, 112, 230, 250, 199, 191, 247, 159, 255, 255, 128,
+    166, 109, 228, 252, 211, 215, 255, 174, 128, 128, 128,
+    39, 77, 162, 232, 172, 180, 245, 178, 255, 255, 128,
+    1, 52, 220, 246, 198, 199, 249, 220, 255, 255, 128,
+    124, 74, 191, 243, 183, 193, 250, 221, 255, 255, 128,
+    24, 71, 130, 219, 154, 170, 243, 182, 255, 255, 128,
+    1, 182, 225, 249, 219, 240, 255, 224, 128, 128, 128,
+    149, 150, 226, 252, 216, 205, 255, 171, 128, 128, 128,
+    28, 108, 170, 242, 183, 194, 254, 223, 255, 255, 128,
+    1, 81, 230, 252, 204, 203, 255, 192, 128, 128, 128,
+    123, 102, 209, 247, 188, 196, 255, 233, 128, 128, 128,
+    20, 95, 153, 243, 164, 173, 255, 203, 128, 128, 128,
+    1, 222, 248, 255, 216, 213, 128, 128, 128, 128, 128,
+    168, 175, 246, 252, 235, 205, 255, 255, 128, 128, 128,
+    47, 116, 215, 255, 211, 212, 255, 255, 128, 128, 128,
+    1, 121, 236, 253, 212, 214, 255, 255, 128, 128, 128,
+    141, 84, 213, 252, 201, 202, 255, 219, 128, 128, 128,
+    42, 80, 160, 240, 162, 185, 255, 205, 128, 128, 128,
+    1, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    244, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+    238, 1, 255, 128, 128, 128, 128, 128, 128, 128, 128,
+};
+const uint8_t kCoeffsUpdateProba[4][8][3][11] = {
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    176, 246, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    223, 241, 252, 255, 255, 255, 255, 255, 255, 255, 255,
+    249, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 244, 252, 255, 255, 255, 255, 255, 255, 255, 255,
+    234, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 246, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    239, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    251, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    251, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 253, 255, 254, 255, 255, 255, 255, 255, 255,
+    250, 255, 254, 255, 254, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    217, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    225, 252, 241, 253, 255, 255, 254, 255, 255, 255, 255,
+    234, 250, 241, 250, 253, 255, 253, 254, 255, 255, 255,
+    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    223, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    238, 253, 254, 254, 255, 255, 255, 255, 255, 255, 255,
+    255, 248, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    249, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 253, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    247, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    252, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    253, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    186, 251, 250, 255, 255, 255, 255, 255, 255, 255, 255,
+    234, 251, 244, 254, 255, 255, 255, 255, 255, 255, 255,
+    251, 251, 243, 253, 254, 255, 254, 255, 255, 255, 255,
+    255, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    236, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    251, 253, 253, 254, 254, 255, 255, 255, 255, 255, 255,
+    255, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 254, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    248, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    250, 254, 252, 254, 255, 255, 255, 255, 255, 255, 255,
+    248, 254, 249, 253, 255, 255, 255, 255, 255, 255, 255,
+    255, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    246, 253, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    252, 254, 251, 254, 254, 255, 255, 255, 255, 255, 255,
+    255, 254, 252, 255, 255, 255, 255, 255, 255, 255, 255,
+    248, 254, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    253, 255, 254, 254, 255, 255, 255, 255, 255, 255, 255,
+    255, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    245, 251, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    253, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 251, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    252, 253, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 254, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 252, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    249, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 254, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 253, 255, 255, 255, 255, 255, 255, 255, 255,
+    250, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    254, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+    255, 255, 255, 255, 255, 255, 255, 255, 255, 255, 255,
+};
+const uint8_t kBModesProba[10][10][9] = {
+    231, 120, 48, 89, 115, 113, 120, 152, 112,
+    152, 179, 64, 126, 170, 118, 46, 70, 95,
+    175, 69, 143, 80, 85, 82, 72, 155, 103,
+    56, 58, 10, 171, 218, 189, 17, 13, 152,
+    114, 26, 17, 163, 44, 195, 21, 10, 173,
+    121, 24, 80, 195, 26, 62, 44, 64, 85,
+    144, 71, 10, 38, 171, 213, 144, 34, 26,
+    170, 46, 55, 19, 136, 160, 33, 206, 71,
+    63, 20, 8, 114, 114, 208, 12, 9, 226,
+    81, 40, 11, 96, 182, 84, 29, 16, 36,
+    134, 183, 89, 137, 98, 101, 106, 165, 148,
+    72, 187, 100, 130, 157, 111, 32, 75, 80,
+    66, 102, 167, 99, 74, 62, 40, 234, 128,
+    41, 53, 9, 178, 241, 141, 26, 8, 107,
+    74, 43, 26, 146, 73, 166, 49, 23, 157,
+    65, 38, 105, 160, 51, 52, 31, 115, 128,
+    104, 79, 12, 27, 217, 255, 87, 17, 7,
+    87, 68, 71, 44, 114, 51, 15, 186, 23,
+    47, 41, 14, 110, 182, 183, 21, 17, 194,
+    66, 45, 25, 102, 197, 189, 23, 18, 22,
+    88, 88, 147, 150, 42, 46, 45, 196, 205,
+    43, 97, 183, 117, 85, 38, 35, 179, 61,
+    39, 53, 200, 87, 26, 21, 43, 232, 171,
+    56, 34, 51, 104, 114, 102, 29, 93, 77,
+    39, 28, 85, 171, 58, 165, 90, 98, 64,
+    34, 22, 116, 206, 23, 34, 43, 166, 73,
+    107, 54, 32, 26, 51, 1, 81, 43, 31,
+    68, 25, 106, 22, 64, 171, 36, 225, 114,
+    34, 19, 21, 102, 132, 188, 16, 76, 124,
+    62, 18, 78, 95, 85, 57, 50, 48, 51,
+    193, 101, 35, 159, 215, 111, 89, 46, 111,
+    60, 148, 31, 172, 219, 228, 21, 18, 111,
+    112, 113, 77, 85, 179, 255, 38, 120, 114,
+    40, 42, 1, 196, 245, 209, 10, 25, 109,
+    88, 43, 29, 140, 166, 213, 37, 43, 154,
+    61, 63, 30, 155, 67, 45, 68, 1, 209,
+    100, 80, 8, 43, 154, 1, 51, 26, 71,
+    142, 78, 78, 16, 255, 128, 34, 197, 171,
+    41, 40, 5, 102, 211, 183, 4, 1, 221,
+    51, 50, 17, 168, 209, 192, 23, 25, 82,
+    138, 31, 36, 171, 27, 166, 38, 44, 229,
+    67, 87, 58, 169, 82, 115, 26, 59, 179,
+    63, 59, 90, 180, 59, 166, 93, 73, 154,
+    40, 40, 21, 116, 143, 209, 34, 39, 175,
+    47, 15, 16, 183, 34, 223, 49, 45, 183,
+    46, 17, 33, 183, 6, 98, 15, 32, 183,
+    57, 46, 22, 24, 128, 1, 54, 17, 37,
+    65, 32, 73, 115, 28, 128, 23, 128, 205,
+    40, 3, 9, 115, 51, 192, 18, 6, 223,
+    87, 37, 9, 115, 59, 77, 64, 21, 47,
+    104, 55, 44, 218, 9, 54, 53, 130, 226,
+    64, 90, 70, 205, 40, 41, 23, 26, 57,
+    54, 57, 112, 184, 5, 41, 38, 166, 213,
+    30, 34, 26, 133, 152, 116, 10, 32, 134,
+    39, 19, 53, 221, 26, 114, 32, 73, 255,
+    31, 9, 65, 234, 2, 15, 1, 118, 73,
+    75, 32, 12, 51, 192, 255, 160, 43, 51,
+    88, 31, 35, 67, 102, 85, 55, 186, 85,
+    56, 21, 23, 111, 59, 205, 45, 37, 192,
+    55, 38, 70, 124, 73, 102, 1, 34, 98,
+    125, 98, 42, 88, 104, 85, 117, 175, 82,
+    95, 84, 53, 89, 128, 100, 113, 101, 45,
+    75, 79, 123, 47, 51, 128, 81, 171, 1,
+    57, 17, 5, 71, 102, 57, 53, 41, 49,
+    38, 33, 13, 121, 57, 73, 26, 1, 85,
+    41, 10, 67, 138, 77, 110, 90, 47, 114,
+    115, 21, 2, 10, 102, 255, 166, 23, 6,
+    101, 29, 16, 10, 85, 128, 101, 196, 26,
+    57, 18, 10, 102, 102, 213, 34, 20, 43,
+    117, 20, 15, 36, 163, 128, 68, 1, 26,
+    102, 61, 71, 37, 34, 53, 31, 243, 192,
+    69, 60, 71, 38, 73, 119, 28, 222, 37,
+    68, 45, 128, 34, 1, 47, 11, 245, 171,
+    62, 17, 19, 70, 146, 85, 55, 62, 70,
+    37, 43, 37, 154, 100, 163, 85, 160, 1,
+    63, 9, 92, 136, 28, 64, 32, 201, 85,
+    75, 15, 9, 9, 64, 255, 184, 119, 16,
+    86, 6, 28, 5, 64, 255, 25, 248, 1,
+    56, 8, 17, 132, 137, 255, 55, 116, 128,
+    58, 15, 20, 82, 135, 57, 26, 121, 40,
+    164, 50, 31, 137, 154, 133, 25, 35, 218,
+    51, 103, 44, 131, 131, 123, 31, 6, 158,
+    86, 40, 64, 135, 148, 224, 45, 183, 128,
+    22, 26, 17, 131, 240, 154, 14, 1, 209,
+    45, 16, 21, 91, 64, 222, 7, 1, 197,
+    56, 21, 39, 155, 60, 138, 23, 102, 213,
+    83, 12, 13, 54, 192, 255, 68, 47, 28,
+    85, 26, 85, 85, 128, 128, 32, 146, 171,
+    18, 11, 7, 63, 144, 171, 4, 4, 246,
+    35, 27, 10, 146, 174, 171, 12, 26, 128,
+    190, 80, 35, 99, 180, 80, 126, 54, 45,
+    85, 126, 47, 87, 176, 51, 41, 20, 32,
+    101, 75, 128, 139, 118, 146, 116, 128, 85,
+    56, 41, 15, 176, 236, 85, 37, 9, 62,
+    71, 30, 17, 119, 118, 255, 17, 18, 138,
+    101, 38, 60, 138, 55, 70, 43, 26, 142,
+    146, 36, 19, 30, 171, 255, 97, 27, 20,
+    138, 45, 61, 62, 219, 1, 81, 188, 64,
+    32, 41, 20, 117, 151, 142, 20, 21, 163,
+    112, 19, 12, 61, 195, 128, 48, 4, 24,
+};
+const uint8_t kDcTable[128] = {
+    4, 5, 6, 7, 8, 9, 10, 10, 11, 12, 13, 14, 15, 16, 17, 17,
+    18, 19, 20, 20, 21, 21, 22, 22, 23, 23, 24, 25, 25, 26, 27, 28,
+    29, 30, 31, 32, 33, 34, 35, 36, 37, 37, 38, 39, 40, 41, 42, 43,
+    44, 45, 46, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58,
+    59, 60, 61, 62, 63, 64, 65, 66, 67, 68, 69, 70, 71, 72, 73, 74,
+    75, 76, 76, 77, 78, 79, 80, 81, 82, 83, 84, 85, 86, 87, 88, 89,
+    91, 93, 95, 96, 98, 100, 101, 102, 104, 106, 108, 110, 112, 114, 116, 118,
+    122, 124, 126, 128, 130, 132, 134, 136, 138, 140, 143, 145, 148, 151, 154, 157,
+};
+const uint16_t kAcTable[128] = {
+    4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
+    20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35,
+    36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 50, 51,
+    52, 53, 54, 55, 56, 57, 58, 60, 62, 64, 66, 68, 70, 72, 74, 76,
+    78, 80, 82, 84, 86, 88, 90, 92, 94, 96, 98, 100, 102, 104, 106, 108,
+    110, 112, 114, 116, 119, 122, 125, 128, 131, 134, 137, 140, 143, 146, 149, 152,
+    155, 158, 161, 164, 167, 170, 173, 177, 181, 185, 189, 193, 197, 201, 205, 209,
+    213, 217, 221, 225, 229, 234, 239, 245, 249, 254, 259, 264, 269, 274, 279, 284,
+};
+const uint8_t kCodeToPlane[120] = {
+    24, 7, 23, 25, 40, 6, 39, 41, 22, 26, 38, 42,
+    56, 5, 55, 57, 21, 27, 54, 58, 37, 43, 72, 4,
+    71, 73, 20, 28, 53, 59, 70, 74, 36, 44, 88, 69,
+    75, 52, 60, 3, 87, 89, 19, 29, 86, 90, 35, 45,
+    68, 76, 85, 91, 51, 61, 104, 2, 103, 105, 18, 30,
+    102, 106, 34, 46, 84, 92, 67, 77, 101, 107, 50, 62,
+    120, 1, 119, 121, 83, 93, 17, 31, 100, 108, 66, 78,
+    118, 122, 33, 47, 117, 123, 49, 63, 99, 109, 82, 94,
+    0, 116, 124, 65, 79, 16, 32, 98, 110, 48, 115, 125,
+    81, 95, 64, 114, 126, 97, 111, 80, 113, 127, 96, 112,
+};
+
+// the 4x4 intra mode tree (node i reads prob[i]; a leaf holds -mode)
+const int8_t kYModesIntra4[18] = {0,  1, -1, 2, -2, 3, 4,  6,  -3,
+                                  5, -4, -5, -6, 7, -7, 8, -8, -9};
+const uint8_t kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
+const uint8_t kBands[17] = {0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0};
+const uint8_t kCat3[] = {173, 148, 140, 0};
+const uint8_t kCat4[] = {176, 155, 140, 135, 0};
+const uint8_t kCat5[] = {180, 157, 141, 134, 130, 0};
+const uint8_t kCat6[] = {254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129, 0};
+const uint8_t* const kCat3456[] = {kCat3, kCat4, kCat5, kCat6};
+
+// the 10 intra modes, then the DC variants at the frame's top and left edges
+enum { B_DC = 0, B_TM, B_VE, B_HE, B_RD, B_VR, B_LD, B_VL, B_HD, B_HU, DC_NOTOP, DC_NOLEFT,
+       DC_NOTOPLEFT };
+
+// The boolean entropy decoder of RFC 6386 section 7, in libwebp's form:
+// `range` holds range - 1, and reading past the data feeds one zero byte
+// and marks the reader `eof` (libwebp's VP8LoadFinalBytes).
+struct BoolReader {
+  const uint8_t* p = nullptr;
+  const uint8_t* end = nullptr;
+  uint64_t value = 0;
+  int bits = -8;
+  uint32_t range = 254;
+  bool eof = false;
+
+  void init(const uint8_t* s, size_t n) {
+    p = s;
+    end = s + n;
+    value = 0;
+    bits = -8;
+    range = 254;
+    eof = false;
+    load();
+  }
+  void load() {
+    if (p < end) {
+      value = (value << 8) | *p++;
+      bits += 8;
+    } else if (!eof) {
+      value <<= 8;
+      bits += 8;
+      eof = true;
+    } else {
+      bits = 0;
+    }
+  }
+  int bit(int prob) {
+    if (bits < 0) load();
+    const uint32_t split = (range * static_cast<uint32_t>(prob)) >> 8;
+    const uint32_t v = static_cast<uint32_t>(value >> bits);
+    uint32_t r;
+    int b;
+    if (v > split) {
+      r = range - split;
+      value -= static_cast<uint64_t>(split + 1) << bits;
+      b = 1;
+    } else {
+      r = split + 1;
+      b = 0;
+    }
+    const int shift = 7 ^ (31 - __builtin_clz(r));
+    r <<= shift;
+    bits -= shift;
+    range = r - 1;
+    return b;
+  }
+  uint32_t literal(int n) {  // n bits, most significant first
+    uint32_t v = 0;
+    while (n-- > 0) v |= static_cast<uint32_t>(bit(0x80)) << n;
+    return v;
+  }
+  int signed_literal(int n) {
+    const int v = static_cast<int>(literal(n));
+    return bit(0x80) ? -v : v;
+  }
+  int optional_signed(int n) { return bit(0x80) ? signed_literal(n) : 0; }
+};
+
+struct FilterInfo {
+  uint8_t limit = 0;   // 2 * level + ilevel (0: no filtering)
+  uint8_t ilevel = 0;  // interior limit
+  uint8_t inner = 0;   // filter the inner edges
+  uint8_t hev = 0;     // high edge variance threshold
+};
+
+struct Quant {
+  int y1[2], y2[2], uv[2];  // {dc, ac} dequantisation factors
+};
+
+struct MacroBlock {
+  uint8_t segment = 0;
+  uint8_t skip = 0;
+  uint8_t is_i4x4 = 0;
+  uint8_t imodes[16];
+  uint8_t uvmode = 0;
+};
+
+inline int clip(int v, int m) { return v < 0 ? 0 : (v > m ? m : v); }
+inline uint8_t clip8(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+// ---- transforms (libwebp's TransformOne / TransformWHT) ---------------
+inline int mul1(int a) { return ((a * 20091) >> 16) + a; }
+inline int mul2(int a) { return (a * 35468) >> 16; }
+
+constexpr int BPS = 32;  // stride of the reconstruction work buffers
+
+void transform_add(const int16_t* in, uint8_t* dst) {
+  int C[16];
+  int* tmp = C;
+  for (int i = 0; i < 4; ++i) {  // vertical pass
+    const int a = in[0] + in[8];
+    const int b = in[0] - in[8];
+    const int c = mul2(in[4]) - mul1(in[12]);
+    const int d = mul1(in[4]) + mul2(in[12]);
+    tmp[0] = a + d;
+    tmp[1] = b + c;
+    tmp[2] = b - c;
+    tmp[3] = a - d;
+    tmp += 4;
+    ++in;
+  }
+  tmp = C;
+  for (int i = 0; i < 4; ++i) {  // horizontal pass
+    const int dc = tmp[0] + 4;
+    const int a = dc + tmp[8];
+    const int b = dc - tmp[8];
+    const int c = mul2(tmp[4]) - mul1(tmp[12]);
+    const int d = mul1(tmp[4]) + mul2(tmp[12]);
+    dst[0] = clip8(dst[0] + ((a + d) >> 3));
+    dst[1] = clip8(dst[1] + ((b + c) >> 3));
+    dst[2] = clip8(dst[2] + ((b - c) >> 3));
+    dst[3] = clip8(dst[3] + ((a - d) >> 3));
+    ++tmp;
+    dst += BPS;
+  }
+}
+
+void transform_wht(const int16_t* in, int16_t* out) {
+  int tmp[16];
+  for (int i = 0; i < 4; ++i) {
+    const int a0 = in[0 + i] + in[12 + i];
+    const int a1 = in[4 + i] + in[8 + i];
+    const int a2 = in[4 + i] - in[8 + i];
+    const int a3 = in[0 + i] - in[12 + i];
+    tmp[0 + i] = a0 + a1;
+    tmp[8 + i] = a0 - a1;
+    tmp[4 + i] = a3 + a2;
+    tmp[12 + i] = a3 - a2;
+  }
+  for (int i = 0; i < 4; ++i) {
+    const int dc = tmp[0 + i * 4] + 3;
+    const int a0 = dc + tmp[3 + i * 4];
+    const int a1 = tmp[1 + i * 4] + tmp[2 + i * 4];
+    const int a2 = tmp[1 + i * 4] - tmp[2 + i * 4];
+    const int a3 = dc - tmp[3 + i * 4];
+    out[0] = static_cast<int16_t>((a0 + a1) >> 3);
+    out[16] = static_cast<int16_t>((a3 + a2) >> 3);
+    out[32] = static_cast<int16_t>((a0 - a1) >> 3);
+    out[48] = static_cast<int16_t>((a3 - a2) >> 3);
+    out += 64;
+  }
+}
+
+// ---- intra prediction (libwebp dsp/dec.c) -------------------------------
+inline int avg3(int a, int b, int c) { return (a + 2 * b + c + 2) >> 2; }
+inline int avg2(int a, int b) { return (a + b + 1) >> 1; }
+#define DST(x, y) dst[(x) + (y) * BPS]
+
+void fill(uint8_t* dst, int v, int size) {
+  for (int j = 0; j < size; ++j) std::memset(dst + j * BPS, v, size);
+}
+
+void true_motion(uint8_t* dst, int size) {
+  const uint8_t* top = dst - BPS;
+  const int tl = top[-1];
+  for (int y = 0; y < size; ++y) {
+    const int l = dst[-1 + y * BPS];
+    for (int x = 0; x < size; ++x) dst[x + y * BPS] = clip8(top[x] + l - tl);
+  }
+}
+
+void vertical(uint8_t* dst, int size) {
+  for (int j = 0; j < size; ++j) std::memcpy(dst + j * BPS, dst - BPS, size);
+}
+
+void horizontal(uint8_t* dst, int size) {
+  for (int j = 0; j < size; ++j) std::memset(dst + j * BPS, dst[-1 + j * BPS], size);
+}
+
+// 16x16 and 8x8 predictions; mode in {B_DC, B_TM, B_VE, B_HE, DC_NOTOP,
+// DC_NOLEFT, DC_NOTOPLEFT}
+void predict_block(uint8_t* dst, int mode, int size) {
+  const int shift = size == 16 ? 4 : 3;
+  int dc = 0;
+  switch (mode) {
+    case B_DC:
+      for (int j = 0; j < size; ++j) dc += dst[-1 + j * BPS] + dst[j - BPS];
+      fill(dst, (dc + size) >> (shift + 1), size);
+      break;
+    case DC_NOTOP:
+      for (int j = 0; j < size; ++j) dc += dst[-1 + j * BPS];
+      fill(dst, (dc + (size >> 1)) >> shift, size);
+      break;
+    case DC_NOLEFT:
+      for (int j = 0; j < size; ++j) dc += dst[j - BPS];
+      fill(dst, (dc + (size >> 1)) >> shift, size);
+      break;
+    case DC_NOTOPLEFT:
+      fill(dst, 0x80, size);
+      break;
+    case B_TM:
+      true_motion(dst, size);
+      break;
+    case B_VE:
+      vertical(dst, size);
+      break;
+    default:  // B_HE
+      horizontal(dst, size);
+      break;
+  }
+}
+
+void predict4(uint8_t* dst, int mode) {
+  const uint8_t* top = dst - BPS;
+  const int X = top[-1], A = top[0], B = top[1], C = top[2], D = top[3];
+  const int E = top[4], F = top[5], G = top[6], H = top[7];
+  const int I = dst[-1], J = dst[-1 + BPS], K = dst[-1 + 2 * BPS], L = dst[-1 + 3 * BPS];
+  switch (mode) {
+    case B_DC: {
+      int dc = 4;
+      for (int i = 0; i < 4; ++i) dc += top[i] + dst[-1 + i * BPS];
+      fill(dst, dc >> 3, 4);
+      break;
+    }
+    case B_TM:
+      true_motion(dst, 4);
+      break;
+    case B_VE: {
+      const uint8_t v[4] = {static_cast<uint8_t>(avg3(X, A, B)), static_cast<uint8_t>(avg3(A, B, C)),
+                            static_cast<uint8_t>(avg3(B, C, D)), static_cast<uint8_t>(avg3(C, D, E))};
+      for (int i = 0; i < 4; ++i) std::memcpy(dst + i * BPS, v, 4);
+      break;
+    }
+    case B_HE:
+      std::memset(dst + 0 * BPS, avg3(X, I, J), 4);
+      std::memset(dst + 1 * BPS, avg3(I, J, K), 4);
+      std::memset(dst + 2 * BPS, avg3(J, K, L), 4);
+      std::memset(dst + 3 * BPS, avg3(K, L, L), 4);
+      break;
+    case B_RD:
+      DST(0, 3) = avg3(J, K, L);
+      DST(1, 3) = DST(0, 2) = avg3(I, J, K);
+      DST(2, 3) = DST(1, 2) = DST(0, 1) = avg3(X, I, J);
+      DST(3, 3) = DST(2, 2) = DST(1, 1) = DST(0, 0) = avg3(A, X, I);
+      DST(3, 2) = DST(2, 1) = DST(1, 0) = avg3(B, A, X);
+      DST(3, 1) = DST(2, 0) = avg3(C, B, A);
+      DST(3, 0) = avg3(D, C, B);
+      break;
+    case B_VR:
+      DST(0, 0) = DST(1, 2) = avg2(X, A);
+      DST(1, 0) = DST(2, 2) = avg2(A, B);
+      DST(2, 0) = DST(3, 2) = avg2(B, C);
+      DST(3, 0) = avg2(C, D);
+      DST(0, 3) = avg3(K, J, I);
+      DST(0, 2) = avg3(J, I, X);
+      DST(0, 1) = DST(1, 3) = avg3(I, X, A);
+      DST(1, 1) = DST(2, 3) = avg3(X, A, B);
+      DST(2, 1) = DST(3, 3) = avg3(A, B, C);
+      DST(3, 1) = avg3(B, C, D);
+      break;
+    case B_LD:
+      DST(0, 0) = avg3(A, B, C);
+      DST(1, 0) = DST(0, 1) = avg3(B, C, D);
+      DST(2, 0) = DST(1, 1) = DST(0, 2) = avg3(C, D, E);
+      DST(3, 0) = DST(2, 1) = DST(1, 2) = DST(0, 3) = avg3(D, E, F);
+      DST(3, 1) = DST(2, 2) = DST(1, 3) = avg3(E, F, G);
+      DST(3, 2) = DST(2, 3) = avg3(F, G, H);
+      DST(3, 3) = avg3(G, H, H);
+      break;
+    case B_VL:
+      DST(0, 0) = avg2(A, B);
+      DST(1, 0) = DST(0, 2) = avg2(B, C);
+      DST(2, 0) = DST(1, 2) = avg2(C, D);
+      DST(3, 0) = DST(2, 2) = avg2(D, E);
+      DST(0, 1) = avg3(A, B, C);
+      DST(1, 1) = DST(0, 3) = avg3(B, C, D);
+      DST(2, 1) = DST(1, 3) = avg3(C, D, E);
+      DST(3, 1) = DST(2, 3) = avg3(D, E, F);
+      DST(3, 2) = avg3(E, F, G);
+      DST(3, 3) = avg3(F, G, H);
+      break;
+    case B_HD:
+      DST(0, 0) = DST(2, 1) = avg2(I, X);
+      DST(0, 1) = DST(2, 2) = avg2(J, I);
+      DST(0, 2) = DST(2, 3) = avg2(K, J);
+      DST(0, 3) = avg2(L, K);
+      DST(3, 0) = avg3(A, B, C);
+      DST(2, 0) = avg3(X, A, B);
+      DST(1, 0) = DST(3, 1) = avg3(I, X, A);
+      DST(1, 1) = DST(3, 2) = avg3(J, I, X);
+      DST(1, 2) = DST(3, 3) = avg3(K, J, I);
+      DST(1, 3) = avg3(L, K, J);
+      break;
+    default:  // B_HU
+      DST(0, 0) = avg2(I, J);
+      DST(2, 0) = DST(0, 1) = avg2(J, K);
+      DST(2, 1) = DST(0, 2) = avg2(K, L);
+      DST(1, 0) = avg3(I, J, K);
+      DST(3, 0) = DST(1, 1) = avg3(J, K, L);
+      DST(3, 1) = DST(1, 2) = avg3(K, L, L);
+      DST(3, 2) = DST(2, 2) = DST(0, 3) = DST(1, 3) = DST(2, 3) = DST(3, 3) = L;
+      break;
+  }
+}
+#undef DST
+
+// ---- loop filters (libwebp dsp/dec.c, on unsigned samples) --------------
+inline int sclip1(int v) { return v < -128 ? -128 : (v > 127 ? 127 : v); }  // [-1020, 1020]
+inline int sclip2(int v) { return v < -16 ? -16 : (v > 15 ? 15 : v); }      // [-112, 112]
+
+inline void do_filter2(uint8_t* p, int step) {
+  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
+  const int a = 3 * (q0 - p0) + sclip1(p1 - q1);
+  const int a1 = sclip2((a + 4) >> 3);
+  const int a2 = sclip2((a + 3) >> 3);
+  p[-step] = clip8(p0 + a2);
+  p[0] = clip8(q0 - a1);
+}
+
+inline void do_filter4(uint8_t* p, int step) {
+  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
+  const int a = 3 * (q0 - p0);
+  const int a1 = sclip2((a + 4) >> 3);
+  const int a2 = sclip2((a + 3) >> 3);
+  const int a3 = (a1 + 1) >> 1;
+  p[-2 * step] = clip8(p1 + a3);
+  p[-step] = clip8(p0 + a2);
+  p[0] = clip8(q0 - a1);
+  p[step] = clip8(q1 - a3);
+}
+
+inline void do_filter6(uint8_t* p, int step) {
+  const int p2 = p[-3 * step], p1 = p[-2 * step], p0 = p[-step];
+  const int q0 = p[0], q1 = p[step], q2 = p[2 * step];
+  const int a = sclip1(3 * (q0 - p0) + sclip1(p1 - q1));
+  const int a1 = (27 * a + 63) >> 7;
+  const int a2 = (18 * a + 63) >> 7;
+  const int a3 = (9 * a + 63) >> 7;
+  p[-3 * step] = clip8(p2 + a3);
+  p[-2 * step] = clip8(p1 + a2);
+  p[-step] = clip8(p0 + a1);
+  p[0] = clip8(q0 - a1);
+  p[step] = clip8(q1 - a2);
+  p[2 * step] = clip8(q2 - a3);
+}
+
+inline bool hev(const uint8_t* p, int step, int thresh) {
+  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
+  return std::abs(p1 - p0) > thresh || std::abs(q1 - q0) > thresh;
+}
+
+inline bool needs_filter(const uint8_t* p, int step, int t) {
+  const int p1 = p[-2 * step], p0 = p[-step], q0 = p[0], q1 = p[step];
+  return 4 * std::abs(p0 - q0) + std::abs(p1 - q1) <= t;
+}
+
+inline bool needs_filter2(const uint8_t* p, int step, int t, int it) {
+  const int p3 = p[-4 * step], p2 = p[-3 * step], p1 = p[-2 * step], p0 = p[-step];
+  const int q0 = p[0], q1 = p[step], q2 = p[2 * step], q3 = p[3 * step];
+  if (4 * std::abs(p0 - q0) + std::abs(p1 - q1) > t) return false;
+  return std::abs(p3 - p2) <= it && std::abs(p2 - p1) <= it && std::abs(p1 - p0) <= it &&
+         std::abs(q3 - q2) <= it && std::abs(q2 - q1) <= it && std::abs(q1 - q0) <= it;
+}
+
+// the simple filter across one edge of `size` samples
+void simple_edge(uint8_t* p, int step, int along, int size, int thresh) {
+  const int t2 = 2 * thresh + 1;
+  for (int i = 0; i < size; ++i, p += along)
+    if (needs_filter(p, step, t2)) do_filter2(p, step);
+}
+
+// the normal filter across one edge: 6-tap on macroblock edges, 4-tap inside
+void normal_edge(uint8_t* p, int step, int along, int size, int thresh, int ithresh,
+                 int hev_thresh, bool mb_edge) {
+  const int t2 = 2 * thresh + 1;
+  for (int i = 0; i < size; ++i, p += along) {
+    if (!needs_filter2(p, step, t2, ithresh)) continue;
+    if (hev(p, step, hev_thresh))
+      do_filter2(p, step);
+    else if (mb_edge)
+      do_filter6(p, step);
+    else
+      do_filter4(p, step);
+  }
+}
+
+// ---- the VP8 key frame ----------------------------------------------------
+struct Vp8Decoder {
+  int width = 0, height = 0, mb_w = 0, mb_h = 0;
+  BoolReader br;       // the first partition: header and modes
+  BoolReader parts[8];  // the token partitions
+  int num_parts = 1;
+  bool use_segment = false, update_map = false, absolute_delta = false;
+  int quantizer[4] = {0, 0, 0, 0}, filter_strength[4] = {0, 0, 0, 0};
+  uint8_t segment_probs[3] = {255, 255, 255};
+  bool simple = false;
+  int level = 0, sharpness = 0;
+  bool use_lf_delta = false;
+  int ref_lf_delta[4] = {0, 0, 0, 0}, mode_lf_delta[4] = {0, 0, 0, 0};
+  int filter_type = 0;  // 0 none, 1 simple, 2 normal
+  Quant quant[4];
+  FilterInfo fstrengths[4][2];
+  uint8_t proba[4][8][3][11];
+  bool use_skip_proba = false;
+  int skip_p = 0;
+
+  // planes of mb_w * 16 by mb_h * 16 (chroma half), before cropping
+  std::vector<uint8_t> y, u, v;
+  int ystride = 0, uvstride = 0;
+};
+
+int parse_vp8_header(Vp8Decoder* d, const uint8_t* data, size_t size) {
+  if (size < 10) return kErrWebpTruncated;
+  const uint32_t bits = data[0] | (data[1] << 8) | (data[2] << 16);
+  const bool key_frame = !(bits & 1);
+  const int profile = (bits >> 1) & 7;
+  const bool show = (bits >> 4) & 1;
+  const uint32_t part0 = bits >> 5;
+  if (!key_frame || profile > 3 || !show) return kErrWebpCorrupt;
+  if (data[3] != 0x9d || data[4] != 0x01 || data[5] != 0x2a) return kErrWebpCorrupt;
+  d->width = (data[6] | (data[7] << 8)) & 0x3fff;
+  d->height = (data[8] | (data[9] << 8)) & 0x3fff;
+  if (d->width == 0 || d->height == 0) return kErrWebpCorrupt;
+  d->mb_w = (d->width + 15) >> 4;
+  d->mb_h = (d->height + 15) >> 4;
+  data += 10;
+  size -= 10;
+  if (part0 > size) return kErrWebpTruncated;
+  BoolReader& br = d->br;
+  br.init(data, part0);
+  br.bit(0x80);  // colour space
+  br.bit(0x80);  // clamping type
+  d->use_segment = br.bit(0x80);
+  if (d->use_segment) {
+    d->update_map = br.bit(0x80);
+    if (br.bit(0x80)) {  // update the segment feature data
+      d->absolute_delta = br.bit(0x80);
+      for (int s = 0; s < 4; ++s) d->quantizer[s] = br.optional_signed(7);
+      for (int s = 0; s < 4; ++s) d->filter_strength[s] = br.optional_signed(6);
+    }
+    if (d->update_map)
+      for (int s = 0; s < 3; ++s) d->segment_probs[s] = br.bit(0x80) ? br.literal(8) : 255;
+  }
+  d->simple = br.bit(0x80);
+  d->level = br.literal(6);
+  d->sharpness = br.literal(3);
+  d->use_lf_delta = br.bit(0x80);
+  if (d->use_lf_delta && br.bit(0x80)) {
+    for (int i = 0; i < 4; ++i)
+      if (br.bit(0x80)) d->ref_lf_delta[i] = br.signed_literal(6);
+    for (int i = 0; i < 4; ++i)
+      if (br.bit(0x80)) d->mode_lf_delta[i] = br.signed_literal(6);
+  }
+  d->filter_type = d->level == 0 ? 0 : (d->simple ? 1 : 2);
+  if (br.eof) return kErrWebpTruncated;
+
+  // token partitions: 3-byte sizes, the last takes the rest
+  const uint8_t* buf = data + part0;
+  size_t left = size - part0;
+  d->num_parts = 1 << br.literal(2);
+  const size_t last = d->num_parts - 1;
+  if (left < 3 * last) return kErrWebpTruncated;
+  const uint8_t* sz = buf;
+  const uint8_t* start = buf + 3 * last;
+  left -= 3 * last;
+  for (size_t p = 0; p < last; ++p) {
+    size_t psize = sz[0] | (sz[1] << 8) | (sz[2] << 16);
+    if (psize > left) psize = left;
+    d->parts[p].init(start, psize);
+    start += psize;
+    left -= psize;
+    sz += 3;
+  }
+  d->parts[last].init(start, left);
+  if (left == 0) return kErrWebpTruncated;
+
+  // dequantisation (libwebp's VP8ParseQuant)
+  const int base_q0 = br.literal(7);
+  const int dqy1_dc = br.optional_signed(4), dqy2_dc = br.optional_signed(4);
+  const int dqy2_ac = br.optional_signed(4), dquv_dc = br.optional_signed(4);
+  const int dquv_ac = br.optional_signed(4);
+  for (int s = 0; s < 4; ++s) {
+    int q;
+    if (d->use_segment) {
+      q = d->quantizer[s] + (d->absolute_delta ? 0 : base_q0);
+    } else if (s > 0) {
+      d->quant[s] = d->quant[0];
+      continue;
+    } else {
+      q = base_q0;
+    }
+    Quant& m = d->quant[s];
+    m.y1[0] = kDcTable[clip(q + dqy1_dc, 127)];
+    m.y1[1] = kAcTable[clip(q, 127)];
+    m.y2[0] = kDcTable[clip(q + dqy2_dc, 127)] * 2;
+    m.y2[1] = (kAcTable[clip(q + dqy2_ac, 127)] * 101581) >> 16;  // x * 155 / 100
+    if (m.y2[1] < 8) m.y2[1] = 8;
+    m.uv[0] = kDcTable[clip(q + dquv_dc, 117)];
+    m.uv[1] = kAcTable[clip(q + dquv_ac, 127)];
+  }
+  br.bit(0x80);  // refresh entropy probs: one key frame, nothing to keep
+  std::memcpy(d->proba, kCoeffsProba0, sizeof(d->proba));
+  for (int t = 0; t < 4; ++t)
+    for (int b = 0; b < 8; ++b)
+      for (int c = 0; c < 3; ++c)
+        for (int p = 0; p < 11; ++p)
+          if (br.bit(kCoeffsUpdateProba[t][b][c][p])) d->proba[t][b][c][p] = br.literal(8);
+  d->use_skip_proba = br.bit(0x80);
+  if (d->use_skip_proba) d->skip_p = br.literal(8);
+  if (br.eof) return kErrWebpTruncated;
+
+  // loop filter strengths per segment and 4x4-ness (PrecomputeFilterStrengths)
+  if (d->filter_type > 0) {
+    for (int s = 0; s < 4; ++s) {
+      int base = d->level;
+      if (d->use_segment) base = d->filter_strength[s] + (d->absolute_delta ? 0 : d->level);
+      for (int i4 = 0; i4 <= 1; ++i4) {
+        FilterInfo& f = d->fstrengths[s][i4];
+        int lvl = base;
+        if (d->use_lf_delta) {
+          lvl += d->ref_lf_delta[0];
+          if (i4) lvl += d->mode_lf_delta[0];
+        }
+        lvl = clip(lvl, 63);
+        if (lvl > 0) {
+          int ilevel = lvl;
+          if (d->sharpness > 0) {
+            ilevel >>= d->sharpness > 4 ? 2 : 1;
+            if (ilevel > 9 - d->sharpness) ilevel = 9 - d->sharpness;
+          }
+          if (ilevel < 1) ilevel = 1;
+          f.ilevel = static_cast<uint8_t>(ilevel);
+          f.limit = static_cast<uint8_t>(2 * lvl + ilevel);
+          f.hev = lvl >= 40 ? 2 : (lvl >= 15 ? 1 : 0);
+        } else {
+          f.limit = 0;
+        }
+        f.inner = static_cast<uint8_t>(i4);
+      }
+    }
+  }
+  return kOk;
+}
+
+void parse_modes(Vp8Decoder* d, MacroBlock* mb, uint8_t* top, uint8_t* left) {
+  BoolReader& br = d->br;
+  if (d->update_map) {
+    mb->segment = !br.bit(d->segment_probs[0]) ? br.bit(d->segment_probs[1])
+                                                : br.bit(d->segment_probs[2]) + 2;
+  } else {
+    mb->segment = 0;
+  }
+  mb->skip = d->use_skip_proba ? br.bit(d->skip_p) : 0;
+  mb->is_i4x4 = !br.bit(145);
+  if (!mb->is_i4x4) {
+    const int ymode = br.bit(156) ? (br.bit(128) ? B_TM : B_HE) : (br.bit(163) ? B_VE : B_DC);
+    mb->imodes[0] = static_cast<uint8_t>(ymode);
+    std::memset(top, ymode, 4);
+    std::memset(left, ymode, 4);
+  } else {
+    uint8_t* modes = mb->imodes;
+    for (int y = 0; y < 4; ++y) {
+      int ymode = left[y];
+      for (int x = 0; x < 4; ++x) {
+        const uint8_t* prob = kBModesProba[top[x]][ymode];
+        int i = kYModesIntra4[br.bit(prob[0])];
+        while (i > 0) i = kYModesIntra4[2 * i + br.bit(prob[i])];
+        ymode = -i;
+        top[x] = static_cast<uint8_t>(ymode);
+      }
+      std::memcpy(modes, top, 4);
+      modes += 4;
+      left[y] = static_cast<uint8_t>(ymode);
+    }
+  }
+  mb->uvmode = !br.bit(142) ? B_DC : (!br.bit(114) ? B_VE : (br.bit(183) ? B_TM : B_HE));
+}
+
+int large_value(BoolReader& br, const uint8_t* p) {
+  int v;
+  if (!br.bit(p[3])) {
+    v = !br.bit(p[4]) ? 2 : 3 + br.bit(p[5]);
+  } else if (!br.bit(p[6])) {
+    if (!br.bit(p[7])) {
+      v = 5 + br.bit(159);
+    } else {
+      v = 7 + 2 * br.bit(165);
+      v += br.bit(145);
+    }
+  } else {
+    const int bit1 = br.bit(p[8]);
+    const int bit0 = br.bit(p[9 + bit1]);
+    const int cat = 2 * bit1 + bit0;
+    v = 0;
+    for (const uint8_t* tab = kCat3456[cat]; *tab; ++tab) v += v + br.bit(*tab);
+    v += 3 + (8 << cat);
+  }
+  return v;
+}
+
+// the tokens of one 4x4 block from coefficient n on; returns the position
+// after the last non-zero coefficient (libwebp's GetCoeffs)
+int get_coeffs(BoolReader& br, const uint8_t (*bands)[3][11], int ctx, const int* dq, int n,
+               int16_t* out) {
+  const uint8_t* p = bands[kBands[n]][ctx];
+  for (; n < 16; ++n) {
+    if (!br.bit(p[0])) return n;
+    while (!br.bit(p[1])) {
+      p = bands[kBands[++n]][0];
+      if (n == 16) return 16;
+    }
+    const uint8_t (*next)[11] = bands[kBands[n + 1]];
+    int v;
+    if (!br.bit(p[2])) {
+      v = 1;
+      p = next[1];
+    } else {
+      v = large_value(br, p);
+      p = next[2];
+    }
+    const int s = br.bit(0x80) ? -v : v;
+    out[kZigzag[n]] = static_cast<int16_t>(s * dq[n > 0]);
+  }
+  return 16;
+}
+
+struct NzContext {
+  uint8_t nz = 0;     // bits 0-3 luma columns/rows, 4-5 u, 6-7 v
+  uint8_t nz_dc = 0;  // the Y2 block had coefficients
+};
+
+// the residuals of one macroblock (libwebp's ParseResiduals); returns true
+// where no luma or chroma block has a coefficient (the Y2 block does not
+// count: libwebp's non_zero_y / non_zero_uv)
+bool parse_residuals(Vp8Decoder* d, const MacroBlock& mb, NzContext* top, NzContext* left,
+                     BoolReader& br, int16_t* coeffs) {
+  const Quant& q = d->quant[mb.segment];
+  int16_t* dst = coeffs;
+  std::memset(dst, 0, 384 * sizeof(int16_t));
+  bool any = false;
+  int first;
+  const uint8_t (*ac_proba)[3][11];
+  if (!mb.is_i4x4) {
+    int16_t dc[16] = {0};
+    const int ctx = top->nz_dc + left->nz_dc;
+    const int nz = get_coeffs(br, d->proba[1], ctx, q.y2, 0, dc);
+    top->nz_dc = left->nz_dc = nz > 0;
+    if (nz > 1) {
+      transform_wht(dc, dst);
+    } else {
+      const int dc0 = (dc[0] + 3) >> 3;
+      for (int i = 0; i < 256; i += 16) dst[i] = static_cast<int16_t>(dc0);
+    }
+    first = 1;
+    ac_proba = d->proba[0];
+  } else {
+    first = 0;
+    ac_proba = d->proba[3];
+  }
+  uint8_t tnz = top->nz & 0x0f;
+  uint8_t lnz = left->nz & 0x0f;
+  for (int y = 0; y < 4; ++y) {
+    int l = lnz & 1;
+    for (int x = 0; x < 4; ++x) {
+      const int ctx = l + (tnz & 1);
+      const int nz = get_coeffs(br, ac_proba, ctx, q.y1, first, dst);
+      l = nz > first;
+      if (nz > 1 || dst[0] != 0) any = true;
+      tnz = static_cast<uint8_t>((tnz >> 1) | (l << 7));
+      dst += 16;
+    }
+    tnz >>= 4;
+    lnz = static_cast<uint8_t>((lnz >> 1) | (l << 7));
+  }
+  uint32_t out_t = tnz, out_l = lnz >> 4;
+  for (int ch = 0; ch < 4; ch += 2) {
+    tnz = top->nz >> (4 + ch);
+    lnz = left->nz >> (4 + ch);
+    for (int y = 0; y < 2; ++y) {
+      int l = lnz & 1;
+      for (int x = 0; x < 2; ++x) {
+        const int ctx = l + (tnz & 1);
+        const int nz = get_coeffs(br, d->proba[2], ctx, q.uv, 0, dst);
+        l = nz > 0;
+        if (nz > 1 || dst[0] != 0) any = true;
+        tnz = static_cast<uint8_t>((tnz >> 1) | (l << 3));
+        dst += 16;
+      }
+      tnz >>= 2;
+      lnz = static_cast<uint8_t>((lnz >> 1) | (l << 5));
+    }
+    out_t |= (tnz << 4) << ch;
+    out_l |= (lnz & 0xf0) << ch;
+  }
+  top->nz = static_cast<uint8_t>(out_t);
+  left->nz = static_cast<uint8_t>(out_l);
+  return !any;
+}
+
+bool block_nonzero(const int16_t* c) {
+  for (int i = 0; i < 16; ++i)
+    if (c[i]) return true;
+  return false;
+}
+
+void filter_mb(const Vp8Decoder& d, const FilterInfo& f, int mb_x, int mb_y) {
+  const int limit = f.limit;
+  if (limit == 0) return;
+  uint8_t* yd = const_cast<uint8_t*>(d.y.data()) + (mb_y * 16) * d.ystride + mb_x * 16;
+  const int ys = d.ystride;
+  if (d.filter_type == 1) {
+    if (mb_x > 0) simple_edge(yd, 1, ys, 16, limit + 4);
+    if (f.inner)
+      for (int k = 4; k < 16; k += 4) simple_edge(yd + k, 1, ys, 16, limit);
+    if (mb_y > 0) simple_edge(yd, ys, 1, 16, limit + 4);
+    if (f.inner)
+      for (int k = 4; k < 16; k += 4) simple_edge(yd + k * ys, ys, 1, 16, limit);
+    return;
+  }
+  const int uvs = d.uvstride;
+  uint8_t* ud = const_cast<uint8_t*>(d.u.data()) + (mb_y * 8) * uvs + mb_x * 8;
+  uint8_t* vd = const_cast<uint8_t*>(d.v.data()) + (mb_y * 8) * uvs + mb_x * 8;
+  const int il = f.ilevel, ht = f.hev;
+  if (mb_x > 0) {
+    normal_edge(yd, 1, ys, 16, limit + 4, il, ht, true);
+    normal_edge(ud, 1, uvs, 8, limit + 4, il, ht, true);
+    normal_edge(vd, 1, uvs, 8, limit + 4, il, ht, true);
+  }
+  if (f.inner) {
+    for (int k = 4; k < 16; k += 4) normal_edge(yd + k, 1, ys, 16, limit, il, ht, false);
+    normal_edge(ud + 4, 1, uvs, 8, limit, il, ht, false);
+    normal_edge(vd + 4, 1, uvs, 8, limit, il, ht, false);
+  }
+  if (mb_y > 0) {
+    normal_edge(yd, ys, 1, 16, limit + 4, il, ht, true);
+    normal_edge(ud, uvs, 1, 8, limit + 4, il, ht, true);
+    normal_edge(vd, uvs, 1, 8, limit + 4, il, ht, true);
+  }
+  if (f.inner) {
+    for (int k = 4; k < 16; k += 4) normal_edge(yd + k * ys, ys, 1, 16, limit, il, ht, false);
+    normal_edge(ud + 4 * uvs, uvs, 1, 8, limit, il, ht, false);
+    normal_edge(vd + 4 * uvs, uvs, 1, 8, limit, il, ht, false);
+  }
+}
+
+inline int check_dc_mode(int mode, int mb_x, int mb_y) {
+  if (mode != B_DC) return mode;
+  if (mb_x == 0) return mb_y == 0 ? DC_NOTOPLEFT : DC_NOLEFT;
+  return mb_y == 0 ? DC_NOTOP : B_DC;
+}
+
+// Decode the key frame into d->y/u/v: per row, the modes and tokens of each
+// macroblock, prediction from the unfiltered neighbours (libwebp's
+// ReconstructRow work buffers), then the row's loop filter.
+int decode_vp8_frame(Vp8Decoder* d) {
+  const int mb_w = d->mb_w, mb_h = d->mb_h;
+  d->ystride = mb_w * 16;
+  d->uvstride = mb_w * 8;
+  d->y.assign(static_cast<size_t>(d->ystride) * mb_h * 16, 0);
+  d->u.assign(static_cast<size_t>(d->uvstride) * mb_h * 8, 0);
+  d->v.assign(static_cast<size_t>(d->uvstride) * mb_h * 8, 0);
+  std::vector<uint8_t> intra_t(4 * mb_w, B_DC);
+  std::vector<NzContext> nz_top(mb_w);
+  std::vector<uint8_t> ytop(16 * mb_w), utop(8 * mb_w), vtop(8 * mb_w);
+  std::vector<MacroBlock> row(mb_w);
+  std::vector<FilterInfo> finfo(mb_w);
+  // work buffers: row -1 holds the top samples (and 4 top-right ones),
+  // column -1 the left samples
+  uint8_t ybuf[BPS * 17 + 8], ubuf[BPS * 9 + 8], vbuf[BPS * 9 + 8];
+  uint8_t* const yw = ybuf + BPS + 8;
+  uint8_t* const uw = ubuf + BPS + 8;
+  uint8_t* const vw = vbuf + BPS + 8;
+  int16_t coeffs[384];
+
+  for (int mb_y = 0; mb_y < mb_h; ++mb_y) {
+    BoolReader& tokens = d->parts[mb_y & (d->num_parts - 1)];
+    uint8_t intra_l[4] = {B_DC, B_DC, B_DC, B_DC};
+    NzContext nz_left;
+    for (int j = 0; j < 16; ++j) yw[j * BPS - 1] = 129;
+    for (int j = 0; j < 8; ++j) uw[j * BPS - 1] = vw[j * BPS - 1] = 129;
+    if (mb_y > 0) {
+      yw[-1 - BPS] = uw[-1 - BPS] = vw[-1 - BPS] = 129;
+    } else {
+      std::memset(yw - BPS - 1, 127, 16 + 4 + 1);
+      std::memset(uw - BPS - 1, 127, 8 + 1);
+      std::memset(vw - BPS - 1, 127, 8 + 1);
+    }
+    for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
+      MacroBlock& mb = row[mb_x];
+      parse_modes(d, &mb, &intra_t[4 * mb_x], intra_l);
+      if (d->br.eof) return kErrWebpTruncated;
+      bool skip = mb.skip;
+      if (!skip) {
+        skip = parse_residuals(d, mb, &nz_top[mb_x], &nz_left, tokens, coeffs);
+      } else {
+        nz_left.nz = nz_top[mb_x].nz = 0;
+        if (!mb.is_i4x4) nz_left.nz_dc = nz_top[mb_x].nz_dc = 0;
+        std::memset(coeffs, 0, sizeof(coeffs));
+      }
+      if (tokens.eof) return kErrWebpTruncated;
+      if (d->filter_type > 0) {
+        finfo[mb_x] = d->fstrengths[mb.segment][mb.is_i4x4];
+        finfo[mb_x].inner |= !skip;
+      }
+
+      // reconstruct: rotate in the left samples, bring in the top ones
+      if (mb_x > 0) {
+        for (int j = -1; j < 16; ++j) std::memcpy(yw + j * BPS - 4, yw + j * BPS + 12, 4);
+        for (int j = -1; j < 8; ++j) {
+          std::memcpy(uw + j * BPS - 4, uw + j * BPS + 4, 4);
+          std::memcpy(vw + j * BPS - 4, vw + j * BPS + 4, 4);
+        }
+      }
+      if (mb_y > 0) {
+        std::memcpy(yw - BPS, &ytop[16 * mb_x], 16);
+        std::memcpy(uw - BPS, &utop[8 * mb_x], 8);
+        std::memcpy(vw - BPS, &vtop[8 * mb_x], 8);
+      }
+      if (mb.is_i4x4) {
+        uint8_t* top_right = yw - BPS + 16;
+        if (mb_y > 0) {
+          if (mb_x >= mb_w - 1)
+            std::memset(top_right, ytop[16 * mb_x + 15], 4);
+          else
+            std::memcpy(top_right, &ytop[16 * (mb_x + 1)], 4);
+        }
+        for (int k = 1; k <= 3; ++k) std::memcpy(top_right + 4 * k * BPS, top_right, 4);
+        for (int n = 0; n < 16; ++n) {
+          uint8_t* dst = yw + (n & 3) * 4 + (n >> 2) * 4 * BPS;
+          predict4(dst, mb.imodes[n]);
+          if (block_nonzero(coeffs + 16 * n)) transform_add(coeffs + 16 * n, dst);
+        }
+      } else {
+        predict_block(yw, check_dc_mode(mb.imodes[0], mb_x, mb_y), 16);
+        for (int n = 0; n < 16; ++n)
+          if (block_nonzero(coeffs + 16 * n))
+            transform_add(coeffs + 16 * n, yw + (n & 3) * 4 + (n >> 2) * 4 * BPS);
+      }
+      const int uvmode = check_dc_mode(mb.uvmode, mb_x, mb_y);
+      predict_block(uw, uvmode, 8);
+      predict_block(vw, uvmode, 8);
+      for (int n = 0; n < 4; ++n) {
+        const int off = (n & 1) * 4 + (n >> 1) * 4 * BPS;
+        if (block_nonzero(coeffs + 256 + 16 * n)) transform_add(coeffs + 256 + 16 * n, uw + off);
+        if (block_nonzero(coeffs + 320 + 16 * n)) transform_add(coeffs + 320 + 16 * n, vw + off);
+      }
+      std::memcpy(&ytop[16 * mb_x], yw + 15 * BPS, 16);
+      std::memcpy(&utop[8 * mb_x], uw + 7 * BPS, 8);
+      std::memcpy(&vtop[8 * mb_x], vw + 7 * BPS, 8);
+      for (int j = 0; j < 16; ++j)
+        std::memcpy(&d->y[(mb_y * 16 + j) * d->ystride + mb_x * 16], yw + j * BPS, 16);
+      for (int j = 0; j < 8; ++j) {
+        std::memcpy(&d->u[(mb_y * 8 + j) * d->uvstride + mb_x * 8], uw + j * BPS, 8);
+        std::memcpy(&d->v[(mb_y * 8 + j) * d->uvstride + mb_x * 8], vw + j * BPS, 8);
+      }
+    }
+    if (d->filter_type > 0)
+      for (int mb_x = 0; mb_x < mb_w; ++mb_x) filter_mb(*d, finfo[mb_x], mb_x, mb_y);
+  }
+  return kOk;
+}
+
+// ---- YUV 4:2:0 -> BGR: libwebp's fancy upsampler and VP8YuvToBgr --------
+inline int mult_hi(int v, int coeff) { return (v * coeff) >> 8; }
+inline uint8_t yuv_clip8(int v) {
+  return static_cast<uint8_t>((v & ~16383) == 0 ? (v >> 6) : (v < 0 ? 0 : 255));
+}
+inline void yuv_to_bgr(int y, int u, int v, uint8_t* bgr) {
+  const int yy = mult_hi(y, 19077);
+  bgr[2] = yuv_clip8(yy + mult_hi(v, 26149) - 14234);
+  bgr[1] = yuv_clip8(yy - mult_hi(u, 6419) - mult_hi(v, 13320) + 8708);
+  bgr[0] = yuv_clip8(yy + mult_hi(u, 33050) - 17685);
+}
+
+// one output row from luma row `ty` and the chroma rows `tu/tv` (the near
+// one, weight 3) and `cu/cv` (the far one, weight 1): UpsampleRgbLinePair's
+// arithmetic on one of its two lines
+void upsample_line(const uint8_t* ty, const uint8_t* nu, const uint8_t* nv, const uint8_t* fu,
+                   const uint8_t* fv, uint8_t* dst, int len, int ch) {
+  const int last_pair = (len - 1) >> 1;
+  int nl_u = nu[0], fl_u = fu[0], nl_v = nv[0], fl_v = fv[0];
+  yuv_to_bgr(ty[0], (3 * nl_u + fl_u + 2) >> 2, (3 * nl_v + fl_v + 2) >> 2, dst);
+  for (int x = 1; x <= last_pair; ++x) {
+    const int nr_u = nu[x], fr_u = fu[x], nr_v = nv[x], fr_v = fv[x];
+    // libwebp: avg = tl + t + l + c + 8; diag_12 = (avg + 2 (t + l)) >> 3;
+    // diag_03 = (avg + 2 (tl + c)) >> 3, with (tl, t) the top row's left and
+    // right samples and (l, c) the bottom row's
+    const int avg_u = nl_u + nr_u + fl_u + fr_u + 8;
+    const int avg_v = nl_v + nr_v + fl_v + fr_v + 8;
+    // for the near row as "top": d12 = (avg + 2 (nr + fl)) >> 3, left pixel
+    // (d12 + nl) >> 1, right pixel (d03 + nr) >> 1, d03 = (avg + 2 (nl + fr)) >> 3
+    const int d12_u = (avg_u + 2 * (nr_u + fl_u)) >> 3, d03_u = (avg_u + 2 * (nl_u + fr_u)) >> 3;
+    const int d12_v = (avg_v + 2 * (nr_v + fl_v)) >> 3, d03_v = (avg_v + 2 * (nl_v + fr_v)) >> 3;
+    yuv_to_bgr(ty[2 * x - 1], (d12_u + nl_u) >> 1, (d12_v + nl_v) >> 1, dst + (2 * x - 1) * ch);
+    yuv_to_bgr(ty[2 * x], (d03_u + nr_u) >> 1, (d03_v + nr_v) >> 1, dst + (2 * x) * ch);
+    nl_u = nr_u;
+    fl_u = fr_u;
+    nl_v = nr_v;
+    fl_v = fr_v;
+  }
+  if (!(len & 1))
+    yuv_to_bgr(ty[len - 1], (3 * nl_u + fl_u + 2) >> 2, (3 * nl_v + fl_v + 2) >> 2,
+               dst + (len - 1) * ch);
+}
+
+// the cropped frame (h, w) as BGR (ch 3) or BGR plus an opaque alpha (ch 4)
+void yuv_to_bgr_image(const Vp8Decoder& d, int h, int w, uint8_t* out, int ch) {
+  const int uv_h = (h + 1) / 2;
+  for (int y = 0; y < h; ++y) {
+    // row 0 mirrors the chroma; row 2k-1 is the top of pair k (near chroma
+    // row k-1), row 2k its bottom (near chroma row k)
+    int near_r, far_r;
+    if (y == 0) {
+      near_r = far_r = 0;
+    } else if (y & 1) {
+      near_r = (y - 1) >> 1;
+      far_r = near_r + 1 < uv_h ? near_r + 1 : near_r;
+    } else {
+      near_r = y >> 1;
+      far_r = near_r - 1;
+    }
+    const uint8_t* nu = &d.u[near_r * d.uvstride];
+    const uint8_t* nv = &d.v[near_r * d.uvstride];
+    const uint8_t* fu = &d.u[far_r * d.uvstride];
+    const uint8_t* fv = &d.v[far_r * d.uvstride];
+    uint8_t* dst = out + static_cast<size_t>(y) * w * ch;
+    upsample_line(&d.y[y * d.ystride], nu, nv, fu, fv, dst, w, ch);
+    if (ch == 4)
+      for (int x = 0; x < w; ++x) dst[4 * x + 3] = 255;
+  }
+}
+
+// ---- VP8L: the lossless bitstream ------------------------------------------
+struct LBitReader {
+  const uint8_t* p = nullptr;
+  size_t n = 0, pos = 0;
+  uint64_t val = 0;
+  int nbits = 0;
+  uint64_t consumed = 0;  // bits read; past 8 n the stream ended early
+
+  void init(const uint8_t* s, size_t len) {
+    p = s;
+    n = len;
+    pos = 0;
+    val = 0;
+    nbits = 0;
+    consumed = 0;
+  }
+  void fill() {
+    while (nbits <= 56) {
+      const uint64_t b = pos < n ? p[pos] : 0;
+      ++pos;
+      val |= b << nbits;
+      nbits += 8;
+    }
+  }
+  uint32_t peek(int k) {
+    if (nbits < k) fill();
+    return static_cast<uint32_t>(val & ((uint64_t{1} << k) - 1));
+  }
+  void skip(int k) {
+    val >>= k;
+    nbits -= k;
+    consumed += k;
+  }
+  uint32_t read(int k) {
+    if (k == 0) return 0;
+    const uint32_t v = peek(k);
+    skip(k);
+    return v;
+  }
+  bool eos() const { return consumed > 8 * static_cast<uint64_t>(n); }
+};
+
+// a canonical prefix code: an 8-bit first-level table, counts beyond it
+struct Huffman {
+  int single = -1;                  // the one symbol of a zero-bit code
+  uint16_t fast[256];               // (length << 12) | symbol, 0 past 8 bits
+  uint16_t count[16];
+  std::vector<uint16_t> symbols;    // by (length, symbol)
+
+  bool build(const int* lengths, int n) {
+    std::memset(count, 0, sizeof(count));
+    std::memset(fast, 0, sizeof(fast));
+    int used = 0, last = -1;
+    for (int s = 0; s < n; ++s) {
+      if (lengths[s] < 0 || lengths[s] > 15) return false;
+      if (lengths[s]) {
+        ++count[lengths[s]];
+        ++used;
+        last = s;
+      }
+    }
+    if (used == 0) return false;
+    if (used == 1) {
+      single = last;
+      return true;
+    }
+    single = -1;
+    int left = 1;
+    for (int len = 1; len <= 15; ++len) {
+      left = (left << 1) - count[len];
+      if (left < 0) return false;  // over-subscribed
+    }
+    if (left != 0) return false;   // incomplete
+    uint16_t offs[16];
+    offs[1] = 0;
+    for (int len = 1; len < 15; ++len) offs[len + 1] = offs[len] + count[len];
+    symbols.assign(used, 0);
+    for (int s = 0; s < n; ++s)
+      if (lengths[s]) symbols[offs[lengths[s]]++] = static_cast<uint16_t>(s);
+    // first-level table: the canonical code of each symbol, bit-reversed
+    int code = 0, k = 0;
+    for (int len = 1; len <= 8; ++len) {
+      for (int i = 0; i < count[len]; ++i, ++k, ++code) {
+        int rev = 0;
+        for (int b = 0; b < len; ++b) rev |= ((code >> b) & 1) << (len - 1 - b);
+        for (int r = rev; r < 256; r += 1 << len)
+          fast[r] = static_cast<uint16_t>((len << 12) | symbols[k]);
+      }
+      code <<= 1;
+    }
+    return true;
+  }
+
+  int decode(LBitReader& br) const {
+    if (single >= 0) return single;
+    const uint32_t bits = br.peek(15);
+    const uint16_t e = fast[bits & 0xff];
+    if (e) {
+      br.skip(e >> 12);
+      return e & 0xfff;
+    }
+    int code = 0, first = 0, index = 0;
+    for (int len = 1; len <= 15; ++len) {
+      code |= (bits >> (len - 1)) & 1;
+      const int c = count[len];
+      if (code - first < c) {
+        br.skip(len);
+        return symbols[index + code - first];
+      }
+      index += c;
+      first = (first + c) << 1;
+      code <<= 1;
+    }
+    return -1;
+  }
+};
+
+constexpr int kNumLiteral = 256, kNumLength = 24, kNumDistance = 40;
+const int kCodeLengthOrder[19] = {17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15};
+
+struct HuffGroup {
+  Huffman h[5];  // green (+ lengths, cache), red, blue, alpha, distance
+};
+
+struct VP8LDecoder {
+  LBitReader br;
+  int status = kOk;
+  unsigned transforms_seen = 0;
+  struct Transform {
+    int type, bits, xsize, ysize;
+    std::vector<uint32_t> data;
+  };
+  std::vector<Transform> transforms;
+
+  bool fail(int code = kErrWebpCorrupt) {
+    if (status == kOk) status = code;
+    return false;
+  }
+
+  bool read_code_lengths(const int* cl_lengths, int num_symbols, int* lengths) {
+    Huffman cl;
+    if (!cl.build(cl_lengths, 19)) return fail();
+    int max_symbol = num_symbols;
+    if (br.read(1)) {
+      const int length_nbits = 2 + 2 * static_cast<int>(br.read(3));
+      max_symbol = 2 + static_cast<int>(br.read(length_nbits));
+      if (max_symbol > num_symbols) return fail();
+    }
+    int prev = 8, symbol = 0;
+    while (symbol < num_symbols) {
+      if (max_symbol-- == 0) break;
+      const int code_len = cl.decode(br);
+      if (code_len < 0) return fail();
+      if (code_len < 16) {
+        lengths[symbol++] = code_len;
+        if (code_len) prev = code_len;
+      } else {
+        const int slot = code_len - 16;
+        static const int kExtra[3] = {2, 3, 7}, kOffset[3] = {3, 3, 11};
+        const int repeat = static_cast<int>(br.read(kExtra[slot])) + kOffset[slot];
+        if (symbol + repeat > num_symbols) return fail();
+        const int v = code_len == 16 ? prev : 0;
+        for (int i = 0; i < repeat; ++i) lengths[symbol++] = v;
+      }
+    }
+    return true;
+  }
+
+  bool read_code(int alphabet, Huffman* out) {
+    std::vector<int> lengths(alphabet, 0);
+    if (br.read(1)) {  // simple: one or two symbols
+      const int num = static_cast<int>(br.read(1)) + 1;
+      const int first_bits = br.read(1) ? 8 : 1;
+      int s = static_cast<int>(br.read(first_bits));
+      if (s >= alphabet) return fail();
+      lengths[s] = 1;
+      if (num == 2) {
+        s = static_cast<int>(br.read(8));
+        if (s >= alphabet) return fail();
+        lengths[s] = 1;
+      }
+    } else {
+      int cl_lengths[19] = {0};
+      const int num_codes = static_cast<int>(br.read(4)) + 4;
+      for (int i = 0; i < num_codes; ++i) cl_lengths[kCodeLengthOrder[i]] = br.read(3);
+      if (!read_code_lengths(cl_lengths, alphabet, lengths.data())) return false;
+    }
+    if (br.eos()) return fail(kErrWebpTruncated);
+    if (!out->build(lengths.data(), alphabet)) return fail();
+    return true;
+  }
+
+  // one image stream (the spec's "entropy-coded image"); level 0 reads the
+  // transforms and may use a meta prefix-code image
+  bool decode_stream(int xsize, int ysize, bool level0, std::vector<uint32_t>* out) {
+    int width = xsize;
+    if (level0) {
+      while (br.read(1)) {
+        if (!read_transform(&width, ysize)) return false;
+      }
+    }
+    int cache_bits = 0;
+    if (br.read(1)) {
+      cache_bits = static_cast<int>(br.read(4));
+      if (cache_bits < 1 || cache_bits > 11) return fail();
+    }
+    int huff_bits = 0, huff_xsize = 0;
+    std::vector<uint32_t> meta;
+    int num_groups = 1;
+    if (level0 && br.read(1)) {
+      huff_bits = static_cast<int>(br.read(3)) + 2;
+      huff_xsize = (width + (1 << huff_bits) - 1) >> huff_bits;
+      const int huff_ysize = (ysize + (1 << huff_bits) - 1) >> huff_bits;
+      if (!decode_stream(huff_xsize, huff_ysize, false, &meta)) return false;
+      for (auto& m : meta) {
+        m = (m >> 8) & 0xffff;
+        if (static_cast<int>(m) + 1 > num_groups) num_groups = static_cast<int>(m) + 1;
+      }
+    }
+    if (br.eos()) return fail(kErrWebpTruncated);
+    std::vector<HuffGroup> groups(num_groups);
+    const int alphabets[5] = {kNumLiteral + kNumLength + (cache_bits ? 1 << cache_bits : 0),
+                              kNumLiteral, kNumLiteral, kNumLiteral, kNumDistance};
+    for (auto& g : groups)
+      for (int j = 0; j < 5; ++j)
+        if (!read_code(alphabets[j], &g.h[j])) return false;
+    out->assign(static_cast<size_t>(width) * ysize, 0);
+    if (!decode_pixels(width, ysize, groups, meta, huff_bits, huff_xsize, cache_bits, out->data()))
+      return false;
+    if (level0) {  // the inverse transforms, last read first
+      for (int i = static_cast<int>(transforms.size()) - 1; i >= 0; --i)
+        apply_inverse(transforms[i], out);
+    }
+    return true;
+  }
+
+  bool read_transform(int* xsize, int ysize) {
+    const int type = static_cast<int>(br.read(2));
+    if (transforms_seen & (1u << type)) return fail();
+    transforms_seen |= 1u << type;
+    Transform t{type, 0, *xsize, ysize, {}};
+    if (type == 0 || type == 1) {  // predictor, cross colour
+      t.bits = static_cast<int>(br.read(3)) + 2;
+      const int bw = (t.xsize + (1 << t.bits) - 1) >> t.bits;
+      const int bh = (ysize + (1 << t.bits) - 1) >> t.bits;
+      if (!decode_stream(bw, bh, false, &t.data)) return false;
+    } else if (type == 3) {  // colour indexing
+      const int num_colors = static_cast<int>(br.read(8)) + 1;
+      t.bits = num_colors > 16 ? 0 : num_colors > 4 ? 1 : num_colors > 2 ? 2 : 3;
+      *xsize = (t.xsize + (1 << t.bits) - 1) >> t.bits;
+      std::vector<uint32_t> pal;
+      if (!decode_stream(num_colors, 1, false, &pal)) return false;
+      const int final_num = 1 << (8 >> t.bits);
+      t.data.assign(final_num, 0);
+      t.data[0] = pal[0];
+      for (int i = 1; i < num_colors; ++i) {  // delta-coded, byte by byte
+        uint32_t a = pal[i], b = t.data[i - 1];
+        t.data[i] = (((a & 0xff00ff00u) + (b & 0xff00ff00u)) & 0xff00ff00u) |
+                    (((a & 0x00ff00ffu) + (b & 0x00ff00ffu)) & 0x00ff00ffu);
+      }
+    }
+    transforms.push_back(std::move(t));
+    return true;
+  }
+
+  bool decode_pixels(int width, int height, const std::vector<HuffGroup>& groups,
+                     const std::vector<uint32_t>& meta, int huff_bits, int huff_xsize,
+                     int cache_bits, uint32_t* data) {
+    std::vector<uint32_t> cache(cache_bits ? 1u << cache_bits : 0, 0);
+    const int cache_shift = 32 - cache_bits;
+    const size_t total = static_cast<size_t>(width) * height;
+    size_t pos = 0, cached = 0;
+    auto insert = [&](size_t upto) {
+      if (!cache_bits) return;
+      for (; cached < upto; ++cached) {
+        const uint32_t argb = data[cached];
+        cache[(0x1e35a7bdu * argb) >> cache_shift] = argb;
+      }
+    };
+    auto group_at = [&](size_t p) -> const HuffGroup& {
+      if (meta.empty()) return groups[0];
+      const int x = static_cast<int>(p % width), y = static_cast<int>(p / width);
+      return groups[meta[(y >> huff_bits) * huff_xsize + (x >> huff_bits)]];
+    };
+    while (pos < total) {
+      const HuffGroup& g = group_at(pos);
+      const int code = g.h[0].decode(br);
+      if (code < 0) return fail();
+      if (code < kNumLiteral) {
+        const int red = g.h[1].decode(br), blue = g.h[2].decode(br), alpha = g.h[3].decode(br);
+        if (red < 0 || blue < 0 || alpha < 0) return fail();
+        data[pos++] = (static_cast<uint32_t>(alpha) << 24) | (red << 16) | (code << 8) | blue;
+      } else if (code < kNumLiteral + kNumLength) {
+        const int length = prefix_value(code - kNumLiteral);
+        const int dist_symbol = g.h[4].decode(br);
+        if (dist_symbol < 0) return fail();
+        const int dist = plane_distance(width, prefix_value(dist_symbol));
+        if (br.eos()) return fail(kErrWebpTruncated);
+        if (static_cast<size_t>(dist) > pos || total - pos < static_cast<size_t>(length))
+          return fail();
+        for (int i = 0; i < length; ++i, ++pos) data[pos] = data[pos - dist];
+      } else {
+        const int key = code - (kNumLiteral + kNumLength);
+        if (key >= static_cast<int>(cache.size())) return fail();
+        insert(pos);
+        data[pos++] = cache[key];
+      }
+      if (br.eos()) return fail(kErrWebpTruncated);
+    }
+    return true;
+  }
+
+  int prefix_value(int symbol) {  // lengths and distances: prefix + extra bits
+    if (symbol < 4) return symbol + 1;
+    const int extra = (symbol - 2) >> 1;
+    const int offset = (2 + (symbol & 1)) << extra;
+    return offset + static_cast<int>(br.read(extra)) + 1;
+  }
+
+  static int plane_distance(int xsize, int plane_code) {
+    if (plane_code > 120) return plane_code - 120;
+    const int dist_code = kCodeToPlane[plane_code - 1];
+    const int yoffset = dist_code >> 4;
+    const int xoffset = 8 - (dist_code & 0xf);
+    const int dist = yoffset * xsize + xoffset;
+    return dist >= 1 ? dist : 1;
+  }
+
+  static void apply_inverse(const Transform& t, std::vector<uint32_t>* img);
+};
+
+inline uint32_t add_pixels(uint32_t a, uint32_t b) {
+  return (((a & 0xff00ff00u) + (b & 0xff00ff00u)) & 0xff00ff00u) |
+         (((a & 0x00ff00ffu) + (b & 0x00ff00ffu)) & 0x00ff00ffu);
+}
+inline uint32_t average2(uint32_t a, uint32_t b) {
+  return (((a ^ b) & 0xfefefefeu) >> 1) + (a & b);
+}
+inline int clip255(int a) { return a < 0 ? 0 : (a > 255 ? 255 : a); }
+inline uint32_t clamped_add_sub_full(uint32_t c0, uint32_t c1, uint32_t c2) {
+  uint32_t out = 0;
+  for (int s = 0; s < 32; s += 8) {
+    const int v = static_cast<int>((c0 >> s) & 0xff) + static_cast<int>((c1 >> s) & 0xff) -
+                  static_cast<int>((c2 >> s) & 0xff);
+    out |= static_cast<uint32_t>(clip255(v)) << s;
+  }
+  return out;
+}
+inline uint32_t clamped_add_sub_half(uint32_t c0, uint32_t c1, uint32_t c2) {
+  const uint32_t ave = average2(c0, c1);
+  uint32_t out = 0;
+  for (int s = 0; s < 32; s += 8) {
+    const int a = static_cast<int>((ave >> s) & 0xff), b = static_cast<int>((c2 >> s) & 0xff);
+    out |= static_cast<uint32_t>(clip255(a + (a - b) / 2)) << s;
+  }
+  return out;
+}
+inline uint32_t select_pred(uint32_t a, uint32_t b, uint32_t c) {  // a = T, b = L, c = TL
+  int pa_minus_pb = 0;
+  for (int s = 0; s < 32; s += 8) {
+    const int ai = (a >> s) & 0xff, bi = (b >> s) & 0xff, ci = (c >> s) & 0xff;
+    pa_minus_pb += std::abs(bi - ci) - std::abs(ai - ci);
+  }
+  return pa_minus_pb <= 0 ? a : b;
+}
+
+// the 14 predictors; `top` points at the pixel above, `left` is the one on
+// the left (mode 0: opaque black; 14 and 15 as 0, libwebp's sentinels)
+inline uint32_t predict(int mode, uint32_t left, const uint32_t* top) {
+  switch (mode) {
+    case 1: return left;
+    case 2: return top[0];
+    case 3: return top[1];
+    case 4: return top[-1];
+    case 5: return average2(average2(left, top[1]), top[0]);
+    case 6: return average2(left, top[-1]);
+    case 7: return average2(left, top[0]);
+    case 8: return average2(top[-1], top[0]);
+    case 9: return average2(top[0], top[1]);
+    case 10: return average2(average2(left, top[-1]), average2(top[0], top[1]));
+    case 11: return select_pred(top[0], left, top[-1]);
+    case 12: return clamped_add_sub_full(left, top[0], top[-1]);
+    case 13: return clamped_add_sub_half(left, top[0], top[-1]);
+    default: return 0xff000000u;
+  }
+}
+
+void VP8LDecoder::apply_inverse(const Transform& t, std::vector<uint32_t>* img) {
+  const int w = t.xsize, h = t.ysize;
+  if (t.type == 0) {  // predictor: in place, row by row
+    uint32_t* px = img->data();
+    px[0] = add_pixels(px[0], 0xff000000u);
+    for (int x = 1; x < w; ++x) px[x] = add_pixels(px[x], px[x - 1]);
+    const int tiles = (w + (1 << t.bits) - 1) >> t.bits;
+    for (int y = 1; y < h; ++y) {
+      uint32_t* row = px + static_cast<size_t>(y) * w;
+      const uint32_t* modes = t.data.data() + (y >> t.bits) * tiles;
+      row[0] = add_pixels(row[0], row[-w]);
+      for (int x = 1; x < w; ++x) {
+        const int mode = (modes[x >> t.bits] >> 8) & 0xf;
+        row[x] = add_pixels(row[x], predict(mode, row[x - 1], row + x - w));
+      }
+    }
+  } else if (t.type == 1) {  // cross colour
+    const int tiles = (w + (1 << t.bits) - 1) >> t.bits;
+    for (int y = 0; y < h; ++y) {
+      uint32_t* row = img->data() + static_cast<size_t>(y) * w;
+      const uint32_t* codes = t.data.data() + (y >> t.bits) * tiles;
+      for (int x = 0; x < w; ++x) {
+        const uint32_t cc = codes[x >> t.bits];
+        const int8_t g2r = static_cast<int8_t>(cc & 0xff);
+        const int8_t g2b = static_cast<int8_t>((cc >> 8) & 0xff);
+        const int8_t r2b = static_cast<int8_t>((cc >> 16) & 0xff);
+        const uint32_t argb = row[x];
+        const int8_t green = static_cast<int8_t>(argb >> 8);
+        int new_red = (argb >> 16) & 0xff;
+        int new_blue = argb & 0xff;
+        new_red += (static_cast<int>(g2r) * green) >> 5;
+        new_red &= 0xff;
+        new_blue += (static_cast<int>(g2b) * green) >> 5;
+        new_blue += (static_cast<int>(r2b) * static_cast<int8_t>(new_red)) >> 5;
+        new_blue &= 0xff;
+        row[x] = (argb & 0xff00ff00u) | (static_cast<uint32_t>(new_red) << 16) |
+                 static_cast<uint32_t>(new_blue);
+      }
+    }
+  } else if (t.type == 2) {  // subtract green
+    for (auto& argb : *img) {
+      const uint32_t green = (argb >> 8) & 0xff;
+      uint32_t rb = argb & 0x00ff00ffu;
+      rb += (green << 16) | green;
+      argb = (argb & 0xff00ff00u) | (rb & 0x00ff00ffu);
+    }
+  } else {  // colour indexing: unpack the bundled indices to width w
+    const int packed_w = (w + (1 << t.bits) - 1) >> t.bits;
+    std::vector<uint32_t> out(static_cast<size_t>(w) * h);
+    const int bits_per_pixel = 8 >> t.bits;
+    const uint32_t mask = (1u << bits_per_pixel) - 1;
+    for (int y = 0; y < h; ++y) {
+      const uint32_t* src = img->data() + static_cast<size_t>(y) * packed_w;
+      uint32_t* dst = out.data() + static_cast<size_t>(y) * w;
+      for (int x = 0; x < w; ++x) {
+        const uint32_t packed = (src[x >> t.bits] >> 8) & 0xff;
+        const uint32_t idx = (packed >> ((x & ((1 << t.bits) - 1)) * bits_per_pixel)) & mask;
+        dst[x] = idx < t.data.size() ? t.data[idx] : 0;
+      }
+    }
+    img->swap(out);
+  }
+}
+
+int decode_vp8l(const uint8_t* data, size_t size, int* width, int* height, bool* alpha,
+                std::vector<uint32_t>* argb) {
+  if (size < 5) return kErrWebpTruncated;
+  if (data[0] != 0x2f) return kErrWebpCorrupt;
+  VP8LDecoder d;
+  d.br.init(data + 1, size - 1);
+  *width = static_cast<int>(d.br.read(14)) + 1;
+  *height = static_cast<int>(d.br.read(14)) + 1;
+  *alpha = d.br.read(1);
+  if (d.br.read(3) != 0) return kErrWebpCorrupt;  // version
+  if (!argb) return kOk;
+  if (!d.decode_stream(*width, *height, true, argb)) return d.status;
+  if (d.br.eos()) return kErrWebpTruncated;
+  return kOk;
+}
+
+// ---- the RIFF container ------------------------------------------------------
+struct WebpInfo {
+  bool lossless = false;
+  bool has_alpha = false;
+  bool lossy_alpha = false;  // an ALPH chunk beside a VP8 frame
+  int width = 0, height = 0;
+  const uint8_t* image = nullptr;
+  size_t image_size = 0;
+  int64_t exif_offset = -1;
+  int64_t exif_size = 0;
+};
+
+inline uint32_t le32(const uint8_t* p) {
+  return p[0] | (p[1] << 8) | (p[2] << 16) | (static_cast<uint32_t>(p[3]) << 24);
+}
+
+int parse_container(const uint8_t* buf, size_t n, WebpInfo* info) {
+  if (n < 12 || std::memcmp(buf, "RIFF", 4) != 0 || std::memcmp(buf + 8, "WEBP", 4) != 0)
+    return kErrWebpCorrupt;
+  const size_t riff = le32(buf + 4);
+  if (riff < 12) return kErrWebpCorrupt;
+  if (riff > n - 8) return kErrWebpTruncated;
+  const size_t end = 8 + riff;
+  size_t pos = 12;
+  bool vp8x = false, exif_flag = false;
+  int canvas_w = 0, canvas_h = 0;
+  while (pos + 8 <= end) {
+    const uint8_t* tag = buf + pos;
+    const size_t size = le32(buf + pos + 4);
+    if (size > end - pos - 8) return kErrWebpTruncated;
+    const uint8_t* body = buf + pos + 8;
+    if (pos == 12 && std::memcmp(tag, "VP8X", 4) == 0) {
+      if (size != 10) return kErrWebpCorrupt;
+      vp8x = true;
+      if (body[0] & 0x02) return kErrWebpAnimation;
+      exif_flag = body[0] & 0x08;
+      canvas_w = 1 + (body[4] | (body[5] << 8) | (body[6] << 16));
+      canvas_h = 1 + (body[7] | (body[8] << 8) | (body[9] << 16));
+    } else if (std::memcmp(tag, "ANIM", 4) == 0 || std::memcmp(tag, "ANMF", 4) == 0) {
+      return kErrWebpAnimation;
+    } else if (std::memcmp(tag, "ALPH", 4) == 0) {
+      if (!info->image) info->lossy_alpha = true;
+    } else if (std::memcmp(tag, "EXIF", 4) == 0) {
+      // cv2 reads it only where VP8X flags it, as a bare TIFF header
+      if (exif_flag && info->exif_offset < 0) {
+        info->exif_offset = static_cast<int64_t>(pos + 8);
+        info->exif_size = static_cast<int64_t>(size);
+      }
+    } else if (std::memcmp(tag, "VP8 ", 4) == 0 || std::memcmp(tag, "VP8L", 4) == 0) {
+      if (info->image) return kErrWebpCorrupt;
+      info->lossless = tag[3] == 'L';
+      info->image = body;
+      info->image_size = size;
+    }
+    pos += 8 + size + (size & 1);
+  }
+  if (!info->image) return pos >= end ? kErrWebpCorrupt : kErrWebpTruncated;
+  if (info->lossless) {
+    bool alpha = false;
+    const int rc = decode_vp8l(info->image, info->image_size, &info->width, &info->height,
+                               &alpha, nullptr);
+    if (rc != kOk) return rc;
+    info->has_alpha = alpha;
+    info->lossy_alpha = false;
+  } else {
+    if (info->image_size < 10) return kErrWebpTruncated;
+    const uint8_t* d = info->image;
+    if (d[3] != 0x9d || d[4] != 0x01 || d[5] != 0x2a) return kErrWebpCorrupt;
+    info->width = (d[6] | (d[7] << 8)) & 0x3fff;
+    info->height = (d[8] | (d[9] << 8)) & 0x3fff;
+    info->has_alpha = info->lossy_alpha;
+  }
+  if (vp8x && (canvas_w != info->width || canvas_h != info->height)) return kErrWebpCorrupt;
+  if (info->width <= 0 || info->height <= 0) return kErrWebpCorrupt;
+  return kOk;
+}
+
+// Decode into (h, w, ch) BGR (ch 3) or BGRA (ch 4; an opaque alpha for a
+// frame without one); a lossy frame's ALPH plane is not decoded, so ch 4 of
+// such a file is refused.
+int decode_webp(const uint8_t* buf, size_t n, uint8_t* dst, int h, int w, int ch) {
+  WebpInfo info;
+  int rc = parse_container(buf, n, &info);
+  if (rc != kOk) return rc;
+  if (info.height != h || info.width != w) return kErrSize;
+  if (ch == 4 && info.lossy_alpha) return kErrWebpAlpha;
+  if (info.lossless) {
+    std::vector<uint32_t> argb;
+    int iw, ih;
+    bool alpha;
+    rc = decode_vp8l(info.image, info.image_size, &iw, &ih, &alpha, &argb);
+    if (rc != kOk) return rc;
+    const size_t total = static_cast<size_t>(w) * h;
+    for (size_t i = 0; i < total; ++i) {
+      const uint32_t p = argb[i];
+      uint8_t* o = dst + i * ch;
+      o[0] = p & 0xff;
+      o[1] = (p >> 8) & 0xff;
+      o[2] = (p >> 16) & 0xff;
+      if (ch == 4) o[3] = p >> 24;
+    }
+    return kOk;
+  }
+  Vp8Decoder d;
+  rc = parse_vp8_header(&d, info.image, info.image_size);
+  if (rc != kOk) return rc;
+  rc = decode_vp8_frame(&d);
+  if (rc != kOk) return rc;
+  yuv_to_bgr_image(d, h, w, dst, ch);
+  return kOk;
+}
+
+}  // namespace webp
+
 }  // namespace
 
 extern "C" {
@@ -1784,6 +3660,34 @@ void fgpack_close(void* handle) {
   if (p->base) munmap(const_cast<uint8_t*>(p->base), p->size);
   if (p->fd >= 0) ::close(p->fd);
   delete p;
+}
+
+
+// {height, width, has_alpha, lossless, exif_offset, exif_size} of a WebP
+// file (exif_offset -1 without an EXIF chunk).
+int fgpack_webp_info(const uint8_t* buf, int64_t nbytes, int64_t* out) {
+  if (!buf || nbytes <= 0 || !out) return kErrArgs;
+  webp::WebpInfo info;
+  const int rc = webp::parse_container(buf, static_cast<size_t>(nbytes), &info);
+  if (rc != kOk) return rc;
+  out[0] = info.height;
+  out[1] = info.width;
+  out[2] = info.has_alpha;
+  out[3] = info.lossless;
+  out[4] = info.exif_offset;
+  out[5] = info.exif_size;
+  return kOk;
+}
+
+// Decode a WebP file into dst, (h, w, channels) uint8: BGR (channels 3, what
+// cv2.imread gives in colour mode, before any EXIF orientation) or BGRA
+// (channels 4).
+int fgpack_decode_webp(const uint8_t* buf, int64_t nbytes, uint8_t* dst, int64_t h, int64_t w,
+                       int channels) {
+  if (!buf || nbytes <= 0 || !dst || h <= 0 || w <= 0 || (channels != 3 && channels != 4))
+    return kErrArgs;
+  return webp::decode_webp(buf, static_cast<size_t>(nbytes), dst, static_cast<int>(h),
+                           static_cast<int>(w), channels);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 """The port's host codec library (csrc/fgpack.cpp) through ctypes: FGPK
-packs, JPEG decode and encode, PNG decode, RGB -> I420
+packs, JPEG decode and encode, PNG and WebP decode, RGB -> I420
 (fgvc_tpu/data_io/fgpack.py, without libjpeg, PIL or cv2).
 
 The library is C++17 with pthread alone.  It is compiled with g++ at first
@@ -10,7 +10,8 @@ use into ``build/host/libfgpack-<hash>.so`` at the root of the checkout
         fgvc_tpu_torch/csrc/fgpack.cpp -lpthread
 
 Its JPEG decoder gives libjpeg's default pixels (what PIL and cv2.imread
-give) and its encoder libjpeg's default bytes (what cv2.imencode and PIL's
+give), its WebP decoder libwebp's (cv2.imread's colour mode), and its
+encoder libjpeg's default bytes (what cv2.imencode and PIL's
 save write), so packs and frames are the same on every machine.  ctypes
 releases the GIL around every call.
 
@@ -68,6 +69,10 @@ STATUS = {
     -13: "no image in the JPEG data",
     -14: "invalid arguments",
     -15: "PNG filter type above 4",
+    -16: "corrupt WebP data",
+    -17: "truncated WebP data",
+    -18: "animated WebP (ANIM/ANMF) is not supported",
+    -19: "the alpha plane (ALPH) of a lossy WebP is not decoded",
 }
 
 _LIB = None
@@ -127,6 +132,9 @@ def _load():
             "fgpack_rgb_to_i420_batch": (ctypes.c_int, [u8p, i64, i64, i64, u8p]),
             "fgpack_png_unfilter": (ctypes.c_int, [ctypes.c_char_p, i64, i64, ctypes.c_int,
                                                    u8p]),
+            "fgpack_webp_info": (ctypes.c_int, [ctypes.c_char_p, i64, i64p]),
+            "fgpack_decode_webp": (ctypes.c_int, [ctypes.c_char_p, i64, u8p, i64, i64,
+                                                  ctypes.c_int]),
             "fgpack_prefetch": (ctypes.c_int, [ptr, i64, i64]),
             "fgpack_close": (None, [ptr]),
         }
@@ -225,6 +233,48 @@ def decode_jpeg_batch(
 def decode_jpeg(buf: bytes) -> np.ndarray:
     """One JPEG -> (H, W, 3) uint8 RGB (a grey JPEG as three equal channels)."""
     return decode_jpeg_batch([buf], n_threads=1)[0]
+
+
+# --------------------------------------------------------------------- #
+# WebP
+
+WEBP_MAGIC = (b"RIFF", b"WEBP")  # bytes 0-3 and 8-11 of a WebP file
+
+
+class WebpInfo(NamedTuple):
+    height: int
+    width: int
+    has_alpha: bool   # VP8X's alpha flag, or VP8L's alpha bit
+    lossless: bool    # VP8L (else a VP8 key frame)
+    exif: bytes       # the EXIF chunk (a bare TIFF header) where VP8X flags it
+
+
+def webp_info(buf: bytes) -> WebpInfo:
+    """The header of a WebP file; ValueError for what the decoder refuses
+    (animations, corrupt or truncated containers)."""
+    out = (ctypes.c_int64 * 6)()
+    rc = _load().fgpack_webp_info(buf, len(buf), out)
+    if rc != 0:
+        raise ValueError(_status(rc))
+    exif = buf[out[4]:out[4] + out[5]] if out[4] >= 0 else b""
+    return WebpInfo(int(out[0]), int(out[1]), bool(out[2]), bool(out[3]), exif)
+
+
+def decode_webp(buf: bytes, alpha: bool = False,
+                info: Optional[WebpInfo] = None) -> np.ndarray:
+    """One WebP file -> (H, W, 3) uint8 BGR, what cv2.imread gives before the
+    EXIF orientation: lossy frames through libwebp's fancy upsampling and
+    fixed-point YUV -> RGB, lossless ones exactly; alpha dropped.  With
+    `alpha`, (H, W, 4) BGRA (255 where the file has no alpha; a lossy
+    frame's ALPH plane is refused).  `info` is the file's webp_info where
+    the caller has read it already."""
+    info = info or webp_info(buf)
+    ch = 4 if alpha else 3
+    dst = np.empty((info.height, info.width, ch), np.uint8)
+    rc = _load().fgpack_decode_webp(buf, len(buf), _u8p(dst), info.height, info.width, ch)
+    if rc != 0:
+        raise ValueError(_status(rc))
+    return dst
 
 
 # --------------------------------------------------------------------- #

@@ -159,9 +159,9 @@ class FlyingThingsYtvDataset:
     * FlyingThings3D: frames_cleanpass/TRAIN/*/*/left/*.png paired n, n + 1
       with optical_flow/TRAIN/<scene>/into_future/left/
       OpticalFlowIntoFuture_{n:04d}_L.pfm and into_past/left/
-      OpticalFlowIntoPast_{n+1:04d}_L.pfm.  The JAX glob also takes *.webp
-      frames; the pair list is built the same way so indices agree, and a
-      pair with a WebP frame raises ValueError here (no WebP decoder).
+      OpticalFlowIntoPast_{n+1:04d}_L.pfm; *.webp frames (the published
+      WebP cleanpass) are listed with the PNGs, as the JAX glob does, and
+      decoded to libwebp's pixels.
     * Sample idx (the raw draw counter of make_batches): video idx % len,
       every draw from np.random.default_rng((seed, idx)); the labeled pair
       stacked [frame 1, frame 0] with flow = into-future at frame 0 and
@@ -220,12 +220,6 @@ class FlyingThingsYtvDataset:
             raise FileNotFoundError(f"no YouTube-VOS videos found under {ytv_root!r}")
         if not self.fly_pairs:
             raise FileNotFoundError(f"no FlyingThings flow pairs found under {flyingthings_root!r}")
-        webp = [p[k] for p in self.fly_pairs for k in ("f0", "f1") if p[k].endswith(".webp")]
-        if webp:
-            raise ValueError(
-                f"{webp[0]}: WebP frames are not read by fgvc_tpu_torch (no WebP decoder; "
-                f"ROADMAP.md Queue 3 F1); {len(webp)} pair frame(s) are WebP. Convert them "
-                "to PNG.")
 
     def __len__(self):
         return len(self.ytv_videos)
@@ -375,12 +369,19 @@ class SyntheticMixedDataset:
         }
 
 
-def make_batches(dataset, batch_size: int, steps: int, skip: int = 0):
+def make_batches(dataset, batch_size: int, steps: int, skip: int = 0, rank: int = 0,
+                 world: int = 1):
     """Batches of `batch_size` consecutive samples for steps skip..steps-1;
     `skip` jumps past the first steps' samples without making them, so a
-    resumed run sees the batches the uninterrupted run would have."""
-    i = skip * batch_size
+    resumed run sees the batches the uninterrupted run would have.  With
+    `world` ranks, `batch_size` is the global batch and this rank makes only
+    its slice, samples i + rank * b ... i + (rank + 1) * b - 1 of each global
+    batch (b = batch_size // world): every sample is drawn from its index
+    alone, so the ranks' slices together are one process's batch
+    (check_train_ported refuses a global batch that does not divide)."""
+    local = batch_size // world
+    i = skip * batch_size + rank * local
     for _ in range(steps - skip):
-        samples = [dataset[i + j] for j in range(batch_size)]
+        samples = [dataset[i + j] for j in range(local)]
         i += batch_size
         yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}

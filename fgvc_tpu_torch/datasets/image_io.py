@@ -1,8 +1,9 @@
 """Image reading and resizing of the port's readers, without PIL or cv2.
 
-``read_image`` decodes a JPEG or PNG file (or its bytes) through the port's
-host library (data_io/fgpack.py: its JPEG decoder equals libjpeg's, its PNG
-decoder inflates with zlib and unfilters natively), as cv2.imread would
+``read_image`` decodes a JPEG, PNG or WebP file (or its bytes) through the
+port's host library (data_io/fgpack.py: its JPEG decoder equals libjpeg's,
+its WebP decoder libwebp's, its PNG decoder inflates with zlib and unfilters
+natively), as cv2.imread would
 return it, the EXIF orientation applied in colour mode;
 ``read_png_indices`` gives a palette PNG's indices.  ``resize_frames`` and
 ``resize_nearest`` equal cv2.resize with INTER_LINEAR (uint8) and
@@ -17,7 +18,8 @@ from typing import Tuple, Union
 
 import numpy as np
 
-from fgvc_tpu_torch.data_io.fgpack import PNG_SIGNATURE, decode_jpeg, decode_png, jpeg_info
+from fgvc_tpu_torch.data_io.fgpack import (PNG_SIGNATURE, WEBP_MAGIC, decode_jpeg, decode_png,
+                                            decode_webp, jpeg_info, webp_info)
 
 
 def _read(src: Union[str, bytes, os.PathLike]) -> Tuple[bytes, str]:
@@ -90,7 +92,8 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
 
 def read_image(src: Union[str, bytes, os.PathLike], flags: str = "color") -> np.ndarray:
     """Decode an image file (a path, or its bytes) as cv2.imread does; the
-    decoder is chosen by the magic bytes (JPEG FF D8, PNG's signature).
+    decoder is chosen by the magic bytes (JPEG FF D8, PNG's signature,
+    RIFF....WEBP).
 
     flags 'color': (H, W, 3) uint8 RGB, what cv2.cvtColor(cv2.imread(p),
     cv2.COLOR_BGR2RGB) gives: grey replicated, a palette expanded, alpha
@@ -100,7 +103,11 @@ def read_image(src: Union[str, bytes, os.PathLike], flags: str = "color") -> np.
     and the orientation ignored: a grey image as (H, W), a palette image
     expanded through its palette to 3 channels (4 where it has tRNS),
     grey+alpha as BGRA, RGB as BGR and RGBA as BGRA; 16-bit PNG samples stay
-    uint16.  JPEGs the decoder refuses (arithmetic, lossless, 12-bit, CMYK)
+    uint16.  WebP (lossy, lossless, VP8X) decodes to libwebp's pixels: alpha
+    dropped in colour mode, BGRA in 'unchanged' where the file has alpha (a
+    lossy frame's ALPH plane is refused there), the orientation of an EXIF
+    chunk that VP8X flags applied in colour mode.  JPEGs the decoder refuses
+    (arithmetic, lossless, 12-bit, CMYK), animated WebP and broken files
     raise ValueError."""
     if flags not in ("color", "unchanged"):
         raise ValueError(f"flags must be 'color' or 'unchanged', got {flags!r}")
@@ -116,8 +123,10 @@ def read_image(src: Union[str, bytes, os.PathLike], flags: str = "color") -> np.
         if flags == "color":
             return apply_orientation(rgb, tiff_orientation(jpeg_exif(data)))
         return np.ascontiguousarray(rgb[..., ::-1])
+    if (data[:4], data[8:12]) == WEBP_MAGIC:
+        return _read_webp(data, name, flags)
     if data[:8] != PNG_SIGNATURE:
-        raise ValueError(f"{name}: neither a JPEG nor a PNG file")
+        raise ValueError(f"{name}: neither a JPEG nor a PNG nor a WebP file")
     png = decode_png(data, name)
     if flags == "color":
         rgb = _png_rgb(png, name)
@@ -137,6 +146,20 @@ def read_image(src: Union[str, bytes, os.PathLike], flags: str = "color") -> np.
     if ctype == 4:  # grey + alpha -> BGRA
         return np.ascontiguousarray(np.concatenate([np.repeat(a[..., :1], 3, -1), a[..., 1:]], -1))
     return np.ascontiguousarray(a[..., [2, 1, 0, *range(3, a.shape[2])]])
+
+
+def _read_webp(data: bytes, name: str, flags: str) -> np.ndarray:
+    """A WebP file as cv2.imread reads it: in colour mode RGB, alpha dropped
+    and the orientation of an EXIF chunk that VP8X flags applied; flags
+    'unchanged' BGR, or BGRA where the file has alpha, unrotated."""
+    try:
+        info = webp_info(data)
+        bgr = decode_webp(data, alpha=flags == "unchanged" and info.has_alpha, info=info)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    if flags == "unchanged":
+        return bgr
+    return apply_orientation(bgr[..., ::-1], tiff_orientation(info.exif) if info.exif else 1)
 
 
 def _palette_indices(png, name: str) -> np.ndarray:

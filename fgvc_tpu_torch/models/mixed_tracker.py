@@ -32,6 +32,7 @@ from fgvc_tpu_torch.ops.attention import l2_normalize
 from fgvc_tpu_torch.ops.gradient_reversal import gradient_reversal
 from fgvc_tpu_torch.ops.local_corr import extract_displacement_windows, local_correlation
 from fgvc_tpu_torch.ops.warp import bilinear_sample, forward_backward_consistency
+from fgvc_tpu_torch.parallel.dist import all_sum, process_info
 
 
 class GradReverseDiscriminator(nn.Module):
@@ -141,7 +142,12 @@ def supervised_distillation_loss(
     cfg: TrainConfig,
 ) -> torch.Tensor:
     """Soft CE between the student's cross-frame correlation and the
-    teacher's warped self-correlation, on valid pixels."""
+    teacher's warped self-correlation, on valid pixels.  The mean is over
+    the valid pixels of the whole batch, a ratio, so under a process group
+    of several processes the count is summed over them and this process returns its
+    share world * sum_r / max(count, 1): the mean of the shares over the
+    processes is the global batch's loss, and so is that of their
+    gradients."""
     B, _, h, w, _ = student_pair.shape
     R, s = cfg.radius, cfg.scale
     with torch.no_grad():
@@ -165,7 +171,11 @@ def supervised_distillation_loss(
     win2 = pred.shape[-1]
     ce = soft_ce(pred.reshape(-1, win2), target.reshape(-1, win2))
     wmask = valid.reshape(-1).to(torch.float32)
-    return torch.sum(ce * wmask) / torch.clamp_min(torch.sum(wmask), 1.0)
+    total, count = torch.sum(ce * wmask), torch.sum(wmask)
+    world = process_info()[1]
+    if world > 1:
+        total, count = total * world, all_sum(count)
+    return total / torch.clamp_min(count, 1.0)
 
 
 def adversarial_corr_loss(

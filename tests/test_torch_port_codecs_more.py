@@ -373,7 +373,25 @@ def make_fixtures():
         "s440_q75_480x854.jpg": _cv2_jpeg(fixture_frame(480, 854, 3, noise=0), 75, "440"),
         "s411_q75_480x854.jpg": _cv2_jpeg(fixture_frame(480, 854, 4, noise=0), 75, "411"),
         "adam7_rgb_540x960.png": adam7_png(blocky, 2, 8, level=9),
+        "lossy_q90_540x960.webp": _cv2_webp(fixture_frame(540, 960, 6, noise=2), 90),
+        "lossless_216x384.webp": _cv2_webp(fixture_frame(216, 384, 7, noise=0), 101),
+        "alpha_q80_120x160.webp": _pil_webp_rgba(fixture_frame(120, 160, 8, noise=0), 80),
     }
+
+
+def _cv2_webp(rgb, quality):
+    """cv2's WebP bytes: lossy VP8 up to quality 100, lossless VP8L above."""
+    return cv2.imencode(".webp", rgb[..., ::-1], [cv2.IMWRITE_WEBP_QUALITY, quality])[1].tobytes()
+
+
+def _pil_webp_rgba(rgb, quality):
+    """PIL's lossy WebP of rgb with a horizontal alpha ramp: VP8X, ALPH and
+    VP8 chunks."""
+    h, w = rgb.shape[:2]
+    alpha = np.broadcast_to(np.linspace(0, 255, w).astype(np.uint8)[None, :, None], (h, w, 1))
+    buf = io.BytesIO()
+    Image.fromarray(np.concatenate([rgb, alpha], -1), "RGBA").save(buf, "WEBP", quality=quality)
+    return buf.getvalue()
 
 
 def test_fixtures_and_chip_smoke_pins_hold_for_pil_and_cv2():

@@ -369,8 +369,65 @@ def test_cli_rank_runs_on_its_card(monkeypatch, capsys):
 
 
 def test_train_cli_refuses_a_launcher_rank(monkeypatch):
+    """A cli.launch rank trains data-parallel now (tests/
+    test_torch_port_ddp_train.py); one whose world the global batch does not
+    divide is refused before it joins the group, and a coordinator without
+    the rank's coordinates too."""
     from fgvc_tpu_torch.cli.train import main
 
     monkeypatch.setenv("FGVC_COORDINATOR", "localhost:1")
-    with pytest.raises(NotImplementedError, match="item 31"):
+    monkeypatch.setenv("FGVC_NUM_PROCESSES", "3")
+    monkeypatch.setenv("FGVC_PROCESS_ID", "2")
+    with pytest.raises(ValueError, match="does not divide over 3 processes"):
         main(["--synthetic", "--max-steps", "1", "--device", "cpu"])
+    monkeypatch.delenv("FGVC_PROCESS_ID")
+    with pytest.raises(ValueError, match="this process's id"):
+        main(["--synthetic", "--max-steps", "1", "--device", "cpu", "--batch-size", "3"])
+
+
+def test_training_backend_from_every_ranks_card(monkeypatch):
+    """NCCL where no two ranks share a card, from the cards of every rank
+    (host and card), not from this host's count: 2 hosts x 8 cards with 16
+    ranks take NCCL; two ranks on a host with one card, or the CPU, gloo."""
+    import types
+
+    from fgvc_tpu_torch.parallel import dist
+
+    def props(device):
+        return types.SimpleNamespace(uuid=types.SimpleNamespace(bytes=bytes([device.index])))
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    for hosts, cards, expect in ((2, 8, "nccl"), (1, 1, "gloo"), (1, 2, "nccl")):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+        seen = []
+        for rank in range(hosts * 2 if cards == 1 else hosts * cards):
+            monkeypatch.setattr(dist.socket, "gethostname", lambda: f"node{rank // max(cards, 2)}")
+            seen.append(dist.card_of(dist.rank_device("cuda", rank)))
+        assert dist.training_backend(seen) == expect, (hosts, cards, seen)
+    assert dist.card_of(dist.rank_device("cpu", 3)) == "cpu"
+    assert dist.training_backend(["cpu", "cpu"]) == "gloo"
+
+
+def test_ranks_exchange_their_cards_over_the_store():
+    """Each rank sets its card in the group's TCP store and reads every
+    rank's, so all pick one backend."""
+    import threading
+
+    from fgvc_tpu_torch.cli.launch import _free_port
+    from fgvc_tpu_torch.parallel import dist
+
+    port, out, stores = _free_port(), {}, {}
+
+    def rank(r, card):
+        # the stores outlive the threads: rank 0's serves the other's reads
+        stores[r] = torch.distributed.TCPStore("localhost", port, 2, is_master=r == 0)
+        out[r] = dist.exchange_cards(stores[r], 2, r, card)
+
+    threads = [threading.Thread(target=rank, args=(r, c))
+               for r, c in ((0, "nodeA/00"), (1, "nodeB/00"))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert out == {0: ["nodeA/00", "nodeB/00"], 1: ["nodeA/00", "nodeB/00"]}
+    assert dist.training_backend(out[0]) == "nccl"

@@ -13,7 +13,7 @@ package's and cv2, on small trees the tests write:
   frames within 1e-5 of the JAX dataset with the JAX Lab put in place of
   its cv2 call and within 0.5 / 127 of its cv2 Lab; make_batches(skip=)
   equal to the tail of a full run; the --ytv-list and missing-frame paths;
-  WebP frames refused at construction;
+  a WebP frame read to cv2's pixels (tests/test_torch_port_webp.py has the rest);
 * one CLI step on the CPU that logs, then a resumed second step equal bit
   for bit to two straight steps.
 """
@@ -203,14 +203,18 @@ def test_flyingthings_ytv_samples_match_jax(tree, listed, monkeypatch):
 
 def test_flyingthings_ytv_refusals(tmp_path):
     """A --ytv-list frame that is missing raises FileNotFoundError naming the
-    video and the frame (as in JAX); a FlyingThings pair with a WebP frame
-    raises ValueError at construction naming it; empty trees raise
-    FileNotFoundError."""
+    video and the frame (as in JAX); empty trees raise FileNotFoundError.  A
+    FlyingThings pair with a WebP frame (cv2's lossless) is no longer
+    refused: it is listed as in JAX and read to cv2's pixels."""
     from fgvc_tpu_torch.datasets.flyingthings_ytv import FlyingThingsYtvDataset
+    from fgvc_tpu_torch.datasets.image_io import read_image
 
     ytv, ft, list_path = make_tree(str(tmp_path / "a"), webp=True)
-    with pytest.raises(ValueError, match=r"0007\.webp: WebP"):
-        FlyingThingsYtvDataset(ytv, ft)
+    with_webp = FlyingThingsYtvDataset(ytv, ft)
+    webp = [p[k] for p in with_webp.fly_pairs for k in ("f0", "f1") if p[k].endswith(".webp")]
+    assert [os.path.basename(p) for p in webp] == ["0007.webp"] * 2
+    np.testing.assert_array_equal(read_image(webp[0]), cv2.imread(webp[0])[..., ::-1])
+    assert np.isfinite(with_webp[0]["imgs_sup"]).all()
     ytv, ft, list_path = make_tree(str(tmp_path / "b"))
     bad = str(tmp_path / "missing.json")
     with open(bad, "w") as f:

@@ -198,14 +198,18 @@ def test_cli_refusals(tmp_path, monkeypatch):
     assert not os.listdir(tmp_path)
     with pytest.raises(SystemExit):  # real data needs both trees
         cli_train.main(["--ytv-root", "ytv", "--device", "cpu", "--work-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 31"):
-        cli_train.main(base + ["--coordinator", "localhost:1234", "--num-processes", "2",
-                               "--device", "cpu"])
+    # several processes train now; a global batch that does not divide over
+    # them is refused before any group is joined
+    with pytest.raises(ValueError, match="does not divide over 3 processes"):
+        cli_train.main(base + ["--coordinator", "localhost:1234", "--num-processes", "3",
+                               "--process-id", "0", "--batch-size", "4", "--device", "cpu"])
     with pytest.raises(SystemExit):
         cli_train.main(base + ["--platform", "tpu"])
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        cfg = tmp_path / "bf16.json"
-        cfg.write_text(json.dumps({"compute_dtype": "bfloat16"}))
+    # bfloat16 trains now (tests/test_torch_port_train_bf16.py); float16 is
+    # refused, as in JAX
+    with pytest.raises(ValueError, match="float16"):
+        cfg = tmp_path / "fp16.json"
+        cfg.write_text(json.dumps({"compute_dtype": "float16"}))
         cli_train.main(base + ["--config", str(cfg), "--device", "cpu"])
 
 

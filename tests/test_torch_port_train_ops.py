@@ -354,13 +354,13 @@ def test_train_config_file_and_refusals(tmp_path):
     path.write_text(json.dumps({"radious": 4}))
     with pytest.raises(ValueError, match="radious"):
         config_from_file(str(path), TrainConfig())
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        check_train_ported(TrainConfig(compute_dtype="bfloat16"))
+    assert check_train_ported(TrainConfig(compute_dtype="bfloat16")) is None
     with pytest.raises(ValueError):
         check_train_ported(TrainConfig(compute_dtype="float16"))
     assert check_train_ported(TrainConfig()) is None  # real-data training is ported
-    with pytest.raises(NotImplementedError, match="item 31"):
-        check_train_ported(TrainConfig(), multi_process=True)
+    assert check_train_ported(TrainConfig(batch_size=4), world=2) is None
+    with pytest.raises(ValueError, match="does not divide"):
+        check_train_ported(TrainConfig(batch_size=4), world=3)
     assert os.path.exists(path)
 
 
