@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,
                                     codecs,modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,
                                     profile,serve,export,doctor,train,realtrain,propmodes,dp,
-                                    bank,mp,ddp]
+                                    bank,mp,ddp,reproduce,demo]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -128,7 +128,13 @@ Phases, each of which raises on failure (exit code != 0):
             EXIF_PINS (cv2.imread's), flags 'unchanged' and decode_jpeg
             unrotated; host ms a 480 x 854 frame of the progressive decode
             beside the baseline decode of the same pixels, on one thread and
-            os.cpu_count();
+            os.cpu_count(); (g) the committed CMYK fixture
+            (tests/torch_port_jpeg_forms: PIL's Adobe CMYK at 480 x 854)
+            through decode_jpeg (PIL's four channels) and read_image (cv2's
+            conversion), and the progressive fixture cut after 1 and 5 of its
+            10 scans (libjpeg's interblock smoothing): the sha256 of the
+            pixels equal to JPEG_FORM_PINS (PIL's and cv2's decode), host ms
+            a frame of each beside the baseline decode;
   modes     K3 end to end: run_task('davis') on the e2e pickles with
             matmul_precision 'highest', 'high' and 'default', and eval_vos on
             one synthetic VOS video, banked and save_mem, in the same three;
@@ -329,7 +335,29 @@ Phases, each of which raises on failure (exit code != 0):
             while an uninterrupted twin runs beside it: both ranks stop at
             one step, the restart resumes there, the log reads 1..5, the
             losses within 1e-4 of the twin's; step ms of two ranks and of
-            one process.
+            one process;
+  reproduce python -m fgvc_tpu_torch.cli.reproduce's main with seeded
+            ResNet-18-d1 weights (random BatchNorm statistics) exported under
+            the reference's mmcv names, over the e2e pickles as TAP-Vid-DAVIS
+            and as Kinetics, the JHMDB and BADJA trees, --max-videos 1
+            --fast-modes: the feature-parity probe on the card below 1e-3
+            (and its seconds), exit 1 (seeded weights miss the published
+            numbers), K1 launched one per frame propagated (circle for the
+            TAP-Vid tasks and the three fast modes, two of them in
+            'bfloat16', square at JHMDB's and BADJA's shapes), report.json's
+            value of each task equal within 1e-6 to run_task's on the same
+            inputs (each task's wall printed); the .pth with a negative
+            BatchNorm variance exits 2 before any task;
+  demo      python -m fgvc_tpu_torch.cli.demo's main on a directory of 24
+            JPEG and PNG frames at 480 x 854 (the port's encoders): --grid 8
+            at --size 256 launches K1 (circle, 128 x 128 x 256) once per
+            frame propagated; the .mp4 holds one Motion-JPEG sample per
+            frame, byte-equal to encode_jpeg (4:4:4) of the frames rendered
+            again from the same tracks; its ms a frame split into reading,
+            tracking, drawing and encoding, and its MB; --correspondence
+            writes a .png that decodes to the overlay; --mask with a grey
+            label PNG launches K1 square once per frame propagated and writes
+            an .mp4; --video exits with its refusal.
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -473,6 +501,18 @@ EXIF_PINS = {
     6: "b1412ba43e55e597cdf2a4140f408d22c62e53fa02787645f46ea23b85baef94",
     7: "19437f1c17077d4e4931bce9c2cbbce1f93dd669d58c1388496931ffcbf5d75e",
     8: "5c1a4bdab4739dbd6b949bba8120dbcd1b4aa73650119fb85d6e221aac3c8da4",
+}
+# the JPEG forms beside the fixtures: PIL's CMYK (decode_jpeg: PIL's 4 channels;
+# read_image: cv2's BGR conversion, as RGB) and the progressive fixture cut
+# after k of its scans, EOI appended (libjpeg's smoothing; PIL = cv2)
+CMYK_FIXTURE = "cmyk_q75_480x854.jpg"
+CMYK_DIR = os.path.join("tests", "torch_port_jpeg_forms")
+PROGRESSIVE_CUTS = (1, 5)
+JPEG_FORM_PINS = {
+    "cmyk_pil": "c293917ba7245c25265dfe54138f67881de8222feec4644a1caaa47d5df43fc8",
+    "cmyk_cv2": "828f541106f76e2f543ccda6f28ca366e2649aeba758c47e087405a60235099a",
+    "progressive_1": "f3e249486dca2ed30e204741f75f26766503b5502adae789eb7c7b9ea1509f9c",
+    "progressive_5": "52688ab93d578ccc6f557d8a0faf38881dfe4354b8cae8640890f2958f0f5c6f",
 }
 PACK_FRAMES, PACK_HW = 250, (256, 256)      # FgPack.read_batch MB/s
 
@@ -2525,25 +2565,12 @@ def run_zoo(data_root, records):
 
 
 def encode_png(path, img, palette=None):
-    """Write a PNG with zlib alone: (H, W, 3) uint8 RGB, or (H, W) uint8
+    """Write a PNG (the port's writer): (H, W, 3) uint8 RGB, or (H, W) uint8
     palette indices with `palette` ((n, 3) uint8 RGB)."""
-    import struct
-    import zlib
+    from fgvc_tpu_torch.utils.visualize import png_bytes
 
-    def chunk(tag, body):
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
-
-    h, w = img.shape[:2]
-    color = 2 if palette is None else 3
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
-    parts = [b"\x89PNG\r\n\x1a\n", chunk(b"IHDR", header)]
-    if palette is not None:
-        parts.append(chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()))
-    parts += [chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)), chunk(b"IEND", b"")]
     with open(path, "wb") as f:
-        f.write(b"".join(parts))
+        f.write(png_bytes(img, palette))
 
 
 def _panning(rng, T, orig, speed):
@@ -3039,6 +3066,49 @@ def run_codec_fixtures(card_name):
                       for name, v in webp_ms.items()), flush=True)
 
 
+def progressive_cut(data, k):
+    """A progressive JPEG cut before its (k + 1)-th scan, EOI appended: the
+    markers walked, each scan's entropy data skipped to the next marker."""
+    pos, starts = 2, []
+    while data[pos + 1] != 0xD9:
+        length = int.from_bytes(data[pos + 2:pos + 4], "big")
+        if data[pos + 1] != 0xDA:
+            pos += 2 + length
+            continue
+        starts.append(pos)
+        pos += 2 + length
+        while not (data[pos] == 0xFF and data[pos + 1] != 0 and not 0xD0 <= data[pos + 1] <= 0xD7):
+            pos += 1
+    return data[:starts[k]] + b"\xff\xd9"
+
+
+def run_codec_forms(card_name):
+    """(g) The CMYK fixture and the progressive fixture's cuts against
+    JPEG_FORM_PINS; their host ms a frame beside the baseline decode."""
+    from fgvc_tpu_torch.data_io import fgpack
+    from fgvc_tpu_torch.datasets.image_io import read_image
+
+    with open(os.path.join(ROOT, CMYK_DIR, CMYK_FIXTURE), "rb") as f:
+        cmyk = f.read()
+    with open(os.path.join(ROOT, FIXTURE_DIR, "progressive_q95_480x854.jpg"), "rb") as f:
+        prog = f.read()
+    cases = {"cmyk_pil": (cmyk, fgpack.decode_jpeg), "cmyk_cv2": (cmyk, read_image)}
+    for k in PROGRESSIVE_CUTS:
+        cases[f"progressive_{k}"] = (progressive_cut(prog, k), fgpack.decode_jpeg)
+    base = fgpack.encode_jpeg(fgpack.decode_jpeg(prog), 95)
+    ms = {"baseline": _host_ms(lambda: fgpack.decode_jpeg(base), 1, reps=5),
+          "progressive (all 10 scans)": _host_ms(lambda: fgpack.decode_jpeg(prog), 1, reps=5)}
+    for name, (data, fn) in cases.items():
+        got = fn(data)
+        if _sha256(got.tobytes()) != JPEG_FORM_PINS[name]:
+            raise AssertionError(f"codecs {name}: pixels differ from PIL's and cv2's pin")
+        ms[f"{name} {got.shape}"] = _host_ms(lambda data=data, fn=fn: fn(data), 1, reps=5)
+    print("codecs JPEG forms: the CMYK fixture (decode_jpeg as PIL, read_image as cv2) and the "
+          f"progressive fixture cut after {PROGRESSIVE_CUTS} scans (smoothed) equal to their "
+          f"pins; host ms a 480x854 frame ({card_name}; median of 5, one thread): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()), flush=True)
+
+
 def run_codecs(data_root, records, card_name):
     """Phase codecs (see the module's docstring)."""
     t_phase = time.time()
@@ -3049,6 +3119,7 @@ def run_codecs(data_root, records, card_name):
         run_codec_tapvid(data_root, root, records)
     run_codec_yuv420(data_root, records)
     run_codec_fixtures(card_name)
+    run_codec_forms(card_name)
     print(f"codecs phase {time.time() - t_phase:.1f} s (host library build {build_s:.2f} s) "
           f"[{card_name}]", flush=True)
 
@@ -3987,7 +4058,7 @@ def run_ddp(record, card_name):
         stops = [int(k) for k in re.findall(r"preempted: stopping at step (\d+)", out1)]
         if len(stops) != 2 or stops[0] != stops[1] or not 1 <= stops[0] < DDP_STEPS:
             raise AssertionError(f"ddp: stop steps {stops}\n{out1[-2000:]}")
-        backends = sorted(set(re.findall(r"rank \d+ of \d+ on \S+, backend (\w+)", out_twin)))
+        backends = sorted(set(re.findall(r"rank \d+ of \d+ on \S+, backend (gloo|nccl)", out_twin)))
         t1 = time.time()
         out2 = _ddp_finish(_launch_ddp(main_dir), "resumed run")
         resume_s = time.time() - t1
@@ -4331,12 +4402,222 @@ def _prop_cut_card_vs_cpu(s, others, forward=True, tag="propmodes"):
             raise AssertionError(f"{label}: card vs CPU median {med} px > {TRAJ_TOL_PX}")
 
 
+# ---------------------------------------------------------------------- #
+# phases reproduce and demo
+# ---------------------------------------------------------------------- #
+REPRO_TOL = 1e-6            # report.json against run_task on the same inputs
+DEMO_T, DEMO_ORIG, DEMO_SIZE, DEMO_GRID = 24, (480, 854), 256, 8
+
+
+def _exit_code(fn):
+    """fn()'s SystemExit code (0 when it returns)."""
+    try:
+        fn()
+    except SystemExit as e:
+        return e.code
+    return 0
+
+
+def make_reference_pth(path, seed=0, broken=False):
+    """Seeded ResNet-18-d1 weights under the reference's mmcv names
+    ({'state_dict': ...}, prefix 'backbone.'): convolutions as init_random
+    draws them, every BatchNorm's affine and running statistics from a
+    seeded generator (variances in [0.5, 1.5]).  `broken` makes one
+    variance of layer2 negative, which no trained network has."""
+    import torch
+
+    from fgvc_tpu_torch.models.resnet import init_random, resnet18_d1
+    from fgvc_tpu_torch.models.weights import export_reference_state_dict
+
+    model = init_random(resnet18_d1(), seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(1 + 0.1 * torch.randn(n, generator=g))
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
+        if broken:
+            model.layer2[0].bn1.running_var[3] = -1.0
+    torch.save({"state_dict": export_reference_state_dict(model.state_dict())}, path)
+    return path
+
+
+def run_reproduce(data_root, jhmdb_root, badja_root, records, card_name, device="cuda"):
+    """Phase reproduce (see the module's docstring)."""
+    import torch
+
+    from fgvc_tpu_torch.apis.test import run_task
+    from fgvc_tpu_torch.cli import reproduce
+    from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reproduce_") as root:
+        pth = make_reference_pth(os.path.join(root, "seeded.pth"))
+        t0 = time.time()
+        probe = reproduce.parity_probe(pth, device=device)
+        probe_s = time.time() - t0
+        print(f"reproduce probe on {device} ({card_name}): layer3 max|diff| {probe['max_abs']:.3e} "
+              f"(limit {reproduce.PROBE_TOL}) in {probe_s:.2f} s, 2 frames at 256 x 256",
+              flush=True)
+        if not probe["ok"]:
+            raise AssertionError(f"reproduce: the probe failed on the card: {probe}")
+        video0 = TapVidDataset(data_root)[0]
+        tapvid = sum(len(video0["video"]) - int(t) - 1
+                     for t in np.unique(video0["query_points"][:, 0].astype(int)))
+        expect = {"davis": tapvid, "kinetics": tapvid, "jhmdb": JHMDB_T - 1,
+                  "badja": BADJA_T - 1}
+        roots = {"davis": data_root, "kinetics": data_root, "jhmdb": jhmdb_root,
+                 "badja": badja_root}
+        out = os.path.join(root, "out")
+        argv = ["--checkpoint", pth, "--max-videos", "1", "--fast-modes", "--output-dir", out,
+                "--device", device]
+        for task, task_root in roots.items():
+            argv += [f"--{task}-root", task_root]
+        k1.reset_launches()
+        t0 = time.time()
+        code = _exit_code(lambda: reproduce.main(argv))
+        wall = time.time() - t0
+        # float32 circle: davis, kinetics, coarse_decode; bfloat16 circle:
+        # bf16_matmuls, pallas_bf16_yuv; float32 square: jhmdb, badja
+        circle = 2 * expect["davis"] + expect["kinetics"]
+        bf16 = 2 * expect["davis"]
+        square = expect["jhmdb"] + expect["badja"]
+        got = (k1.launches, k1.unbanked_launches, k1.row_block_launches, dict(k1.mode_launches))
+        want = (circle + bf16 + square, 0, 0,
+                {m: {"float32": circle + square, "bfloat16": bf16}.get(m, 0)
+                 for m in k1.mode_launches})
+        print(f"reproduce CLI: exit {code} in {wall:.1f} s; K1 launches (banked, unbanked, row "
+              f"blocks, by mode) {got}, expected {want}", flush=True)
+        if code != 1:
+            raise AssertionError(f"reproduce: exit {code}, expected 1 (seeded weights)")
+        if device == "cuda" and got != want:
+            raise AssertionError(f"reproduce: K1 launches {got}, expected {want}")
+        _add_launches(records["K1_circle"], got[3]["float32"] - square)
+        _add_launches(records["K3_bf16_circle"], got[3]["bfloat16"])
+        _add_launches(records["K1_square_jhmdb"], expect["jhmdb"])
+        _add_launches(records["K1_square_badja"], expect["badja"])
+        with open(os.path.join(out, "report.json")) as f:
+            report = json.load(f)
+        if abs(report["feature_parity"]["max_abs"] - probe["max_abs"]) > reproduce.PROBE_TOL:
+            raise AssertionError("reproduce: the CLI's probe differs from the probe's")
+        for task, task_root in roots.items():
+            (ref, dt) = _timed(lambda: run_task(task, task_root, checkpoint=pth, max_videos=1,
+                                                device=device))
+            rep = report["tasks"][task]
+            diff = max([abs(rep["value"] - ref[rep["metric"]])]
+                       + [abs(v - ref[k]) for k, v in rep["all_metrics"].items()])
+            print(f"reproduce {task}: {rep['metric']} {rep['value']:.4f} (published "
+                  f"{rep['expected']}); run_task on the same inputs in {dt:.2f} s "
+                  f"({card_name}), largest |diff| of every metric {diff:.3e}", flush=True)
+            if not diff <= REPRO_TOL:
+                raise AssertionError(f"reproduce {task}: report.json differs from run_task")
+        print("reproduce fast modes: " + json.dumps(report["fast_modes"]), flush=True)
+        bad = make_reference_pth(os.path.join(root, "broken.pth"), broken=True)
+        code = _exit_code(lambda: reproduce.main(["--checkpoint", bad, "--output-dir",
+                                                  os.path.join(root, "bad"), "--device",
+                                                  device, "--davis-root", data_root]))
+        print(f"reproduce with a negative BatchNorm variance: exit {code}", flush=True)
+        if code != 2 or os.path.exists(os.path.join(root, "bad", "report.json")):
+            raise AssertionError(f"reproduce: a broken .pth gave exit {code}, expected 2")
+    print(f"reproduce phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
+
+
+def make_demo_frames(root, T=DEMO_T, orig=DEMO_ORIG, seed=0):
+    """A directory of T frames of a panning texture at `orig`, even frames
+    as JPEG (encode_jpeg, quality 90) and odd ones as PNG; returns it."""
+    from fgvc_tpu_torch.data_io.fgpack import encode_jpeg
+
+    frames, _ = _panning(np.random.default_rng(seed), T, orig, 1.0)
+    path = os.path.join(root, "frames")
+    os.makedirs(path)
+    for t, f in enumerate(frames):
+        if t % 2:
+            encode_png(os.path.join(path, f"f{t:03d}.png"), f)
+        else:
+            with open(os.path.join(path, f"f{t:03d}.jpg"), "wb") as fh:
+                fh.write(encode_jpeg(f, 90))
+    return path
+
+
+def run_demo(records, card_name, device="cuda"):
+    """Phase demo (see the module's docstring)."""
+    import dataclasses
+
+    from fgvc_tpu_torch.apis.test import TASK_CONFIGS, build_tracker
+    from fgvc_tpu_torch.cli import demo
+    from fgvc_tpu_torch.data_io.fgpack import encode_jpeg
+    from fgvc_tpu_torch.datasets.image_io import read_image
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+    from fgvc_tpu_torch.utils import visualize
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as root:
+        frames = make_demo_frames(root, DEMO_T, DEMO_ORIG)
+        base = ["--frames", frames, "--size", str(DEMO_SIZE), "--device", device]
+        out = os.path.join(root, "tracks.mp4")
+        k1.reset_launches()
+        _, wall = _timed(lambda: demo.main([*base, "--grid", str(DEMO_GRID), "--out", out]))
+        if device == "cuda":
+            check_launches("demo", "highest", DEMO_T - 1, "banked")
+        _add_launches(records["K1_circle"], DEMO_T - 1)
+        # the same steps apart, timed: read, track, draw, encode
+        video, read_s = _timed(lambda: demo.load_frames(frames, DEMO_SIZE))
+        cfg = dataclasses.replace(TASK_CONFIGS["davis"], input_size=(DEMO_SIZE, DEMO_SIZE))
+        tracker = build_tracker(cfg, device=device)
+        pts = demo.query_grid(DEMO_SIZE, DEMO_GRID)
+        queries = np.concatenate([np.zeros((len(pts), 1)), pts], 1).astype(np.float32)
+        tracker.track_points(video, queries)  # warm-up
+        traj, track_s = _timed(lambda: tracker.track_points(video, queries)["trajectories"])
+        drawn, draw_s = _timed(lambda: demo.render_tracks(video, traj))
+        samples, enc_s = _timed(lambda: [encode_jpeg(f, 95, sampling="444") for f in drawn])
+        mp4 = visualize.read_mp4(out)
+        if len(mp4.samples) != DEMO_T or mp4.samples != samples:
+            raise AssertionError("demo: the .mp4's samples differ from the rendered frames'")
+        ms = {k: 1e3 * v / DEMO_T for k, v in (("read", read_s), ("track", track_s),
+                                               ("draw", draw_s), ("encode", enc_s))}
+        print(f"demo --grid {DEMO_GRID} ({DEMO_GRID ** 2} points, {DEMO_T} frames of "
+              f"{DEMO_ORIG[0]}x{DEMO_ORIG[1]} read at {DEMO_SIZE}): {DEMO_T - 1} K1 launches, "
+              f"CLI {wall:.2f} s (model build included); ms a frame ({card_name}): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+              + f"; the .mp4 {os.path.getsize(out) / 1e6:.3f} MB, {DEMO_T} Motion-JPEG "
+              "samples equal to encode_jpeg of the rendered frames", flush=True)
+        corr = os.path.join(root, "corr.png")
+        demo.main([*base, "--correspondence", "--out", corr])
+        matches = demo.correspondence_matches(tracker, video, DEMO_SIZE)
+        if not np.array_equal(read_image(corr),
+                              visualize.correspondence_overlay(video[0], video[1], matches)):
+            raise AssertionError("demo --correspondence: the .png differs from the overlay")
+        labels = np.zeros(DEMO_ORIG, np.uint8)
+        labels[100:220, 150:400], labels[260:420, 450:760] = 1, 2
+        mask = os.path.join(root, "mask.png")
+        encode_png(mask, labels, palette=np.repeat(np.arange(3, dtype=np.uint8)[:, None], 3, 1))
+        masks_out = os.path.join(root, "masks.mp4")
+        k1.reset_launches()
+        demo.main([*base, "--mask", mask, "--out", masks_out])
+        if device == "cuda":
+            check_launches("demo --mask", "highest", DEMO_T - 1, "banked")
+        _add_launches(records["K1_square"], DEMO_T - 1)
+        if len(visualize.read_mp4(masks_out).samples) != DEMO_T:
+            raise AssertionError("demo --mask: the .mp4 lacks frames")
+        code = _exit_code(lambda: demo.main(["--video", "clip.mp4", "--device", device]))
+        if code != demo.VIDEO_REFUSAL:
+            raise AssertionError(f"demo --video: {code!r}")
+        print(f"demo --correspondence: {corr} equal to the overlay of its 64 matches; --mask: "
+              f"{DEMO_T - 1} K1 square launches, {os.path.getsize(masks_out) / 1e6:.3f} MB; "
+              "--video refused", flush=True)
+    print(f"demo phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,"
                                         "codecs,modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,"
                                         "profile,serve,export,doctor,train,realtrain,"
-                                        "propmodes,dp,bank,mp,ddp")
+                                        "propmodes,dp,bank,mp,ddp,reproduce,demo")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -4419,7 +4700,7 @@ def main():
     e2e_metrics = None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_root:
         if {"e2e", "plain", "raft", "decode", "modes", "sp", "profile", "zoo",
-                "serve", "propmodes", "dp", "bank", "mp", "codecs"} & set(phases):
+                "serve", "propmodes", "dp", "bank", "mp", "codecs", "reproduce"} & set(phases):
             make_tapvid_pickles(data_root)
         if "e2e" in phases:
             phase("e2e")
@@ -4460,20 +4741,26 @@ def main():
                 make_kinetics_pickle(kin_root)
                 run_kinetics(kin_root, records["K1_circle"])
         jhmdb_root = os.path.join(data_root, "jhmdb")
-        if "jhmdb" in phases or "sp" in phases:
+        if {"jhmdb", "sp", "reproduce"} & set(phases):
             os.makedirs(jhmdb_root)
             make_jhmdb_tree(jhmdb_root)
+        badja_root = os.path.join(data_root, "badja")
+
+        def badja_tree():
+            """The BADJA tree, written at its first use."""
+            if not os.path.isdir(badja_root):
+                t_write = time.time()
+                make_badja_tree(badja_root)
+                print(f"badja tree written in {time.time() - t_write:.2f} s", flush=True)
+            return badja_root
+
         if "jhmdb" in phases:
             phase("jhmdb")
             run_keypoints("jhmdb", jhmdb_root, records["K1_square_jhmdb"],
                           [JHMDB_T] * JHMDB_VIDEOS, JHMDB_ORIG)
         if "badja" in phases:
             phase("badja")
-            badja_root = os.path.join(data_root, "badja")
-            t_write = time.time()
-            make_badja_tree(badja_root)
-            print(f"badja tree written in {time.time() - t_write:.2f} s", flush=True)
-            run_keypoints("badja", badja_root, records["K1_square_badja"],
+            run_keypoints("badja", badja_tree(), records["K1_square_badja"],
                           [BADJA_T], (320, 512))
         if "sp" in phases:
             phase("sp")
@@ -4505,6 +4792,12 @@ def main():
                 t_phase = time.time()
                 run()
                 print(f"{name} phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
+        if "reproduce" in phases:
+            phase("reproduce")
+            run_reproduce(data_root, jhmdb_root, badja_tree(), records, card_name)
+    if "demo" in phases:
+        phase("demo")
+        run_demo(records, card_name)
     if "export" in phases:
         phase("export")
         run_export(records)

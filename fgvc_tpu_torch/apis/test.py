@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -274,8 +275,9 @@ def _round_robin(ids, devices, dispatch_fn, collect_fn) -> None:
           flush=True)
 
 
-def _eval_tapvid_multidevice(tracker: Tracker, dataset, ids, devices) -> list:
-    """(id, result) of each video, round-robin over `devices`."""
+def _eval_tapvid_multidevice(tracker: Tracker, dataset, ids, devices, output_dir=None) -> list:
+    """(id, result) of each video, round-robin over `devices`; the first
+    video collected is rendered under `output_dir` (_write_track_video)."""
     trackers = device_trackers(tracker, devices)
     results = []
 
@@ -288,9 +290,29 @@ def _eval_tapvid_multidevice(tracker: Tracker, dataset, ids, devices) -> list:
     def collect(i, slot, sample, disp):
         with annotate(f"collect[{i}]"):
             results.append((i, _pack_result(sample, trackers[slot].track_points_collect(disp))))
+        if output_dir and len(results) == 1:
+            _write_track_video(sample["video"], results[0][1]["trajectories_pred"], output_dir, i)
 
     _round_robin(ids, devices, dispatch, collect)
     return results
+
+
+def _write_track_video(video, trajectories, output_dir: str, idx: int) -> None:
+    """The trajectory render of the first video, as the JAX harness writes
+    it: every point and its tail over the frames (utils/visualize.py) into
+    output_dir/tracks_{idx:04d}.mp4.  Best-effort, so that it never changes
+    a metric: an error is printed on one line instead of raised."""
+    name = f"tracks_{idx:04d}.mp4"
+    try:
+        from fgvc_tpu_torch.utils.visualize import (draw_trajectory_tails, paint_point_track,
+                                                    save_video)
+
+        os.makedirs(output_dir, exist_ok=True)
+        tracks = np.transpose(np.asarray(trajectories), (1, 0, 2))  # (P, T, 2)
+        vid = draw_trajectory_tails(paint_point_track(np.asarray(video), tracks), tracks)
+        save_video(vid, os.path.join(output_dir, name))
+    except Exception as e:  # noqa: BLE001 -- the render must not end the evaluation
+        print(f"[render] {name} not written: {type(e).__name__}: {e}", flush=True)
 
 
 def _pack_result(sample, out):
@@ -306,12 +328,13 @@ def _pack_result(sample, out):
 def eval_tapvid(tracker: Union[Tracker, RaftTracker], dataset, max_videos=None,
                 output_dir=None, rank=0, world=1, devices=None) -> Dict[str, float]:
     """Track this rank's videos of `dataset` (a TapVidDataset; _my_videos),
-    merge every rank's results and score them.  A tracker without the
+    merge every rank's results and score them; with `output_dir` the first
+    video's tracks are also rendered there (_write_track_video).  A tracker without the
     dispatch/collect split (RaftTracker) tracks inside the collect span.
     `devices` (2 or more entries) round-robins the videos over them."""
     ids = _my_videos(len(dataset), rank, world, max_videos)
     if devices is not None and len(devices) > 1:
-        results = _eval_tapvid_multidevice(tracker, dataset, ids, devices)
+        results = _eval_tapvid_multidevice(tracker, dataset, ids, devices, output_dir)
     else:
         results = []
         split = hasattr(tracker, "track_points_dispatch")
@@ -329,6 +352,8 @@ def eval_tapvid(tracker: Union[Tracker, RaftTracker], dataset, max_videos=None,
                 flush=True,
             )
             results.append((i, _pack_result(sample, out)))
+            if output_dir and len(results) == 1:
+                _write_track_video(sample["video"], out["trajectories"], output_dir, i)
     idxs, results = _merge_shards(results)
     return dataset.evaluate(results, output_dir=output_dir, indices=idxs)
 

@@ -4,22 +4,25 @@
 //   * FGPK packs: one flat file of frame records and an index, mmapped, read
 //     in batches by a pthread pool (ctypes releases the GIL around a call).
 //   * A JPEG decoder whose output equals libjpeg's default decompression
-//     to JCS_RGB: baseline and extended (SOF0/SOF1) and progressive (SOF2,
-//     jdphuff's four scan kinds into a whole-image coefficient buffer),
-//     8-bit, 1 or 3 components, every integral sampling (jdsample's h2v1,
-//     h2v2 and h1v2 triangle filters and biases, int_upsample's box for
-//     the other ratios), DRI/RSTn, 8- and 16-bit DQT latched at a
-//     component's first scan; the islow integer IDCT (jidctint),
-//     jdcolor's fixed-point YCbCr -> RGB.  A grey JPEG decodes to three
-//     equal channels.  Arithmetic, lossless, hierarchical, 12-bit and
-//     4-component files, fractional samplings, and progressive files whose
-//     scans leave one of the first ten coefficients incomplete (libjpeg
-//     smooths those blocks, jdcoefct's smoothing_ok) are refused with a
-//     status code.
+//     to JCS_RGB, JCS_GRAYSCALE or JCS_CMYK: baseline and extended
+//     (SOF0/SOF1) and progressive (SOF2, jdphuff's four scan kinds into a
+//     whole-image coefficient buffer), 8-bit, 1, 3 or 4 components, every
+//     integral sampling (jdsample's h2v1, h2v2 and h1v2 triangle filters
+//     and biases, int_upsample's box for the other ratios), DRI/RSTn, 8- and
+//     16-bit DQT latched at a component's first scan; the islow integer IDCT
+//     (jidctint); libjpeg-turbo's interblock smoothing of progressive files
+//     whose scans leave one of the first ten coefficients incomplete
+//     (jdcoefct's decompress_smooth_data, the 5 x 5 variant of 2.1 and
+//     later); jdcolor's fixed-point YCbCr -> RGB, Y as grey and RGB -> grey.
+//     A grey JPEG decodes to three equal channels in RGB.  A 4-component
+//     file decodes to its CMYK samples only (the caller converts them);
+//     arithmetic, lossless, hierarchical, 12-bit and YCCK files and
+//     fractional samplings are refused with a status code.
 //   * A baseline JPEG encoder whose bytes equal libjpeg's defaults (what
 //     cv2.imencode and PIL write): JFIF APP0, jcparam's quality scaling of
 //     the Annex K tables with force_baseline, jccolor's RGB -> YCbCr, 4:2:0
-//     by jcsample's h2v2 average with its alternating bias, the islow
+//     by jcsample's h2v2 average with its alternating bias (or 4:4:4,
+//     cv2's IMWRITE_JPEG_SAMPLING_FACTOR_444), the islow
 //     forward DCT (jfdctint), rounding quantisation (jcdctmgr), the standard
 //     Huffman tables.
 //   * PNG unfiltering (filters 0-4); inflate stays with the caller.
@@ -62,16 +65,17 @@ constexpr uint32_t kCodecRaw = 0;
 constexpr uint32_t kCodecJpeg = 1;
 constexpr int kLayoutHWC = 0;   // uint8 HWC, as decoded (RGB for JPEG)
 constexpr int kLayoutI420 = 1;  // uint8 (h*3/2, w) YUV 4:2:0 planes
+constexpr int kLayoutGrey = 2;  // uint8 HW, libjpeg's JCS_GRAYSCALE output
+constexpr int kLayoutCmyk = 3;  // uint8 HW4, a CMYK JPEG's samples (JCS_CMYK)
 
 enum Status {
   kOk = 0,
   kErrCorrupt = -1,      // a malformed marker, segment or Huffman code
   kErrTruncated = -2,    // the entropy-coded data ends before the last MCU
-  kErrIncomplete = -3,   // progressive scans leave coefficients 1-9 incomplete
   kErrArithmetic = -4,   // SOF9-SOF11 / SOF13-SOF15, DAC
   kErrLossless = -5,     // SOF3 / SOF5-SOF7 (lossless, hierarchical)
   kErrPrecision = -6,    // sample precision other than 8 bits
-  kErrComponents = -7,   // not 1 or 3 components (CMYK, YCCK)
+  kErrComponents = -7,   // not 1, 3 or 4 components
   kErrSampling = -8,     // a fractional sampling ratio
   kErrSize = -9,         // decoded size differs from the expected one
   kErrIndex = -10,       // record index out of range
@@ -84,6 +88,8 @@ enum Status {
   kErrWebpTruncated = -17,  // the WebP data ends before the image does
   kErrWebpAnimation = -18,  // an animated WebP (ANIM / ANMF)
   kErrWebpAlpha = -19,      // a lossy frame's ALPH plane (not decoded)
+  kErrYcck = -20,           // 4 components with an Adobe transform other than 0
+  kErrCmykLayout = -21,     // CMYK asked for RGB, grey or I420, or another JPEG for CMYK
 };
 
 struct RecordMeta {
@@ -465,7 +471,7 @@ struct JpegDecoder {
   uint16_t qt[4][64] = {};  // natural order
   bool qt_present[4] = {};
   HuffTable dc[4], ac[4];
-  Component comp[3];
+  Component comp[4];
   int ncomp = 0;
   int width = 0, height = 0;
   int hmax = 1, vmax = 1;
@@ -503,7 +509,7 @@ struct JpegDecoder {
     height = (data[seg + 1] << 8) | data[seg + 2];
     width = (data[seg + 3] << 8) | data[seg + 4];
     ncomp = data[seg + 5];
-    if (ncomp != 1 && ncomp != 3) return kErrComponents;
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) return kErrComponents;
     if (len < 6 + 3 * static_cast<size_t>(ncomp)) return kErrCorrupt;
     if (height == 0 || width == 0) return kErrCorrupt;  // DNL is not supported
     hmax = vmax = 1;
@@ -780,10 +786,11 @@ struct JpegDecoder {
     return kOk;
   }
 
-  // After a progressive file's last scan: refuse where libjpeg would smooth
-  // blocks (jdcoefct's smoothing_ok: every component's DC known and one of
-  // zigzag coefficients 1-9 incomplete somewhere), else dequantize and
-  // IDCT every block of each component's own grid.
+  // After a progressive file's last scan: dequantize and IDCT every block
+  // of each component's own grid, through the interblock smoothing where
+  // libjpeg applies it (jdcoefct's smoothing_ok: every component's table
+  // latched with its first ten quantizers nonzero, every DC at least partly
+  // known, and one of zigzag coefficients 1-9 not yet exact somewhere).
   int finish_progressive() {
     bool smooth = true, useful = false;
     for (int i = 0; i < ncomp && smooth; ++i) {
@@ -794,10 +801,13 @@ struct JpegDecoder {
         if (k > 0 && c.coef_bits[k] != 0) useful = true;
       }
     }
-    if (smooth && useful) return kErrIncomplete;
     int32_t deq[64];
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
+      if (smooth && useful) {
+        idct_smoothed(c);
+        continue;
+      }
       for (int by = 0; by < c.blocks_h; ++by)
         for (int bx = 0; bx < c.blocks_w; ++bx) {
           const int16_t* blk = c.coef.data() + (static_cast<size_t>(by) * c.pad_w + bx) * 64;
@@ -807,6 +817,122 @@ struct JpegDecoder {
         }
     }
     return kOk;
+  }
+
+  // jdcoefct's decompress_smooth_data for one component (libjpeg-turbo 2.1
+  // and later): each block's zigzag coefficients 1-5 that are still zero
+  // and not exact are estimated from the DC values of its 5 x 5 block
+  // neighbourhood; where no AC coefficient of the component has arrived
+  // at all, coefficients 1-9 and the DC itself are, by a Gaussian-like
+  // kernel.  The neighbourhood follows libjpeg's registers: rows clamp at
+  // the top and at the iMCU grid's bottom (its dummy rows read), columns
+  // slide in from the right and repeat the last one.
+  void idct_smoothed(Component& c) {
+    const int* bits = c.coef_bits;
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+    const int64_t q00 = c.q[0];
+    auto estimate = [](int64_t num, int64_t q, int al) -> int16_t {
+      const int64_t mag = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+      int pred = static_cast<int>(mag);
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      return static_cast<int16_t>(num >= 0 ? pred : -pred);
+    };
+    const int total = mcus_y, v = c.v;
+    const int last_rows = c.blocks_h % v ? c.blocks_h % v : v;
+    const int last = c.blocks_w - 1;
+    int16_t ws[64];
+    int32_t deq[64];
+    for (int r = 0; r < c.blocks_h; ++r) {
+      const int imcu = r / v, b = r - imcu * v;
+      const int block_rows = imcu == total - 1 ? last_rows : v;
+      const int image_row = imcu * block_rows + b, image_rows = block_rows * total;
+      int rows[5];
+      rows[2] = r;
+      rows[1] = image_row > 0 ? r - 1 : r;
+      rows[0] = image_row > 1 ? r - 2 : rows[1];
+      rows[3] = image_row < image_rows - 1 ? r + 1 : r;
+      rows[4] = image_row < image_rows - 2 ? r + 2 : rows[3];
+      auto dc = [&](int row, int col) -> int {
+        return c.coef[(static_cast<size_t>(row) * c.pad_w + col) * 64];
+      };
+      int R[5][5];
+      for (int i = 0; i < 5; ++i)
+        for (int j = 0; j < 5; ++j) R[i][j] = dc(rows[i], 0);
+      for (int bn = 0; bn <= last; ++bn) {
+        if (bn == 0 && bn < last)
+          for (int i = 0; i < 5; ++i) R[i][3] = R[i][4] = dc(rows[i], 1);
+        if (bn + 1 < last)
+          for (int i = 0; i < 5; ++i) R[i][4] = dc(rows[i], bn + 2);
+        const int16_t* blk = c.coef.data() + (static_cast<size_t>(r) * c.pad_w + bn) * 64;
+        std::memcpy(ws, blk, sizeof(ws));
+        // DC01 .. DC25 of jdcoefct, row by row
+        const int64_t D01 = R[0][0], D02 = R[0][1], D03 = R[0][2], D04 = R[0][3], D05 = R[0][4];
+        const int64_t D06 = R[1][0], D07 = R[1][1], D08 = R[1][2], D09 = R[1][3], D10 = R[1][4];
+        const int64_t D11 = R[2][0], D12 = R[2][1], D13 = R[2][2], D14 = R[2][3], D15 = R[2][4];
+        const int64_t D16 = R[3][0], D17 = R[3][1], D18 = R[3][2], D19 = R[3][3], D20 = R[3][4];
+        const int64_t D21 = R[4][0], D22 = R[4][1], D23 = R[4][2], D24 = R[4][3], D25 = R[4][4];
+        int al;
+        if ((al = bits[1]) != 0 && ws[1] == 0) {
+          const int64_t num = q00 * (change_dc ? (-D01 - D02 + D04 + D05 - 3 * D06 + 13 * D07 -
+                                                  13 * D09 + 3 * D10 - 3 * D11 + 38 * D12 -
+                                                  38 * D14 + 3 * D15 - 3 * D16 + 13 * D17 -
+                                                  13 * D19 + 3 * D20 - D21 - D22 + D24 + D25)
+                                               : (-7 * D11 + 50 * D12 - 50 * D14 + 7 * D15));
+          ws[1] = estimate(num, c.q[1], al);
+        }
+        if ((al = bits[2]) != 0 && ws[8] == 0) {
+          const int64_t num = q00 * (change_dc ? (-D01 - 3 * D02 - 3 * D03 - 3 * D04 - D05 - D06 +
+                                                  13 * D07 + 38 * D08 + 13 * D09 - D10 + D16 -
+                                                  13 * D17 - 38 * D18 - 13 * D19 + D20 + D21 +
+                                                  3 * D22 + 3 * D23 + 3 * D24 + D25)
+                                               : (-7 * D03 + 50 * D08 - 50 * D18 + 7 * D23));
+          ws[8] = estimate(num, c.q[8], al);
+        }
+        if ((al = bits[3]) != 0 && ws[16] == 0) {
+          const int64_t num = q00 * (change_dc ? (D03 + 2 * D07 + 7 * D08 + 2 * D09 - 5 * D12 -
+                                                  14 * D13 - 5 * D14 + 2 * D17 + 7 * D18 +
+                                                  2 * D19 + D23)
+                                               : (-D03 + 13 * D08 - 24 * D13 + 13 * D18 - D23));
+          ws[16] = estimate(num, c.q[16], al);
+        }
+        if ((al = bits[4]) != 0 && ws[9] == 0) {
+          const int64_t num =
+              q00 * (change_dc ? (-D01 + D05 + 9 * D07 - 9 * D09 - 9 * D17 + 9 * D19 + D21 - D25)
+                               : (D10 + D16 - 10 * D17 + 10 * D19 - D02 - D20 + D22 - D24 +
+                                  D04 - D06 + 10 * D07 - 10 * D09));
+          ws[9] = estimate(num, c.q[9], al);
+        }
+        if ((al = bits[5]) != 0 && ws[2] == 0) {
+          const int64_t num = q00 * (change_dc ? (2 * D07 - 5 * D08 + 2 * D09 + D11 + 7 * D12 -
+                                                  14 * D13 + 7 * D14 + D15 + 2 * D17 - 5 * D18 +
+                                                  2 * D19)
+                                               : (-D11 + 13 * D12 - 24 * D13 + 13 * D14 - D15));
+          ws[2] = estimate(num, c.q[2], al);
+        }
+        if (change_dc) {
+          if ((al = bits[6]) != 0 && ws[3] == 0)
+            ws[3] = estimate(q00 * (D07 - D09 + 2 * D12 - 2 * D14 + D17 - D19), c.q[3], al);
+          if ((al = bits[7]) != 0 && ws[10] == 0)
+            ws[10] = estimate(q00 * (D07 - 3 * D08 + D09 - D17 + 3 * D18 - D19), c.q[10], al);
+          if ((al = bits[8]) != 0 && ws[17] == 0)
+            ws[17] = estimate(q00 * (D07 - D09 - 3 * D12 + 3 * D14 + D17 - D19), c.q[17], al);
+          if ((al = bits[9]) != 0 && ws[24] == 0)
+            ws[24] = estimate(q00 * (D07 + 2 * D08 + D09 - D17 - 2 * D18 - D19), c.q[24], al);
+          const int64_t num =
+              q00 * (-2 * D01 - 6 * D02 - 8 * D03 - 6 * D04 - 2 * D05 - 6 * D06 + 6 * D07 +
+                     42 * D08 + 6 * D09 - 6 * D10 - 8 * D11 + 42 * D12 + 152 * D13 + 42 * D14 -
+                     8 * D15 - 6 * D16 + 6 * D17 + 42 * D18 + 6 * D19 - 6 * D20 - 2 * D21 -
+                     6 * D22 - 8 * D23 - 6 * D24 - 2 * D25);
+          ws[0] = estimate(num, q00, 0);
+        }
+        for (int z = 0; z < 64; ++z) deq[z] = ws[z] * static_cast<int32_t>(c.q[z]);
+        idct_islow(deq, c.plane.data() + static_cast<size_t>(r) * 8 * c.stride + bn * 8,
+                   c.stride);
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 4; ++j) R[i][j] = R[i][j + 1];
+      }
+    }
   }
 
   int parse_sos(size_t seg, size_t len) {
@@ -1013,8 +1139,16 @@ struct JpegDecoder {
     out[o++] = static_cast<uint8_t>((this_sum * 4 + 7) >> 4);
   }
 
-  // RGB rows into dst (h * w * 3), jdcolor's ycc_rgb_convert tables.
-  void emit_rgb(uint8_t* dst) const {
+  // A 4-component file is YCCK where an Adobe marker says any transform
+  // other than 0 (jdapimin's default_decompress_parms), CMYK otherwise.
+  bool is_ycck() const { return ncomp == 4 && saw_adobe && adobe_transform != 0; }
+
+  // The decoded rows into dst as `layout` asks: RGB (h * w * 3, jdcolor's
+  // ycc_rgb_convert tables; grey replicated), grey (h * w: the Y or only
+  // component, grayscale_convert, or rgb_gray_convert of an RGB file) or
+  // CMYK (h * w * 4, a 4-component file's samples).
+  int emit(uint8_t* dst, int layout) const {
+    if ((ncomp == 4) != (layout == kLayoutCmyk)) return kErrCmykLayout;
     constexpr int kScale = 16;
     constexpr int32_t kHalf = 1 << (kScale - 1);
     static int cr_r[256], cb_b[256];
@@ -1033,75 +1167,97 @@ struct JpegDecoder {
     // an upsampled row is at most 2 * ds_w <= width + 1 bytes (4 where
     // ds_w is 1, as libjpeg writes it)
     const size_t rs = static_cast<size_t>(width) + 8;
-    std::vector<uint8_t> rows(3 * rs);
-    uint8_t* r0 = rows.data();
-    uint8_t* r1 = r0 + rs;
-    uint8_t* r2 = r1 + rs;
+    std::vector<uint8_t> rows(4 * rs);
+    uint8_t* r[4] = {rows.data(), rows.data() + rs, rows.data() + 2 * rs, rows.data() + 3 * rs};
     const bool rgb = is_rgb();
+    const int out_ch = layout == kLayoutCmyk ? 4 : (layout == kLayoutGrey ? 1 : 3);
+    // jdcolor's rgb_gray_convert: FIX(0.299), FIX(0.587), FIX(0.114) + ONE_HALF
+    constexpr int32_t kRy = 19595, kGy = 38470, kBy = 7471;
     for (int y = 0; y < height; ++y) {
-      uint8_t* o = dst + static_cast<size_t>(y) * width * 3;
-      upsample_row(comp[0], y, r0);
-      if (ncomp == 1) {
-        for (int x = 0; x < width; ++x, o += 3) o[0] = o[1] = o[2] = r0[x];
+      uint8_t* o = dst + static_cast<size_t>(y) * width * out_ch;
+      const int used = (layout == kLayoutGrey && !rgb) ? 1 : ncomp;
+      for (int ci = 0; ci < used; ++ci) upsample_row(comp[ci], y, r[ci]);
+      if (layout == kLayoutCmyk) {
+        for (int x = 0; x < width; ++x, o += 4)
+          for (int ci = 0; ci < 4; ++ci) o[ci] = r[ci][x];
         continue;
       }
-      upsample_row(comp[1], y, r1);
-      upsample_row(comp[2], y, r2);
+      if (layout == kLayoutGrey) {
+        if (used == 1) {
+          std::memcpy(o, r[0], width);
+        } else {
+          for (int x = 0; x < width; ++x)
+            o[x] = static_cast<uint8_t>((kRy * r[0][x] + kGy * r[1][x] + kBy * r[2][x] + kHalf) >>
+                                        kScale);
+        }
+        continue;
+      }
+      if (ncomp == 1) {
+        for (int x = 0; x < width; ++x, o += 3) o[0] = o[1] = o[2] = r[0][x];
+        continue;
+      }
       if (rgb) {
         for (int x = 0; x < width; ++x, o += 3) {
-          o[0] = r0[x];
-          o[1] = r1[x];
-          o[2] = r2[x];
+          o[0] = r[0][x];
+          o[1] = r[1][x];
+          o[2] = r[2][x];
         }
         continue;
       }
       for (int x = 0; x < width; ++x, o += 3) {
-        const int yy = r0[x], cb = r1[x], cr = r2[x];
+        const int yy = r[0][x], cb = r[1][x], cr = r[2][x];
         o[0] = clamp_u8(yy + cr_r[cr]);
         o[1] = clamp_u8(yy + ((cb_g[cb] + cr_g[cr]) >> kScale));
         o[2] = clamp_u8(yy + cb_b[cb]);
       }
     }
+    return kOk;
   }
 };
 
-// Frame size and component count from the markers up to SOF.
+// {height, width, components, Adobe transform (-1 without an Adobe marker)}
+// from the markers before the first scan.
 int jpeg_info(const uint8_t* src, size_t nbytes, int64_t* out) {
   if (nbytes < 4 || src[0] != 0xFF || src[1] != 0xD8) return kErrCorrupt;
   JpegDecoder d(src, nbytes);
   d.pos = 2;
+  bool have_sof = false;
+  out[3] = -1;
   for (;;) {
     const int m = d.next_marker();
-    if (m < 0 || m == 0xD9 || m == 0xDA) return kErrNoImage;
+    if (m < 0 || m == 0xD9 || m == 0xDA) return have_sof ? kOk : kErrNoImage;
     if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
     int len = 0;
-    if (!d.read_u16(d.pos, &len) || len < 2 || d.pos + len > nbytes) return kErrTruncated;
+    if (!d.read_u16(d.pos, &len) || len < 2 || d.pos + len > nbytes)
+      return have_sof ? kOk : kErrTruncated;
     const size_t seg = d.pos + 2;
     if (m == 0xC9 || m == 0xCA || m == 0xCB || m == 0xCD || m == 0xCE || m == 0xCF)
       return kErrArithmetic;
     if (m == 0xC3 || m == 0xC5 || m == 0xC6 || m == 0xC7) return kErrLossless;
-    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+    if ((m == 0xC0 || m == 0xC1 || m == 0xC2) && !have_sof) {
       if (len < 8) return kErrCorrupt;
       if (src[seg] != 8) return kErrPrecision;
       out[0] = (src[seg + 1] << 8) | src[seg + 2];
       out[1] = (src[seg + 3] << 8) | src[seg + 4];
       out[2] = src[seg + 5];
-      return kOk;
+      have_sof = true;
     }
+    if (m == 0xEE && len >= 14 && std::memcmp(src + seg, "Adobe", 5) == 0) out[3] = src[seg + 11];
     d.pos = seg + len - 2;
   }
 }
 
-// Decode src into dst (h * w * 3 RGB); kErrSize where the frame is not h x w.
-int decode_jpeg_rgb(const uint8_t* src, size_t nbytes, uint8_t* dst, uint32_t h,
-                    uint32_t w) {
+// Decode src into dst as `layout` asks (kLayoutHWC RGB, kLayoutGrey or
+// kLayoutCmyk); kErrSize where the frame is not h x w.
+int decode_jpeg(const uint8_t* src, size_t nbytes, uint8_t* dst, uint32_t h, uint32_t w,
+                int layout) {
   JpegDecoder d(src, nbytes);
   const int rc = d.parse();
   if (rc != kOk) return rc;
+  if (d.is_ycck()) return kErrYcck;
   if (static_cast<uint32_t>(d.width) != w || static_cast<uint32_t>(d.height) != h)
     return kErrSize;
-  d.emit_rgb(dst);
-  return kOk;
+  return d.emit(dst, layout);
 }
 
 // ---------------------------------------------------------------------- //
@@ -1272,7 +1428,8 @@ void put_dht(std::vector<uint8_t>* o, int index, const uint8_t* bits, const uint
   for (int i = 0; i < count; ++i) o->push_back(vals[i]);
 }
 
-int encode_jpeg_rgb(const uint8_t* rgb, int h, int w, int quality, std::vector<uint8_t>* out) {
+int encode_jpeg_rgb(const uint8_t* rgb, int h, int w, int quality, bool s444,
+                    std::vector<uint8_t>* out) {
   if (h <= 0 || w <= 0 || h > 65535 || w > 65535) return kErrArgs;
   if (quality < 1) quality = 1;
   if (quality > 100) quality = 100;
@@ -1302,12 +1459,14 @@ int encode_jpeg_rgb(const uint8_t* rgb, int h, int w, int quality, std::vector<u
     tab[6][i] = -fix(0.41869) * i;
     tab[7][i] = -fix(0.08131) * i;
   }
-  const int mcus_x = (w + 15) / 16, mcus_y = (h + 15) / 16;
+  const int mcu = s444 ? 8 : 16;
+  const int mcus_x = (w + mcu - 1) / mcu, mcus_y = (h + mcu - 1) / mcu;
   const int wb_y = (w + 7) / 8, hb_y = (h + 7) / 8;
   // Y at (hb_y * 8) x (wb_y * 8), and the full-resolution chroma at
-  // (rows to an even count) x (mcus_x * 16), edges replicated
+  // (rows to an even count) x (mcus_x * 16) for 4:2:0, at Y's size for
+  // 4:4:4, edges replicated
   const int yw = wb_y * 8, yh = hb_y * 8;
-  const int cw2 = mcus_x * 16, ch2 = (h + 1) / 2 * 2;
+  const int cw2 = s444 ? yw : mcus_x * 16, ch2 = s444 ? yh : (h + 1) / 2 * 2;
   std::vector<uint8_t> yp(static_cast<size_t>(yw) * yh);
   std::vector<uint8_t> cbf(static_cast<size_t>(cw2) * ch2), crf(cbf.size());
   for (int r = 0; r < h; ++r) {
@@ -1336,11 +1495,18 @@ int encode_jpeg_rgb(const uint8_t* rgb, int h, int w, int quality, std::vector<u
     std::memcpy(crf.data() + static_cast<size_t>(r) * cw2,
                 crf.data() + static_cast<size_t>(h - 1) * cw2, cw2);
   }
-  // jcsample's h2v2_downsample (bias 1, 2, 1, 2, ... along each row), then
-  // the last row repeated to whole MCU rows
-  const int cw = mcus_x * 8, chh = mcus_y * 8, cds_h = ch2 / 2;
-  std::vector<uint8_t> cb(static_cast<size_t>(cw) * chh), cr(cb.size());
-  for (int t = 0; t < 2; ++t) {
+  // 4:2:0: jcsample's h2v2_downsample (bias 1, 2, 1, 2, ... along each
+  // row), then the last row repeated to whole MCU rows; 4:4:4 keeps them
+  const int cw = s444 ? cw2 : mcus_x * 8, chh = mcus_y * 8, cds_h = ch2 / 2;
+  std::vector<uint8_t> cb, cr;
+  if (s444) {
+    cb.swap(cbf);
+    cr.swap(crf);
+  } else {
+    cb.resize(static_cast<size_t>(cw) * chh);
+    cr.resize(cb.size());
+  }
+  for (int t = 0; t < 2 && !s444; ++t) {
     const std::vector<uint8_t>& src = t ? crf : cbf;
     std::vector<uint8_t>& dst = t ? cr : cb;
     for (int r = 0; r < cds_h; ++r) {
@@ -1377,7 +1543,8 @@ int encode_jpeg_rgb(const uint8_t* rgb, int h, int w, int quality, std::vector<u
   out->push_back(8);
   put_u16(out, h);
   put_u16(out, w);
-  const uint8_t sof_comps[] = {3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1};
+  const uint8_t sof_comps[] = {3, 1, static_cast<uint8_t>(s444 ? 0x11 : 0x22), 0, 2, 0x11, 1,
+                               3, 0x11, 1};
   out->insert(out->end(), sof_comps, sof_comps + sizeof(sof_comps));
   put_dht(out, 0x00, kDcLumaBits, kDcVals);
   put_dht(out, 0x10, kAcLumaBits, kAcLumaVals);
@@ -1396,9 +1563,13 @@ int encode_jpeg_rgb(const uint8_t* rgb, int h, int w, int quality, std::vector<u
   int32_t blk[4][64], cblk[64];
   for (int my = 0; my < mcus_y; ++my) {
     for (int mx = 0; mx < mcus_x; ++mx) {
+      if (s444) {
+        fdct_quant(yp.data(), yw, mx, my, qt[0], blk[0]);
+        encode_block(&bw, blk[0], &last_dc[0], dc_l, ac_l);
+      }
       // jccoefct's compress_data: dummy blocks past the image's blocks take
       // zero AC and the DC of the block before them in the MCU
-      for (int yy = 0; yy < 2; ++yy) {
+      for (int yy = 0; yy < 2 && !s444; ++yy) {
         const int by = my * 2 + yy;
         for (int xx = 0; xx < 2; ++xx) {
           const int bx = mx * 2 + xx;
@@ -1411,7 +1582,7 @@ int encode_jpeg_rgb(const uint8_t* rgb, int h, int w, int quality, std::vector<u
           }
         }
       }
-      for (int k = 0; k < 4; ++k) encode_block(&bw, blk[k], &last_dc[0], dc_l, ac_l);
+      for (int k = 0; k < 4 && !s444; ++k) encode_block(&bw, blk[k], &last_dc[0], dc_l, ac_l);
       fdct_quant(cb.data(), cw, mx, my, qt[1], cblk);
       encode_block(&bw, cblk, &last_dc[1], dc_c, ac_c);
       fdct_quant(cr.data(), cw, mx, my, qt[1], cblk);
@@ -1461,6 +1632,11 @@ inline int64_t out_nbytes(uint32_t h, uint32_t w, uint32_t c, int layout) {
   return static_cast<int64_t>(h) * w * c;
 }
 
+// The channels a record decodes to in `layout` (I420's planes aside).
+inline uint32_t layout_channels(int layout) {
+  return layout == kLayoutGrey ? 1 : (layout == kLayoutCmyk ? 4 : 3);
+}
+
 // The first failure of a batch: the smallest failing slot and its status.
 struct BatchError {
   pthread_mutex_t mu;
@@ -1493,11 +1669,12 @@ int produce_record(const RecordMeta& m, const uint8_t* blob, uint8_t* slot, int6
     return kOk;
   }
   if (m.codec == kCodecJpeg) {
-    if (m.channels != 3) return kErrLayout;
-    uint8_t* rgb = (layout == kLayoutHWC) ? slot : scratch;
-    const int rc = decode_jpeg_rgb(blob, m.nbytes, rgb, m.height, m.width);
+    if (m.channels != layout_channels(layout)) return kErrLayout;
+    uint8_t* out = (layout == kLayoutI420) ? scratch : slot;
+    const int rc = decode_jpeg(blob, m.nbytes, out, m.height, m.width,
+                               layout == kLayoutI420 ? kLayoutHWC : layout);
     if (rc != kOk) return rc;
-    if (layout == kLayoutI420) rgb_to_i420(rgb, slot, m.height, m.width);
+    if (layout == kLayoutI420) rgb_to_i420(out, slot, m.height, m.width);
     return kOk;
   }
   return kErrCodec;
@@ -1563,7 +1740,8 @@ void* mem_worker(void* arg) {
     const int64_t i = t->next++;
     pthread_mutex_unlock(&t->mu);
     if (i >= t->n) break;
-    const RecordMeta m{0, static_cast<uint64_t>(t->sizes[i]), t->h, t->w, 3, kCodecJpeg};
+    const RecordMeta m{0, static_cast<uint64_t>(t->sizes[i]), t->h, t->w,
+                       layout_channels(t->layout), kCodecJpeg};
     const int rc = produce_record(m, t->bufs[i], t->dst + i * t->stride, t->stride,
                                   t->layout, scratch.data());
     if (rc != kOk) t->err.set(i, rc);
@@ -3542,18 +3720,20 @@ int fgpack_read_batch(void* handle, const int64_t* indices, int64_t n, uint8_t* 
   return task.err.code;
 }
 
-// {height, width, components} of a JPEG from its SOF marker.
+// {height, width, components, Adobe transform or -1} of a JPEG from its
+// markers before the first scan.
 int fgpack_jpeg_info(const uint8_t* buf, int64_t nbytes, int64_t* out) {
   if (!buf || nbytes <= 0 || !out) return kErrArgs;
   return jpeg_info(buf, static_cast<size_t>(nbytes), out);
 }
 
 // Decode n in-memory JPEG buffers (bufs[i], sizes[i] bytes) of one decoded
-// size (h, w) into dst slots, RGB or I420 planes as in fgpack_read_batch.
+// size (h, w) into dst slots: RGB or I420 planes as in fgpack_read_batch,
+// grey (kLayoutGrey) or a CMYK file's samples (kLayoutCmyk).
 int fgpack_decode_jpeg_batch(const uint8_t* const* bufs, const int64_t* sizes, int64_t n,
                              int64_t h, int64_t w, uint8_t* dst, int64_t stride,
                              int n_threads, int layout, int64_t* status) {
-  if (!bufs || n <= 0 || h <= 0 || w <= 0 || (layout != kLayoutHWC && layout != kLayoutI420))
+  if (!bufs || n <= 0 || h <= 0 || w <= 0 || layout < kLayoutHWC || layout > kLayoutCmyk)
     return kErrArgs;
   MemTask task{bufs, sizes, n, dst, stride, layout, static_cast<uint32_t>(h),
                static_cast<uint32_t>(w), 0, PTHREAD_MUTEX_INITIALIZER,
@@ -3563,13 +3743,15 @@ int fgpack_decode_jpeg_batch(const uint8_t* const* bufs, const int64_t* sizes, i
   return task.err.code;
 }
 
-// Encode an (h, w, 3) RGB frame as baseline JPEG at `quality`; *out is
-// malloc'ed (release it with fgpack_free), *nbytes its length.
-int fgpack_encode_jpeg(const uint8_t* rgb, int64_t h, int64_t w, int quality, uint8_t** out,
-                       int64_t* nbytes) {
+// Encode an (h, w, 3) RGB frame as baseline JPEG at `quality`, its chroma
+// at 4:2:0 (s444 0) or 4:4:4 (s444 1); *out is malloc'ed (release it with
+// fgpack_free), *nbytes its length.
+int fgpack_encode_jpeg(const uint8_t* rgb, int64_t h, int64_t w, int quality, int s444,
+                       uint8_t** out, int64_t* nbytes) {
   if (!rgb || !out || !nbytes) return kErrArgs;
   std::vector<uint8_t> buf;
-  const int rc = encode_jpeg_rgb(rgb, static_cast<int>(h), static_cast<int>(w), quality, &buf);
+  const int rc = encode_jpeg_rgb(rgb, static_cast<int>(h), static_cast<int>(w), quality,
+                                 s444 != 0, &buf);
   if (rc != kOk) return rc;
   *out = static_cast<uint8_t*>(std::malloc(buf.size()));
   if (!*out) return kErrArgs;

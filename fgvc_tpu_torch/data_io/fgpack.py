@@ -44,7 +44,7 @@ _REC_SIZE = struct.calcsize(_REC_FMT)
 
 CODEC_RAW = 0
 CODEC_JPEG = 1
-_LAYOUTS = {"hwc": 0, "i420": 1}
+_LAYOUTS = {"hwc": 0, "i420": 1, "grey": 2, "cmyk": 3}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fgpack.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
@@ -55,12 +55,10 @@ LINK_FLAGS = ("-lpthread",)
 STATUS = {
     -1: "corrupt JPEG data",
     -2: "truncated JPEG data",
-    -3: "progressive JPEG whose scans leave one of the first ten coefficients incomplete "
-        "(libjpeg would smooth its blocks) is not supported",
     -4: "arithmetic-coded JPEG is not supported",
     -5: "lossless or hierarchical JPEG is not supported",
     -6: "JPEG sample precision other than 8 bits is not supported",
-    -7: "JPEG with other than 1 or 3 components (CMYK, YCCK) is not supported",
+    -7: "JPEG with other than 1, 3 or 4 components is not supported",
     -8: "JPEG with a fractional chroma sampling ratio is not supported",
     -9: "the frame's size differs from the batch's",
     -10: "record index out of range",
@@ -73,6 +71,8 @@ STATUS = {
     -17: "truncated WebP data",
     -18: "animated WebP (ANIM/ANMF) is not supported",
     -19: "the alpha plane (ALPH) of a lossy WebP is not decoded",
+    -20: "YCCK JPEG (Adobe transform 2) is not supported",
+    -21: "layout 'cmyk' is for 4-component (CMYK) JPEGs, and they decode to nothing else",
 }
 
 _LIB = None
@@ -126,7 +126,7 @@ def _load():
             "fgpack_decode_jpeg_batch": (ctypes.c_int, [ctypes.POINTER(ctypes.c_char_p), i64p,
                                                         i64, i64, i64, u8p, i64, ctypes.c_int,
                                                         ctypes.c_int, i64p]),
-            "fgpack_encode_jpeg": (ctypes.c_int, [u8p, i64, i64, ctypes.c_int,
+            "fgpack_encode_jpeg": (ctypes.c_int, [u8p, i64, i64, ctypes.c_int, ctypes.c_int,
                                                   ctypes.POINTER(ptr), i64p]),
             "fgpack_free": (None, [ptr]),
             "fgpack_rgb_to_i420_batch": (ctypes.c_int, [u8p, i64, i64, i64, u8p]),
@@ -158,20 +158,32 @@ def _status(rc: int) -> str:
 # JPEG
 
 
-def jpeg_info(buf: bytes):
-    """(height, width, components) from a JPEG's SOF marker; ValueError for
-    what the decoder refuses (arithmetic, lossless, 12-bit, ...)."""
-    out = (ctypes.c_int64 * 3)()
+class JpegInfo(NamedTuple):
+    height: int
+    width: int
+    components: int
+    adobe: int        # the Adobe APP14 marker's transform, -1 without one
+
+
+def jpeg_info(buf: bytes) -> JpegInfo:
+    """The header of a JPEG, from its markers before the first scan;
+    ValueError for what the decoder refuses (arithmetic, lossless, 12-bit,
+    ...)."""
+    out = (ctypes.c_int64 * 4)()
     rc = _load().fgpack_jpeg_info(buf, len(buf), out)
     if rc != 0:
         raise ValueError(_status(rc))
-    return int(out[0]), int(out[1]), int(out[2])
+    return JpegInfo(*(int(v) for v in out))
 
 
-def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
+def encode_jpeg(rgb: np.ndarray, quality: int = 95, sampling: str = "420") -> bytes:
     """(H, W, 3) uint8 RGB -> baseline JPEG bytes, equal to
     cv2.imencode('.jpg', rgb[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, quality])
-    (libjpeg's defaults: 4:2:0, the standard tables scaled to `quality`)."""
+    (libjpeg's defaults: 4:2:0, the standard tables scaled to `quality`);
+    sampling '444' keeps the chroma whole, as cv2's
+    IMWRITE_JPEG_SAMPLING_FACTOR_444 does."""
+    if sampling not in ("420", "444"):
+        raise ValueError(f"sampling must be '420' or '444', got {sampling!r}")
     rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
     if rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"encode_jpeg needs (H, W, 3) RGB, got {rgb.shape}")
@@ -179,7 +191,7 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
     out = ctypes.c_void_p()
     n = ctypes.c_int64()
     rc = lib.fgpack_encode_jpeg(_u8p(rgb), rgb.shape[0], rgb.shape[1], int(quality),
-                                ctypes.byref(out), ctypes.byref(n))
+                                int(sampling == "444"), ctypes.byref(out), ctypes.byref(n))
     if rc != 0:
         raise ValueError(f"JPEG encode failed: {_status(rc)}")
     try:
@@ -193,7 +205,7 @@ def _out_shape(h: int, w: int, c: int, layout: int):
         if c != 3 or h % 2 or w % 2:
             raise ValueError("i420 layout needs even-sized (H, W, 3) records")
         return (h * 3 // 2, w)
-    return (h, w, c)
+    return (h, w) if c == 1 else (h, w, c)
 
 
 def decode_jpeg_batch(
@@ -201,24 +213,38 @@ def decode_jpeg_batch(
     layout: str = "hwc",
     n_threads: int = 4,
 ) -> np.ndarray:
-    """Decode same-sized in-memory JPEG frames to (N, H, W, 3) uint8 RGB, or
-    (N, H*3//2, W) I420 planes, in the library's thread pool (GIL-free).
-    The size comes from each frame's SOF marker; a frame of another size,
-    or one the decoder refuses, raises ValueError naming the frame."""
+    """Decode same-sized in-memory JPEG frames in the library's thread pool
+    (GIL-free).  layout 'hwc': (N, H, W, 3) uint8 RGB, what PIL gives (a grey
+    frame as three equal channels); a batch of CMYK (4-component) frames
+    gives (N, H, W, 4) as np.array(PIL.Image.open(...)) does: the samples,
+    inverted where the file has an Adobe marker (PIL's 'CMYK;I').  'i420':
+    (N, H*3//2, W) planes.  'grey': (N, H, W), libjpeg's JCS_GRAYSCALE output
+    (the Y plane; an RGB file's rgb_gray_convert).  'cmyk': a CMYK file's
+    (N, H, W, 4) samples as libjpeg gives them.  The size comes from each
+    frame's SOF marker; a frame of another size or kind, or one the decoder
+    refuses (YCCK among them), raises ValueError naming the frame."""
     n = len(bufs)
     if n == 0:
         raise ValueError("empty batch")
     lay = _LAYOUTS[layout]
     h = w = None
+    headers = []
     for i, b in enumerate(bufs):
         try:
-            hw = jpeg_info(b)[:2]
+            headers.append(jpeg_info(b))
         except ValueError as e:
             raise ValueError(f"frame {i}: {e}") from None
+        hw = headers[-1][:2]
         h, w = (h, w) if h is not None else hw
         if hw != (h, w):
             raise ValueError(f"frame {i}: {_status(-9)} ({hw} vs {(h, w)})")
-    shape = _out_shape(h, w, 3, lay)
+    cmyk = [hd.components == 4 for hd in headers]
+    if layout == "hwc" and any(cmyk):
+        if not all(cmyk):
+            raise ValueError(f"frame {cmyk.index(False)}: not CMYK, as frame "
+                             f"{cmyk.index(True)} is")
+        lay = _LAYOUTS["cmyk"]
+    shape = _out_shape(h, w, {2: 1, 3: 4}.get(lay, 3), lay)
     dst = np.empty((n, *shape), np.uint8)
     arr = (ctypes.c_char_p * n)(*bufs)
     sizes = (ctypes.c_int64 * n)(*[len(b) for b in bufs])
@@ -227,11 +253,16 @@ def decode_jpeg_batch(
                                           int(n_threads), lay, status)
     if rc != 0:
         raise ValueError(f"frame {status[0]}: {_status(int(status[1]))}")
+    if layout == "hwc" and lay == _LAYOUTS["cmyk"]:
+        for i, hd in enumerate(headers):
+            if hd.adobe >= 0:
+                np.subtract(255, dst[i], out=dst[i])
     return dst
 
 
 def decode_jpeg(buf: bytes) -> np.ndarray:
-    """One JPEG -> (H, W, 3) uint8 RGB (a grey JPEG as three equal channels)."""
+    """One JPEG -> (H, W, 3) uint8 RGB (a grey JPEG as three equal channels),
+    or (H, W, 4) for a CMYK file, as decode_jpeg_batch gives it."""
     return decode_jpeg_batch([buf], n_threads=1)[0]
 
 

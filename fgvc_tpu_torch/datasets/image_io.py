@@ -18,8 +18,9 @@ from typing import Tuple, Union
 
 import numpy as np
 
-from fgvc_tpu_torch.data_io.fgpack import (PNG_SIGNATURE, WEBP_MAGIC, decode_jpeg, decode_png,
-                                            decode_webp, jpeg_info, webp_info)
+from fgvc_tpu_torch.data_io.fgpack import (PNG_SIGNATURE, WEBP_MAGIC, decode_jpeg,
+                                            decode_jpeg_batch, decode_png, decode_webp,
+                                            jpeg_info, webp_info)
 
 
 def _read(src: Union[str, bytes, os.PathLike]) -> Tuple[bytes, str]:
@@ -97,40 +98,36 @@ def read_image(src: Union[str, bytes, os.PathLike], flags: str = "color") -> np.
 
     flags 'color': (H, W, 3) uint8 RGB, what cv2.cvtColor(cv2.imread(p),
     cv2.COLOR_BGR2RGB) gives: grey replicated, a palette expanded, alpha
-    dropped, 16-bit samples cut to their high byte, and the EXIF orientation
-    (a JPEG's APP1 Exif, a PNG's eXIf chunk) applied.  flags 'unchanged':
-    what cv2.imread(p, cv2.IMREAD_UNCHANGED) gives, channels in BGR order
-    and the orientation ignored: a grey image as (H, W), a palette image
-    expanded through its palette to 3 channels (4 where it has tRNS),
-    grey+alpha as BGRA, RGB as BGR and RGBA as BGRA; 16-bit PNG samples stay
-    uint16.  WebP (lossy, lossless, VP8X) decodes to libwebp's pixels: alpha
-    dropped in colour mode, BGRA in 'unchanged' where the file has alpha (a
-    lossy frame's ALPH plane is refused there), the orientation of an EXIF
-    chunk that VP8X flags applied in colour mode.  JPEGs the decoder refuses
-    (arithmetic, lossless, 12-bit, CMYK), animated WebP and broken files
-    raise ValueError."""
-    if flags not in ("color", "unchanged"):
-        raise ValueError(f"flags must be 'color' or 'unchanged', got {flags!r}")
+    dropped, 16-bit samples cut to their high byte, a CMYK JPEG converted
+    as OpenCV converts it, and the EXIF orientation (a JPEG's APP1 Exif, a
+    PNG's eXIf chunk) applied.  flags 'unchanged': what cv2.imread(p,
+    cv2.IMREAD_UNCHANGED) gives, channels in BGR order and the orientation
+    ignored: a grey image as (H, W), a palette image expanded through its
+    palette to 3 channels (4 where it has tRNS), grey+alpha as BGRA, RGB as
+    BGR, RGBA as BGRA and CMYK as BGR; 16-bit PNG samples stay uint16.
+    flags 'grayscale': (H, W) uint8, what cv2.imread(p,
+    cv2.IMREAD_GRAYSCALE) gives, the orientation applied: a JPEG's Y plane
+    (libjpeg's grey output), a colour PNG through libpng's rgb_to_gray, a
+    WebP through cvtColor's BGR -> grey.  WebP (lossy, lossless, VP8X)
+    decodes to libwebp's pixels: alpha dropped in colour mode, BGRA in
+    'unchanged' where the file has alpha (a lossy frame's ALPH plane is
+    refused there), the orientation of an EXIF chunk that VP8X flags
+    applied in colour and grey mode.  JPEGs the decoder refuses (arithmetic,
+    lossless, 12-bit, YCCK), animated WebP and broken files raise
+    ValueError."""
+    if flags not in ("color", "unchanged", "grayscale"):
+        raise ValueError(f"flags must be 'color', 'unchanged' or 'grayscale', got {flags!r}")
     data, name = _read(src)
     if data[:2] == b"\xff\xd8":
-        try:
-            rgb = decode_jpeg(data)
-            grey = flags == "unchanged" and jpeg_info(data)[2] == 1
-        except ValueError as e:
-            raise ValueError(f"{name}: {e}") from None
-        if grey:
-            return np.ascontiguousarray(rgb[..., 0])
-        if flags == "color":
-            return apply_orientation(rgb, tiff_orientation(jpeg_exif(data)))
-        return np.ascontiguousarray(rgb[..., ::-1])
+        return _read_jpeg(data, name, flags)
     if (data[:4], data[8:12]) == WEBP_MAGIC:
         return _read_webp(data, name, flags)
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{name}: neither a JPEG nor a PNG nor a WebP file")
     png = decode_png(data, name)
-    if flags == "color":
-        rgb = _png_rgb(png, name)
-        return apply_orientation(rgb, tiff_orientation(png.exif)) if png.exif else rgb
+    if flags != "unchanged":
+        img = _png_rgb(png, name) if flags == "color" else _png_grey(png, name)
+        return apply_orientation(img, tiff_orientation(png.exif)) if png.exif else img
     a, ctype = png.samples, png.color_type
     if ctype == 3:  # palette: expand through PLTE (and tRNS)
         idx = _palette_indices(png, name)
@@ -148,10 +145,57 @@ def read_image(src: Union[str, bytes, os.PathLike], flags: str = "color") -> np.
     return np.ascontiguousarray(a[..., [2, 1, 0, *range(3, a.shape[2])]])
 
 
+def cmyk_to_bgr(cmyk: np.ndarray) -> np.ndarray:
+    """A CMYK JPEG's samples (libjpeg's JCS_CMYK output, Adobe's inverted
+    convention) -> BGR as OpenCV's JPEG reader converts them: each of C, M,
+    Y becomes k - ((255 - x) * k >> 8)."""
+    x = cmyk.astype(np.int32)
+    k = x[..., 3:]
+    out = k - (((255 - x[..., :3]) * k) >> 8)
+    return np.ascontiguousarray(out[..., ::-1].astype(np.uint8))
+
+
+def _grey14(bgr: np.ndarray) -> np.ndarray:
+    """OpenCV's CMYK -> grey of its JPEG reader: the BGR of cmyk_to_bgr at
+    14-bit weights 1868, 9617, 4899, rounded."""
+    b, g, r = (bgr[..., i].astype(np.int32) for i in range(3))
+    return ((b * 1868 + g * 9617 + r * 4899 + (1 << 13)) >> 14).astype(np.uint8)
+
+
+def _grey15(bgr: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY) on uint8: 15-bit weights 3735,
+    19235, 9798, rounded."""
+    b, g, r = (bgr[..., i].astype(np.int32) for i in range(3))
+    return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15).astype(np.uint8)
+
+
+def _read_jpeg(data: bytes, name: str, flags: str) -> np.ndarray:
+    """A JPEG as cv2.imread reads it with `flags` (see read_image)."""
+    try:
+        comps = jpeg_info(data).components
+        if comps == 4:
+            bgr = cmyk_to_bgr(decode_jpeg_batch([data], layout="cmyk", n_threads=1)[0])
+        elif flags != "grayscale":
+            bgr = decode_jpeg(data)[..., ::-1]
+        if flags == "grayscale":
+            img = (_grey14(bgr) if comps == 4
+                   else decode_jpeg_batch([data], layout="grey", n_threads=1)[0])
+        elif flags == "unchanged":
+            img = bgr[..., 0] if comps == 1 else bgr
+        else:
+            img = bgr[..., ::-1]
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    if flags == "unchanged":
+        return np.ascontiguousarray(img)
+    return apply_orientation(img, tiff_orientation(jpeg_exif(data)))
+
+
 def _read_webp(data: bytes, name: str, flags: str) -> np.ndarray:
     """A WebP file as cv2.imread reads it: in colour mode RGB, alpha dropped
-    and the orientation of an EXIF chunk that VP8X flags applied; flags
-    'unchanged' BGR, or BGRA where the file has alpha, unrotated."""
+    and the orientation of an EXIF chunk that VP8X flags applied; in grey
+    mode that BGR through cvtColor's grey, oriented; flags 'unchanged' BGR,
+    or BGRA where the file has alpha, unrotated."""
     try:
         info = webp_info(data)
         bgr = decode_webp(data, alpha=flags == "unchanged" and info.has_alpha, info=info)
@@ -159,7 +203,8 @@ def _read_webp(data: bytes, name: str, flags: str) -> np.ndarray:
         raise ValueError(f"{name}: {e}") from None
     if flags == "unchanged":
         return bgr
-    return apply_orientation(bgr[..., ::-1], tiff_orientation(info.exif) if info.exif else 1)
+    img = bgr[..., ::-1] if flags == "color" else _grey15(bgr)
+    return apply_orientation(img, tiff_orientation(info.exif) if info.exif else 1)
 
 
 def _palette_indices(png, name: str) -> np.ndarray:
@@ -177,6 +222,22 @@ def _png_rgb(png, name: str) -> np.ndarray:
     if a.dtype == np.uint16:  # libpng's strip_16, as cv2.imread: the high byte
         a = (a >> 8).astype(np.uint8)
     return np.ascontiguousarray(np.repeat(a[..., :1], 3, axis=-1) if ctype in (0, 4) else a[..., :3])
+
+
+def _png_grey(png, name: str) -> np.ndarray:
+    """A decoded PNG as (H, W) uint8, what libpng gives cv2.imread in grey
+    mode: grey samples as they are (16-bit cut to the high byte); colour
+    and palette samples through png_do_rgb_to_gray at OpenCV's 0.299 and
+    0.587, (9797 r + 19234 g + 3737 b) >> 15, truncated for 8-bit samples
+    and rounded for 16-bit ones (then cut), an r = g = b sample kept."""
+    if png.color_type in (0, 4):
+        return np.ascontiguousarray(_png_rgb(png, name)[..., 0])
+    rgb = png.palette[_palette_indices(png, name)] if png.color_type == 3 else png.samples
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    wide = rgb.dtype == np.uint16
+    grey = (9797 * r + 19234 * g + 3737 * b + (1 << 14 if wide else 0)) >> 15
+    grey = np.where((r == g) & (r == b), r, grey)
+    return np.ascontiguousarray((grey >> 8 if wide else grey).astype(np.uint8))
 
 
 def read_png_indices(src: Union[str, bytes, os.PathLike]) -> np.ndarray:

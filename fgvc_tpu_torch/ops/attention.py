@@ -229,3 +229,25 @@ def softmax_attention(
             a = (qs / sqrt_d) @ kt if scale_query else (qs @ kt) / sqrt_d
             out[g0 : g0 + groups, r0 : r0 + rows] = torch.softmax(a, dim=-1) @ v[g0 : g0 + groups]
     return out
+
+
+def non_local_attention(
+    query: torch.Tensor,   # (H, W, C)
+    key: torch.Tensor,     # (H, W, C) or (T, H, W, C)
+    temperature: float = 1.0,
+    normalize: bool = True,
+    softmax_axis: int = -1,
+) -> torch.Tensor:
+    """Global frame-pair affinity of the correspondence demo
+    (fgvc_tpu/ops/attention.py's non_local_attention): softmax(q . k / t)
+    over `softmax_axis` between a query frame and one or more key frames,
+    both L2-normalised along C where `normalize`; the (H*W, T*H*W) float32
+    product with TF32 off (device.set_matmul_precision)."""
+    H, W, C = query.shape
+    if key.dim() == 3:
+        key = key[None]
+    q, k = query.float(), key.float()
+    if normalize:
+        q, k = l2_normalize(q), l2_normalize(k)
+    aff = torch.matmul(q.reshape(-1, C), k.reshape(-1, C).t()) / temperature
+    return torch.softmax(aff, dim=softmax_axis)

@@ -94,7 +94,7 @@ def test_jpeg_decode_equals_pil_and_cv2(size, sampling):
             got = decode_jpeg(data)
             assert got.shape == (*size, 3) and got.dtype == np.uint8
             np.testing.assert_array_equal(got, pil, err_msg=f"{kind} q{q} {sampling}")
-            assert jpeg_info(data) == (*size, 1 if sampling == "grey" else 3)
+            assert jpeg_info(data)[:3] == (*size, 1 if sampling == "grey" else 3)
 
 
 @pytest.mark.parametrize("size", SIZES[1:], ids=lambda s: f"{s[0]}x{s[1]}")

@@ -6,8 +6,8 @@ against PIL and cv2 (libjpeg-turbo, libpng), which serve as oracles only:
   4:2:2, 4:2:0 at qualities 50 and 95, with and without restart markers)
   and from cv2 (IMWRITE_JPEG_PROGRESSIVE, with IMWRITE_JPEG_RST_INTERVAL),
   decoded equal to both; a file whose scans stop before the first ten
-  coefficients are whole is refused (libjpeg would smooth it), a truncated
-  one too;
+  coefficients are whole decodes to libjpeg's smoothed blocks, a truncated
+  one is refused;
 * 4:4:0 (h1v2 fancy) and 4:1:1 (the box) from cv2, baseline and
   progressive, at the sizes of tests/test_torch_port_codecs.py, the narrow
   ones included, decoded equal to both;
@@ -159,9 +159,9 @@ def test_440_and_411_decode_equal_to_pil_and_cv2(size, sampling):
 
 def test_incomplete_and_truncated_progressive_jpegs_are_refused():
     """A progressive file cut after any scan before the last (then EOI):
-    coefficients 1-9 are incomplete, where libjpeg smooths blocks, so the
-    port refuses it; a file cut inside a scan is truncated.  The batch
-    names the frame."""
+    coefficients 1-9 are incomplete, where libjpeg smooths blocks, and the
+    port decodes it as PIL and cv2 do; a file cut inside a scan is still
+    refused as truncated, and the batch names the frame."""
     from fgvc_tpu_torch.data_io.fgpack import decode_jpeg, decode_jpeg_batch
 
     img = _frames(48, 64, seed=4)["smooth"]
@@ -169,13 +169,14 @@ def test_incomplete_and_truncated_progressive_jpegs_are_refused():
     scans = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
     assert len(scans) == 10
     for k in range(1, len(scans)):
-        with pytest.raises(ValueError, match="frame 0: progressive JPEG whose scans leave"):
-            decode_jpeg(data[:scans[k]] + b"\xff\xd9")
+        cut = data[:scans[k]] + b"\xff\xd9"
+        np.testing.assert_array_equal(decode_jpeg(cut), _pil_rgb(cut), err_msg=f"{k} scans")
+        np.testing.assert_array_equal(decode_jpeg(cut), _cv2_rgb(cut), err_msg=f"{k} scans")
     for cut in (len(data) // 2, len(data) - 100):
         with pytest.raises(ValueError, match="truncated"):
             decode_jpeg(data[:cut])
-    with pytest.raises(ValueError, match="frame 1: progressive"):
-        decode_jpeg_batch([data, data[:scans[5]] + b"\xff\xd9"])
+    with pytest.raises(ValueError, match="frame 1: truncated"):
+        decode_jpeg_batch([data, data[:len(data) // 2]])
     np.testing.assert_array_equal(decode_jpeg_batch([data, data], n_threads=2)[1], _pil_rgb(data))
 
 

@@ -125,7 +125,8 @@ def test_port_imports_neither_jax_nor_fgvc_tpu():
     assert len(files) > 10
     assert os.path.join(ROOT, "fgvc_tpu_torch", "models", "raft.py") in files
     for entry in ("cli/serve.py", "cli/export.py", "cli/doctor.py", "core/export.py",
-                  "cli/launch.py", "parallel/dist.py"):
+                  "cli/launch.py", "parallel/dist.py", "cli/reproduce.py", "cli/demo.py",
+                  "utils/visualize.py"):
         assert os.path.join(ROOT, "fgvc_tpu_torch", *entry.split("/")) in files
     offenders = []
     for path in files:
