@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,
                                     codecs,modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,
                                     profile,serve,export,doctor,train,realtrain,propmodes,dp,
-                                    bank,mp,ddp,reproduce,demo]
+                                    bank,mp,ddp,reproduce,demo,video]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -357,7 +357,24 @@ Phases, each of which raises on failure (exit code != 0):
             tracking, drawing and encoding, and its MB; --correspondence
             writes a .png that decodes to the overlay; --mask with a grey
             label PNG launches K1 square once per frame propagated and writes
-            an .mp4; --video exits with its refusal.
+            an .mp4; --video on its own Motion-JPEG .mp4 exits naming the
+            codec ('mp4v (JPEG)') with VIDEO_REFUSAL;
+  video     video files as input, no cv2 on this machine: (a) the committed
+            VP8 WebM (tests/torch_port_fixtures/vp8_640x360_250f.webm, 250
+            frames at 640 x 360, 25 fps, libvpx through cv2) decoded on the
+            host by the port's reader (data_io/video.py): every frame's
+            sha256, the frame count and the fps equal to the JSON beside it
+            (cv2.VideoCapture's, held by tests/test_torch_port_video_codec.py),
+            host ms a frame for demux, VP8 decode and YUV -> BGR; (b) python
+            -m fgvc_tpu_torch.cli.test's main --task kinetics --annotations
+            CSV --data-root DIR on a tree holding the clip under two video
+            ids, with 32 tracks each written by the phase, at the paper's
+            settings (ResNet-18-d1, 256 x 256, seeded full-width weights):
+            K1 (circle) launched once per frame propagated, metrics finite
+            and equal exactly to run_task over per-video pickles of the
+            port's own decode of the clip and the same tracks; (c) the demo's
+            main --video on the clip, --grid 8 (64 points) --max-frames 48:
+            K1 (circle) 47 times, an .mp4 of 48 samples.
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -4603,13 +4620,136 @@ def run_demo(records, card_name, device="cuda"):
         _add_launches(records["K1_square"], DEMO_T - 1)
         if len(visualize.read_mp4(masks_out).samples) != DEMO_T:
             raise AssertionError("demo --mask: the .mp4 lacks frames")
-        code = _exit_code(lambda: demo.main(["--video", "clip.mp4", "--device", device]))
-        if code != demo.VIDEO_REFUSAL:
+        code = _exit_code(lambda: demo.main(["--video", masks_out, "--device", device]))
+        if not (isinstance(code, str) and "'mp4v (JPEG)'" in code
+                and code.endswith(demo.VIDEO_REFUSAL)):
             raise AssertionError(f"demo --video: {code!r}")
         print(f"demo --correspondence: {corr} equal to the overlay of its 64 matches; --mask: "
               f"{DEMO_T - 1} K1 square launches, {os.path.getsize(masks_out) / 1e6:.3f} MB; "
-              "--video refused", flush=True)
+              "--video on its Motion-JPEG .mp4 refused by codec", flush=True)
     print(f"demo phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
+
+
+# ---------------------------------------------------------------------- #
+# phase video
+# ---------------------------------------------------------------------- #
+VIDEO_FIXTURE = os.path.join("tests", "torch_port_fixtures", "vp8_640x360_250f.webm")
+VIDEO_PINS = os.path.join("tests", "torch_port_fixtures", "vp8_640x360_250f.json")
+VIDEO_IDS, VIDEO_TRACKS = ("clip_a", "clip_b"), 32
+VIDEO_DEMO_FRAMES, VIDEO_DEMO_GRID = 48, 8
+
+
+def write_video_csv(path, T, seed=0):
+    """TAP-Vid-Kinetics CSV rows for VIDEO_IDS: VIDEO_TRACKS points each,
+    drifting slowly, visible at frame 0 (so 'first' queries start there)
+    and occluded at five later frames."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        f.write("video_id,point_id,frame,x,y,occluded\n")
+        for vid in VIDEO_IDS:
+            for pid in range(VIDEO_TRACKS):
+                p0, vel = rng.uniform(0.1, 0.9, 2), rng.uniform(-1e-3, 1e-3, 2)
+                hidden = set(rng.integers(1, T, 5).tolist())
+                for t in range(T):
+                    x, y = np.clip(p0 + vel * t, 0.0, 1.0)
+                    f.write(f"{vid},{pid},{t},{x:.6f},{y:.6f},{int(t in hidden)}\n")
+
+
+def run_video(records, card_name):
+    """Phase video (see the module's docstring)."""
+    import hashlib
+    import io
+    import shutil
+
+    import torch
+
+    from fgvc_tpu_torch.apis.test import run_task
+    from fgvc_tpu_torch.cli import demo
+    from fgvc_tpu_torch.cli import test as cli_test
+    from fgvc_tpu_torch.data_io.video import VideoReader
+    from fgvc_tpu_torch.datasets.tapvid_kinetics import (assemble_tracks, read_annotations)
+    from fgvc_tpu_torch.datasets.video_decode import decode_video
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+    from fgvc_tpu_torch.utils import visualize
+
+    t_phase = time.time()
+    fixture = os.path.join(ROOT, VIDEO_FIXTURE)
+    with open(os.path.join(ROOT, VIDEO_PINS)) as f:
+        pins = json.load(f)
+    with VideoReader(fixture) as reader:
+        digests = [hashlib.sha256(frame.tobytes()).hexdigest() for frame in reader]
+        meta = (reader.frame_count, reader.fps)
+        timings = dict(reader.timings)
+    n = len(digests)
+    if digests != pins["sha256"] or meta != (pins["cv2_frame_count"], pins["cv2_fps"]):
+        bad = [i for i, (a, b) in enumerate(zip(digests, pins["sha256"])) if a != b]
+        raise AssertionError(f"video (a): {n} frames (pinned {pins['frames']}), count and fps "
+                             f"{meta}, frames differing from the pins {bad[:10]}")
+    ms = {k: 1e3 * v / n for k, v in timings.items()}
+    print(f"video (a): {n} frames of {pins['width']}x{pins['height']} equal to cv2's sha256 "
+          f"pins, count {meta[0]}, fps {meta[1]}; host ms a frame ({card_name}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()), flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as root:
+        clips = os.path.join(root, "clips")
+        os.makedirs(clips)
+        for vid in VIDEO_IDS:
+            shutil.copy(fixture, os.path.join(clips, f"{vid}.webm"))
+        csv_path = os.path.join(root, "tapvid_kinetics.csv")
+        write_video_csv(csv_path, n)
+        expect = len(VIDEO_IDS) * (n - 1)  # one query group a video, at frame 0
+        k1.reset_launches()
+        out = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            cli_test.main(["--task", "kinetics", "--annotations", csv_path, "--data-root", clips,
+                           "--output-dir", os.path.join(root, "report")])
+        torch.cuda.synchronize()
+        cli_s = time.time() - t0
+        text = out.getvalue()
+        metrics = json.loads(text[text.index("{"):text.rindex("}") + 1])
+        check_launches("video --annotations", "highest", expect, "banked")
+        check_metrics(metrics)
+        _add_launches(records["K1_circle"], expect)
+        # the pickle path on the port's own decode of the same clip and tracks
+        t0 = time.time()
+        video = decode_video(fixture, resize=(256, 256))
+        decode_s = time.time() - t0
+        per_video = read_annotations(csv_path)
+        pkl_root = os.path.join(root, "pickles")
+        os.makedirs(pkl_root)
+        for vid in VIDEO_IDS:
+            pts, occ = assemble_tracks(per_video[vid], len(video))
+            with open(os.path.join(pkl_root, f"{vid}.pkl"), "wb") as f:
+                pickle.dump({"video": video, "points": pts, "occluded": occ}, f)
+        t0 = time.time()
+        ref = run_task("kinetics", pkl_root, device="cuda", seed=0)
+        torch.cuda.synchronize()
+        pkl_s = time.time() - t0
+        if metrics != {k: float(v) for k, v in ref.items()}:
+            raise AssertionError(f"video (b): --annotations {metrics} != pickles {ref}")
+        print("video (b) metrics (random weights): " + json.dumps(
+            {k: metrics[k] for k in ("average_pts_within_thresh", "average_jaccard",
+                                     "occlusion_accuracy")}))
+        print(f"video (b): cli.test --annotations on {len(VIDEO_IDS)} clips x {n} frames, "
+              f"{VIDEO_TRACKS} tracks each: {expect} K1 circle launches, {cli_s:.2f} s "
+              f"(model build, decode and resize to 256 x 256 included); metrics equal to "
+              f"run_task over pickles of the port's decode ({pkl_s:.2f} s; decode_video with "
+              f"the resize {1e3 * decode_s / n:.2f} ms a frame)", flush=True)
+
+        demo_out = os.path.join(root, "demo.mp4")
+        k1.reset_launches()
+        _, demo_s = _timed(lambda: demo.main([
+            "--video", fixture, "--max-frames", str(VIDEO_DEMO_FRAMES), "--grid",
+            str(VIDEO_DEMO_GRID), "--out", demo_out]))
+        check_launches("demo --video", "highest", VIDEO_DEMO_FRAMES - 1, "banked")
+        _add_launches(records["K1_circle"], VIDEO_DEMO_FRAMES - 1)
+        if len(visualize.read_mp4(demo_out).samples) != VIDEO_DEMO_FRAMES:
+            raise AssertionError("demo --video: the .mp4 lacks frames")
+        print(f"video (c): demo --video --max-frames {VIDEO_DEMO_FRAMES} --grid "
+              f"{VIDEO_DEMO_GRID}: {VIDEO_DEMO_FRAMES - 1} K1 circle launches, {demo_s:.2f} s, "
+              f"the .mp4 {os.path.getsize(demo_out) / 1e6:.3f} MB", flush=True)
+    print(f"video phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
 
 
 def main():
@@ -4617,7 +4757,9 @@ def main():
     ap.add_argument("--phases", default="card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,"
                                         "codecs,modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,"
                                         "profile,serve,export,doctor,train,realtrain,"
-                                        "propmodes,dp,bank,mp,ddp,reproduce,demo")
+                                        "propmodes,dp,bank,mp,ddp,reproduce,demo,video",
+                    help="comma-separated phases (the module's docstring says what each "
+                         "does); all of them by default")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -4798,6 +4940,9 @@ def main():
     if "demo" in phases:
         phase("demo")
         run_demo(records, card_name)
+    if "video" in phases:
+        phase("video")
+        run_video(records, card_name)
     if "export" in phases:
         phase("export")
         run_export(records)

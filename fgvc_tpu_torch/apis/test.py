@@ -474,10 +474,14 @@ def run_task(
     model: str = "vanilla",
     local_devices: LocalDevices = None,
     bank_devices: SpatialDevices = None,
+    annotations: Optional[str] = None,
 ) -> Dict[str, float]:
     """Mirror of `tools/test.py --task davis|kinetics|jhmdb|badja|vos
     [--query-mode strided] [--spatial-devices S] [--local-devices G]
-    [--bank-devices N] [--backbone NAME] [--model vanilla|raft]`.
+    [--bank-devices N] [--backbone NAME] [--model vanilla|raft]
+    [--annotations CSV]`.  `annotations` (kinetics only) evaluates
+    `data_root`'s video clips straight against the released CSV
+    (datasets/tapvid_kinetics.py) instead of per-video pickles.
     query_mode 'strided' (TAP-Vid tasks only) queries every track every 5
     frames where it is visible.  JHMDB and BADJA read their lists under
     `list_path`, by default `data_root`.  VOS reads every video at 480 x 880
@@ -506,6 +510,9 @@ def run_task(
         )
     if model not in ("vanilla", "raft"):
         raise ValueError(f"model must be 'vanilla' or 'raft', got {model!r}")
+    if annotations and task != "kinetics":
+        raise ValueError(
+            f"--annotations (CSV + clips mode) applies to --task kinetics only, not {task!r}")
     rank, world = process_info()
     # the report is written once (rank 0); every rank scores the merged results
     if rank != 0:
@@ -555,8 +562,14 @@ def run_task(
     if task in ("davis", "kinetics"):
         from fgvc_tpu_torch.datasets.tapvid import TapVidDataset
 
-        ds = TapVidDataset(data_root, subset_name=task, query_mode=query_mode,
-                           input_size=cfg.input_size)
+        if annotations:
+            from fgvc_tpu_torch.datasets.tapvid_kinetics import TapVidKineticsVideoDataset
+
+            ds = TapVidKineticsVideoDataset(data_root, annotations, query_mode=query_mode,
+                                            input_size=cfg.input_size)
+        else:
+            ds = TapVidDataset(data_root, subset_name=task, query_mode=query_mode,
+                               input_size=cfg.input_size)
         return eval_tapvid(tracker, ds, max_videos, **kw)
     if task == "jhmdb":
         from fgvc_tpu_torch.datasets.jhmdb import JhmdbDataset

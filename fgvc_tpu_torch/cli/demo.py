@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Point-tracking demo of the port on a frame directory
+"""Point-tracking demo of the port on a frame directory or a video file
 (fgvc_tpu/cli/demo.py):
 
     python -m fgvc_tpu_torch.cli.demo --frames <dir of jpg/png> \
@@ -8,6 +8,8 @@
     python -m fgvc_tpu_torch.cli.demo --frames <dir> --grid N --out demo.mp4
     python -m fgvc_tpu_torch.cli.demo --frames <dir> --correspondence --out corr.png
     python -m fgvc_tpu_torch.cli.demo --frames <dir> --mask first.png --out masks.mp4
+    python -m fgvc_tpu_torch.cli.demo --video clip.webm [--stride S] \
+        [--max-frames N] --grid 8 --out demo.mp4
 
 Frames (sorted *.jpg then *.png names) are read as cv2.imread reads them and
 resized to --size square (cv2's INTER_LINEAR, datasets/image_io.py), tracked
@@ -17,9 +19,12 @@ with per-point trajectory tails into an .mp4 of Motion-JPEG frames
 --correspondence draws 64 seeded matches between the first two frames (the
 argmax of the softmax affinity of their features) into a .png or .jpg.
 --mask propagates a first-frame label map (read in grey, as
-cv2.IMREAD_GRAYSCALE reads it) and renders the coloured masks.  --video is
-refused: the port has no video decoder yet.  Runs on the CUDA card unless
---device cpu is given.
+cv2.IMREAD_GRAYSCALE reads it) and renders the coloured masks.  --video
+decodes a video file through the loading stages (datasets/video_decode.py:
+VideoInit, then VideoDecode of every --stride-th frame up to --max-frames,
+then the resize), as the JAX demo does with cv2; the port reads VP8 in
+WebM/Matroska, and other codecs stop the demo with the codec's name.  Runs
+on the CUDA card unless --device cpu is given.
 """
 
 from __future__ import annotations
@@ -32,9 +37,9 @@ import os
 import numpy as np
 
 VIDEO_REFUSAL = (
-    "--video needs a video decoder, which the port does not have yet (real clips are "
-    "H.264, and the port depends on neither cv2 nor PyAV nor decord); decode the clip to "
-    "a directory of frames and pass --frames (ROADMAP.md, 'video input')")
+    "the port decodes VP8 in WebM/Matroska only; MPEG-4 Part 2, VP9, H.264 and "
+    "Motion-JPEG .mp4 clips wait for decoders of its own (ROADMAP.md, 'video input'): "
+    "convert the clip to VP8 WebM, or decode it to a directory of frames and pass --frames")
 
 
 def load_frames(frame_dir: str, size: int) -> np.ndarray:
@@ -47,6 +52,24 @@ def load_frames(frame_dir: str, size: int) -> np.ndarray:
     if not paths:
         raise SystemExit(f"no frames in {frame_dir}")
     return np.stack([resize_frames(read_image(p)[None], (size, size))[0] for p in paths])
+
+
+def load_video(video_path: str, size: int, stride: int = 1, max_frames: int = 0) -> np.ndarray:
+    """(T, size, size, 3) uint8 RGB frames of a video file: VideoInit, then
+    VideoDecode of every `stride`-th frame (at most `max_frames`, 0 for
+    all), then cv2's INTER_LINEAR resize, as the JAX demo loads them."""
+    from fgvc_tpu_torch.datasets.image_io import resize_frames
+    from fgvc_tpu_torch.datasets.video_decode import VideoDecode, VideoInit
+
+    res = VideoInit()({"filename": video_path})
+    if res["total_frames"] == 0:
+        raise SystemExit(f"no decodable frames in {video_path}")
+    inds = np.arange(0, res["total_frames"], max(stride, 1))
+    if max_frames:
+        inds = inds[:max_frames]
+    res["frame_inds"] = inds
+    res = VideoDecode()(res)
+    return np.stack([resize_frames(img[None], (size, size))[0] for img in res["imgs"]])
 
 
 def query_grid(size: int, grid: int) -> np.ndarray:
@@ -86,7 +109,11 @@ def render_tracks(video: np.ndarray, trajectories: np.ndarray) -> np.ndarray:
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="fgvc_tpu_torch demo")
     p.add_argument("--frames", default=None, help="directory of jpg/png frames")
-    p.add_argument("--video", default=None, help="a video file (refused: no decoder yet)")
+    p.add_argument("--video", default=None,
+                   help="a video file (VP8 in .webm/.mkv) decoded through the loading stages")
+    p.add_argument("--stride", type=int, default=1, help="temporal stride when decoding --video")
+    p.add_argument("--max-frames", type=int, default=0,
+                   help="cap decoded frames of --video (0 = all)")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--points", nargs="*", default=[])
     p.add_argument("--grid", type=int, default=0)
@@ -112,10 +139,15 @@ def main(argv=None):
 
     if bool(args.frames) == bool(args.video):
         raise SystemExit("give exactly one of --frames / --video")
-    if args.video:
-        raise SystemExit(VIDEO_REFUSAL)
     device = resolve_device(args.device)
-    video = load_frames(args.frames, args.size)
+    if args.video:
+        try:
+            video = load_video(args.video, args.size, stride=args.stride,
+                               max_frames=args.max_frames)
+        except ValueError as err:
+            raise SystemExit(f"{err}; {VIDEO_REFUSAL}") from err
+    else:
+        video = load_frames(args.frames, args.size)
     cfg = dataclasses.replace(TASK_CONFIGS["davis"], input_size=(args.size, args.size))
     tracker = build_tracker(cfg, args.checkpoint, backbone=args.backbone, device=device)
 

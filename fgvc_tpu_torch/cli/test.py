@@ -16,6 +16,8 @@ and DAVIS-2017 VOS.
         [--attention-impl pallas|tiled|dense|c2f|flow_guided] \
         [--topk-impl exact|segmented|certified|approx] \
         [--device cuda|cpu] [--profile LOGDIR]
+    python -m fgvc_tpu_torch.cli.test --task kinetics --data-root <clips> \
+        --annotations tapvid_kinetics.csv [...]
     python -m fgvc_tpu_torch.cli.test --task jhmdb --data-root <JHMDB root> \
         [--list-path <dir of val_list.txt>] [...]
     python -m fgvc_tpu_torch.cli.test --task badja --data-root <BADJA root> \
@@ -26,7 +28,10 @@ and DAVIS-2017 VOS.
 --attention-impl picks the propagation's attention: 'pallas' (the top-k
 attention kernel, the default), 'tiled', 'dense', 'c2f' or 'flow_guided';
 --topk-impl the top-k of 'tiled' ('approx' and 'certified' take exact
-candidates off the TPU).  --model raft tracks TAP-Vid points by chaining RAFT's flows (an official
+candidates off the TPU).  --annotations evaluates TAP-Vid-Kinetics straight
+from the released CSV and --data-root's clips (<video_id>.mp4/.mkv/.webm,
+decoded by the port's own reader: VP8 in WebM/Matroska; a clip in another
+codec stops the run with its path and codec).  --model raft tracks TAP-Vid points by chaining RAFT's flows (an official
 RAFT .pth as --checkpoint, or seeded weights).  Prints the task's metrics as
 JSON.  Runs on the CUDA card unless --device cpu is given.  --profile
 writes a torch.profiler trace of the whole run
@@ -61,6 +66,10 @@ def main(argv=None):
                              "JHMDB: the directory of val_list.txt; BADJA: the "
                              "directory of joint_annotations/ (both default to "
                              "--data-root)")
+    parser.add_argument("--annotations", default=None, metavar="CSV",
+                        help="TAP-Vid-Kinetics annotation CSV: evaluate --data-root's "
+                             "video clips directly (datasets/tapvid_kinetics.py), "
+                             "without per-video pickles")
     parser.add_argument("--query-mode", default="first", choices=["first", "strided"],
                         help="TAP-Vid query sampling: each track's first visible "
                              "frame, or every 5th frame where it is visible")
@@ -266,6 +275,7 @@ def _run(args):
             query_mode=args.query_mode,
             backbone=args.backbone,
             model=args.model,
+            annotations=args.annotations,
         )
     print(json.dumps(results, indent=2, default=float))
 

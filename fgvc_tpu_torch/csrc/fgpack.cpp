@@ -34,6 +34,13 @@
 //     prefix codes, colour cache and LZ77 with the distance map).
 //   * RGB -> I420 planes, OpenCV's BT.601 fixed point (cv2.COLOR_RGB2YUV_I420
 //     bit for bit).
+//   * Video: a Matroska/WebM demuxer (the video track's packets, their
+//     timestamps and key flags), a VP8 decoder that carries one state across
+//     a stream's frames (the key-frame code above plus RFC 6386's inter
+//     frames: references, motion vectors, sub-pixel prediction, per-reference
+//     loop-filter deltas, saved probabilities, hidden frames) and FFmpeg
+//     swscale's unscaled YUV 4:2:0 -> BGR24 (what cv2.VideoCapture.read
+//     gives).
 //
 // Pack file layout (little endian), the JAX package's FGPK v2:
 //   [0:4]   magic "FGPK"
@@ -54,9 +61,13 @@
 #include <sys/stat.h>
 #include <unistd.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
+#include <string>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -90,6 +101,16 @@ enum Status {
   kErrWebpAlpha = -19,      // a lossy frame's ALPH plane (not decoded)
   kErrYcck = -20,           // 4 components with an Adobe transform other than 0
   kErrCmykLayout = -21,     // CMYK asked for RGB, grey or I420, or another JPEG for CMYK
+  kErrMkvNotMatroska = -22,  // no EBML header with a Segment
+  kErrMkvCorrupt = -23,      // an element that overruns its parent, or blocks before Tracks
+  kErrMkvLacing = -24,       // a laced block of the video track
+  kErrMkvEncoding = -25,     // a ContentEncoding (compressed or encrypted track)
+  kErrMkvTracks = -26,       // more than one video track
+  kErrMkvNoVideo = -27,      // no video track
+  kErrVp8Corrupt = -28,      // a malformed VP8 frame
+  kErrVp8Truncated = -29,    // a VP8 frame that ends before its last macroblock
+  kErrVp8NoKey = -30,        // an inter frame before the stream's first key frame
+  kErrVp8Size = -31,         // a key frame of another size than the stream's first
 };
 
 struct RecordMeta {
@@ -2206,7 +2227,8 @@ struct Quant {
 struct MacroBlock {
   uint8_t segment = 0;
   uint8_t skip = 0;
-  uint8_t is_i4x4 = 0;
+  uint8_t is_i4x4 = 0;  // no Y2 block: B_PRED (or, in an inter frame, SPLITMV)
+  uint8_t inter = 0;    // predicted from a reference frame
   uint8_t imodes[16];
   uint8_t uvmode = 0;
 };
@@ -2510,7 +2532,41 @@ void normal_edge(uint8_t* p, int step, int along, int size, int thresh, int ithr
   }
 }
 
-// ---- the VP8 key frame ----------------------------------------------------
+// ---- VP8 frames: key frames (WebP and video), inter frames (video) --------
+struct Mv {
+  int16_t x = 0, y = 0;  // quarter luma pixels
+};
+inline bool same_mv(Mv a, Mv b) { return a.x == b.x && a.y == b.y; }
+inline bool zero_mv(Mv a) { return a.x == 0 && a.y == 0; }
+
+enum { REF_INTRA = 0, REF_LAST, REF_GOLDEN, REF_ALTREF };
+// a macroblock's prediction; less one, the index of its loop-filter mode
+// delta (MB_I16 has none)
+enum { MB_I16 = 0, MB_BPRED, MB_ZERO, MB_MV, MB_SPLIT };
+enum { SPLIT_16X8 = 0, SPLIT_8X16, SPLIT_8X8, SPLIT_4X4 };
+
+// what later macroblocks of an inter frame read of one: its reference, mode
+// and motion vectors (an intra macroblock has REF_INTRA and zero vectors;
+// one without SPLITMV has its vector in all 16 bmv)
+struct MbInfo {
+  uint8_t ref = REF_INTRA, mode = MB_I16, split = 0;
+  Mv mv;
+  Mv bmv[16];
+};
+
+struct Frame {
+  std::vector<uint8_t> y, u, v;  // mb_w * 16 by mb_h * 16 (chroma half)
+};
+
+// counts of the stream features the frames used (fgpack_vp8_stats)
+enum {
+  kStatKey = 0, kStatInter, kStatHidden, kStatIntraMb, kStatIntraBpred, kStatSplitMb,
+  kStatSplit4x4, kStatGoldenMb, kStatAltrefMb, kStatLfDeltaFrames, kStatNoRefreshProbs,
+  kStatGoldenUpdates, kStatAltrefUpdates, kStatSignBias, kStatEdgeMv, kStatSegmentFrames,
+  kStatNoRefreshLast, kStatNewMv, kStatNearMv, kStatNearestMv, kStatZeroMv, kStatBilinear,
+  kStatSimpleFilter, kStatNoFilter, kVp8Stats
+};
+
 struct Vp8Decoder {
   int width = 0, height = 0, mb_w = 0, mb_h = 0;
   BoolReader br;       // the first partition: header and modes
@@ -2525,7 +2581,6 @@ struct Vp8Decoder {
   int ref_lf_delta[4] = {0, 0, 0, 0}, mode_lf_delta[4] = {0, 0, 0, 0};
   int filter_type = 0;  // 0 none, 1 simple, 2 normal
   Quant quant[4];
-  FilterInfo fstrengths[4][2];
   uint8_t proba[4][8][3][11];
   bool use_skip_proba = false;
   int skip_p = 0;
@@ -2533,30 +2588,139 @@ struct Vp8Decoder {
   // planes of mb_w * 16 by mb_h * 16 (chroma half), before cropping
   std::vector<uint8_t> y, u, v;
   int ystride = 0, uvstride = 0;
+
+  // video (one decoder for a stream's frames): FFmpeg's vp8 decoder where
+  // RFC 6386 leaves a choice, and libvpx's skip rule for the inner edges
+  bool video = false, key_frame = true, show = true;
+  int version = 0;
+  uint8_t ymode_p[4], uvmode_p[3], mv_p[2][19];
+  struct Probs {
+    uint8_t proba[4][8][3][11], ymode_p[4], uvmode_p[3], mv_p[2][19];
+  } saved;  // the probabilities of a frame with refresh_entropy_probs = 0
+  bool refresh_probs = true, refresh_last = true, refresh_golden = true, refresh_alt = true;
+  int copy_golden = 0, copy_alt = 0;
+  bool sign_bias[4] = {false, false, false, false};
+  int prob_intra = 0, prob_last = 0, prob_gf = 0;
+  std::vector<uint8_t> seg_map;  // mb_h x mb_w, kept where a frame does not update it
+  std::vector<MbInfo> info;      // (mb_h + 1) x (mb_w + 1); row 0, column 0 outside
+  std::shared_ptr<Frame> refs[4], shown;
+  int64_t stats[kVp8Stats] = {};
 };
 
+const uint8_t kYModeProbInter[4] = {112, 86, 140, 37};
+const uint8_t kUvModeProbInter[3] = {162, 101, 204};
+const uint8_t kBModeProbInter[9] = {120, 90, 79, 133, 87, 85, 80, 111, 151};
+const uint8_t kMvDefault[2][19] = {
+    {162, 128, 225, 146, 172, 147, 214, 39, 156, 128, 129, 132, 75, 145, 178, 206, 239, 254, 254},
+    {164, 128, 204, 170, 119, 235, 140, 230, 228, 128, 130, 130, 74, 148, 180, 203, 236, 254, 254}};
+const uint8_t kMvUpdate[2][19] = {
+    {237, 246, 253, 253, 254, 254, 254, 254, 254, 254, 254, 254, 254, 254, 250, 250, 252, 254, 254},
+    {231, 243, 245, 253, 254, 254, 254, 254, 254, 254, 254, 254, 254, 254, 251, 251, 254, 254, 254}};
+const uint8_t kModeContexts[6][4] = {{7, 1, 1, 143},   {14, 18, 14, 107},   {135, 64, 57, 68},
+                                     {60, 56, 128, 65}, {159, 134, 128, 34}, {234, 188, 128, 28}};
+const uint8_t kSubMvProb[5][3] = {
+    {147, 136, 18}, {106, 145, 1}, {179, 121, 1}, {223, 1, 34}, {208, 1, 1}};
+const uint8_t kSplits[4][16] = {{0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1},
+                                {0, 0, 1, 1, 0, 0, 1, 1, 0, 0, 1, 1, 0, 0, 1, 1},
+                                {0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3},
+                                {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}};
+const uint8_t kSplitCount[4] = {2, 2, 4, 16};
+const uint8_t kSplitFirst[4][16] = {{0, 8},
+                                    {0, 2},
+                                    {0, 2, 8, 10},
+                                    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15}};
+// the six-tap filters by eighth pixel (version 0)
+const int kSixtap[8][6] = {{0, 0, 128, 0, 0, 0},   {0, -6, 123, 12, -1, 0}, {2, -11, 108, 36, -8, 1},
+                           {0, -9, 93, 50, -6, 0},  {3, -16, 77, 77, -16, 3}, {0, -6, 50, 93, -9, 0},
+                           {1, -8, 36, 108, -11, 2}, {0, -1, 12, 123, -6, 0}};
+
+// What a key frame resets: the probabilities, segmentation and loop-filter
+// deltas (FFmpeg's keyframe branch of vp8_decode_frame_header).
+void reset_key_frame_state(Vp8Decoder* d) {
+  std::memcpy(d->proba, kCoeffsProba0, sizeof(d->proba));
+  std::memcpy(d->ymode_p, kYModeProbInter, sizeof(d->ymode_p));
+  std::memcpy(d->uvmode_p, kUvModeProbInter, sizeof(d->uvmode_p));
+  std::memcpy(d->mv_p, kMvDefault, sizeof(d->mv_p));
+  d->use_segment = d->update_map = d->absolute_delta = false;
+  std::memset(d->quantizer, 0, sizeof(d->quantizer));
+  std::memset(d->filter_strength, 0, sizeof(d->filter_strength));
+  d->use_lf_delta = false;
+  std::memset(d->ref_lf_delta, 0, sizeof(d->ref_lf_delta));
+  std::memset(d->mode_lf_delta, 0, sizeof(d->mode_lf_delta));
+}
+
+// The loop filter of one macroblock at `lvl` (before clipping to 0..63):
+// interior limit from the sharpness, high edge variance threshold by the
+// frame type (RFC 6386 section 15.2).
+FilterInfo filter_info(const Vp8Decoder& d, int lvl, bool inner) {
+  FilterInfo f;
+  lvl = clip(lvl, 63);
+  if (lvl > 0) {
+    int ilevel = lvl;
+    if (d.sharpness > 0) {
+      ilevel >>= d.sharpness > 4 ? 2 : 1;
+      if (ilevel > 9 - d.sharpness) ilevel = 9 - d.sharpness;
+    }
+    if (ilevel < 1) ilevel = 1;
+    f.ilevel = static_cast<uint8_t>(ilevel);
+    f.limit = static_cast<uint8_t>(2 * lvl + ilevel);
+    if (d.key_frame)
+      f.hev = lvl >= 40 ? 2 : (lvl >= 15 ? 1 : 0);
+    else
+      f.hev = lvl >= 40 ? 3 : (lvl >= 20 ? 2 : (lvl >= 15 ? 1 : 0));
+  }
+  f.inner = inner;
+  return f;
+}
+
+inline int segment_level(const Vp8Decoder& d, int s) {
+  if (!d.use_segment) return d.level;
+  return d.filter_strength[s] + (d.absolute_delta ? 0 : d.level);
+}
+
+// The frame header (RFC 6386 sections 9 and 19.2).  A WebP image is one key
+// frame that is shown; a video frame (d->video) may be an inter frame and
+// keeps what earlier frames set.
 int parse_vp8_header(Vp8Decoder* d, const uint8_t* data, size_t size) {
-  if (size < 10) return kErrWebpTruncated;
+  if (size < (d->video ? 3u : 10u)) return kErrWebpTruncated;
   const uint32_t bits = data[0] | (data[1] << 8) | (data[2] << 16);
   const bool key_frame = !(bits & 1);
   const int profile = (bits >> 1) & 7;
   const bool show = (bits >> 4) & 1;
   const uint32_t part0 = bits >> 5;
-  if (!key_frame || profile > 3 || !show) return kErrWebpCorrupt;
-  if (data[3] != 0x9d || data[4] != 0x01 || data[5] != 0x2a) return kErrWebpCorrupt;
-  d->width = (data[6] | (data[7] << 8)) & 0x3fff;
-  d->height = (data[8] | (data[9] << 8)) & 0x3fff;
-  if (d->width == 0 || d->height == 0) return kErrWebpCorrupt;
-  d->mb_w = (d->width + 15) >> 4;
-  d->mb_h = (d->height + 15) >> 4;
-  data += 10;
-  size -= 10;
+  if (profile > 3) return kErrWebpCorrupt;
+  if (!d->video && (!key_frame || !show)) return kErrWebpCorrupt;
+  d->key_frame = key_frame;
+  d->show = show;
+  d->version = profile;
+  if (key_frame) {
+    if (size < 10) return kErrWebpTruncated;
+    if (data[3] != 0x9d || data[4] != 0x01 || data[5] != 0x2a) return kErrWebpCorrupt;
+    const int width = (data[6] | (data[7] << 8)) & 0x3fff;
+    const int height = (data[8] | (data[9] << 8)) & 0x3fff;
+    if (width == 0 || height == 0) return kErrWebpCorrupt;
+    if (d->mb_w && (width != d->width || height != d->height)) return kErrVp8Size;
+    d->width = width;
+    d->height = height;
+    d->mb_w = (width + 15) >> 4;
+    d->mb_h = (height + 15) >> 4;
+    data += 10;
+    size -= 10;
+    reset_key_frame_state(d);
+  } else {
+    if (!d->refs[REF_LAST]) return kErrVp8NoKey;
+    data += 3;
+    size -= 3;
+  }
   if (part0 > size) return kErrWebpTruncated;
   BoolReader& br = d->br;
   br.init(data, part0);
-  br.bit(0x80);  // colour space
-  br.bit(0x80);  // clamping type
+  if (key_frame) {
+    br.bit(0x80);  // colour space
+    br.bit(0x80);  // clamping type
+  }
   d->use_segment = br.bit(0x80);
+  d->update_map = false;
   if (d->use_segment) {
     d->update_map = br.bit(0x80);
     if (br.bit(0x80)) {  // update the segment feature data
@@ -2624,8 +2788,26 @@ int parse_vp8_header(Vp8Decoder* d, const uint8_t* data, size_t size) {
     m.uv[0] = kDcTable[clip(q + dquv_dc, 117)];
     m.uv[1] = kAcTable[clip(q + dquv_ac, 127)];
   }
-  br.bit(0x80);  // refresh entropy probs: one key frame, nothing to keep
-  std::memcpy(d->proba, kCoeffsProba0, sizeof(d->proba));
+  if (key_frame) {
+    d->refresh_probs = br.bit(0x80);
+    d->refresh_golden = d->refresh_alt = d->refresh_last = true;
+    d->copy_golden = d->copy_alt = 0;
+  } else {
+    d->refresh_golden = br.bit(0x80);
+    d->refresh_alt = br.bit(0x80);
+    d->copy_golden = d->refresh_golden ? 0 : static_cast<int>(br.literal(2));
+    d->copy_alt = d->refresh_alt ? 0 : static_cast<int>(br.literal(2));
+    d->sign_bias[REF_GOLDEN] = br.bit(0x80);
+    d->sign_bias[REF_ALTREF] = br.bit(0x80);
+    d->refresh_probs = br.bit(0x80);
+    d->refresh_last = br.bit(0x80);
+  }
+  if (!d->refresh_probs) {  // this frame's updates hold for this frame only
+    std::memcpy(d->saved.proba, d->proba, sizeof(d->proba));
+    std::memcpy(d->saved.ymode_p, d->ymode_p, sizeof(d->ymode_p));
+    std::memcpy(d->saved.uvmode_p, d->uvmode_p, sizeof(d->uvmode_p));
+    std::memcpy(d->saved.mv_p, d->mv_p, sizeof(d->mv_p));
+  }
   for (int t = 0; t < 4; ++t)
     for (int b = 0; b < 8; ++b)
       for (int c = 0; c < 3; ++c)
@@ -2633,49 +2815,34 @@ int parse_vp8_header(Vp8Decoder* d, const uint8_t* data, size_t size) {
           if (br.bit(kCoeffsUpdateProba[t][b][c][p])) d->proba[t][b][c][p] = br.literal(8);
   d->use_skip_proba = br.bit(0x80);
   if (d->use_skip_proba) d->skip_p = br.literal(8);
-  if (br.eof) return kErrWebpTruncated;
-
-  // loop filter strengths per segment and 4x4-ness (PrecomputeFilterStrengths)
-  if (d->filter_type > 0) {
-    for (int s = 0; s < 4; ++s) {
-      int base = d->level;
-      if (d->use_segment) base = d->filter_strength[s] + (d->absolute_delta ? 0 : d->level);
-      for (int i4 = 0; i4 <= 1; ++i4) {
-        FilterInfo& f = d->fstrengths[s][i4];
-        int lvl = base;
-        if (d->use_lf_delta) {
-          lvl += d->ref_lf_delta[0];
-          if (i4) lvl += d->mode_lf_delta[0];
+  if (!key_frame) {
+    d->prob_intra = br.literal(8);
+    d->prob_last = br.literal(8);
+    d->prob_gf = br.literal(8);
+    if (br.bit(0x80))
+      for (int i = 0; i < 4; ++i) d->ymode_p[i] = br.literal(8);
+    if (br.bit(0x80))
+      for (int i = 0; i < 3; ++i) d->uvmode_p[i] = br.literal(8);
+    for (int c = 0; c < 2; ++c)
+      for (int p = 0; p < 19; ++p)
+        if (br.bit(kMvUpdate[c][p])) {
+          const int x = br.literal(7);
+          d->mv_p[c][p] = x ? static_cast<uint8_t>(x << 1) : 1;
         }
-        lvl = clip(lvl, 63);
-        if (lvl > 0) {
-          int ilevel = lvl;
-          if (d->sharpness > 0) {
-            ilevel >>= d->sharpness > 4 ? 2 : 1;
-            if (ilevel > 9 - d->sharpness) ilevel = 9 - d->sharpness;
-          }
-          if (ilevel < 1) ilevel = 1;
-          f.ilevel = static_cast<uint8_t>(ilevel);
-          f.limit = static_cast<uint8_t>(2 * lvl + ilevel);
-          f.hev = lvl >= 40 ? 2 : (lvl >= 15 ? 1 : 0);
-        } else {
-          f.limit = 0;
-        }
-        f.inner = static_cast<uint8_t>(i4);
-      }
-    }
   }
-  return kOk;
+  return br.eof ? kErrWebpTruncated : kOk;
+}
+
+// the segment id of a macroblock where the frame updates the map
+inline int read_segment(Vp8Decoder* d) {
+  BoolReader& br = d->br;
+  return !br.bit(d->segment_probs[0]) ? br.bit(d->segment_probs[1])
+                                      : br.bit(d->segment_probs[2]) + 2;
 }
 
 void parse_modes(Vp8Decoder* d, MacroBlock* mb, uint8_t* top, uint8_t* left) {
   BoolReader& br = d->br;
-  if (d->update_map) {
-    mb->segment = !br.bit(d->segment_probs[0]) ? br.bit(d->segment_probs[1])
-                                                : br.bit(d->segment_probs[2]) + 2;
-  } else {
-    mb->segment = 0;
-  }
+  mb->segment = d->update_map ? read_segment(d) : 0;
   mb->skip = d->use_skip_proba ? br.bit(d->skip_p) : 0;
   mb->is_i4x4 = !br.bit(145);
   if (!mb->is_i4x4) {
@@ -2700,6 +2867,183 @@ void parse_modes(Vp8Decoder* d, MacroBlock* mb, uint8_t* top, uint8_t* left) {
     }
   }
   mb->uvmode = !br.bit(142) ? B_DC : (!br.bit(114) ? B_VE : (br.bit(183) ? B_TM : B_HE));
+}
+
+// one motion vector component (RFC 6386 section 17.2), quarter pixels
+int read_mv_component(BoolReader& br, const uint8_t* p) {
+  int x = 0;
+  if (br.bit(p[0])) {  // long form: bits 0-2, 9-4, then 3 (implicit below 16)
+    for (int i = 0; i < 3; ++i) x += br.bit(p[9 + i]) << i;
+    for (int i = 9; i > 3; --i) x += br.bit(p[9 + i]) << i;
+    if (!(x & 0xfff0) || br.bit(p[12])) x += 8;
+  } else {  // the short tree
+    const int b2 = br.bit(p[2]);
+    const int b1 = br.bit(p[3 + 3 * b2]);
+    x = 4 * b2 + 2 * b1 + br.bit(p[4 + 3 * b2 + b1]);
+  }
+  return x && br.bit(p[1]) ? -x : x;
+}
+
+inline Mv read_mv(Vp8Decoder* d, Mv base) {
+  Mv m;
+  m.y = static_cast<int16_t>(base.y + read_mv_component(d->br, d->mv_p[0]));
+  m.x = static_cast<int16_t>(base.x + read_mv_component(d->br, d->mv_p[1]));
+  return m;
+}
+
+// a vector clamped to 16 pixels past the frame's macroblocks
+inline Mv clamp_mv(const Vp8Decoder& d, Mv m, int mb_x, int mb_y) {
+  const int lo_x = -64 * (mb_x + 1), hi_x = 64 * (d.mb_w - mb_x);
+  const int lo_y = -64 * (mb_y + 1), hi_y = 64 * (d.mb_h - mb_y);
+  m.x = static_cast<int16_t>(m.x < lo_x ? lo_x : (m.x > hi_x ? hi_x : m.x));
+  m.y = static_cast<int16_t>(m.y < lo_y ? lo_y : (m.y > hi_y ? hi_y : m.y));
+  return m;
+}
+
+// SPLITMV: the partitioning, then each partition's vector from the left and
+// above sub-block vectors' context (FFmpeg's decode_splitmvs)
+void parse_split(Vp8Decoder* d, MbInfo* mi, const MbInfo& left_mb, const MbInfo& above_mb,
+                 Mv best) {
+  BoolReader& br = d->br;
+  int s;
+  if (br.bit(110))
+    s = br.bit(111) ? SPLIT_16X8 + br.bit(150) : SPLIT_8X8;
+  else
+    s = SPLIT_4X4;
+  mi->split = static_cast<uint8_t>(s);
+  for (int n = 0; n < kSplitCount[s]; ++n) {
+    const int k = kSplitFirst[s][n];
+    const Mv left = (k & 3) ? mi->bmv[k - 1] : left_mb.bmv[k + 3];
+    const Mv above = k > 3 ? mi->bmv[k - 4] : above_mb.bmv[k + 12];
+    const uint8_t* p;
+    if (same_mv(left, above))
+      p = kSubMvProb[zero_mv(left) ? 4 : 3];
+    else if (zero_mv(above))
+      p = kSubMvProb[2];
+    else
+      p = kSubMvProb[zero_mv(left) ? 1 : 0];
+    Mv m;
+    if (!br.bit(p[0]))
+      m = left;
+    else if (!br.bit(p[1]))
+      m = above;
+    else if (!br.bit(p[2]))
+      m = Mv();
+    else
+      m = read_mv(d, best);
+    for (int b = 0; b < 16; ++b)
+      if (kSplits[s][b] == n) mi->bmv[b] = m;
+  }
+  mi->mv = mi->bmv[15];
+}
+
+// The modes of one macroblock of an inter frame (RFC 6386 section 16;
+// FFmpeg's decode_mb_mode and vp8_decode_mvs).
+void parse_inter_modes(Vp8Decoder* d, MacroBlock* mb, int mb_x, int mb_y) {
+  BoolReader& br = d->br;
+  const int stride = d->mb_w + 1;
+  MbInfo* mi = &d->info[(mb_y + 1) * stride + mb_x + 1];
+  const MbInfo& above = mi[-stride];
+  const MbInfo& left = mi[-1];
+  const MbInfo& above_left = mi[-stride - 1];
+  uint8_t& seg = d->seg_map[mb_y * d->mb_w + mb_x];
+  if (d->update_map) seg = static_cast<uint8_t>(read_segment(d));
+  mb->segment = seg;
+  mb->skip = d->use_skip_proba ? br.bit(d->skip_p) : 0;
+  int64_t* st = d->stats;
+  if (!br.bit(d->prob_intra)) {  // an intra macroblock
+    *mi = MbInfo();
+    mb->inter = 0;
+    const uint8_t* p = d->ymode_p;
+    int ymode;
+    if (!br.bit(p[0]))
+      ymode = B_DC;
+    else if (!br.bit(p[1]))
+      ymode = br.bit(p[2]) ? B_HE : B_VE;
+    else
+      ymode = br.bit(p[3]) ? -1 : B_TM;
+    mb->is_i4x4 = ymode < 0;
+    ++st[kStatIntraMb];
+    if (mb->is_i4x4) {
+      ++st[kStatIntraBpred];
+      mi->mode = MB_BPRED;
+      for (int n = 0; n < 16; ++n) {
+        int i = kYModesIntra4[br.bit(kBModeProbInter[0])];
+        while (i > 0) i = kYModesIntra4[2 * i + br.bit(kBModeProbInter[i])];
+        mb->imodes[n] = static_cast<uint8_t>(-i);
+      }
+    } else {
+      mb->imodes[0] = static_cast<uint8_t>(ymode);
+    }
+    p = d->uvmode_p;
+    mb->uvmode = !br.bit(p[0]) ? B_DC : (!br.bit(p[1]) ? B_VE : (br.bit(p[2]) ? B_TM : B_HE));
+    return;
+  }
+  mb->inter = 1;
+  mb->is_i4x4 = 0;
+  mi->ref = static_cast<uint8_t>(!br.bit(d->prob_last) ? REF_LAST
+                                                       : (br.bit(d->prob_gf) ? REF_ALTREF
+                                                                             : REF_GOLDEN));
+  if (mi->ref == REF_GOLDEN) ++st[kStatGoldenMb];
+  if (mi->ref == REF_ALTREF) ++st[kStatAltrefMb];
+  mi->split = 0;
+
+  // the near vectors of the above, left and above-left macroblocks, their
+  // sign inverted where that reference's sign bias differs
+  const MbInfo* edge[3] = {&above, &left, &above_left};
+  Mv near_mv[4];
+  int cnt[4] = {0, 0, 0, 0};
+  int idx = 0;
+  for (int n = 0; n < 3; ++n) {
+    const MbInfo& e = *edge[n];
+    if (e.ref == REF_INTRA) continue;
+    const int weight = n == 2 ? 1 : 2;
+    Mv m = e.mv;
+    if (zero_mv(m)) {
+      cnt[0] += weight;
+      continue;
+    }
+    if (d->sign_bias[e.ref] != d->sign_bias[mi->ref]) {
+      m.x = static_cast<int16_t>(-m.x);
+      m.y = static_cast<int16_t>(-m.y);
+    }
+    if (n == 0 || !same_mv(m, near_mv[idx])) near_mv[++idx] = m;
+    cnt[idx] += weight;
+  }
+  if (!br.bit(kModeContexts[cnt[0]][0])) {
+    mi->mode = MB_ZERO;
+    mi->mv = Mv();
+    ++st[kStatZeroMv];
+  } else {
+    if (cnt[3] && same_mv(near_mv[1], near_mv[3])) cnt[1] += 1;
+    if (cnt[2] > cnt[1]) {
+      std::swap(cnt[1], cnt[2]);
+      std::swap(near_mv[1], near_mv[2]);
+    }
+    mi->mode = MB_MV;
+    if (!br.bit(kModeContexts[cnt[1]][1])) {
+      mi->mv = clamp_mv(*d, near_mv[1], mb_x, mb_y);
+      ++st[kStatNearestMv];
+    } else if (!br.bit(kModeContexts[cnt[2]][2])) {
+      mi->mv = clamp_mv(*d, near_mv[2], mb_x, mb_y);
+      ++st[kStatNearMv];
+    } else {
+      const Mv best = clamp_mv(*d, near_mv[cnt[1] >= cnt[0] ? 1 : 0], mb_x, mb_y);
+      const int split_ctx = (left.mode == MB_SPLIT) * 2 + (above.mode == MB_SPLIT) * 2 +
+                            (above_left.mode == MB_SPLIT);
+      if (br.bit(kModeContexts[split_ctx][3])) {
+        mi->mode = MB_SPLIT;
+        mb->is_i4x4 = 1;  // no Y2 block
+        parse_split(d, mi, left, above, best);
+        ++st[kStatSplitMb];
+        if (mi->split == SPLIT_4X4) ++st[kStatSplit4x4];
+        return;
+      }
+      mi->mv = read_mv(d, best);
+      ++st[kStatNewMv];
+    }
+  }
+  for (int b = 0; b < 16; ++b) mi->bmv[b] = mi->mv;
 }
 
 int large_value(BoolReader& br, const uint8_t* p) {
@@ -2755,15 +3099,18 @@ struct NzContext {
   uint8_t nz_dc = 0;  // the Y2 block had coefficients
 };
 
-// the residuals of one macroblock (libwebp's ParseResiduals); returns true
-// where no luma or chroma block has a coefficient (the Y2 block does not
-// count: libwebp's non_zero_y / non_zero_uv)
+// The residuals of one macroblock (libwebp's ParseResiduals); returns
+// whether any block, the Y2 block included, had a token other than the end
+// of block (libvpx's eobtotal, FFmpeg's nnz_total: without one, the inner
+// edges of a macroblock with a Y2 block go unfiltered).  A coded block
+// always dequantises to a non-zero coefficient, and a coded Y2 block to
+// non-zero DCs, so this is also libwebp's non_zero_y | non_zero_uv.
 bool parse_residuals(Vp8Decoder* d, const MacroBlock& mb, NzContext* top, NzContext* left,
                      BoolReader& br, int16_t* coeffs) {
   const Quant& q = d->quant[mb.segment];
   int16_t* dst = coeffs;
   std::memset(dst, 0, 384 * sizeof(int16_t));
-  bool any = false;
+  bool coded = false;
   int first;
   const uint8_t (*ac_proba)[3][11];
   if (!mb.is_i4x4) {
@@ -2771,6 +3118,7 @@ bool parse_residuals(Vp8Decoder* d, const MacroBlock& mb, NzContext* top, NzCont
     const int ctx = top->nz_dc + left->nz_dc;
     const int nz = get_coeffs(br, d->proba[1], ctx, q.y2, 0, dc);
     top->nz_dc = left->nz_dc = nz > 0;
+    coded = nz > 0;
     if (nz > 1) {
       transform_wht(dc, dst);
     } else {
@@ -2791,7 +3139,7 @@ bool parse_residuals(Vp8Decoder* d, const MacroBlock& mb, NzContext* top, NzCont
       const int ctx = l + (tnz & 1);
       const int nz = get_coeffs(br, ac_proba, ctx, q.y1, first, dst);
       l = nz > first;
-      if (nz > 1 || dst[0] != 0) any = true;
+      coded |= l;
       tnz = static_cast<uint8_t>((tnz >> 1) | (l << 7));
       dst += 16;
     }
@@ -2808,7 +3156,7 @@ bool parse_residuals(Vp8Decoder* d, const MacroBlock& mb, NzContext* top, NzCont
         const int ctx = l + (tnz & 1);
         const int nz = get_coeffs(br, d->proba[2], ctx, q.uv, 0, dst);
         l = nz > 0;
-        if (nz > 1 || dst[0] != 0) any = true;
+        coded |= l;
         tnz = static_cast<uint8_t>((tnz >> 1) | (l << 3));
         dst += 16;
       }
@@ -2820,7 +3168,7 @@ bool parse_residuals(Vp8Decoder* d, const MacroBlock& mb, NzContext* top, NzCont
   }
   top->nz = static_cast<uint8_t>(out_t);
   left->nz = static_cast<uint8_t>(out_l);
-  return !any;
+  return coded;
 }
 
 bool block_nonzero(const int16_t* c) {
@@ -2875,9 +3223,121 @@ inline int check_dc_mode(int mode, int mb_x, int mb_y) {
   return mb_y == 0 ? DC_NOTOP : B_DC;
 }
 
-// Decode the key frame into d->y/u/v: per row, the modes and tokens of each
-// macroblock, prediction from the unfiltered neighbours (libwebp's
-// ReconstructRow work buffers), then the row's loop filter.
+// A (bw, bh) block of a reference plane (w, h, replicated past its edges)
+// at full pixel (x, y) and eighth pixel (fx, fy): the six-tap filters
+// (version 0) or the bilinear ones, horizontal pass (rounded, clipped)
+// first, into dst (stride BPS).
+void predict_block_mc(const uint8_t* src, int w, int h, int x, int y, int fx, int fy, int bw,
+                      int bh, bool sixtap, uint8_t* dst) {
+  uint8_t win[21 * 21], tmp[21 * 16];
+  const int ww = bw + 5, wh = bh + 5;
+  bool inside = x >= 2 && y >= 2 && x + bw + 3 <= w && y + bh + 3 <= h;
+  for (int j = 0; j < wh; ++j) {
+    const uint8_t* row = src + static_cast<size_t>(clip(y - 2 + j, h - 1)) * w;
+    if (inside) {
+      std::memcpy(win + j * ww, row + x - 2, ww);
+    } else {
+      for (int i = 0; i < ww; ++i) win[j * ww + i] = row[clip(x - 2 + i, w - 1)];
+    }
+  }
+  if (sixtap) {
+    const int* fh = kSixtap[fx];
+    for (int j = 0; j < wh; ++j) {
+      const uint8_t* p = win + j * ww;
+      uint8_t* t = tmp + j * bw;
+      if (!fx) {
+        std::memcpy(t, p + 2, bw);
+        continue;
+      }
+      for (int i = 0; i < bw; ++i)
+        t[i] = clip8((fh[0] * p[i] + fh[1] * p[i + 1] + fh[2] * p[i + 2] + fh[3] * p[i + 3] +
+                      fh[4] * p[i + 4] + fh[5] * p[i + 5] + 64) >> 7);
+    }
+    const int* fv = kSixtap[fy];
+    for (int j = 0; j < bh; ++j) {
+      const uint8_t* t = tmp + j * bw;
+      uint8_t* o = dst + j * BPS;
+      if (!fy) {
+        std::memcpy(o, t + 2 * bw, bw);
+        continue;
+      }
+      for (int i = 0; i < bw; ++i)
+        o[i] = clip8((fv[0] * t[i] + fv[1] * t[i + bw] + fv[2] * t[i + 2 * bw] +
+                      fv[3] * t[i + 3 * bw] + fv[4] * t[i + 4 * bw] + fv[5] * t[i + 5 * bw] +
+                      64) >> 7);
+    }
+    return;
+  }
+  for (int j = 0; j <= bh; ++j) {  // rows y .. y + bh
+    const uint8_t* p = win + (j + 2) * ww + 2;
+    uint8_t* t = tmp + j * bw;
+    for (int i = 0; i < bw; ++i) t[i] = fx ? ((8 - fx) * p[i] + fx * p[i + 1] + 4) >> 3 : p[i];
+  }
+  for (int j = 0; j < bh; ++j) {
+    const uint8_t* t = tmp + j * bw;
+    uint8_t* o = dst + j * BPS;
+    for (int i = 0; i < bw; ++i) o[i] = fy ? ((8 - fy) * t[i] + fy * t[i + bw] + 4) >> 3 : t[i];
+  }
+}
+
+// The inter prediction of one macroblock into the work buffers: luma by
+// quarter pixel, chroma by eighth pixel (full pixel in version 3), a split
+// macroblock's chroma 4x4 blocks from the rounded average of their four
+// luma vectors (FFmpeg's inter_predict).
+void predict_inter(Vp8Decoder* d, const MbInfo& mi, int mb_x, int mb_y, uint8_t* yw, uint8_t* uw,
+                   uint8_t* vw) {
+  const Frame& ref = *d->refs[mi.ref];
+  const int w = d->mb_w * 16, h = d->mb_h * 16;
+  const bool sixtap = d->version == 0;
+  bool edge = false;
+  auto luma = [&](int bx, int by, int bw, int bh, Mv m) {
+    const int x = mb_x * 16 + bx + (m.x >> 2), y = mb_y * 16 + by + (m.y >> 2);
+    edge |= x < 0 || y < 0 || x + bw > w || y + bh > h;
+    predict_block_mc(ref.y.data(), w, h, x, y, (m.x * 2) & 7, (m.y * 2) & 7, bw, bh, sixtap,
+                     yw + by * BPS + bx);
+  };
+  auto chroma = [&](int bx, int by, int bw, int bh, Mv m) {  // m in eighth chroma pixels
+    if (d->version == 3) {
+      m.x = static_cast<int16_t>(m.x & ~7);
+      m.y = static_cast<int16_t>(m.y & ~7);
+    }
+    const int x = mb_x * 8 + bx + (m.x >> 3), y = mb_y * 8 + by + (m.y >> 3);
+    predict_block_mc(ref.u.data(), w / 2, h / 2, x, y, m.x & 7, m.y & 7, bw, bh, sixtap,
+                     uw + by * BPS + bx);
+    predict_block_mc(ref.v.data(), w / 2, h / 2, x, y, m.x & 7, m.y & 7, bw, bh, sixtap,
+                     vw + by * BPS + bx);
+  };
+  if (mi.mode != MB_SPLIT) {
+    luma(0, 0, 16, 16, mi.mv);
+    chroma(0, 0, 8, 8, mi.mv);
+  } else if (mi.split == SPLIT_4X4) {
+    for (int b = 0; b < 16; ++b) luma((b & 3) * 4, (b >> 2) * 4, 4, 4, mi.bmv[b]);
+    for (int y = 0; y < 2; ++y)
+      for (int x = 0; x < 2; ++x) {
+        const int b = 8 * y + 2 * x;
+        int sx = mi.bmv[b].x + mi.bmv[b + 1].x + mi.bmv[b + 4].x + mi.bmv[b + 5].x;
+        int sy = mi.bmv[b].y + mi.bmv[b + 1].y + mi.bmv[b + 4].y + mi.bmv[b + 5].y;
+        Mv m;
+        m.x = static_cast<int16_t>((sx + 2 - (sx < 0)) >> 2);
+        m.y = static_cast<int16_t>((sy + 2 - (sy < 0)) >> 2);
+        chroma(4 * x, 4 * y, 4, 4, m);
+      }
+  } else {
+    const int pw = mi.split == SPLIT_16X8 ? 16 : 8, ph = mi.split == SPLIT_8X16 ? 16 : 8;
+    for (int b = 0; b < 16; ++b) {
+      const int bx = (b & 3) * 4, by = (b >> 2) * 4;
+      if (bx % pw || by % ph) continue;  // the first block of each partition
+      luma(bx, by, pw, ph, mi.bmv[b]);
+      chroma(bx / 2, by / 2, pw / 2, ph / 2, mi.bmv[b]);
+    }
+  }
+  if (edge) ++d->stats[kStatEdgeMv];
+}
+
+// Decode one frame into d->y/u/v: per row, the modes and tokens of each
+// macroblock, prediction (intra from the unfiltered neighbours, libwebp's
+// ReconstructRow work buffers; inter from the reference frames), then the
+// row's loop filter.
 int decode_vp8_frame(Vp8Decoder* d) {
   const int mb_w = d->mb_w, mb_h = d->mb_h;
   d->ystride = mb_w * 16;
@@ -2885,6 +3345,10 @@ int decode_vp8_frame(Vp8Decoder* d) {
   d->y.assign(static_cast<size_t>(d->ystride) * mb_h * 16, 0);
   d->u.assign(static_cast<size_t>(d->uvstride) * mb_h * 8, 0);
   d->v.assign(static_cast<size_t>(d->uvstride) * mb_h * 8, 0);
+  if (d->video && d->info.empty()) {
+    d->info.assign(static_cast<size_t>(mb_w + 1) * (mb_h + 1), MbInfo());
+    d->seg_map.assign(static_cast<size_t>(mb_w) * mb_h, 0);
+  }
   std::vector<uint8_t> intra_t(4 * mb_w, B_DC);
   std::vector<NzContext> nz_top(mb_w);
   std::vector<uint8_t> ytop(16 * mb_w), utop(8 * mb_w), vtop(8 * mb_w);
@@ -2913,11 +3377,22 @@ int decode_vp8_frame(Vp8Decoder* d) {
     }
     for (int mb_x = 0; mb_x < mb_w; ++mb_x) {
       MacroBlock& mb = row[mb_x];
-      parse_modes(d, &mb, &intra_t[4 * mb_x], intra_l);
+      mb.inter = 0;
+      if (!d->key_frame) {
+        parse_inter_modes(d, &mb, mb_x, mb_y);
+      } else {
+        parse_modes(d, &mb, &intra_t[4 * mb_x], intra_l);
+        if (d->video) {
+          uint8_t& seg = d->seg_map[mb_y * mb_w + mb_x];
+          if (d->update_map) seg = mb.segment;
+          mb.segment = seg;
+          d->info[(mb_y + 1) * (mb_w + 1) + mb_x + 1] = MbInfo();
+        }
+      }
       if (d->br.eof) return kErrWebpTruncated;
-      bool skip = mb.skip;
-      if (!skip) {
-        skip = parse_residuals(d, mb, &nz_top[mb_x], &nz_left, tokens, coeffs);
+      bool coded = false;
+      if (!mb.skip) {
+        coded = parse_residuals(d, mb, &nz_top[mb_x], &nz_left, tokens, coeffs);
       } else {
         nz_left.nz = nz_top[mb_x].nz = 0;
         if (!mb.is_i4x4) nz_left.nz_dc = nz_top[mb_x].nz_dc = 0;
@@ -2925,8 +3400,18 @@ int decode_vp8_frame(Vp8Decoder* d) {
       }
       if (tokens.eof) return kErrWebpTruncated;
       if (d->filter_type > 0) {
-        finfo[mb_x] = d->fstrengths[mb.segment][mb.is_i4x4];
-        finfo[mb_x].inner |= !skip;
+        // FFmpeg's filter_level_for_mb: the segment's level, the deltas of
+        // the reference and of the mode (B_PRED, ZEROMV, other vectors,
+        // SPLITMV); inner edges where the macroblock has no Y2 block or a
+        // token was coded
+        const MbInfo* mi = mb.inter ? &d->info[(mb_y + 1) * (mb_w + 1) + mb_x + 1] : nullptr;
+        const int mode = mi ? mi->mode : (mb.is_i4x4 ? MB_BPRED : MB_I16);
+        int lvl = segment_level(*d, mb.segment);
+        if (d->use_lf_delta) {
+          lvl += d->ref_lf_delta[mi ? mi->ref : REF_INTRA];
+          if (mode != MB_I16) lvl += d->mode_lf_delta[mode - 1];
+        }
+        finfo[mb_x] = filter_info(*d, lvl, mb.is_i4x4 || coded);
       }
 
       // reconstruct: rotate in the left samples, bring in the top ones
@@ -2942,7 +3427,12 @@ int decode_vp8_frame(Vp8Decoder* d) {
         std::memcpy(uw - BPS, &utop[8 * mb_x], 8);
         std::memcpy(vw - BPS, &vtop[8 * mb_x], 8);
       }
-      if (mb.is_i4x4) {
+      if (mb.inter) {
+        predict_inter(d, d->info[(mb_y + 1) * (mb_w + 1) + mb_x + 1], mb_x, mb_y, yw, uw, vw);
+        for (int n = 0; n < 16; ++n)
+          if (block_nonzero(coeffs + 16 * n))
+            transform_add(coeffs + 16 * n, yw + (n & 3) * 4 + (n >> 2) * 4 * BPS);
+      } else if (mb.is_i4x4) {
         uint8_t* top_right = yw - BPS + 16;
         if (mb_y > 0) {
           if (mb_x >= mb_w - 1)
@@ -2962,9 +3452,11 @@ int decode_vp8_frame(Vp8Decoder* d) {
           if (block_nonzero(coeffs + 16 * n))
             transform_add(coeffs + 16 * n, yw + (n & 3) * 4 + (n >> 2) * 4 * BPS);
       }
-      const int uvmode = check_dc_mode(mb.uvmode, mb_x, mb_y);
-      predict_block(uw, uvmode, 8);
-      predict_block(vw, uvmode, 8);
+      if (!mb.inter) {
+        const int uvmode = check_dc_mode(mb.uvmode, mb_x, mb_y);
+        predict_block(uw, uvmode, 8);
+        predict_block(vw, uvmode, 8);
+      }
       for (int n = 0; n < 4; ++n) {
         const int off = (n & 1) * 4 + (n >> 1) * 4 * BPS;
         if (block_nonzero(coeffs + 256 + 16 * n)) transform_add(coeffs + 256 + 16 * n, uw + off);
@@ -2983,6 +3475,59 @@ int decode_vp8_frame(Vp8Decoder* d) {
     if (d->filter_type > 0)
       for (int mb_x = 0; mb_x < mb_w; ++mb_x) filter_mb(*d, finfo[mb_x], mb_x, mb_y);
   }
+  return kOk;
+}
+
+// One packet of a VP8 stream: decode it, then update the references as
+// FFmpeg does (golden and altref from the references before this frame,
+// then last) and restore the probabilities of a frame that did not refresh
+// them.  d->shown is the decoded frame; d->show tells whether it is shown.
+int decode_vp8_packet(Vp8Decoder* d, const uint8_t* data, size_t size) {
+  d->video = true;
+  int rc = parse_vp8_header(d, data, size);
+  if (rc == kOk) rc = decode_vp8_frame(d);
+  if (rc == kErrWebpCorrupt) return kErrVp8Corrupt;
+  if (rc == kErrWebpTruncated) return kErrVp8Truncated;
+  if (rc != kOk) return rc;
+  auto cur = std::make_shared<Frame>();
+  cur->y.swap(d->y);
+  cur->u.swap(d->u);
+  cur->v.swap(d->v);
+  int64_t* st = d->stats;
+  ++st[d->key_frame ? kStatKey : kStatInter];
+  if (!d->show) ++st[kStatHidden];
+  if (!d->refresh_probs) ++st[kStatNoRefreshProbs];
+  if (!d->refresh_last) ++st[kStatNoRefreshLast];
+  if (d->use_segment) ++st[kStatSegmentFrames];
+  if (d->version) ++st[kStatBilinear];
+  if (d->filter_type == 1) ++st[kStatSimpleFilter];
+  if (d->filter_type == 0) ++st[kStatNoFilter];
+  if (!d->key_frame) {
+    bool deltas = false;
+    for (int i = 0; i < 4; ++i) deltas |= d->ref_lf_delta[i] != 0 || d->mode_lf_delta[i] != 0;
+    if (d->use_lf_delta && deltas && d->filter_type) ++st[kStatLfDeltaFrames];
+    if (d->refresh_golden || d->copy_golden) ++st[kStatGoldenUpdates];
+    if (d->refresh_alt || d->copy_alt) ++st[kStatAltrefUpdates];
+    if (d->sign_bias[REF_GOLDEN] || d->sign_bias[REF_ALTREF]) ++st[kStatSignBias];
+  }
+  const std::shared_ptr<Frame> old_last = d->refs[REF_LAST], old_golden = d->refs[REF_GOLDEN],
+                               old_alt = d->refs[REF_ALTREF];
+  if (d->refresh_golden)
+    d->refs[REF_GOLDEN] = cur;
+  else if (d->copy_golden == 1 || d->copy_golden == 2)  // 3 is reserved: no copy
+    d->refs[REF_GOLDEN] = d->copy_golden == 1 ? old_last : old_alt;
+  if (d->refresh_alt)
+    d->refs[REF_ALTREF] = cur;
+  else if (d->copy_alt == 1 || d->copy_alt == 2)
+    d->refs[REF_ALTREF] = d->copy_alt == 1 ? old_last : old_golden;
+  if (d->refresh_last) d->refs[REF_LAST] = cur;
+  if (!d->refresh_probs) {
+    std::memcpy(d->proba, d->saved.proba, sizeof(d->proba));
+    std::memcpy(d->ymode_p, d->saved.ymode_p, sizeof(d->ymode_p));
+    std::memcpy(d->uvmode_p, d->saved.uvmode_p, sizeof(d->uvmode_p));
+    std::memcpy(d->mv_p, d->saved.mv_p, sizeof(d->mv_p));
+  }
+  d->shown = cur;
   return kOk;
 }
 
@@ -3635,7 +4180,283 @@ int decode_webp(const uint8_t* buf, size_t n, uint8_t* dst, int h, int w, int ch
   return kOk;
 }
 
+// ---- YUV 4:2:0 -> BGR24 as FFmpeg's swscale converts at the same size ----
+// swscale's unscaled yuv2rgb in its x86 SIMD form (yuv_2_rgb.asm): luma
+// and chroma scaled by 8 and offset, multiplied by 13-bit fixed-point
+// BT.601 limited-range coefficients keeping the high 16 bits (pmulhw), sums
+// saturated to 0..255; each chroma sample serves a 2 x 2 block.  This is
+// what cv2.VideoCapture.read gives for an even height (an odd one takes
+// swscale's scaling path).  The coefficients are roundToInt16(c << 13) of
+// ff_yuv2rgb_coeffs' BT.601 row {104597, 132201, 25675, 53279} and
+// cy = 65536 * 255 / 219.
+constexpr int kSwsY = 9539, kSwsVr = 13075, kSwsUb = 16525, kSwsUg = -3209, kSwsVg = -6660;
+
+inline int mulhi16(int a, int b) { return (a * b) >> 16; }
+
+void yuv420_to_bgr24(const Frame& f, int stride, int h, int w, uint8_t* dst) {
+  const int cstride = stride / 2;
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* py = &f.y[static_cast<size_t>(y) * stride];
+    const uint8_t* pu = &f.u[static_cast<size_t>(y >> 1) * cstride];
+    const uint8_t* pv = &f.v[static_cast<size_t>(y >> 1) * cstride];
+    uint8_t* o = dst + static_cast<size_t>(y) * w * 3;
+    for (int x = 0; x < w; ++x, o += 3) {
+      const int u = pu[x >> 1] * 8 - 1024, v = pv[x >> 1] * 8 - 1024;
+      const int yy = mulhi16(py[x] * 8 - 128, kSwsY);
+      o[0] = clip8(yy + mulhi16(u, kSwsUb));
+      o[1] = clip8(yy + mulhi16(u, kSwsUg) + mulhi16(v, kSwsVg));
+      o[2] = clip8(yy + mulhi16(v, kSwsVr));
+    }
+  }
+}
+
 }  // namespace webp
+
+// ---- Matroska / WebM: the video track's packets ----------------------------
+namespace mkv {
+
+constexpr uint32_t kEbml = 0x1A45DFA3, kSegment = 0x18538067, kInfo = 0x1549A966,
+                   kTracks = 0x1654AE6B, kCluster = 0x1F43B675, kCues = 0x1C53BB6B,
+                   kTags = 0x1254C367, kSeekHead = 0x114D9B74, kChapters = 0x1043A770,
+                   kAttachments = 0x1941A469, kTimecodeScale = 0x2AD7B1, kDuration = 0x4489,
+                   kTrackEntry = 0xAE, kTrackNumber = 0xD7, kTrackType = 0x83, kCodecId = 0x86,
+                   kDefaultDuration = 0x23E383, kVideo = 0xE0, kPixelWidth = 0xB0,
+                   kPixelHeight = 0xBA, kContentEncodings = 0x6D80, kTimecode = 0xE7,
+                   kSimpleBlock = 0xA3, kBlockGroup = 0xA0, kBlock = 0xA1, kReferenceBlock = 0xFB;
+constexpr uint64_t kUnknown = ~0ull;
+
+struct Packet {
+  int64_t offset, size, pts;  // pts in nanoseconds
+  uint8_t key;
+};
+
+struct Stream {
+  std::string codec;
+  int64_t width = 0, height = 0, default_duration = 0, timecode_scale = 1000000;
+  double duration = -1;  // the Segment's Duration in TimecodeScale units, -1 without one
+  uint64_t track = 0;
+  std::vector<Packet> packets;
+};
+
+struct Parser {
+  const uint8_t* b;
+  size_t n;
+  Stream* s;
+  bool have_track = false;
+
+  // an element's ID (1-4 bytes, the length marker kept)
+  bool id(size_t& pos, uint32_t& out) const {
+    if (pos >= n) return false;
+    const uint8_t c = b[pos];
+    int len = c & 0x80 ? 1 : c & 0x40 ? 2 : c & 0x20 ? 3 : c & 0x10 ? 4 : 0;
+    if (!len || pos + len > n) return false;
+    out = 0;
+    for (int i = 0; i < len; ++i) out = (out << 8) | b[pos + i];
+    pos += len;
+    return true;
+  }
+  // a variable-length integer (1-8 bytes, the marker dropped); all ones is
+  // kUnknown where `size` is set
+  bool vint(size_t& pos, uint64_t& out, bool size) const {
+    if (pos >= n) return false;
+    const uint8_t c = b[pos];
+    int len = 1;
+    while (len <= 8 && !(c & (0x100 >> len))) ++len;
+    if (len > 8 || pos + len > n) return false;
+    uint64_t v = c & (0xff >> len);
+    bool ones = v == (0xffu >> len);
+    for (int i = 1; i < len; ++i) {
+      v = (v << 8) | b[pos + i];
+      ones &= b[pos + i] == 0xff;
+    }
+    pos += len;
+    out = size && ones ? kUnknown : v;
+    return true;
+  }
+  // the next element's ID and its data range [a, e); a range past the end
+  // of the data is cut to it, an unknown size ends at `limit`
+  bool element(size_t& pos, size_t limit, uint32_t& eid, size_t& a, size_t& e,
+               bool& unknown) const {
+    uint64_t size;
+    if (!id(pos, eid) || !vint(pos, size, true)) return false;
+    a = pos;
+    unknown = size == kUnknown;
+    e = unknown || size > limit - a ? limit : a + size;
+    return true;
+  }
+  uint64_t uint_at(size_t a, size_t e) const {
+    uint64_t v = 0;
+    for (size_t i = a; i < e && i < a + 8; ++i) v = (v << 8) | b[i];
+    return v;
+  }
+  double float_at(size_t a, size_t e) const {
+    if (e - a == 4) {
+      uint32_t u = static_cast<uint32_t>(uint_at(a, e));
+      float f;
+      std::memcpy(&f, &u, 4);
+      return f;
+    }
+    if (e - a == 8) {
+      uint64_t u = uint_at(a, e);
+      double f;
+      std::memcpy(&f, &u, 8);
+      return f;
+    }
+    return 0.0;
+  }
+
+  int info(size_t pos, size_t end) {
+    uint32_t eid;
+    size_t a, e;
+    bool unknown;
+    while (pos < end && element(pos, end, eid, a, e, unknown)) {
+      if (eid == kTimecodeScale) s->timecode_scale = static_cast<int64_t>(uint_at(a, e));
+      if (eid == kDuration) s->duration = float_at(a, e);
+      pos = e;
+    }
+    return kOk;
+  }
+
+  int tracks(size_t pos, size_t end) {
+    uint32_t eid;
+    size_t a, e;
+    bool unknown;
+    while (pos < end && element(pos, end, eid, a, e, unknown)) {
+      if (eid == kTrackEntry) {
+        uint64_t number = 0, type = 0, dd = 0, w = 0, h = 0;
+        bool encoded = false;
+        std::string codec;
+        size_t p = a, ca, ce;
+        uint32_t cid;
+        while (p < e && element(p, e, cid, ca, ce, unknown)) {
+          if (cid == kTrackNumber) number = uint_at(ca, ce);
+          if (cid == kTrackType) type = uint_at(ca, ce);
+          if (cid == kCodecId) codec.assign(reinterpret_cast<const char*>(b + ca), ce - ca);
+          if (cid == kDefaultDuration) dd = uint_at(ca, ce);
+          if (cid == kContentEncodings) encoded = true;
+          if (cid == kVideo) {
+            size_t q = ca, va, ve;
+            uint32_t vid;
+            while (q < ce && element(q, ce, vid, va, ve, unknown)) {
+              if (vid == kPixelWidth) w = uint_at(va, ve);
+              if (vid == kPixelHeight) h = uint_at(va, ve);
+              q = ve;
+            }
+          }
+          p = ce;
+        }
+        if (type == 1) {
+          if (have_track) return kErrMkvTracks;
+          have_track = true;
+          while (!codec.empty() && codec.back() == '\0') codec.pop_back();
+          s->codec = codec;
+          s->track = number;
+          s->default_duration = static_cast<int64_t>(dd);
+          s->width = static_cast<int64_t>(w);
+          s->height = static_cast<int64_t>(h);
+          if (encoded) return kErrMkvEncoding;
+        }
+      }
+      pos = e;
+    }
+    return kOk;
+  }
+
+  // one Block or SimpleBlock of the video track (a block of another track
+  // is passed over)
+  int block(size_t a, size_t e, int64_t cluster_tc, bool simple, bool has_ref) {
+    size_t p = a;
+    uint64_t track;
+    if (!vint(p, track, false) || p + 3 > e) return kErrMkvCorrupt;
+    if (!have_track) return kErrMkvCorrupt;
+    if (track != s->track) return kOk;
+    const int16_t rel = static_cast<int16_t>((b[p] << 8) | b[p + 1]);
+    const uint8_t flags = b[p + 2];
+    p += 3;
+    if (flags & 0x06) return kErrMkvLacing;
+    Packet pk;
+    pk.offset = static_cast<int64_t>(p);
+    pk.size = static_cast<int64_t>(e - p);
+    pk.pts = (cluster_tc + rel) * s->timecode_scale;
+    pk.key = simple ? (flags & 0x80) != 0 : !has_ref;
+    s->packets.push_back(pk);
+    return kOk;
+  }
+
+  bool top_level(uint32_t eid) const {
+    return eid == kCluster || eid == kCues || eid == kTags || eid == kInfo || eid == kTracks ||
+           eid == kSeekHead || eid == kChapters || eid == kAttachments;
+  }
+
+  // a Cluster from `pos`; with an unknown size it ends before the next
+  // top-level element; returns the position after it
+  int cluster(size_t& pos, size_t end, bool unknown_size) {
+    int64_t tc = 0;
+    uint32_t eid;
+    size_t a, e;
+    bool unknown;
+    while (pos < end) {
+      size_t peek = pos;
+      uint32_t next;
+      if (!id(peek, next)) break;
+      if (unknown_size && top_level(next)) break;
+      if (!element(pos, end, eid, a, e, unknown)) break;
+      int rc = kOk;
+      if (eid == kTimecode) tc = static_cast<int64_t>(uint_at(a, e));
+      if (eid == kSimpleBlock) rc = block(a, e, tc, true, false);
+      if (eid == kBlockGroup) {
+        size_t p = a, ba = 0, be = 0, ca, ce;
+        uint32_t cid;
+        bool has_ref = false, have_block = false;
+        while (p < e && element(p, e, cid, ca, ce, unknown)) {
+          if (cid == kBlock) {
+            ba = ca;
+            be = ce;
+            have_block = true;
+          }
+          if (cid == kReferenceBlock) has_ref = true;
+          p = ce;
+        }
+        if (have_block) rc = block(ba, be, tc, false, has_ref);
+      }
+      if (rc != kOk) return rc;
+      pos = e;
+    }
+    return kOk;
+  }
+
+  int parse() {
+    size_t pos = 0, a, e;
+    uint32_t eid;
+    bool unknown;
+    if (!element(pos, n, eid, a, e, unknown) || eid != kEbml) return kErrMkvNotMatroska;
+    pos = e;
+    while (true) {  // the Segment, after anything else at the top level
+      if (pos >= n || !element(pos, n, eid, a, e, unknown)) return kErrMkvNotMatroska;
+      if (eid == kSegment) break;
+      pos = e;
+    }
+    const size_t seg_end = e;
+    pos = a;
+    while (pos < seg_end) {
+      if (!element(pos, seg_end, eid, a, e, unknown)) break;
+      int rc = kOk;
+      if (eid == kInfo) rc = info(a, e);
+      if (eid == kTracks) rc = tracks(a, e);
+      if (eid == kCluster) {
+        size_t p = a;
+        rc = cluster(p, e, unknown);
+        e = p;
+      }
+      if (rc != kOk) return rc;
+      pos = e;
+    }
+    return have_track ? kOk : kErrMkvNoVideo;
+  }
+};
+
+}  // namespace mkv
+
 
 }  // namespace
 
@@ -3871,5 +4692,105 @@ int fgpack_decode_webp(const uint8_t* buf, int64_t nbytes, uint8_t* dst, int64_t
   return webp::decode_webp(buf, static_cast<size_t>(nbytes), dst, static_cast<int>(h),
                            static_cast<int>(w), channels);
 }
+
+// ---- video: a Matroska/WebM file's packets, a VP8 stream's frames -------
+
+// Parse a Matroska/WebM file held in memory (the caller keeps `buf` alive
+// while the handle lives); *status gets 0 or the parse status.  A handle is
+// returned where the file has one video track, whatever its codec, so that
+// the caller can name the codec; release it with fgpack_webm_close.
+void* fgpack_webm_open(const uint8_t* buf, int64_t nbytes, int* status) {
+  auto* s = new mkv::Stream();
+  mkv::Parser p{buf, static_cast<size_t>(nbytes), s};
+  *status = p.parse();
+  if (!p.have_track) {
+    delete s;
+    return nullptr;
+  }
+  return s;
+}
+
+// {width, height, packets, DefaultDuration (ns, 0 without one),
+// TimecodeScale (ns)} into out[0..4], the Segment's Duration (TimecodeScale
+// units, -1 without one) into *duration and the CodecID (NUL-terminated,
+// cut to cap - 1 bytes) into codec.
+int fgpack_webm_info(void* handle, int64_t* out, double* duration, char* codec, int64_t cap) {
+  const auto* s = static_cast<const mkv::Stream*>(handle);
+  out[0] = s->width;
+  out[1] = s->height;
+  out[2] = static_cast<int64_t>(s->packets.size());
+  out[3] = s->default_duration;
+  out[4] = s->timecode_scale;
+  *duration = s->duration;
+  if (cap > 0) {
+    const size_t n = std::min(s->codec.size(), static_cast<size_t>(cap - 1));
+    std::memcpy(codec, s->codec.data(), n);
+    codec[n] = 0;
+  }
+  return kOk;
+}
+
+// The packets in file order: byte offset and size in the file, timestamp
+// (ns) and key flag.
+int fgpack_webm_packets(void* handle, int64_t* offsets, int64_t* sizes, int64_t* pts,
+                        uint8_t* keys) {
+  const auto* s = static_cast<const mkv::Stream*>(handle);
+  for (size_t i = 0; i < s->packets.size(); ++i) {
+    offsets[i] = s->packets[i].offset;
+    sizes[i] = s->packets[i].size;
+    pts[i] = s->packets[i].pts;
+    keys[i] = s->packets[i].key;
+  }
+  return kOk;
+}
+
+void fgpack_webm_close(void* handle) { delete static_cast<mkv::Stream*>(handle); }
+
+// A VP8 decoder whose state lives across the packets of one stream.
+void* fgpack_vp8_new() { return new webp::Vp8Decoder(); }
+
+// Decode one packet; out gets {shown, width, height, key frame}.
+int fgpack_vp8_decode(void* handle, const uint8_t* data, int64_t nbytes, int64_t* out) {
+  auto* d = static_cast<webp::Vp8Decoder*>(handle);
+  const int rc = webp::decode_vp8_packet(d, data, static_cast<size_t>(nbytes));
+  if (rc != kOk) return rc;
+  out[0] = d->show;
+  out[1] = d->width;
+  out[2] = d->height;
+  out[3] = d->key_frame;
+  return kOk;
+}
+
+// The last decoded frame's planes cut to its size: y (h, w), u and v
+// ((h + 1) / 2, (w + 1) / 2).
+int fgpack_vp8_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
+  const auto* d = static_cast<const webp::Vp8Decoder*>(handle);
+  if (!d->shown) return kErrArgs;
+  const int w = d->width, h = d->height, cw = (w + 1) / 2, ch = (h + 1) / 2;
+  const int ys = d->mb_w * 16, uvs = d->mb_w * 8;
+  for (int r = 0; r < h; ++r) std::memcpy(y + r * w, &d->shown->y[r * ys], w);
+  for (int r = 0; r < ch; ++r) {
+    std::memcpy(u + r * cw, &d->shown->u[r * uvs], cw);
+    std::memcpy(v + r * cw, &d->shown->v[r * uvs], cw);
+  }
+  return kOk;
+}
+
+// The last decoded frame as (h, w, 3) BGR, swscale's unscaled conversion.
+int fgpack_vp8_bgr(void* handle, uint8_t* dst) {
+  const auto* d = static_cast<const webp::Vp8Decoder*>(handle);
+  if (!d->shown) return kErrArgs;
+  webp::yuv420_to_bgr24(*d->shown, d->mb_w * 16, d->height, d->width, dst);
+  return kOk;
+}
+
+// The stream's feature counts so far (the kStat enum), n of them.
+int fgpack_vp8_stats(void* handle, int64_t* out, int64_t n) {
+  const auto* d = static_cast<const webp::Vp8Decoder*>(handle);
+  for (int64_t i = 0; i < n && i < webp::kVp8Stats; ++i) out[i] = d->stats[i];
+  return webp::kVp8Stats;
+}
+
+void fgpack_vp8_free(void* handle) { delete static_cast<webp::Vp8Decoder*>(handle); }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """The port's host codec library (csrc/fgpack.cpp) through ctypes: FGPK
 packs, JPEG decode and encode, PNG and WebP decode, RGB -> I420
-(fgvc_tpu/data_io/fgpack.py, without libjpeg, PIL or cv2).
+(fgvc_tpu/data_io/fgpack.py, without libjpeg, PIL or cv2); its video
+entry points (WebM demuxing, VP8 decoding) are bound in data_io/video.py.
 
 The library is C++17 with pthread alone.  It is compiled with g++ at first
 use into ``build/host/libfgpack-<hash>.so`` at the root of the checkout
@@ -73,6 +74,16 @@ STATUS = {
     -19: "the alpha plane (ALPH) of a lossy WebP is not decoded",
     -20: "YCCK JPEG (Adobe transform 2) is not supported",
     -21: "layout 'cmyk' is for 4-component (CMYK) JPEGs, and they decode to nothing else",
+    -22: "not a Matroska/WebM file (no EBML header with a Segment)",
+    -23: "corrupt Matroska/WebM data",
+    -24: "laced Matroska blocks are not supported",
+    -25: "a compressed or encrypted Matroska track (ContentEncoding) is not supported",
+    -26: "more than one video track",
+    -27: "no video track",
+    -28: "corrupt VP8 data",
+    -29: "truncated VP8 data",
+    -30: "a VP8 inter frame before the stream's first key frame",
+    -31: "a VP8 key frame changes the stream's frame size",
 }
 
 _LIB = None
@@ -135,6 +146,17 @@ def _load():
             "fgpack_webp_info": (ctypes.c_int, [ctypes.c_char_p, i64, i64p]),
             "fgpack_decode_webp": (ctypes.c_int, [ctypes.c_char_p, i64, u8p, i64, i64,
                                                   ctypes.c_int]),
+            "fgpack_webm_open": (ptr, [ctypes.c_char_p, i64, ctypes.POINTER(ctypes.c_int)]),
+            "fgpack_webm_info": (ctypes.c_int, [ptr, i64p, ctypes.POINTER(ctypes.c_double),
+                                                ctypes.c_char_p, i64]),
+            "fgpack_webm_packets": (ctypes.c_int, [ptr, i64p, i64p, i64p, u8p]),
+            "fgpack_webm_close": (None, [ptr]),
+            "fgpack_vp8_new": (ptr, []),
+            "fgpack_vp8_decode": (ctypes.c_int, [ptr, ctypes.c_char_p, i64, i64p]),
+            "fgpack_vp8_planes": (ctypes.c_int, [ptr, u8p, u8p, u8p]),
+            "fgpack_vp8_bgr": (ctypes.c_int, [ptr, u8p]),
+            "fgpack_vp8_stats": (ctypes.c_int, [ptr, i64p, i64]),
+            "fgpack_vp8_free": (None, [ptr]),
             "fgpack_prefetch": (ctypes.c_int, [ptr, i64, i64]),
             "fgpack_close": (None, [ptr]),
         }

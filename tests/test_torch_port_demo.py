@@ -307,8 +307,13 @@ def test_refusals(scene, tmp_path):
     v.save_video(img[None], str(tmp_path / "x.mp4"))
     assert v.read_mp4(str(tmp_path / "x.mp4")).samples == [
         cv2.imencode(".jpg", img[..., ::-1], params)[1].tobytes()]
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main(["--video", "clip.mp4", "--device", "cpu"])
+    clip = str(tmp_path / "clip.mp4")
+    writer = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 10, (32, 32))
+    for f in np.zeros((2, 32, 32, 3), np.uint8):
+        writer.write(f)
+    writer.release()
+    with pytest.raises(SystemExit, match="mp4v.*ROADMAP"):
+        main(["--video", clip, "--device", "cpu"])
     assert "H.264" in VIDEO_REFUSAL
     with pytest.raises(SystemExit, match="exactly one of --frames / --video"):
         main(["--video", "clip.mp4", "--frames", scene["frames"], "--device", "cpu"])

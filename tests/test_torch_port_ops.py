@@ -126,7 +126,8 @@ def test_port_imports_neither_jax_nor_fgvc_tpu():
     assert os.path.join(ROOT, "fgvc_tpu_torch", "models", "raft.py") in files
     for entry in ("cli/serve.py", "cli/export.py", "cli/doctor.py", "core/export.py",
                   "cli/launch.py", "parallel/dist.py", "cli/reproduce.py", "cli/demo.py",
-                  "utils/visualize.py"):
+                  "utils/visualize.py", "datasets/video_decode.py",
+                  "datasets/tapvid_kinetics.py", "data_io/video.py"):
         assert os.path.join(ROOT, "fgvc_tpu_torch", *entry.split("/")) in files
     offenders = []
     for path in files:
