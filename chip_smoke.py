@@ -374,7 +374,18 @@ Phases, each of which raises on failure (exit code != 0):
             and equal exactly to run_task over per-video pickles of the
             port's own decode of the clip and the same tracks; (c) the demo's
             main --video on the clip, --grid 8 (64 points) --max-frames 48:
-            K1 (circle) 47 times, an .mp4 of 48 samples.
+            K1 (circle) 47 times, an .mp4 of 48 samples; (d)-(f) the same for
+            MPEG-4 Part 2: (d) the committed mp4v MP4
+            (tests/torch_port_fixtures/mp4v_640x360_250f.mp4, 250 frames,
+            cv2's writer) to its cv2 pins with host ms a frame for demux,
+            MPEG-4 decode and YUV -> BGR, and before it two fixtures of
+            libavcodec's encoder (mp4v_bvop_4mv_176x144.mp4: B-VOPs, 4MV,
+            video packets; mp4v_qpel_dp_xvid_96x64.mp4: quarter-pel, data
+            partitioning, XviD's IDCT) to their libavcodec plane pins and
+            cv2 frame pins; (e)
+            --annotations over two copies of the mp4v clip, K1 (circle) 498
+            times, metrics equal to the pickle path's; (f) demo --video on
+            its first 48 frames, K1 (circle) 47 times.
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -4633,8 +4644,18 @@ def run_demo(records, card_name, device="cuda"):
 # ---------------------------------------------------------------------- #
 # phase video
 # ---------------------------------------------------------------------- #
-VIDEO_FIXTURE = os.path.join("tests", "torch_port_fixtures", "vp8_640x360_250f.webm")
-VIDEO_PINS = os.path.join("tests", "torch_port_fixtures", "vp8_640x360_250f.json")
+# (the letters of its parts, clip, cv2's pins) for VP8 in WebM and for
+# MPEG-4 Part 2 (cv2's mp4v) in MP4
+VIDEO_CLIPS = (("abc", os.path.join("tests", "torch_port_fixtures", "vp8_640x360_250f.webm"),
+                os.path.join("tests", "torch_port_fixtures", "vp8_640x360_250f.json")),
+               ("def", os.path.join("tests", "torch_port_fixtures", "mp4v_640x360_250f.mp4"),
+                os.path.join("tests", "torch_port_fixtures", "mp4v_640x360_250f.json")))
+# MPEG-4 Part 2 tools cv2's writer does not use, from libavcodec's encoder,
+# pinned to libavcodec's planes and cv2's frames: B-VOPs, 4MV, AC prediction
+# and video packets; quarter-pel, data partitioning and XviD's IDCT
+VIDEO_TOOLS = tuple((os.path.join("tests", "torch_port_fixtures", f"{name}.mp4"),
+                     os.path.join("tests", "torch_port_fixtures", f"{name}.json"))
+                    for name in ("mp4v_bvop_4mv_176x144", "mp4v_qpel_dp_xvid_96x64"))
 VIDEO_IDS, VIDEO_TRACKS = ("clip_a", "clip_b"), 32
 VIDEO_DEMO_FRAMES, VIDEO_DEMO_GRID = 48, 8
 
@@ -4655,9 +4676,46 @@ def write_video_csv(path, T, seed=0):
                     f.write(f"{vid},{pid},{t},{x:.6f},{y:.6f},{int(t in hidden)}\n")
 
 
-def run_video(records, card_name):
-    """Phase video (see the module's docstring)."""
+def _video_pins(fixture, pins, label, card_name, yuv=False):
+    """Decode a committed clip on the host and hold it to its pins: every
+    frame's sha256 (and its planes' where `yuv`), the count and the fps;
+    print the host ms a frame for demux, decode and conversion."""
     import hashlib
+
+    from fgvc_tpu_torch.data_io.video import VideoReader
+
+    with open(os.path.join(ROOT, pins)) as f:
+        pinned = json.load(f)
+    planes = []
+    with VideoReader(os.path.join(ROOT, fixture)) as reader:
+        digests = []
+        for frame in reader:
+            digests.append(hashlib.sha256(frame.tobytes()).hexdigest())
+            if yuv:
+                planes.append(hashlib.sha256(b"".join(
+                    p.tobytes() for p in reader.planes())).hexdigest())
+        meta = (reader.frame_count, reader.fps)
+        timings, codec, feats = dict(reader.timings), reader.codec, reader.features()
+    n = len(digests)
+    if digests != pinned["sha256"] or meta != (pinned["cv2_frame_count"], pinned["cv2_fps"]) \
+            or (yuv and planes != pinned["yuv_sha256"]):
+        bad = [i for i, (a, b) in enumerate(zip(digests, pinned["sha256"])) if a != b]
+        raise AssertionError(f"{label}: {n} frames (pinned {pinned['frames']}), count and fps "
+                             f"{meta}, frames differing from the pins {bad[:10]}")
+    ms = {k: 1e3 * v / n for k, v in timings.items()}
+    print(f"{label}: {os.path.basename(fixture)} ({codec}), {n} frames of "
+          f"{pinned['width']}x{pinned['height']} equal to the sha256 pins"
+          + (" (planes and frames)" if yuv else "") + f", count {meta[0]}, fps {meta[1]}; "
+          f"host ms a frame ({card_name}): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()),
+          flush=True)
+    return n, feats
+
+
+def _video_clip(records, card_name, tags, fixture, pins):
+    """One committed clip through the video path: its pins on the host,
+    cli.test --task kinetics --annotations on two copies (K1 circle once a
+    frame propagated, metrics equal to the pickle path's), the demo's
+    --video (K1 circle once a frame after the first)."""
     import io
     import shutil
 
@@ -4666,35 +4724,18 @@ def run_video(records, card_name):
     from fgvc_tpu_torch.apis.test import run_task
     from fgvc_tpu_torch.cli import demo
     from fgvc_tpu_torch.cli import test as cli_test
-    from fgvc_tpu_torch.data_io.video import VideoReader
     from fgvc_tpu_torch.datasets.tapvid_kinetics import (assemble_tracks, read_annotations)
     from fgvc_tpu_torch.datasets.video_decode import decode_video
     from fgvc_tpu_torch.ops.cuda import topk_attention as k1
     from fgvc_tpu_torch.utils import visualize
 
-    t_phase = time.time()
-    fixture = os.path.join(ROOT, VIDEO_FIXTURE)
-    with open(os.path.join(ROOT, VIDEO_PINS)) as f:
-        pins = json.load(f)
-    with VideoReader(fixture) as reader:
-        digests = [hashlib.sha256(frame.tobytes()).hexdigest() for frame in reader]
-        meta = (reader.frame_count, reader.fps)
-        timings = dict(reader.timings)
-    n = len(digests)
-    if digests != pins["sha256"] or meta != (pins["cv2_frame_count"], pins["cv2_fps"]):
-        bad = [i for i, (a, b) in enumerate(zip(digests, pins["sha256"])) if a != b]
-        raise AssertionError(f"video (a): {n} frames (pinned {pins['frames']}), count and fps "
-                             f"{meta}, frames differing from the pins {bad[:10]}")
-    ms = {k: 1e3 * v / n for k, v in timings.items()}
-    print(f"video (a): {n} frames of {pins['width']}x{pins['height']} equal to cv2's sha256 "
-          f"pins, count {meta[0]}, fps {meta[1]}; host ms a frame ({card_name}): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()), flush=True)
-
+    n, _ = _video_pins(fixture, pins, f"video ({tags[0]})", card_name)
+    fixture = os.path.join(ROOT, fixture)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as root:
         clips = os.path.join(root, "clips")
         os.makedirs(clips)
         for vid in VIDEO_IDS:
-            shutil.copy(fixture, os.path.join(clips, f"{vid}.webm"))
+            shutil.copy(fixture, os.path.join(clips, vid + os.path.splitext(fixture)[1]))
         csv_path = os.path.join(root, "tapvid_kinetics.csv")
         write_video_csv(csv_path, n)
         expect = len(VIDEO_IDS) * (n - 1)  # one query group a video, at frame 0
@@ -4708,7 +4749,7 @@ def run_video(records, card_name):
         cli_s = time.time() - t0
         text = out.getvalue()
         metrics = json.loads(text[text.index("{"):text.rindex("}") + 1])
-        check_launches("video --annotations", "highest", expect, "banked")
+        check_launches(f"video ({tags[1]}) --annotations", "highest", expect, "banked")
         check_metrics(metrics)
         _add_launches(records["K1_circle"], expect)
         # the pickle path on the port's own decode of the same clip and tracks
@@ -4727,12 +4768,12 @@ def run_video(records, card_name):
         torch.cuda.synchronize()
         pkl_s = time.time() - t0
         if metrics != {k: float(v) for k, v in ref.items()}:
-            raise AssertionError(f"video (b): --annotations {metrics} != pickles {ref}")
-        print("video (b) metrics (random weights): " + json.dumps(
+            raise AssertionError(f"video ({tags[1]}): --annotations {metrics} != pickles {ref}")
+        print(f"video ({tags[1]}) metrics (random weights): " + json.dumps(
             {k: metrics[k] for k in ("average_pts_within_thresh", "average_jaccard",
                                      "occlusion_accuracy")}))
-        print(f"video (b): cli.test --annotations on {len(VIDEO_IDS)} clips x {n} frames, "
-              f"{VIDEO_TRACKS} tracks each: {expect} K1 circle launches, {cli_s:.2f} s "
+        print(f"video ({tags[1]}): cli.test --annotations on {len(VIDEO_IDS)} clips x {n} "
+              f"frames, {VIDEO_TRACKS} tracks each: {expect} K1 circle launches, {cli_s:.2f} s "
               f"(model build, decode and resize to 256 x 256 included); metrics equal to "
               f"run_task over pickles of the port's decode ({pkl_s:.2f} s; decode_video with "
               f"the resize {1e3 * decode_s / n:.2f} ms a frame)", flush=True)
@@ -4742,13 +4783,29 @@ def run_video(records, card_name):
         _, demo_s = _timed(lambda: demo.main([
             "--video", fixture, "--max-frames", str(VIDEO_DEMO_FRAMES), "--grid",
             str(VIDEO_DEMO_GRID), "--out", demo_out]))
-        check_launches("demo --video", "highest", VIDEO_DEMO_FRAMES - 1, "banked")
+        check_launches(f"video ({tags[2]}) demo --video", "highest", VIDEO_DEMO_FRAMES - 1,
+                       "banked")
         _add_launches(records["K1_circle"], VIDEO_DEMO_FRAMES - 1)
         if len(visualize.read_mp4(demo_out).samples) != VIDEO_DEMO_FRAMES:
-            raise AssertionError("demo --video: the .mp4 lacks frames")
-        print(f"video (c): demo --video --max-frames {VIDEO_DEMO_FRAMES} --grid "
+            raise AssertionError(f"video ({tags[2]}) demo --video: the .mp4 lacks frames")
+        print(f"video ({tags[2]}): demo --video --max-frames {VIDEO_DEMO_FRAMES} --grid "
               f"{VIDEO_DEMO_GRID}: {VIDEO_DEMO_FRAMES - 1} K1 circle launches, {demo_s:.2f} s, "
               f"the .mp4 {os.path.getsize(demo_out) / 1e6:.3f} MB", flush=True)
+
+
+def run_video(records, card_name):
+    """Phase video (see the module's docstring)."""
+    t_phase = time.time()
+    for tags, fixture, pins in VIDEO_CLIPS:
+        t_clip = time.time()
+        if tags == "def":
+            for tool_clip, tool_pins in VIDEO_TOOLS:
+                _, feats = _video_pins(tool_clip, tool_pins, "video (d) tools", card_name,
+                                       yuv=True)
+                print(f"video (d) {os.path.basename(tool_clip)} features: " + json.dumps(
+                    {k: v for k, v in feats.items() if v}), flush=True)
+        _video_clip(records, card_name, tags, fixture, pins)
+        print(f"video ({tags}) {time.time() - t_clip:.1f} s [{card_name}]", flush=True)
     print(f"video phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
 
 

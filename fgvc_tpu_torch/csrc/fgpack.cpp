@@ -40,7 +40,8 @@
 //     frames: references, motion vectors, sub-pixel prediction, per-reference
 //     loop-filter deltas, saved probabilities, hidden frames) and FFmpeg
 //     swscale's unscaled YUV 4:2:0 -> BGR24 (what cv2.VideoCapture.read
-//     gives).
+//     gives), which csrc/mpeg4video.cpp's MP4 demuxer and MPEG-4 Part 2
+//     decoder (compiled into the same library) share.
 //
 // Pack file layout (little endian), the JAX package's FGPK v2:
 //   [0:4]   magic "FGPK"
@@ -2564,7 +2565,8 @@ enum {
   kStatSplit4x4, kStatGoldenMb, kStatAltrefMb, kStatLfDeltaFrames, kStatNoRefreshProbs,
   kStatGoldenUpdates, kStatAltrefUpdates, kStatSignBias, kStatEdgeMv, kStatSegmentFrames,
   kStatNoRefreshLast, kStatNewMv, kStatNearMv, kStatNearestMv, kStatZeroMv, kStatBilinear,
-  kStatSimpleFilter, kStatNoFilter, kVp8Stats
+  kStatSimpleFilter, kStatNoFilter, kStatGoldenFromLast, kStatGoldenFromAlt, kStatAltFromLast,
+  kStatAltFromGolden, kVp8Stats
 };
 
 struct Vp8Decoder {
@@ -3512,14 +3514,18 @@ int decode_vp8_packet(Vp8Decoder* d, const uint8_t* data, size_t size) {
   }
   const std::shared_ptr<Frame> old_last = d->refs[REF_LAST], old_golden = d->refs[REF_GOLDEN],
                                old_alt = d->refs[REF_ALTREF];
-  if (d->refresh_golden)
+  if (d->refresh_golden) {
     d->refs[REF_GOLDEN] = cur;
-  else if (d->copy_golden == 1 || d->copy_golden == 2)  // 3 is reserved: no copy
+  } else if (d->copy_golden == 1 || d->copy_golden == 2) {  // 3 is reserved: no copy
     d->refs[REF_GOLDEN] = d->copy_golden == 1 ? old_last : old_alt;
-  if (d->refresh_alt)
+    ++st[d->copy_golden == 1 ? kStatGoldenFromLast : kStatGoldenFromAlt];
+  }
+  if (d->refresh_alt) {
     d->refs[REF_ALTREF] = cur;
-  else if (d->copy_alt == 1 || d->copy_alt == 2)
+  } else if (d->copy_alt == 1 || d->copy_alt == 2) {
     d->refs[REF_ALTREF] = d->copy_alt == 1 ? old_last : old_golden;
+    ++st[d->copy_alt == 1 ? kStatAltFromLast : kStatAltFromGolden];
+  }
   if (d->refresh_last) d->refs[REF_LAST] = cur;
   if (!d->refresh_probs) {
     std::memcpy(d->proba, d->saved.proba, sizeof(d->proba));
@@ -4188,27 +4194,11 @@ int decode_webp(const uint8_t* buf, size_t n, uint8_t* dst, int h, int w, int ch
 // what cv2.VideoCapture.read gives for an even height (an odd one takes
 // swscale's scaling path).  The coefficients are roundToInt16(c << 13) of
 // ff_yuv2rgb_coeffs' BT.601 row {104597, 132201, 25675, 53279} and
-// cy = 65536 * 255 / 219.
+// cy = 65536 * 255 / 219.  fgpack_i420_to_bgr24 below converts; the VP8
+// and the MPEG-4 Part 2 decoders (csrc/mpeg4video.cpp) both call it.
 constexpr int kSwsY = 9539, kSwsVr = 13075, kSwsUb = 16525, kSwsUg = -3209, kSwsVg = -6660;
 
 inline int mulhi16(int a, int b) { return (a * b) >> 16; }
-
-void yuv420_to_bgr24(const Frame& f, int stride, int h, int w, uint8_t* dst) {
-  const int cstride = stride / 2;
-  for (int y = 0; y < h; ++y) {
-    const uint8_t* py = &f.y[static_cast<size_t>(y) * stride];
-    const uint8_t* pu = &f.u[static_cast<size_t>(y >> 1) * cstride];
-    const uint8_t* pv = &f.v[static_cast<size_t>(y >> 1) * cstride];
-    uint8_t* o = dst + static_cast<size_t>(y) * w * 3;
-    for (int x = 0; x < w; ++x, o += 3) {
-      const int u = pu[x >> 1] * 8 - 1024, v = pv[x >> 1] * 8 - 1024;
-      const int yy = mulhi16(py[x] * 8 - 128, kSwsY);
-      o[0] = clip8(yy + mulhi16(u, kSwsUb));
-      o[1] = clip8(yy + mulhi16(u, kSwsUg) + mulhi16(v, kSwsVg));
-      o[2] = clip8(yy + mulhi16(v, kSwsVr));
-    }
-  }
-}
 
 }  // namespace webp
 
@@ -4693,6 +4683,28 @@ int fgpack_decode_webp(const uint8_t* buf, int64_t nbytes, uint8_t* dst, int64_t
                            static_cast<int>(w), channels);
 }
 
+// ---- video: YUV 4:2:0 -> BGR24, swscale's unscaled conversion -----------
+// Planes of a decoded frame (luma stride ystride, chroma cstride) to
+// (h, w, 3) BGR.
+void fgpack_i420_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v, int64_t ystride,
+                          int64_t cstride, int64_t h, int64_t w, uint8_t* dst) {
+  using webp::clip8;
+  using webp::mulhi16;
+  for (int64_t r = 0; r < h; ++r) {
+    const uint8_t* py = y + r * ystride;
+    const uint8_t* pu = u + (r >> 1) * cstride;
+    const uint8_t* pv = v + (r >> 1) * cstride;
+    uint8_t* o = dst + r * w * 3;
+    for (int64_t x = 0; x < w; ++x, o += 3) {
+      const int cu = pu[x >> 1] * 8 - 1024, cv = pv[x >> 1] * 8 - 1024;
+      const int yy = mulhi16(py[x] * 8 - 128, webp::kSwsY);
+      o[0] = clip8(yy + mulhi16(cu, webp::kSwsUb));
+      o[1] = clip8(yy + mulhi16(cu, webp::kSwsUg) + mulhi16(cv, webp::kSwsVg));
+      o[2] = clip8(yy + mulhi16(cv, webp::kSwsVr));
+    }
+  }
+}
+
 // ---- video: a Matroska/WebM file's packets, a VP8 stream's frames -------
 
 // Parse a Matroska/WebM file held in memory (the caller keeps `buf` alive
@@ -4780,7 +4792,8 @@ int fgpack_vp8_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
 int fgpack_vp8_bgr(void* handle, uint8_t* dst) {
   const auto* d = static_cast<const webp::Vp8Decoder*>(handle);
   if (!d->shown) return kErrArgs;
-  webp::yuv420_to_bgr24(*d->shown, d->mb_w * 16, d->height, d->width, dst);
+  fgpack_i420_to_bgr24(d->shown->y.data(), d->shown->u.data(), d->shown->v.data(), d->mb_w * 16,
+                       d->mb_w * 8, d->height, d->width, dst);
   return kOk;
 }
 

@@ -1,14 +1,15 @@
 """The port's host codec library (csrc/fgpack.cpp) through ctypes: FGPK
 packs, JPEG decode and encode, PNG and WebP decode, RGB -> I420
 (fgvc_tpu/data_io/fgpack.py, without libjpeg, PIL or cv2); its video
-entry points (WebM demuxing, VP8 decoding) are bound in data_io/video.py.
+entry points (WebM and MP4 demuxing, VP8 and MPEG-4 Part 2 decoding) are
+bound in data_io/video.py.
 
 The library is C++17 with pthread alone.  It is compiled with g++ at first
 use into ``build/host/libfgpack-<hash>.so`` at the root of the checkout
-(``build/`` is git-ignored; the hash covers the source and the flags):
+(``build/`` is git-ignored; the hash covers the sources and the flags):
 
     g++ -O2 -std=c++17 -shared -fPIC -o build/host/libfgpack-<hash>.so \
-        fgvc_tpu_torch/csrc/fgpack.cpp -lpthread
+        fgvc_tpu_torch/csrc/fgpack.cpp fgvc_tpu_torch/csrc/mpeg4video.cpp -lpthread
 
 Its JPEG decoder gives libjpeg's default pixels (what PIL and cv2.imread
 give), its WebP decoder libwebp's (cv2.imread's colour mode), and its
@@ -48,6 +49,7 @@ CODEC_JPEG = 1
 _LAYOUTS = {"hwc": 0, "i420": 1, "grey": 2, "cmyk": 3}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fgpack.cpp"
+SOURCES = (SOURCE, SOURCE.with_name("mpeg4video.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 LINK_FLAGS = ("-lpthread",)
@@ -84,6 +86,15 @@ STATUS = {
     -29: "truncated VP8 data",
     -30: "a VP8 inter frame before the stream's first key frame",
     -31: "a VP8 key frame changes the stream's frame size",
+    -32: "not an MP4/MOV file (no moov box)",
+    -33: "corrupt MP4 data",
+    -34: "no video track",
+    -35: "an MP4 edit list that drops, delays or repeats samples is not supported",
+    -36: "corrupt MPEG-4 Part 2 data",
+    -37: "an MPEG-4 Part 2 tool the port does not decode",
+    -38: "an MPEG-4 Part 2 P- or B-VOP before the stream's first I-VOP",
+    -39: "an MPEG-4 Part 2 VOP before any VOL header",
+    -40: "an MPEG-4 Part 2 VOL changes the stream's frame size",
 }
 
 _LIB = None
@@ -91,7 +102,8 @@ _LOCK = threading.Lock()
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS + LINK_FLAGS).encode())
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES)
+                            + " ".join(CXX_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libfgpack-{digest.hexdigest()[:16]}.so"
 
 
@@ -102,7 +114,8 @@ def compiler_version() -> str:
 
 
 def build_library(force: bool = False) -> str:
-    """Compile csrc/fgpack.cpp into build/host (once per source and flags);
+    """Compile csrc/fgpack.cpp and csrc/mpeg4video.cpp into build/host
+    (once per sources and flags);
     returns the library's path.  The output is written under a temporary
     name and renamed, so a process loading it during another's build never
     sees half a file."""
@@ -111,10 +124,10 @@ def build_library(force: bool = False) -> str:
         return str(out)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE), *LINK_FLAGS],
+    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES), *LINK_FLAGS],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCE.name}:\n{proc.stderr}")
+        raise RuntimeError(f"g++ failed for {', '.join(p.name for p in SOURCES)}:\n{proc.stderr}")
     os.replace(tmp, out)
     return str(out)
 
@@ -157,6 +170,19 @@ def _load():
             "fgpack_vp8_bgr": (ctypes.c_int, [ptr, u8p]),
             "fgpack_vp8_stats": (ctypes.c_int, [ptr, i64p, i64]),
             "fgpack_vp8_free": (None, [ptr]),
+            "fgpack_i420_to_bgr24": (None, [u8p, u8p, u8p, i64, i64, i64, i64, u8p]),
+            "fgpack_mp4_open": (ptr, [ctypes.c_char_p, i64, ctypes.POINTER(ctypes.c_int)]),
+            "fgpack_mp4_info": (ctypes.c_int, [ptr, i64p, ctypes.c_char_p, i64]),
+            "fgpack_mp4_packets": (ctypes.c_int, [ptr, i64p, i64p, i64p, u8p, u8p]),
+            "fgpack_mp4_close": (None, [ptr]),
+            "fgpack_mpeg4_new": (ptr, []),
+            "fgpack_mpeg4_headers": (ctypes.c_int, [ptr, ctypes.c_char_p, i64, i64p]),
+            "fgpack_mpeg4_decode": (ctypes.c_int, [ptr, ctypes.c_char_p, i64, i64p]),
+            "fgpack_mpeg4_planes": (ctypes.c_int, [ptr, u8p, u8p, u8p]),
+            "fgpack_mpeg4_bgr": (ctypes.c_int, [ptr, u8p]),
+            "fgpack_mpeg4_stats": (ctypes.c_int, [ptr, i64p, i64]),
+            "fgpack_mpeg4_error": (ctypes.c_int, [ptr, ctypes.c_char_p, i64]),
+            "fgpack_mpeg4_free": (None, [ptr]),
             "fgpack_prefetch": (ctypes.c_int, [ptr, i64, i64]),
             "fgpack_close": (None, [ptr]),
         }

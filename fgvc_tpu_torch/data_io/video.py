@@ -1,23 +1,34 @@
-"""Video files through the port's host library (csrc/fgpack.cpp), without
-cv2, PyAV, decord or FFmpeg: what ``cv2.VideoCapture`` gives, for the files
-the port decodes.
+"""Video files through the port's host library (csrc/fgpack.cpp and
+csrc/mpeg4video.cpp), without cv2, PyAV, decord or FFmpeg: what
+``cv2.VideoCapture`` gives, for the files the port decodes.
 
-Read: VP8 in WebM/Matroska.  The demuxer yields the video track's packets
-(SimpleBlock and BlockGroup, clusters of unknown size included); the VP8
-decoder keeps one state across them (RFC 6386 key and inter frames, hidden
-frames decoded and not shown); frames come out as swscale's unscaled YUV
-4:2:0 -> BGR24 gives them to cv2 (its x86 SIMD arithmetic), so
-``VideoReader.read`` equals ``cv2.VideoCapture.read`` bit for bit.
+Read: VP8 in WebM/Matroska and MPEG-4 Part 2 (``mp4v``, what
+cv2.VideoWriter's 'mp4v' fourcc writes) in MP4/MOV.  The WebM demuxer
+yields the video track's packets (SimpleBlock and BlockGroup, clusters of
+unknown size included); the MP4 demuxer the first video track's samples
+(stsz/stz2, stco/co64, stsc runs, stts, ctts, stss; an edit list only where
+it drops no sample) and its esds headers.  The VP8 decoder keeps one state
+across packets (RFC 6386 key and inter frames, hidden frames decoded and not
+shown); the MPEG-4 Part 2 decoder decodes Simple and Advanced Simple I-, P-
+and B-VOPs as FFmpeg's mpeg4 decoder does (4MV, quarter-pel, resync
+markers, data partitioning, H.263 and MPEG quantisation, B-VOPs in display
+order; XviD's IDCT and FFmpeg's workarounds for XviD- and DivX-signed
+streams).  Frames come out as swscale's
+unscaled YUV 4:2:0 -> BGR24 gives them to cv2 (its x86 SIMD arithmetic),
+so ``VideoReader.read`` equals ``cv2.VideoCapture.read`` bit for bit.
 
 Refused with ValueError naming what was found: odd frame heights (cv2
 converts them on swscale's scaling path, which is not reproduced), other
-Matroska codecs
-(``V_VP9``, ``V_MPEG4/ISO/AVC``, ...), MP4 files by their sample entry
-(``mp4v``, ``avc1``, ...; the port's own Motion-JPEG ``.mp4`` too, whose
-pixels FFmpeg's MJPEG decoder would give, not libjpeg's), laced blocks,
-compressed or encrypted tracks, several video tracks, other containers.
+codecs (``V_VP9``, ``V_MPEG4/ISO/AVC``, ``avc1``, the port's own
+Motion-JPEG ``.mp4`` as ``mp4v (JPEG)``, whose pixels FFmpeg's MJPEG
+decoder would give, not libjpeg's, ...), MPEG-4 Part 2 tools the decoder
+does not decode (interlaced VOPs, sprites and GMC, shape coding, N-bit,
+scalability, reversible VLC, NEWPRED, reduced resolution, packed DivX
+B-frames, streams signed by an old libavcodec), laced Matroska blocks,
+compressed or encrypted tracks, several Matroska video tracks, MP4 edit
+lists that drop samples, other containers.
 
-    reader = VideoReader("clip.webm")
+    reader = VideoReader("clip.webm")     # or an mp4v .mp4
     reader.frame_count, reader.fps        # cv2's CAP_PROP_FRAME_COUNT / _FPS
     for bgr in reader: ...                # (H, W, 3) uint8, cv2.read's pixels
 """
@@ -26,7 +37,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import struct
 import time
 from fractions import Fraction
 from typing import Dict, Iterator, List, Optional, Tuple, Union
@@ -36,8 +46,13 @@ import numpy as np
 from fgvc_tpu_torch.data_io.fgpack import _load, _status, _u8p
 
 EBML_MAGIC = b"\x1a\x45\xdf\xa3"
-READ_CODECS = ("V_VP8",)
-# the counters of fgpack_vp8_stats, in order
+# the first box types of the ISO-BMFF files the MP4 demuxer opens
+MP4_BOXES = (b"ftyp", b"moov", b"mdat", b"free", b"wide", b"skip")
+MPEG4_PART2 = "mp4v (MPEG-4 Part 2)"
+READ_CODECS = ("V_VP8", MPEG4_PART2)
+READS = "VP8 in WebM/Matroska and MPEG-4 Part 2 in MP4/MOV"
+# the counters of fgpack_vp8_stats, in order (golden_updates and
+# altref_updates count refreshes and copies; the copies also by their source)
 VP8_FEATURES = (
     "key_frames", "inter_frames", "hidden_frames", "intra_mbs_in_inter_frames",
     "bpred_mbs_in_inter_frames", "splitmv_mbs", "splitmv_4x4_mbs", "golden_mbs",
@@ -45,11 +60,28 @@ VP8_FEATURES = (
     "golden_updates", "altref_updates", "frames_with_sign_bias", "mbs_reading_past_edge",
     "frames_with_segmentation", "frames_without_refresh_last", "newmv_mbs", "nearmv_mbs",
     "nearestmv_mbs", "zeromv_mbs", "bilinear_frames", "simple_filter_frames",
-    "unfiltered_frames",
+    "unfiltered_frames", "golden_copies_from_last", "golden_copies_from_altref",
+    "altref_copies_from_last", "altref_copies_from_golden",
+)
+# the counters of fgpack_mpeg4_stats, in order: VOPs by type, P-VOPs with
+# vop_rounding_type 1, not-coded VOPs; macroblocks (intra in any VOP, intra
+# in P-VOPs, inter, skipped, 4MV, ac_pred, dquant, reading past the edge);
+# video packets after resync markers; B-VOP macroblocks by mode and those
+# skipped with the next reference's; VOPs with MPEG quantisation and with
+# matrices loaded from the VOL; third-escape coefficients; quarter-pel,
+# data-partitioned and XviD-IDCT VOPs
+MPEG4_FEATURES = (
+    "i_vops", "p_vops", "b_vops", "rounding_type_1_vops", "not_coded_vops", "intra_mbs",
+    "intra_mbs_in_p_vops", "inter_mbs", "skipped_mbs", "inter4v_mbs", "ac_pred_mbs",
+    "dquant_mbs", "mbs_reading_past_edge", "video_packets", "direct_mbs", "forward_mbs",
+    "backward_mbs", "interpolated_mbs", "b_skipped_mbs", "mpeg_quant_vops",
+    "loaded_matrix_vops", "escape3_coefficients", "quarter_pel_vops", "partitioned_vops",
+    "xvid_idct_vops",
 )
 # MPEG-4 systems object types (an esds's objectTypeIndication) of mp4v entries
 _OBJECT_TYPES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x60: "MPEG-2", 0x61: "MPEG-2",
                  0x6A: "MPEG-1", 0x6C: "JPEG"}
+INT_MAX = 2**31 - 1
 
 
 def av_reduce(num: int, den: int, limit: int) -> Tuple[int, int]:
@@ -77,71 +109,57 @@ def av_reduce(num: int, den: int, limit: int) -> Tuple[int, int]:
     return a1
 
 
-def _esds_object_type(data: bytes, at: int) -> Optional[int]:
-    """The objectTypeIndication of the esds box whose type is at `at`: its
-    ES_Descriptor (tag 3: ES_ID, flags and what they announce), then the
-    DecoderConfigDescriptor (tag 4)."""
-    def skip_size(p):
-        while data[p] & 0x80:
-            p += 1
-        return p + 1
-
-    if at < 0:
-        return None
-    p = at + 8  # past the type, version and flags
-    if data[p] != 3:
-        return None
-    p = skip_size(p + 1)
-    flags = data[p + 2]
-    p += 3
-    if flags & 0x80:
-        p += 2
-    if flags & 0x40:
-        p += 1 + data[p]
-    if flags & 0x20:
-        p += 2
-    return data[skip_size(p + 1)] if data[p] == 4 else None
+def _is_mp4(data: bytes) -> bool:
+    return len(data) >= 8 and data[4:8] in MP4_BOXES
 
 
-def mp4_video_codec(data: bytes) -> str:
-    """The sample entry of an MP4's first video track (``'avc1'``,
-    ``'mp4v (MPEG-4 Part 2)'``, ...), through utils/visualize.py's box
-    walk; '?' where the boxes do not say."""
-    from fgvc_tpu_torch.utils.visualize import _boxes, _child
+class _Mp4:
+    """The first video track of an MP4/MOV file (fgpack_mp4_*): its
+    sample-entry name ('avc1', 'mp4v (MPEG-4 Part 2)', 'mp4v (JPEG)', ...;
+    '?' where the boxes do not say), sizes, samples and esds headers."""
 
-    try:
-        moov = _child(data, 0, len(data), [b"moov"])
-        for kind, a, b in _boxes(data, *moov):
-            if kind != b"trak":
-                continue
-            mdia = _child(data, a, b, [b"mdia"])
-            ha, _ = _child(data, *mdia, [b"hdlr"])
-            if data[ha + 8:ha + 12] != b"vide":
-                continue
-            sa, _ = _child(data, *_child(data, *mdia, [b"minf", b"stbl"]), [b"stsd"])
-            entry, ea, eb = next(_boxes(data, sa + 8, len(data)))
-            name = entry.decode("latin-1")
-            oti = _esds_object_type(data, data.find(b"esds", ea, eb)) if entry == b"mp4v" else None
-            if oti is not None:
-                name += f" ({_OBJECT_TYPES.get(oti, f'object type 0x{oti:02x}')})"
-            return name
-    except (ValueError, StopIteration, struct.error, IndexError):
-        pass
-    return "?"
+    def __init__(self, lib, data: bytes):
+        status = ctypes.c_int()
+        handle = lib.fgpack_mp4_open(data, len(data), ctypes.byref(status))
+        self.status = status.value
+        self.name = "?"
+        if not handle:
+            return
+        try:
+            info = (ctypes.c_int64 * 8)()
+            entry = ctypes.create_string_buffer(16)
+            lib.fgpack_mp4_info(handle, info, entry, 16)
+            self.name = entry.value.decode("latin-1")
+            (self.width, self.height, n, self.timescale, self.stts_samples,
+             self.stts_duration, oti, n_dsi) = (int(v) for v in info)
+            if oti >= 0:
+                self.name += f" ({_OBJECT_TYPES.get(oti, f'object type 0x{oti:02x}')})"
+            self.offsets, self.sizes = np.zeros(n, np.int64), np.zeros(n, np.int64)
+            self.cts, self.keys = np.zeros(n, np.int64), np.zeros(n, np.uint8)
+            dsi = (ctypes.c_uint8 * max(n_dsi, 1))()
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            lib.fgpack_mp4_packets(handle, *(a.ctypes.data_as(i64p) for a in (
+                self.offsets, self.sizes, self.cts)), _u8p(self.keys), dsi)
+            self.dsi = bytes(dsi)[:n_dsi]
+        finally:
+            lib.fgpack_mp4_close(handle)
 
 
 class VideoReader:
     """The frames of one video file (a path or its bytes), in order, as
     cv2.VideoCapture.read gives them: (H, W, 3) uint8 BGR.
 
-    frame_count and fps are cv2's CAP_PROP_FRAME_COUNT and CAP_PROP_FPS:
-    the fps is FFmpeg's avg_frame_rate from the track's DefaultDuration
-    (av_reduce to terms of at most 30000), the count the container's
-    duration times the fps rounded (OpenCV's get_total_frames; WebM stores
-    no frame count), and the number of packets where the file has no
-    Duration.  `timings` accumulates seconds spent demuxing (once the file
-    is in memory), decoding and converting.  Unsupported files raise
-    ValueError naming the codec."""
+    frame_count and fps are cv2's CAP_PROP_FRAME_COUNT and CAP_PROP_FPS.
+    WebM: the fps is FFmpeg's avg_frame_rate from the track's
+    DefaultDuration (av_reduce to terms of at most 30000), the count the
+    container's duration times the fps rounded (OpenCV's get_total_frames;
+    WebM stores no frame count), and the number of packets where the file
+    has no Duration.  MP4: the count is FFmpeg's nb_frames (the samples
+    stts counts), the fps its avg_frame_rate (the media timescale times
+    that count over stts's total duration, av_reduce to INT_MAX).
+    `timings` accumulates seconds spent demuxing (once the file is in
+    memory), decoding and converting.  Unsupported files raise ValueError
+    naming the codec or the tool."""
 
     def __init__(self, src: Union[str, os.PathLike, bytes]):
         if isinstance(src, (bytes, bytearray, memoryview)):
@@ -152,13 +170,34 @@ class VideoReader:
         self._lib = _load()  # the library's first use builds it: not demuxing
         self._dec = None
         t0 = time.perf_counter()
-        if self.data[4:8] == b"ftyp":
-            raise ValueError(
-                f"{self.name}: MP4 video codec {mp4_video_codec(self.data)!r} is not decoded "
-                f"by the port (it reads {', '.join(READ_CODECS)} in WebM/Matroska)")
-        if self.data[:4] != EBML_MAGIC:
-            raise ValueError(f"{self.name}: not a container the port reads "
-                             "(WebM/Matroska; MP4 files are recognised and refused)")
+        if self.data[:4] == EBML_MAGIC:
+            self._open_webm()
+        elif _is_mp4(self.data):
+            self._open_mp4()
+        else:
+            raise ValueError(f"{self.name}: not a container the port reads ({READS})")
+        self._kind = "vp8" if self.codec == "V_VP8" else "mpeg4"
+        self._features = VP8_FEATURES if self._kind == "vp8" else MPEG4_FEATURES
+        self._fn = {k: getattr(self._lib, f"fgpack_{self._kind}_{k}")
+                    for k in ("new", "decode", "planes", "bgr", "stats", "free")}
+        self._dec = self._fn["new"]()
+        self._next = 0
+        self._flushed = False
+        self._out = (ctypes.c_int64 * 4)()
+        if self._kind == "mpeg4":
+            size = (ctypes.c_int64 * 2)()
+            self._check(self._lib.fgpack_mpeg4_headers(self._dec, self.dsi, len(self.dsi), size),
+                        "the esds headers")
+            if size[0]:
+                self.width, self.height = int(size[0]), int(size[1])
+        self._check_height()
+        self.timings = {"demux": time.perf_counter() - t0, "decode": 0.0, "convert": 0.0}
+
+    def _refuse(self, codec: str):
+        raise ValueError(f"{self.name}: video codec {codec!r} is not decoded by the port "
+                         f"(it reads {READS})")
+
+    def _open_webm(self):
         status = ctypes.c_int()
         handle = self._lib.fgpack_webm_open(self.data, len(self.data), ctypes.byref(status))
         if not handle:
@@ -172,9 +211,8 @@ class VideoReader:
             if status.value != 0:
                 raise ValueError(
                     f"{self.name}: {_status(status.value)} (video codec {self.codec!r})")
-            if self.codec not in READ_CODECS:
-                raise ValueError(f"{self.name}: video codec {self.codec!r} is not decoded by "
-                                 f"the port (it reads {', '.join(READ_CODECS)} in WebM/Matroska)")
+            if self.codec != "V_VP8":
+                self._refuse(self.codec)
             self.width, self.height, n = int(info[0]), int(info[1]), int(info[2])
             default_duration, scale = int(info[3]), int(info[4])
             self.offsets = np.zeros(n, np.int64)
@@ -191,12 +229,7 @@ class VideoReader:
             # the stream's size is its first key frame's (later key frames
             # may not change it)
             at = int(self.offsets[0])
-            height = int.from_bytes(self.data[at + 8:at + 10], "little") & 0x3FFF
-            if height % 2:
-                raise ValueError(
-                    f"{self.name}: odd frame height {height}: cv2 converts such frames on "
-                    "swscale's scaling path (bicubic chroma), which the port does not "
-                    "reproduce")
+            self.height = int.from_bytes(self.data[at + 8:at + 10], "little") & 0x3FFF
         if default_duration > 0:
             num, den = av_reduce(1_000_000_000, default_duration, 30000)
             self.fps = num / den
@@ -211,59 +244,102 @@ class VideoReader:
             self.frame_count = int(np.floor(micros / 1_000_000 * self.fps + 0.5))
         else:
             self.frame_count = n
-        self._dec = self._lib.fgpack_vp8_new()
-        self._next = 0
-        self._out = (ctypes.c_int64 * 4)()
-        self.timings = {"demux": time.perf_counter() - t0, "decode": 0.0, "convert": 0.0}
+        self.dsi = b""
+
+    def _open_mp4(self):
+        track = _Mp4(self._lib, self.data)
+        if track.status != 0:
+            where = f" (video codec {track.name!r})" if track.name != "?" else ""
+            raise ValueError(f"{self.name}: {_status(track.status)}{where}")
+        self.codec = track.name
+        if self.codec != MPEG4_PART2:
+            self._refuse(self.codec)
+        self.width, self.height = track.width, track.height
+        self.offsets, self.sizes, self.keys = track.offsets, track.sizes, track.keys
+        self.pts = (track.cts * 1_000_000_000) // max(track.timescale, 1)
+        self.dsi = track.dsi
+        if track.stts_duration > 0 and track.stts_samples > 0 and track.timescale > 0:
+            num, den = av_reduce(track.timescale * track.stts_samples, track.stts_duration,
+                                 INT_MAX)
+            self.fps = num / den
+        else:
+            self.fps = 0.0
+        self.frame_count = track.stts_samples or len(self.sizes)
+
+    def _check_height(self):
+        if self.height % 2:
+            raise ValueError(
+                f"{self.name}: odd frame height {self.height}: cv2 converts such frames on "
+                "swscale's scaling path (bicubic chroma), which the port does not reproduce")
+
+    def _check(self, rc: int, where: str):
+        if rc == 0:
+            return
+        detail = ""
+        if self._kind == "mpeg4":
+            buf = ctypes.create_string_buffer(512)
+            self._lib.fgpack_mpeg4_error(self._dec, buf, 512)
+            detail = buf.value.decode("latin-1")
+        raise ValueError(f"{self.name}: {where}: {_status(rc)}" + (f": {detail}" if detail else ""))
 
     def packets(self) -> List[bytes]:
         """The video track's packets in file order (cv2's CAP_PROP_FORMAT = -1)."""
         return [self.data[o:o + s] for o, s in zip(self.offsets, self.sizes)]
 
     def _decode_next(self) -> bool:
-        """Decode packets up to the next shown frame; False at the end."""
+        """Decode packets up to the next frame out; False at the end (an
+        MPEG-4 Part 2 stream with B-VOPs gives its last reference then)."""
+        decode = self._fn["decode"]
         while self._next < len(self.sizes):
             o, s = int(self.offsets[self._next]), int(self.sizes[self._next])
             self._next += 1
+            if not s and self._kind == "mpeg4":
+                continue  # an empty sample holds no VOP (an empty packet flushes)
             t0 = time.perf_counter()
-            rc = self._lib.fgpack_vp8_decode(self._dec, self.data[o:o + s], s, self._out)
+            rc = decode(self._dec, self.data[o:o + s], s, self._out)
             self.timings["decode"] += time.perf_counter() - t0
-            if rc != 0:
-                raise ValueError(f"{self.name}: packet {self._next - 1}: {_status(rc)}")
+            self._check(rc, f"packet {self._next - 1}")
             if self._out[0]:
-                return True
+                return self._shown()
+        if self._kind == "mpeg4" and not self._flushed:
+            self._flushed = True
+            self._check(decode(self._dec, b"", 0, self._out), "the end of the stream")
+            if self._out[0]:
+                return self._shown()
         return False
 
+    def _shown(self) -> bool:
+        self.width, self.height = int(self._out[1]), int(self._out[2])
+        self._check_height()
+        return True
+
     def read(self) -> Optional[np.ndarray]:
-        """The next shown frame as (H, W, 3) uint8 BGR, None at the end."""
+        """The next frame as (H, W, 3) uint8 BGR, None at the end."""
         if self._dec is None or not self._decode_next():
             return None
-        h, w = int(self._out[2]), int(self._out[1])
         t0 = time.perf_counter()
-        frame = np.empty((h, w, 3), np.uint8)
-        self._lib.fgpack_vp8_bgr(self._dec, _u8p(frame))
+        frame = np.empty((self.height, self.width, 3), np.uint8)
+        self._fn["bgr"](self._dec, _u8p(frame))
         self.timings["convert"] += time.perf_counter() - t0
         return frame
 
     def planes(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """The last decoded frame's Y (H, W), U and V ((H + 1) // 2,
-        (W + 1) // 2) planes; Y is what cv2 returns with
-        CAP_PROP_CONVERT_RGB = 0."""
-        h, w = int(self._out[2]), int(self._out[1])
+        """The last frame's Y (H, W), U and V ((H + 1) // 2, (W + 1) // 2)
+        planes; Y is what cv2 returns with CAP_PROP_CONVERT_RGB = 0."""
+        h, w = self.height, self.width
         y = np.empty((h, w), np.uint8)
         u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
         v = np.empty_like(u)
-        if self._dec is None or self._lib.fgpack_vp8_planes(self._dec, _u8p(y), _u8p(u),
-                                                            _u8p(v)) != 0:
+        if self._dec is None or self._fn["planes"](self._dec, _u8p(y), _u8p(u), _u8p(v)) != 0:
             raise ValueError(f"{self.name}: no decoded frame")
         return y, u, v
 
     def features(self) -> Dict[str, int]:
-        """How many frames or macroblocks so far used each VP8 feature
-        (VP8_FEATURES)."""
-        out = (ctypes.c_int64 * len(VP8_FEATURES))()
-        self._lib.fgpack_vp8_stats(self._dec, out, len(VP8_FEATURES))
-        return dict(zip(VP8_FEATURES, (int(v) for v in out)))
+        """How many frames, VOPs or macroblocks so far used each feature of
+        the codec (VP8_FEATURES or MPEG4_FEATURES)."""
+        out = (ctypes.c_int64 * len(self._features))()
+        self._fn["stats"](self._dec, out, len(self._features))
+        return dict(zip(self._features, (int(v) for v in out)))
 
     def __iter__(self) -> Iterator[np.ndarray]:
         while True:
@@ -274,7 +350,7 @@ class VideoReader:
 
     def close(self) -> None:
         if self._dec:
-            self._lib.fgpack_vp8_free(self._dec)
+            self._fn["free"](self._dec)
             self._dec = None
 
     def __enter__(self):

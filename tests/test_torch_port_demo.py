@@ -312,8 +312,13 @@ def test_refusals(scene, tmp_path):
     for f in np.zeros((2, 32, 32, 3), np.uint8):
         writer.write(f)
     writer.release()
-    with pytest.raises(SystemExit, match="mp4v.*ROADMAP"):
-        main(["--video", clip, "--device", "cpu"])
+    # cv2's MPEG-4 Part 2 clip, once refused here, runs; the port's own
+    # Motion-JPEG .mp4 (x.mp4 above) is refused by its codec's name
+    out = str(tmp_path / "clip_demo.mp4")
+    main(["--video", clip, "--grid", "2", "--size", "32", "--out", out, "--device", "cpu"])
+    assert v.read_video(out)[0].shape == (2, 32, 32, 3)
+    with pytest.raises(SystemExit, match=r"mp4v \(JPEG\).*ROADMAP"):
+        main(["--video", str(tmp_path / "x.mp4"), "--device", "cpu"])
     assert "H.264" in VIDEO_REFUSAL
     with pytest.raises(SystemExit, match="exactly one of --frames / --video"):
         main(["--video", "clip.mp4", "--frames", scene["frames"], "--device", "cpu"])

@@ -4,7 +4,8 @@ with `show_frame = 0` and sign bias, error resilience with
 `refresh_entropy_probs = 0` and segmentation, versions 1-3 with bilinear
 and full-pixel prediction and the simple loop filter, per-frame flags that
 skip the last-frame and probability refreshes and force golden and altref
-updates, a segment map with quantiser and loop-filter deltas, eight token
+updates (the encoder copies the golden frame into the altref then: copy
+flag 2), a segment map with quantiser and loop-filter deltas, eight token
 partitions with sharpness, flat patches that the fast mode codes as 16x16
 intra macroblocks inside inter frames), muxed into Matroska here
 (tests/test_torch_port_video_codec.py's build_mkv) and read by both
@@ -153,7 +154,7 @@ CASES = {
     "frame-flags": (dict(flags=lambda i: (0, NO_UPD_LAST, NO_UPD_ENTROPY, FORCE_GF,
                                           NO_UPD_GF | NO_REF_LAST, FORCE_ARF)[i % 6]), False,
                     ("frames_without_refresh_last", "frames_without_refresh_entropy_probs",
-                     "golden_updates", "altref_updates")),
+                     "golden_updates", "altref_updates", "altref_copies_from_golden")),
     "segment-map": (dict(roi=(np.arange(24).reshape(4, 6) % 4, (0, 10, -10, 20),
                               (0, 5, -5, 10))), False, ("frames_with_segmentation",)),
     "partitions-sharpness": (dict(controls=[(SET_TOKEN_PARTITIONS, 3), (SET_SHARPNESS, 5)]),

@@ -7,14 +7,16 @@ TapVidKineticsVideoDataset (samples, load_raw, __getitem__) equal;
 with the same ResNet-18-d1 weights (the reference .pth both read), and
 exactly equal to the port's own run over per-video pickles of the same
 decode, also with query_mode 'strided' and two CPU copies; the demo's
-load_video equal and its --video run; MPEG-4 Part 2 and VP9 clips refused
-by name in the reader, the dataset and the demo.
+load_video equal and its --video run; VP9 and the port's own Motion-JPEG
+clips refused by name in the reader, the dataset and the demo, and cv2's
+MPEG-4 Part 2 clip, once refused there, read through all three.
 """
 
 import csv
 import dataclasses
 import os
 import pickle
+import re
 
 import numpy as np
 import pytest
@@ -62,6 +64,8 @@ def write_csv(path, video_ids, seed=0, n_points=5):
 
 @pytest.fixture(scope="module")
 def tree(tmp_path_factory):
+    from fgvc_tpu_torch.utils.visualize import save_video
+
     base = tmp_path_factory.mktemp("video_pipeline")
     clips = base / "clips"
     clips.mkdir()
@@ -75,9 +79,11 @@ def tree(tmp_path_factory):
     refused.mkdir()
     codec.write_clip(refused / "clip_a.mp4", codec.clip_frames(48, 40, 4, seed=1), "mp4v")
     codec.write_clip(refused / "clip_b.webm", codec.clip_frames(48, 40, 4, seed=2), "VP90")
+    save_video(codec.clip_frames(48, 40, 4, seed=3)[..., ::-1], str(refused / "clip_c.mp4"))
     return {"clips": str(clips), "clip": str(clips / "clip_a.webm"), "frames": str(frames),
             "csv": write_csv(base / "ann.csv", ("clip_a", "clip_b")),
-            "refused": str(refused), "refused_csv": write_csv(base / "ref.csv", ("clip_a", "clip_b")),
+            "refused": str(refused),
+            "refused_csv": write_csv(base / "ref.csv", ("clip_a", "clip_b", "clip_c")),
             "pth": data.export_pth(base / "weights.pth", (H, W)), "base": base}
 
 
@@ -258,18 +264,36 @@ def test_demo_video_cli(tree):
 
 
 @pytest.mark.parametrize("clip,match", [("clip_a.mp4", r"mp4v \(MPEG-4 Part 2\)"),
-                                        ("clip_b.webm", "V_VP9")])
+                                        ("clip_b.webm", "V_VP9"), ("clip_c.mp4", r"mp4v \(JPEG\)")])
 def test_refused_clips_name_their_codec(tree, clip, match):
-    """A clip the port cannot decode stops the dataset, decode_video and the
-    demo with the clip's path and codec; it is not skipped."""
+    """A clip the port cannot decode (VP9; its own Motion-JPEG .mp4) stops
+    the dataset, decode_video and the demo with the clip's path and codec;
+    it is not skipped.  cv2's MPEG-4 Part 2 clip, refused by that name until
+    the port had a decoder for it, now goes through all three as the JAX
+    package's cv2 path reads it."""
+    from fgvc_tpu.datasets.tapvid_kinetics import TapVidKineticsVideoDataset as JaxDs
+    from fgvc_tpu.datasets.video_decode import decode_video as jax_decode_video
     from fgvc_tpu_torch.cli.demo import main
+    from fgvc_tpu_torch.data_io.video import VideoReader
     from fgvc_tpu_torch.datasets.tapvid_kinetics import TapVidKineticsVideoDataset
     from fgvc_tpu_torch.datasets.video_decode import VideoInit, decode_video
 
     path = os.path.join(tree["refused"], clip)
     ds = TapVidKineticsVideoDataset(tree["refused"], tree["refused_csv"], input_size=(H, W))
-    assert len(ds) == 2
+    assert len(ds) == 3
     idx = [s[1] for s in ds.samples].index(path)
+    demo = ["--video", path, "--grid", "2", "--size", "32", "--out",
+            str(tree["base"] / f"{clip}.demo.mp4"), "--device", "cpu"]
+    if clip == "clip_a.mp4":
+        with VideoReader(path) as reader:
+            assert re.fullmatch(match, reader.codec)
+        ref = JaxDs(tree["refused"], tree["refused_csv"], input_size=(H, W))
+        _assert_same(ds[idx], ref[[s[1] for s in ref.samples].index(path)])
+        np.testing.assert_array_equal(decode_video(path), jax_decode_video(path))
+        assert VideoInit()({"filename": path})["total_frames"] == 4
+        main(demo)
+        assert os.path.getsize(demo[-3]) > 0
+        return
     with pytest.raises(ValueError, match=f"{path}.*{match}"):
         ds[idx]
     with pytest.raises(ValueError, match=match):
@@ -277,5 +301,4 @@ def test_refused_clips_name_their_codec(tree, clip, match):
     with pytest.raises(ValueError, match=match):
         VideoInit()({"filename": path})
     with pytest.raises(SystemExit, match=f"{match}.*ROADMAP"):
-        main(["--video", path, "--grid", "2", "--size", "32", "--out",
-              str(tree["base"] / "x.mp4"), "--device", "cpu"])
+        main(demo)
