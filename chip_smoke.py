@@ -385,7 +385,21 @@ Phases, each of which raises on failure (exit code != 0):
             cv2 frame pins; (e)
             --annotations over two copies of the mp4v clip, K1 (circle) 498
             times, metrics equal to the pickle path's; (f) demo --video on
-            its first 48 frames, K1 (circle) 47 times.
+            its first 48 frames, K1 (circle) 47 times; (g)-(i) the same for
+            VP9: (g) the committed VP9 WebM
+            (tests/torch_port_fixtures/vp9_640x360_250f.webm, 250 frames,
+            cv2's 'VP90' writer, two tile columns) to its cv2 pins with host
+            ms a frame for demux, VP9 decode and YUV -> BGR, and before it two
+            fixtures of libvpx's encoder
+            (vp9_altref_compound_tiles_512x128.mkv: alt-ref frames hidden in
+            superframes, compound prediction, tile columns, backward
+            adaptation; vp9_aq_errres_lossless_bilinear_96x64.mkv:
+            segmentation with its temporal map, error resilience, lossless,
+            the bilinear filter, show_existing_frame) to their libvpx plane
+            pins and cv2 frame pins; (h) --annotations over two copies of the
+            VP9 clip, K1 (circle) 498 times, metrics equal to the pickle
+            path's; (i) demo --video on its first 48 frames, K1 (circle) 47
+            times.
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -4644,18 +4658,26 @@ def run_demo(records, card_name, device="cuda"):
 # ---------------------------------------------------------------------- #
 # phase video
 # ---------------------------------------------------------------------- #
-# (the letters of its parts, clip, cv2's pins) for VP8 in WebM and for
-# MPEG-4 Part 2 (cv2's mp4v) in MP4
-VIDEO_CLIPS = (("abc", os.path.join("tests", "torch_port_fixtures", "vp8_640x360_250f.webm"),
-                os.path.join("tests", "torch_port_fixtures", "vp8_640x360_250f.json")),
-               ("def", os.path.join("tests", "torch_port_fixtures", "mp4v_640x360_250f.mp4"),
-                os.path.join("tests", "torch_port_fixtures", "mp4v_640x360_250f.json")))
-# MPEG-4 Part 2 tools cv2's writer does not use, from libavcodec's encoder,
-# pinned to libavcodec's planes and cv2's frames: B-VOPs, 4MV, AC prediction
-# and video packets; quarter-pel, data partitioning and XviD's IDCT
-VIDEO_TOOLS = tuple((os.path.join("tests", "torch_port_fixtures", f"{name}.mp4"),
-                     os.path.join("tests", "torch_port_fixtures", f"{name}.json"))
-                    for name in ("mp4v_bvop_4mv_176x144", "mp4v_qpel_dp_xvid_96x64"))
+# (the letters of its parts, clip, cv2's pins) for VP8 in WebM, for MPEG-4
+# Part 2 (cv2's mp4v) in MP4 and for VP9 in WebM
+VIDEO_CLIPS = tuple((tags, os.path.join("tests", "torch_port_fixtures", name + ext),
+                     os.path.join("tests", "torch_port_fixtures", name + ".json"))
+                    for tags, name, ext in (("abc", "vp8_640x360_250f", ".webm"),
+                                            ("def", "mp4v_640x360_250f", ".mp4"),
+                                            ("ghi", "vp9_640x360_250f", ".webm")))
+# tools cv2's writers do not use, pinned to their encoder's own decoder's
+# planes and to cv2's frames, by the clip they precede: MPEG-4 Part 2 from
+# libavcodec (B-VOPs, 4MV, AC prediction and video packets; quarter-pel, data
+# partitioning and XviD's IDCT); VP9 from libvpx (alt-ref superframes,
+# compound prediction, tile columns, backward adaptation; segmentation,
+# error resilience, lossless, bilinear, show_existing_frame)
+VIDEO_TOOLS = {tags: tuple((os.path.join("tests", "torch_port_fixtures", name + ext),
+                            os.path.join("tests", "torch_port_fixtures", name + ".json"))
+                           for name in names)
+               for tags, ext, names in (
+                   ("def", ".mp4", ("mp4v_bvop_4mv_176x144", "mp4v_qpel_dp_xvid_96x64")),
+                   ("ghi", ".mkv", ("vp9_altref_compound_tiles_512x128",
+                                    "vp9_aq_errres_lossless_bilinear_96x64")))}
 VIDEO_IDS, VIDEO_TRACKS = ("clip_a", "clip_b"), 32
 VIDEO_DEMO_FRAMES, VIDEO_DEMO_GRID = 48, 8
 
@@ -4798,12 +4820,11 @@ def run_video(records, card_name):
     t_phase = time.time()
     for tags, fixture, pins in VIDEO_CLIPS:
         t_clip = time.time()
-        if tags == "def":
-            for tool_clip, tool_pins in VIDEO_TOOLS:
-                _, feats = _video_pins(tool_clip, tool_pins, "video (d) tools", card_name,
-                                       yuv=True)
-                print(f"video (d) {os.path.basename(tool_clip)} features: " + json.dumps(
-                    {k: v for k, v in feats.items() if v}), flush=True)
+        for tool_clip, tool_pins in VIDEO_TOOLS.get(tags, ()):
+            _, feats = _video_pins(tool_clip, tool_pins, f"video ({tags[0]}) tools", card_name,
+                                   yuv=True)
+            print(f"video ({tags[0]}) {os.path.basename(tool_clip)} features: " + json.dumps(
+                {k: v for k, v in feats.items() if v}), flush=True)
         _video_clip(records, card_name, tags, fixture, pins)
         print(f"video ({tags}) {time.time() - t_clip:.1f} s [{card_name}]", flush=True)
     print(f"video phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)

@@ -41,7 +41,8 @@
 //     loop-filter deltas, saved probabilities, hidden frames) and FFmpeg
 //     swscale's unscaled YUV 4:2:0 -> BGR24 (what cv2.VideoCapture.read
 //     gives), which csrc/mpeg4video.cpp's MP4 demuxer and MPEG-4 Part 2
-//     decoder (compiled into the same library) share.
+//     decoder and csrc/vp9video.cpp's VP9 decoder (compiled into the same
+//     library) share.
 //
 // Pack file layout (little endian), the JAX package's FGPK v2:
 //   [0:4]   magic "FGPK"
@@ -4195,7 +4196,9 @@ int decode_webp(const uint8_t* buf, size_t n, uint8_t* dst, int h, int w, int ch
 // swscale's scaling path).  The coefficients are roundToInt16(c << 13) of
 // ff_yuv2rgb_coeffs' BT.601 row {104597, 132201, 25675, 53279} and
 // cy = 65536 * 255 / 219.  fgpack_i420_to_bgr24 below converts; the VP8
-// and the MPEG-4 Part 2 decoders (csrc/mpeg4video.cpp) both call it.
+// and the MPEG-4 Part 2 decoders (csrc/mpeg4video.cpp) both call it, the
+// VP9 decoder (csrc/vp9video.cpp) calls fgpack_yuv420_to_bgr24 with its
+// stream's colour space.
 constexpr int kSwsY = 9539, kSwsVr = 13075, kSwsUb = 16525, kSwsUg = -3209, kSwsVg = -6660;
 
 inline int mulhi16(int a, int b) { return (a * b) >> 16; }
@@ -4685,9 +4688,11 @@ int fgpack_decode_webp(const uint8_t* buf, int64_t nbytes, uint8_t* dst, int64_t
 
 // ---- video: YUV 4:2:0 -> BGR24, swscale's unscaled conversion -----------
 // Planes of a decoded frame (luma stride ystride, chroma cstride) to
-// (h, w, 3) BGR.
-void fgpack_i420_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v, int64_t ystride,
-                          int64_t cstride, int64_t h, int64_t w, uint8_t* dst) {
+// (h, w, 3) BGR with the converter's coefficients c = {y, vr, ub, ug, vg,
+// y offset} (BT.601 limited range: {kSwsY, kSwsVr, kSwsUb, kSwsUg, kSwsVg,
+// 128}; csrc/vp9video.cpp derives the other colour spaces' and full range's).
+void fgpack_yuv420_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v, int64_t ystride,
+                            int64_t cstride, int64_t h, int64_t w, const int32_t* c, uint8_t* dst) {
   using webp::clip8;
   using webp::mulhi16;
   for (int64_t r = 0; r < h; ++r) {
@@ -4697,12 +4702,20 @@ void fgpack_i420_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v, 
     uint8_t* o = dst + r * w * 3;
     for (int64_t x = 0; x < w; ++x, o += 3) {
       const int cu = pu[x >> 1] * 8 - 1024, cv = pv[x >> 1] * 8 - 1024;
-      const int yy = mulhi16(py[x] * 8 - 128, webp::kSwsY);
-      o[0] = clip8(yy + mulhi16(cu, webp::kSwsUb));
-      o[1] = clip8(yy + mulhi16(cu, webp::kSwsUg) + mulhi16(cv, webp::kSwsVg));
-      o[2] = clip8(yy + mulhi16(cv, webp::kSwsVr));
+      const int yy = mulhi16(py[x] * 8 - c[5], c[0]);
+      o[0] = clip8(yy + mulhi16(cu, c[2]));
+      o[1] = clip8(yy + mulhi16(cu, c[3]) + mulhi16(cv, c[4]));
+      o[2] = clip8(yy + mulhi16(cv, c[1]));
     }
   }
+}
+
+// The BT.601 limited-range conversion (the VP8 and MPEG-4 Part 2 frames').
+void fgpack_i420_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v, int64_t ystride,
+                          int64_t cstride, int64_t h, int64_t w, uint8_t* dst) {
+  static const int32_t kBt601[6] = {webp::kSwsY,  webp::kSwsVr, webp::kSwsUb,
+                                    webp::kSwsUg, webp::kSwsVg, 128};
+  fgpack_yuv420_to_bgr24(y, u, v, ystride, cstride, h, w, kBt601, dst);
 }
 
 // ---- video: a Matroska/WebM file's packets, a VP8 stream's frames -------

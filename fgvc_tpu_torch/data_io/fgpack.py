@@ -1,15 +1,16 @@
 """The port's host codec library (csrc/fgpack.cpp) through ctypes: FGPK
 packs, JPEG decode and encode, PNG and WebP decode, RGB -> I420
 (fgvc_tpu/data_io/fgpack.py, without libjpeg, PIL or cv2); its video
-entry points (WebM and MP4 demuxing, VP8 and MPEG-4 Part 2 decoding) are
-bound in data_io/video.py.
+entry points (WebM and MP4 demuxing, VP8, VP9 and MPEG-4 Part 2 decoding)
+are bound in data_io/video.py.
 
 The library is C++17 with pthread alone.  It is compiled with g++ at first
 use into ``build/host/libfgpack-<hash>.so`` at the root of the checkout
 (``build/`` is git-ignored; the hash covers the sources and the flags):
 
     g++ -O2 -std=c++17 -shared -fPIC -o build/host/libfgpack-<hash>.so \
-        fgvc_tpu_torch/csrc/fgpack.cpp fgvc_tpu_torch/csrc/mpeg4video.cpp -lpthread
+        fgvc_tpu_torch/csrc/fgpack.cpp fgvc_tpu_torch/csrc/mpeg4video.cpp \
+        fgvc_tpu_torch/csrc/vp9video.cpp -lpthread
 
 Its JPEG decoder gives libjpeg's default pixels (what PIL and cv2.imread
 give), its WebP decoder libwebp's (cv2.imread's colour mode), and its
@@ -49,7 +50,7 @@ CODEC_JPEG = 1
 _LAYOUTS = {"hwc": 0, "i420": 1, "grey": 2, "cmyk": 3}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fgpack.cpp"
-SOURCES = (SOURCE, SOURCE.with_name("mpeg4video.cpp"))
+SOURCES = (SOURCE, SOURCE.with_name("mpeg4video.cpp"), SOURCE.with_name("vp9video.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 LINK_FLAGS = ("-lpthread",)
@@ -95,6 +96,10 @@ STATUS = {
     -38: "an MPEG-4 Part 2 P- or B-VOP before the stream's first I-VOP",
     -39: "an MPEG-4 Part 2 VOP before any VOL header",
     -40: "an MPEG-4 Part 2 VOL changes the stream's frame size",
+    -41: "corrupt VP9 data",
+    -42: "a VP9 form the port does not decode",
+    -43: "a VP9 inter frame before the stream's first key frame",
+    -44: "a VP9 frame changes the stream's frame size",
 }
 
 _LIB = None
@@ -114,8 +119,8 @@ def compiler_version() -> str:
 
 
 def build_library(force: bool = False) -> str:
-    """Compile csrc/fgpack.cpp and csrc/mpeg4video.cpp into build/host
-    (once per sources and flags);
+    """Compile csrc/fgpack.cpp, csrc/mpeg4video.cpp and csrc/vp9video.cpp
+    into build/host (once per sources and flags);
     returns the library's path.  The output is written under a temporary
     name and renamed, so a process loading it during another's build never
     sees half a file."""
@@ -183,6 +188,14 @@ def _load():
             "fgpack_mpeg4_stats": (ctypes.c_int, [ptr, i64p, i64]),
             "fgpack_mpeg4_error": (ctypes.c_int, [ptr, ctypes.c_char_p, i64]),
             "fgpack_mpeg4_free": (None, [ptr]),
+            "fgpack_vp9_new": (ptr, []),
+            "fgpack_vp9_peek": (ctypes.c_int, [ctypes.c_char_p, i64, i64p]),
+            "fgpack_vp9_decode": (ctypes.c_int, [ptr, ctypes.c_char_p, i64, i64p]),
+            "fgpack_vp9_planes": (ctypes.c_int, [ptr, u8p, u8p, u8p]),
+            "fgpack_vp9_bgr": (ctypes.c_int, [ptr, u8p]),
+            "fgpack_vp9_stats": (ctypes.c_int, [ptr, i64p, i64]),
+            "fgpack_vp9_error": (ctypes.c_int, [ptr, ctypes.c_char_p, i64]),
+            "fgpack_vp9_free": (None, [ptr]),
             "fgpack_prefetch": (ctypes.c_int, [ptr, i64, i64]),
             "fgpack_close": (None, [ptr]),
         }

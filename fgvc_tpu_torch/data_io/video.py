@@ -1,34 +1,41 @@
-"""Video files through the port's host library (csrc/fgpack.cpp and
-csrc/mpeg4video.cpp), without cv2, PyAV, decord or FFmpeg: what
-``cv2.VideoCapture`` gives, for the files the port decodes.
+"""Video files through the port's host library (csrc/fgpack.cpp,
+csrc/mpeg4video.cpp and csrc/vp9video.cpp), without cv2, PyAV, decord or
+FFmpeg: what ``cv2.VideoCapture`` gives, for the files the port decodes.
 
-Read: VP8 in WebM/Matroska and MPEG-4 Part 2 (``mp4v``, what
-cv2.VideoWriter's 'mp4v' fourcc writes) in MP4/MOV.  The WebM demuxer
-yields the video track's packets (SimpleBlock and BlockGroup, clusters of
-unknown size included); the MP4 demuxer the first video track's samples
-(stsz/stz2, stco/co64, stsc runs, stts, ctts, stss; an edit list only where
-it drops no sample) and its esds headers.  The VP8 decoder keeps one state
-across packets (RFC 6386 key and inter frames, hidden frames decoded and not
-shown); the MPEG-4 Part 2 decoder decodes Simple and Advanced Simple I-, P-
-and B-VOPs as FFmpeg's mpeg4 decoder does (4MV, quarter-pel, resync
-markers, data partitioning, H.263 and MPEG quantisation, B-VOPs in display
-order; XviD's IDCT and FFmpeg's workarounds for XviD- and DivX-signed
-streams).  Frames come out as swscale's
-unscaled YUV 4:2:0 -> BGR24 gives them to cv2 (its x86 SIMD arithmetic),
-so ``VideoReader.read`` equals ``cv2.VideoCapture.read`` bit for bit.
+Read: VP8 and VP9 (profile 0: 8-bit 4:2:0, what YouTube-style .webm/.mkv
+clips and cv2.VideoWriter's 'VP90' fourcc carry) in WebM/Matroska, and
+MPEG-4 Part 2 (``mp4v``, what cv2.VideoWriter's 'mp4v' fourcc writes) in
+MP4/MOV.  The WebM demuxer yields the video track's packets (SimpleBlock
+and BlockGroup, clusters of unknown size included); the MP4 demuxer the
+first video track's samples (stsz/stz2, stco/co64, stsc runs, stts, ctts,
+stss; an edit list only where it drops no sample) and its esds headers.
+The VP8 decoder keeps one state across packets (RFC 6386 key and inter
+frames, hidden frames decoded and not shown); the VP9 decoder's planes equal
+libvpx's (superframes with hidden alt-ref frames, show_existing_frame,
+compound prediction, tiles, segmentation, lossless, the interpolation
+filters, backward adaptation, error-resilient and frame-parallel streams);
+the MPEG-4 Part 2 decoder decodes Simple and Advanced Simple I-, P- and
+B-VOPs as FFmpeg's mpeg4 decoder does (4MV, quarter-pel, resync markers,
+data partitioning, H.263 and MPEG quantisation, B-VOPs in display order;
+XviD's IDCT and FFmpeg's workarounds for XviD- and DivX-signed streams).
+Frames come out as swscale's unscaled YUV 4:2:0 -> BGR24 gives them to cv2
+(its x86 SIMD arithmetic; for VP9 with the coefficients of the colour space
+and range the stream carries), so ``VideoReader.read`` equals
+``cv2.VideoCapture.read`` bit for bit.
 
 Refused with ValueError naming what was found: odd frame heights (cv2
 converts them on swscale's scaling path, which is not reproduced), other
-codecs (``V_VP9``, ``V_MPEG4/ISO/AVC``, ``avc1``, the port's own
-Motion-JPEG ``.mp4`` as ``mp4v (JPEG)``, whose pixels FFmpeg's MJPEG
-decoder would give, not libjpeg's, ...), MPEG-4 Part 2 tools the decoder
-does not decode (interlaced VOPs, sprites and GMC, shape coding, N-bit,
-scalability, reversible VLC, NEWPRED, reduced resolution, packed DivX
-B-frames, streams signed by an old libavcodec), laced Matroska blocks,
-compressed or encrypted tracks, several Matroska video tracks, MP4 edit
-lists that drop samples, other containers.
+codecs (``V_MPEG4/ISO/AVC``, ``avc1``, the port's own Motion-JPEG ``.mp4``
+as ``mp4v (JPEG)``, whose pixels FFmpeg's MJPEG decoder would give, not
+libjpeg's, ...), VP9 forms the decoder does not decode (profiles 1-3, a
+frame size that changes mid-stream, intra-only frames, the reserved colour
+space), MPEG-4 Part 2 tools the decoder does not decode (interlaced VOPs,
+sprites and GMC, shape coding, N-bit, scalability, reversible VLC, NEWPRED,
+reduced resolution, packed DivX B-frames, streams signed by an old
+libavcodec), laced Matroska blocks, compressed or encrypted tracks, several
+Matroska video tracks, MP4 edit lists that drop samples, other containers.
 
-    reader = VideoReader("clip.webm")     # or an mp4v .mp4
+    reader = VideoReader("clip.webm")     # VP8 or VP9; or an mp4v .mp4
     reader.frame_count, reader.fps        # cv2's CAP_PROP_FRAME_COUNT / _FPS
     for bgr in reader: ...                # (H, W, 3) uint8, cv2.read's pixels
 """
@@ -49,8 +56,9 @@ EBML_MAGIC = b"\x1a\x45\xdf\xa3"
 # the first box types of the ISO-BMFF files the MP4 demuxer opens
 MP4_BOXES = (b"ftyp", b"moov", b"mdat", b"free", b"wide", b"skip")
 MPEG4_PART2 = "mp4v (MPEG-4 Part 2)"
-READ_CODECS = ("V_VP8", MPEG4_PART2)
-READS = "VP8 in WebM/Matroska and MPEG-4 Part 2 in MP4/MOV"
+READ_CODECS = ("V_VP8", "V_VP9", MPEG4_PART2)
+READS = "VP8 and VP9 in WebM/Matroska and MPEG-4 Part 2 in MP4/MOV"
+_KINDS = {"V_VP8": "vp8", "V_VP9": "vp9", MPEG4_PART2: "mpeg4"}
 # the counters of fgpack_vp8_stats, in order (golden_updates and
 # altref_updates count refreshes and copies; the copies also by their source)
 VP8_FEATURES = (
@@ -62,6 +70,23 @@ VP8_FEATURES = (
     "nearestmv_mbs", "zeromv_mbs", "bilinear_frames", "simple_filter_frames",
     "unfiltered_frames", "golden_copies_from_last", "golden_copies_from_altref",
     "altref_copies_from_last", "altref_copies_from_golden",
+)
+# the counters of fgpack_vp9_stats, in order: frames by kind (hidden ones
+# are decoded and not shown; superframes are packets of several frames);
+# compound and sub-8x8 blocks; lossless, segmented, segment-map-updating
+# and temporally predicted segmentation, multi-tile-column and
+# multi-tile-row, TX_MODE_SELECT, switchable-filter, error-resilient,
+# frame-parallel, adapted (backward adaptation ran), context-refreshing and
+# previous-frame-MV frames; inter blocks by interpolation filter; blocks by
+# tx size
+VP9_FEATURES = (
+    "key_frames", "inter_frames", "hidden_frames", "show_existing_frames", "superframes",
+    "compound_blocks", "sub8x8_blocks", "lossless_frames", "segmented_frames",
+    "segment_map_updates", "temporal_segment_frames", "multi_tile_frames", "tile_row_frames",
+    "tx_select_frames", "switchable_frames", "error_resilient_frames", "frame_parallel_frames",
+    "adapted_frames", "refresh_context_frames", "prev_frame_mv_frames", "regular_blocks",
+    "smooth_blocks", "sharp_blocks", "bilinear_blocks", "tx4x4_blocks", "tx8x8_blocks",
+    "tx16x16_blocks", "tx32x32_blocks",
 )
 # the counters of fgpack_mpeg4_stats, in order: VOPs by type, P-VOPs with
 # vop_rounding_type 1, not-coded VOPs; macroblocks (intra in any VOP, intra
@@ -176,10 +201,13 @@ class VideoReader:
             self._open_mp4()
         else:
             raise ValueError(f"{self.name}: not a container the port reads ({READS})")
-        self._kind = "vp8" if self.codec == "V_VP8" else "mpeg4"
-        self._features = VP8_FEATURES if self._kind == "vp8" else MPEG4_FEATURES
+        self._kind = _KINDS[self.codec]
+        self._features = {"vp8": VP8_FEATURES, "vp9": VP9_FEATURES,
+                          "mpeg4": MPEG4_FEATURES}[self._kind]
         self._fn = {k: getattr(self._lib, f"fgpack_{self._kind}_{k}")
                     for k in ("new", "decode", "planes", "bgr", "stats", "free")}
+        if self._kind != "vp8":
+            self._fn["error"] = getattr(self._lib, f"fgpack_{self._kind}_error")
         self._dec = self._fn["new"]()
         self._next = 0
         self._flushed = False
@@ -211,7 +239,7 @@ class VideoReader:
             if status.value != 0:
                 raise ValueError(
                     f"{self.name}: {_status(status.value)} (video codec {self.codec!r})")
-            if self.codec != "V_VP8":
+            if self.codec not in ("V_VP8", "V_VP9"):
                 self._refuse(self.codec)
             self.width, self.height, n = int(info[0]), int(info[1]), int(info[2])
             default_duration, scale = int(info[3]), int(info[4])
@@ -225,11 +253,13 @@ class VideoReader:
                                           self.pts.ctypes.data_as(i64p), _u8p(self.keys))
         finally:
             self._lib.fgpack_webm_close(handle)
-        if n and not self.data[self.offsets[0]] & 1 and self.sizes[0] >= 10:
-            # the stream's size is its first key frame's (later key frames
-            # may not change it)
+        # the stream's size is its first key frame's (later key frames may
+        # not change it)
+        if n and self.codec == "V_VP8" and not self.data[self.offsets[0]] & 1 and self.sizes[0] >= 10:
             at = int(self.offsets[0])
             self.height = int.from_bytes(self.data[at + 8:at + 10], "little") & 0x3FFF
+        elif n and self.codec == "V_VP9":
+            self._vp9_size()
         if default_duration > 0:
             num, den = av_reduce(1_000_000_000, default_duration, 30000)
             self.fps = num / den
@@ -245,6 +275,22 @@ class VideoReader:
         else:
             self.frame_count = n
         self.dsi = b""
+
+    def _vp9_size(self):
+        """The size in the first packet's key-frame header; profiles 1-3
+        and a stream that does not open on a key frame refused there,
+        before any frame is decoded."""
+        at, size = int(self.offsets[0]), int(self.sizes[0])
+        out = (ctypes.c_int64 * 4)()
+        rc = self._lib.fgpack_vp9_peek(self.data[at:at + size], size, out)
+        if rc != 0:
+            raise ValueError(f"{self.name}: packet 0: {_status(rc)} (video codec 'V_VP9')")
+        if out[0] != 0:
+            raise ValueError(f"{self.name}: VP9 profile {int(out[0])} (video codec 'V_VP9'; the "
+                             "port decodes profile 0: 8-bit 4:2:0)")
+        if not out[1]:
+            raise ValueError(f"{self.name}: packet 0 is not a key frame (video codec 'V_VP9')")
+        self.width, self.height = int(out[2]), int(out[3])
 
     def _open_mp4(self):
         track = _Mp4(self._lib, self.data)
@@ -276,10 +322,12 @@ class VideoReader:
         if rc == 0:
             return
         detail = ""
-        if self._kind == "mpeg4":
+        if self._kind in ("mpeg4", "vp9"):
             buf = ctypes.create_string_buffer(512)
-            self._lib.fgpack_mpeg4_error(self._dec, buf, 512)
+            self._fn["error"](self._dec, buf, 512)
             detail = buf.value.decode("latin-1")
+        if self._kind == "vp9":
+            detail += f"{' ' if detail else ''}(video codec 'V_VP9')"
         raise ValueError(f"{self.name}: {where}: {_status(rc)}" + (f": {detail}" if detail else ""))
 
     def packets(self) -> List[bytes]:
@@ -335,8 +383,8 @@ class VideoReader:
         return y, u, v
 
     def features(self) -> Dict[str, int]:
-        """How many frames, VOPs or macroblocks so far used each feature of
-        the codec (VP8_FEATURES or MPEG4_FEATURES)."""
+        """How many frames, VOPs, macroblocks or blocks so far used each
+        feature of the codec (VP8_FEATURES, VP9_FEATURES or MPEG4_FEATURES)."""
         out = (ctypes.c_int64 * len(self._features))()
         self._fn["stats"](self._dec, out, len(self._features))
         return dict(zip(self._features, (int(v) for v in out)))

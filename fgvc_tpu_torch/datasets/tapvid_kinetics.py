@@ -7,8 +7,9 @@ pickle step is optional:
     python -m fgvc_tpu_torch.cli.test --task kinetics --data-root <clips> \\
         --annotations tapvid_kinetics.csv
 
-Clips in VP8 (.webm/.mkv) and MPEG-4 Part 2 (.mp4, what cv2's 'mp4v'
-writes) decode; a clip in a codec the port does not decode raises
+Clips in VP8 and VP9 (.webm/.mkv; VP9 profile 0, YouTube's usual
+Kinetics download) and MPEG-4 Part 2 (.mp4, what cv2's 'mp4v' writes)
+decode; a clip in a codec the port does not decode raises
 ValueError with the clip's path and codec; it is never skipped.
 """
 

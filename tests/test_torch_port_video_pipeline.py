@@ -7,9 +7,9 @@ TapVidKineticsVideoDataset (samples, load_raw, __getitem__) equal;
 with the same ResNet-18-d1 weights (the reference .pth both read), and
 exactly equal to the port's own run over per-video pickles of the same
 decode, also with query_mode 'strided' and two CPU copies; the demo's
-load_video equal and its --video run; VP9 and the port's own Motion-JPEG
-clips refused by name in the reader, the dataset and the demo, and cv2's
-MPEG-4 Part 2 clip, once refused there, read through all three.
+load_video equal and its --video run; the port's own Motion-JPEG clip
+refused by name in the reader, the dataset and the demo, and cv2's MPEG-4
+Part 2 and VP9 clips, once refused there, read through all three.
 """
 
 import csv
@@ -266,11 +266,11 @@ def test_demo_video_cli(tree):
 @pytest.mark.parametrize("clip,match", [("clip_a.mp4", r"mp4v \(MPEG-4 Part 2\)"),
                                         ("clip_b.webm", "V_VP9"), ("clip_c.mp4", r"mp4v \(JPEG\)")])
 def test_refused_clips_name_their_codec(tree, clip, match):
-    """A clip the port cannot decode (VP9; its own Motion-JPEG .mp4) stops
-    the dataset, decode_video and the demo with the clip's path and codec;
-    it is not skipped.  cv2's MPEG-4 Part 2 clip, refused by that name until
-    the port had a decoder for it, now goes through all three as the JAX
-    package's cv2 path reads it."""
+    """A clip the port cannot decode (its own Motion-JPEG .mp4) stops the
+    dataset, decode_video and the demo with the clip's path and codec; it is
+    not skipped.  cv2's MPEG-4 Part 2 and VP9 clips, refused by those names
+    until the port had decoders for them, now go through all three as the
+    JAX package's cv2 path reads them."""
     from fgvc_tpu.datasets.tapvid_kinetics import TapVidKineticsVideoDataset as JaxDs
     from fgvc_tpu.datasets.video_decode import decode_video as jax_decode_video
     from fgvc_tpu_torch.cli.demo import main
@@ -284,7 +284,7 @@ def test_refused_clips_name_their_codec(tree, clip, match):
     idx = [s[1] for s in ds.samples].index(path)
     demo = ["--video", path, "--grid", "2", "--size", "32", "--out",
             str(tree["base"] / f"{clip}.demo.mp4"), "--device", "cpu"]
-    if clip == "clip_a.mp4":
+    if clip in ("clip_a.mp4", "clip_b.webm"):
         with VideoReader(path) as reader:
             assert re.fullmatch(match, reader.codec)
         ref = JaxDs(tree["refused"], tree["refused_csv"], input_size=(H, W))
