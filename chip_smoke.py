@@ -357,8 +357,9 @@ Phases, each of which raises on failure (exit code != 0):
             tracking, drawing and encoding, and its MB; --correspondence
             writes a .png that decodes to the overlay; --mask with a grey
             label PNG launches K1 square once per frame propagated and writes
-            an .mp4; --video on its own Motion-JPEG .mp4 exits naming the
-            codec ('mp4v (JPEG)') with VIDEO_REFUSAL;
+            an .mp4, which the port's VideoReader reads back ('mp4v (JPEG)',
+            24 frames of 256 x 256, within a mean level of libjpeg's decode
+            of the same samples) and --video tracks (K1 circle 23 times);
   video     video files as input, no cv2 on this machine: (a) the committed
             VP8 WebM (tests/torch_port_fixtures/vp8_640x360_250f.webm, 250
             frames at 640 x 360, 25 fps, libvpx through cv2) decoded on the
@@ -399,7 +400,17 @@ Phases, each of which raises on failure (exit code != 0):
             pins and cv2 frame pins; (h) --annotations over two copies of the
             VP9 clip, K1 (circle) 498 times, metrics equal to the pickle
             path's; (i) demo --video on its first 48 frames, K1 (circle) 47
-            times.
+            times; (j) the committed AVI of cv2's XVID writer
+            (tests/torch_port_fixtures/mp4v_640x360_48f.avi, the first 48
+            frames of the VP8 clip's content) to its cv2 pins with host ms a
+            frame for demux, MPEG-4 decode and YUV -> BGR, then demo --video
+            on it, K1 (circle) 47 times; (k) the same for cv2's MJPG AVI
+            (mjpg_640x360_48f.avi: Motion-JPEG 4:2:0, FFmpeg's mjpeg decoder's
+            planes, swscale's unscaled full-range conversion); (l) the port's
+            own save_video .mp4 (mjpg_444_320x180_24f.mp4: 24 frames, 4:4:4
+            q95, swscale's full-chroma path) to its cv2 pins, then
+            --annotations over two copies of it, K1 (circle) 46 times,
+            metrics equal to the pickle path's.
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -4645,26 +4656,57 @@ def run_demo(records, card_name, device="cuda"):
         _add_launches(records["K1_square"], DEMO_T - 1)
         if len(visualize.read_mp4(masks_out).samples) != DEMO_T:
             raise AssertionError("demo --mask: the .mp4 lacks frames")
-        code = _exit_code(lambda: demo.main(["--video", masks_out, "--device", device]))
-        if not (isinstance(code, str) and "'mp4v (JPEG)'" in code
-                and code.endswith(demo.VIDEO_REFUSAL)):
-            raise AssertionError(f"demo --video: {code!r}")
+        # its own Motion-JPEG .mp4 read back by the port's video reader
+        # (FFmpeg's decoding and 4:4:4 conversion, cv2's pixels; libjpeg's
+        # decode of the same samples, read_video's, parts from it by a few
+        # levels), then tracked with --video
+        from fgvc_tpu_torch.data_io.video import VideoReader
+
+        with VideoReader(masks_out) as reader:
+            back = list(reader)
+            codec, mjpeg_ms = reader.codec, 1e3 * sum(reader.timings.values()) / max(len(back), 1)
+        libjpeg = visualize.read_video(masks_out)[0][..., ::-1]
+        gap = float(np.abs(np.stack(back).astype(np.int16) - libjpeg).mean()) if back else -1.0
+        if (codec != "mp4v (JPEG)" or len(back) != DEMO_T
+                or back[0].shape != (DEMO_SIZE, DEMO_SIZE, 3) or not 0 <= gap < 1.0):
+            raise AssertionError(f"demo: its .mp4 read back as {codec!r}, {len(back)} frames "
+                                 f"of {back[0].shape if back else None}, mean gap {gap}")
+        k1.reset_launches()
+        video_out = os.path.join(root, "masks_tracked.mp4")
+        _, video_s = _timed(lambda: demo.main(["--video", masks_out, "--size", str(DEMO_SIZE),
+                                                "--grid", str(DEMO_GRID), "--out", video_out,
+                                                "--device", device]))
+        if device == "cuda":
+            check_launches("demo --video on its own .mp4", "highest", DEMO_T - 1, "banked")
+        _add_launches(records["K1_circle"], DEMO_T - 1)
+        if len(visualize.read_mp4(video_out).samples) != DEMO_T:
+            raise AssertionError("demo --video on its own .mp4: the output lacks frames")
         print(f"demo --correspondence: {corr} equal to the overlay of its 64 matches; --mask: "
               f"{DEMO_T - 1} K1 square launches, {os.path.getsize(masks_out) / 1e6:.3f} MB; "
-              "--video on its Motion-JPEG .mp4 refused by codec", flush=True)
+              f"that .mp4 read back by VideoReader ({codec!r}, {len(back)} frames of "
+              f"{DEMO_SIZE}x{DEMO_SIZE}, {mjpeg_ms:.3f} host ms a frame [{card_name}], mean "
+              f"|cv2-path - libjpeg| {gap:.4f}); --video on it: {DEMO_T - 1} K1 circle "
+              f"launches, {video_s:.2f} s", flush=True)
     print(f"demo phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
 
 
 # ---------------------------------------------------------------------- #
 # phase video
 # ---------------------------------------------------------------------- #
-# (the letters of its parts, clip, cv2's pins) for VP8 in WebM, for MPEG-4
-# Part 2 (cv2's mp4v) in MP4 and for VP9 in WebM
+# (the letters of its parts: pins, --annotations, demo --video, "-" where
+# the clip skips that part; clip; cv2's pins) for VP8 in WebM, for MPEG-4
+# Part 2 (cv2's mp4v) in MP4, for VP9 in WebM, for MPEG-4 Part 2 (cv2's XVID)
+# and Motion-JPEG (cv2's MJPG) in AVI (--annotations looks up .mp4, .mkv
+# and .webm clips only, as the JAX reader does), and for the port's own
+# 4:4:4 Motion-JPEG .mp4 (save_video)
 VIDEO_CLIPS = tuple((tags, os.path.join("tests", "torch_port_fixtures", name + ext),
                      os.path.join("tests", "torch_port_fixtures", name + ".json"))
                     for tags, name, ext in (("abc", "vp8_640x360_250f", ".webm"),
                                             ("def", "mp4v_640x360_250f", ".mp4"),
-                                            ("ghi", "vp9_640x360_250f", ".webm")))
+                                            ("ghi", "vp9_640x360_250f", ".webm"),
+                                            ("j-j", "mp4v_640x360_48f", ".avi"),
+                                            ("k-k", "mjpg_640x360_48f", ".avi"),
+                                            ("ll-", "mjpg_444_320x180_24f", ".mp4")))
 # tools cv2's writers do not use, pinned to their encoder's own decoder's
 # planes and to cv2's frames, by the clip they precede: MPEG-4 Part 2 from
 # libavcodec (B-VOPs, 4MV, AC prediction and video packets; quarter-pel, data
@@ -4737,82 +4779,96 @@ def _video_clip(records, card_name, tags, fixture, pins):
     """One committed clip through the video path: its pins on the host,
     cli.test --task kinetics --annotations on two copies (K1 circle once a
     frame propagated, metrics equal to the pickle path's), the demo's
-    --video (K1 circle once a frame after the first)."""
+    --video (K1 circle once a frame after the first); a part whose letter
+    in `tags` is "-" is skipped."""
+    n, _ = _video_pins(fixture, pins, f"video ({tags[0]})", card_name)
+    fixture = os.path.join(ROOT, fixture)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as root:
+        if tags[1] != "-":
+            _video_annotations(records, tags[1], fixture, root, n)
+        if tags[2] != "-":
+            _video_demo(records, tags[2], fixture, root, min(n, VIDEO_DEMO_FRAMES))
+
+
+def _video_annotations(records, tag, fixture, root, n):
+    """cli.test --task kinetics --annotations over two copies of the clip,
+    then run_task over pickles of the port's decode of it: equal metrics."""
     import io
     import shutil
 
     import torch
 
     from fgvc_tpu_torch.apis.test import run_task
-    from fgvc_tpu_torch.cli import demo
     from fgvc_tpu_torch.cli import test as cli_test
     from fgvc_tpu_torch.datasets.tapvid_kinetics import (assemble_tracks, read_annotations)
     from fgvc_tpu_torch.datasets.video_decode import decode_video
     from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+
+    clips = os.path.join(root, "clips")
+    os.makedirs(clips)
+    for vid in VIDEO_IDS:
+        shutil.copy(fixture, os.path.join(clips, vid + os.path.splitext(fixture)[1]))
+    csv_path = os.path.join(root, "tapvid_kinetics.csv")
+    write_video_csv(csv_path, n)
+    expect = len(VIDEO_IDS) * (n - 1)  # one query group a video, at frame 0
+    k1.reset_launches()
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        cli_test.main(["--task", "kinetics", "--annotations", csv_path, "--data-root", clips,
+                       "--output-dir", os.path.join(root, "report")])
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    text = out.getvalue()
+    metrics = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    check_launches(f"video ({tag}) --annotations", "highest", expect, "banked")
+    check_metrics(metrics)
+    _add_launches(records["K1_circle"], expect)
+    # the pickle path on the port's own decode of the same clip and tracks
+    t0 = time.time()
+    video = decode_video(fixture, resize=(256, 256))
+    decode_s = time.time() - t0
+    per_video = read_annotations(csv_path)
+    pkl_root = os.path.join(root, "pickles")
+    os.makedirs(pkl_root)
+    for vid in VIDEO_IDS:
+        pts, occ = assemble_tracks(per_video[vid], len(video))
+        with open(os.path.join(pkl_root, f"{vid}.pkl"), "wb") as f:
+            pickle.dump({"video": video, "points": pts, "occluded": occ}, f)
+    t0 = time.time()
+    ref = run_task("kinetics", pkl_root, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    pkl_s = time.time() - t0
+    if metrics != {k: float(v) for k, v in ref.items()}:
+        raise AssertionError(f"video ({tag}): --annotations {metrics} != pickles {ref}")
+    print(f"video ({tag}) metrics (random weights): " + json.dumps(
+        {k: metrics[k] for k in ("average_pts_within_thresh", "average_jaccard",
+                                 "occlusion_accuracy")}))
+    print(f"video ({tag}): cli.test --annotations on {len(VIDEO_IDS)} clips x {n} "
+          f"frames, {VIDEO_TRACKS} tracks each: {expect} K1 circle launches, {cli_s:.2f} s "
+          f"(model build, decode and resize to 256 x 256 included); metrics equal to "
+          f"run_task over pickles of the port's decode ({pkl_s:.2f} s; decode_video with "
+          f"the resize {1e3 * decode_s / n:.2f} ms a frame)", flush=True)
+
+
+def _video_demo(records, tag, fixture, root, frames):
+    """The demo's --video on the clip's first `frames` frames."""
+    from fgvc_tpu_torch.cli import demo
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
     from fgvc_tpu_torch.utils import visualize
 
-    n, _ = _video_pins(fixture, pins, f"video ({tags[0]})", card_name)
-    fixture = os.path.join(ROOT, fixture)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as root:
-        clips = os.path.join(root, "clips")
-        os.makedirs(clips)
-        for vid in VIDEO_IDS:
-            shutil.copy(fixture, os.path.join(clips, vid + os.path.splitext(fixture)[1]))
-        csv_path = os.path.join(root, "tapvid_kinetics.csv")
-        write_video_csv(csv_path, n)
-        expect = len(VIDEO_IDS) * (n - 1)  # one query group a video, at frame 0
-        k1.reset_launches()
-        out = io.StringIO()
-        t0 = time.time()
-        with contextlib.redirect_stdout(out):
-            cli_test.main(["--task", "kinetics", "--annotations", csv_path, "--data-root", clips,
-                           "--output-dir", os.path.join(root, "report")])
-        torch.cuda.synchronize()
-        cli_s = time.time() - t0
-        text = out.getvalue()
-        metrics = json.loads(text[text.index("{"):text.rindex("}") + 1])
-        check_launches(f"video ({tags[1]}) --annotations", "highest", expect, "banked")
-        check_metrics(metrics)
-        _add_launches(records["K1_circle"], expect)
-        # the pickle path on the port's own decode of the same clip and tracks
-        t0 = time.time()
-        video = decode_video(fixture, resize=(256, 256))
-        decode_s = time.time() - t0
-        per_video = read_annotations(csv_path)
-        pkl_root = os.path.join(root, "pickles")
-        os.makedirs(pkl_root)
-        for vid in VIDEO_IDS:
-            pts, occ = assemble_tracks(per_video[vid], len(video))
-            with open(os.path.join(pkl_root, f"{vid}.pkl"), "wb") as f:
-                pickle.dump({"video": video, "points": pts, "occluded": occ}, f)
-        t0 = time.time()
-        ref = run_task("kinetics", pkl_root, device="cuda", seed=0)
-        torch.cuda.synchronize()
-        pkl_s = time.time() - t0
-        if metrics != {k: float(v) for k, v in ref.items()}:
-            raise AssertionError(f"video ({tags[1]}): --annotations {metrics} != pickles {ref}")
-        print(f"video ({tags[1]}) metrics (random weights): " + json.dumps(
-            {k: metrics[k] for k in ("average_pts_within_thresh", "average_jaccard",
-                                     "occlusion_accuracy")}))
-        print(f"video ({tags[1]}): cli.test --annotations on {len(VIDEO_IDS)} clips x {n} "
-              f"frames, {VIDEO_TRACKS} tracks each: {expect} K1 circle launches, {cli_s:.2f} s "
-              f"(model build, decode and resize to 256 x 256 included); metrics equal to "
-              f"run_task over pickles of the port's decode ({pkl_s:.2f} s; decode_video with "
-              f"the resize {1e3 * decode_s / n:.2f} ms a frame)", flush=True)
-
-        demo_out = os.path.join(root, "demo.mp4")
-        k1.reset_launches()
-        _, demo_s = _timed(lambda: demo.main([
-            "--video", fixture, "--max-frames", str(VIDEO_DEMO_FRAMES), "--grid",
-            str(VIDEO_DEMO_GRID), "--out", demo_out]))
-        check_launches(f"video ({tags[2]}) demo --video", "highest", VIDEO_DEMO_FRAMES - 1,
-                       "banked")
-        _add_launches(records["K1_circle"], VIDEO_DEMO_FRAMES - 1)
-        if len(visualize.read_mp4(demo_out).samples) != VIDEO_DEMO_FRAMES:
-            raise AssertionError(f"video ({tags[2]}) demo --video: the .mp4 lacks frames")
-        print(f"video ({tags[2]}): demo --video --max-frames {VIDEO_DEMO_FRAMES} --grid "
-              f"{VIDEO_DEMO_GRID}: {VIDEO_DEMO_FRAMES - 1} K1 circle launches, {demo_s:.2f} s, "
-              f"the .mp4 {os.path.getsize(demo_out) / 1e6:.3f} MB", flush=True)
+    demo_out = os.path.join(root, "demo.mp4")
+    k1.reset_launches()
+    _, demo_s = _timed(lambda: demo.main([
+        "--video", fixture, "--max-frames", str(frames), "--grid", str(VIDEO_DEMO_GRID),
+        "--out", demo_out]))
+    check_launches(f"video ({tag}) demo --video", "highest", frames - 1, "banked")
+    _add_launches(records["K1_circle"], frames - 1)
+    if len(visualize.read_mp4(demo_out).samples) != frames:
+        raise AssertionError(f"video ({tag}) demo --video: the .mp4 lacks frames")
+    print(f"video ({tag}): demo --video --max-frames {frames} --grid {VIDEO_DEMO_GRID}: "
+          f"{frames - 1} K1 circle launches, {demo_s:.2f} s, the .mp4 "
+          f"{os.path.getsize(demo_out) / 1e6:.3f} MB", flush=True)
 
 
 def run_video(records, card_name):
@@ -4826,7 +4882,9 @@ def run_video(records, card_name):
             print(f"video ({tags[0]}) {os.path.basename(tool_clip)} features: " + json.dumps(
                 {k: v for k, v in feats.items() if v}), flush=True)
         _video_clip(records, card_name, tags, fixture, pins)
-        print(f"video ({tags}) {time.time() - t_clip:.1f} s [{card_name}]", flush=True)
+        print(f"video ({''.join(dict.fromkeys(tags.replace('-', '')))}) "
+              f"{time.time() - t_clip:.1f} s [{card_name}]",
+              flush=True)
     print(f"video phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
 
 

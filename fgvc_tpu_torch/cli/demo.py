@@ -22,9 +22,11 @@ argmax of the softmax affinity of their features) into a .png or .jpg.
 cv2.IMREAD_GRAYSCALE reads it) and renders the coloured masks.  --video
 decodes a video file through the loading stages (datasets/video_decode.py:
 VideoInit, then VideoDecode of every --stride-th frame up to --max-frames,
-then the resize), as the JAX demo does with cv2; the port reads VP8 and
-VP9 in WebM/Matroska and MPEG-4 Part 2 (cv2's and the JAX demo's 'mp4v') in
-MP4/MOV, and other codecs stop the demo with the codec's name.  Runs
+then the resize), as the JAX demo does with cv2; the port reads VP8, VP9
+and Motion-JPEG in WebM/Matroska, MPEG-4 Part 2 (cv2's and the JAX demo's
+'mp4v', in .mp4 or .avi) and Motion-JPEG (cv2's 'MJPG', and this demo's own
+.mp4 output) in MP4/MOV and AVI, and other codecs stop the demo with the
+codec's name.  Runs
 on the CUDA card unless --device cpu is given.
 """
 
@@ -38,11 +40,11 @@ import os
 import numpy as np
 
 VIDEO_REFUSAL = (
-    "the port decodes VP8 and VP9 (profile 0) in WebM/Matroska and MPEG-4 Part 2 in MP4/MOV "
-    "only; H.264, Motion-JPEG .mp4 clips (the port's own save_video) and the VP9 and MPEG-4 "
-    "Part 2 forms it names wait for decoders of its own (ROADMAP.md, 'video input'): convert "
-    "the clip to VP8 or VP9 WebM or cv2's mp4v, or decode it to a directory of frames and "
-    "pass --frames")
+    "the port decodes VP8, VP9 (profile 0) and Motion-JPEG in WebM/Matroska and MPEG-4 "
+    "Part 2 and Motion-JPEG in MP4/MOV and AVI only; H.264, raw AVI video and the VP9, "
+    "MPEG-4 Part 2 and Motion-JPEG forms it names wait for decoders of its own (ROADMAP.md, "
+    "'video input'): convert the clip to VP8 or VP9 WebM, or to cv2's mp4v or MJPG, or "
+    "decode it to a directory of frames and pass --frames")
 
 
 def load_frames(frame_dir: str, size: int) -> np.ndarray:
@@ -113,7 +115,8 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="fgvc_tpu_torch demo")
     p.add_argument("--frames", default=None, help="directory of jpg/png frames")
     p.add_argument("--video", default=None,
-                   help="a video file (VP8 or VP9 in .webm/.mkv, MPEG-4 Part 2 in .mp4/.mov) "
+                   help="a video file (VP8, VP9 or Motion-JPEG in .webm/.mkv, MPEG-4 Part 2 "
+                        "or Motion-JPEG in .mp4/.mov/.avi, this demo's own .mp4 among them) "
                         "decoded through the loading stages")
     p.add_argument("--stride", type=int, default=1, help="temporal stride when decoding --video")
     p.add_argument("--max-frames", type=int, default=0,

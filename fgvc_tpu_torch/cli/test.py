@@ -30,8 +30,9 @@ attention kernel, the default), 'tiled', 'dense', 'c2f' or 'flow_guided';
 --topk-impl the top-k of 'tiled' ('approx' and 'certified' take exact
 candidates off the TPU).  --annotations evaluates TAP-Vid-Kinetics straight
 from the released CSV and --data-root's clips (<video_id>.mp4/.mkv/.webm,
-decoded by the port's own reader: VP8 in WebM/Matroska, MPEG-4 Part 2 in
-MP4/MOV; a clip in another codec stops the run with its path and codec).  --model raft tracks TAP-Vid points by chaining RAFT's flows (an official
+decoded by the port's own reader: VP8, VP9 and Motion-JPEG in
+WebM/Matroska, MPEG-4 Part 2 and Motion-JPEG in MP4/MOV; a clip in another
+codec stops the run with its path and codec).  --model raft tracks TAP-Vid points by chaining RAFT's flows (an official
 RAFT .pth as --checkpoint, or seeded weights).  Prints the task's metrics as
 JSON.  Runs on the CUDA card unless --device cpu is given.  --profile
 writes a torch.profiler trace of the whole run

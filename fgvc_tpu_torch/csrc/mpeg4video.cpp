@@ -802,6 +802,7 @@ struct Decoder {
   uint16_t intra_matrix[64], inter_matrix[64];
   bool loaded_matrix = false;
   int divx_version = -1, divx_build = -1, xvid_build = -1, lavc_build = -1;
+  char codec_tag[4] = {};  // the container's fourcc, upper case (AVI's; none from MP4)
   // what FFmpeg's ff_mpeg4_workaround_bugs turns on for the signing encoder
   bool xvid_idct = false, bug_edge = false, bug_dc_clip = false, bug_qpel_chroma = false,
        bug_qpel_chroma2 = false;
@@ -968,11 +969,9 @@ int decode_vol(Decoder* d, Bits& gb) {
   return kOk;
 }
 
-// user data: the encoder's signature (FFmpeg's decode_user_data) and what
-// FFmpeg's ff_mpeg4_workaround_bugs makes of it: XviD's IDCT for XviD
-// streams, and the edge, DC-clip and quarter-pel chroma workarounds of old
-// XviD and DivX builds.  Packed DivX B-frames and old
-// libavcodec builds are refused by name.
+// user data: the encoder's signature (FFmpeg's decode_user_data), which
+// workaround_bugs below reads.  Packed DivX B-frames and old libavcodec
+// builds are refused by name.
 int decode_user_data(Decoder* d, Bits& gb) {
   char buf[256];
   int i = 0;
@@ -1005,8 +1004,23 @@ int decode_user_data(Decoder* d, Bits& gb) {
                          "'; FFmpeg turns on its intra edge workaround)");
   }
   if (std::sscanf(buf, "XviD%d", &build) == 1) d->xvid_build = build;
-  // ff_mpeg4_workaround_bugs (the comparisons are FFmpeg's, unsigned where
-  // its are: -1, no such signature, compares above every build)
+  return kOk;
+}
+
+// FFmpeg's ff_mpeg4_workaround_bugs, run after each VOP header: a stream
+// without a libavcodec, XviD or DivX signature is XviD build 0 under an
+// XviD-like codec tag (XVID, XVIX, RMP4, ZMP4, SIPP), and DivX 4.00 under
+// 'DIVX' where its VOL has video_object_type_indication 0 and no
+// vol_control_parameters; then the workarounds of old XviD and DivX builds
+// and XviD's IDCT for XviD streams (the comparisons are FFmpeg's, unsigned
+// where its are: -1, no such signature, compares above every build)
+void workaround_bugs(Decoder* d) {
+  const bool unsigned_stream = d->xvid_build == -1 && d->divx_version == -1 && d->lavc_build == -1;
+  auto is = [d](const char* s) { return std::memcmp(d->codec_tag, s, 4) == 0; };
+  if (unsigned_stream && (is("XVID") || is("XVIX") || is("RMP4") || is("ZMP4") || is("SIPP")))
+    d->xvid_build = 0;
+  if (unsigned_stream && is("DIVX") && d->vo_type == 0 && !d->vol_control) d->divx_version = 400;
+  if (d->xvid_build >= 0 && d->divx_version >= 0) d->divx_version = d->divx_build = -1;
   const unsigned xvid = static_cast<unsigned>(d->xvid_build);
   const unsigned divx = static_cast<unsigned>(d->divx_version);
   if (d->divx_version >= 500 && d->divx_build < 1814) d->bug_qpel_chroma = true;
@@ -1016,7 +1030,6 @@ int decode_user_data(Decoder* d, Bits& gb) {
   if (xvid <= 32u) d->bug_dc_clip = true;
   if (divx < 500u) d->bug_edge = true;
   if (d->xvid_build >= 0) d->xvid_idct = true;
-  return kOk;
 }
 
 int decode_visual_object(Decoder* d, Bits& gb) {
@@ -2326,6 +2339,7 @@ int decode_packet(Decoder* d, const uint8_t* data, size_t n, bool* shown) {
   int what;
   rc = decode_vop_header(d, gb, &what);
   if (rc != kOk || what == kVopSkipped) return rc;
+  workaround_bugs(d);
   if (d->pict_type != kI && !d->next) return kErrMpeg4NoKey;
   if (d->pict_type == kB && !d->last) return kOk;  // FFmpeg skips it: no past reference
   d->cur = new_picture(d);
@@ -2428,6 +2442,17 @@ int fgpack_mpeg4_headers(void* handle, const uint8_t* data, int64_t nbytes, int6
   return rc;
 }
 
+// The container's codec tag (an AVI stream's fourcc; the rules FFmpeg
+// applies to streams without an encoder's signature read it), upper-cased
+// as FFmpeg's decoder takes it.
+int fgpack_mpeg4_codec_tag(void* handle, const char* fourcc) {
+  auto* d = static_cast<m4v::Decoder*>(handle);
+  std::memset(d->codec_tag, 0, 4);
+  for (int i = 0; i < 4 && fourcc[i]; ++i)
+    d->codec_tag[i] = fourcc[i] >= 'a' && fourcc[i] <= 'z' ? fourcc[i] - 32 : fourcc[i];
+  return kOk;
+}
+
 // Decode one packet (nbytes 0: the end of the stream); out gets {shown,
 // width, height, the VOP type decoded (1 I, 2 P, 3 B)}.
 int fgpack_mpeg4_decode(void* handle, const uint8_t* data, int64_t nbytes, int64_t* out) {
@@ -2484,5 +2509,12 @@ int fgpack_mpeg4_error(void* handle, char* buf, int64_t cap) {
 }
 
 void fgpack_mpeg4_free(void* handle) { delete static_cast<m4v::Decoder*>(handle); }
+
+// FFmpeg's simple IDCT of one 8x8 block of natural-order coefficients
+// (clobbered), its outputs clipped to 0..255 into dst: what csrc/mjpeg.cpp
+// reconstructs Motion-JPEG blocks with.
+void fgpack_simple_idct_put(uint8_t* dst, int64_t stride, int16_t* blk) {
+  m4v::idct_put(dst, static_cast<int>(stride), blk);
+}
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 """The port's host codec library (csrc/fgpack.cpp) through ctypes: FGPK
 packs, JPEG decode and encode, PNG and WebP decode, RGB -> I420
 (fgvc_tpu/data_io/fgpack.py, without libjpeg, PIL or cv2); its video
-entry points (WebM and MP4 demuxing, VP8, VP9 and MPEG-4 Part 2 decoding)
-are bound in data_io/video.py.
+entry points (WebM, MP4 and AVI demuxing, VP8, VP9, MPEG-4 Part 2 and
+Motion-JPEG decoding) are bound in data_io/video.py.
 
 The library is C++17 with pthread alone.  It is compiled with g++ at first
 use into ``build/host/libfgpack-<hash>.so`` at the root of the checkout
@@ -10,7 +10,8 @@ use into ``build/host/libfgpack-<hash>.so`` at the root of the checkout
 
     g++ -O2 -std=c++17 -shared -fPIC -o build/host/libfgpack-<hash>.so \
         fgvc_tpu_torch/csrc/fgpack.cpp fgvc_tpu_torch/csrc/mpeg4video.cpp \
-        fgvc_tpu_torch/csrc/vp9video.cpp -lpthread
+        fgvc_tpu_torch/csrc/vp9video.cpp fgvc_tpu_torch/csrc/mjpeg.cpp \
+        fgvc_tpu_torch/csrc/avi.cpp -lpthread
 
 Its JPEG decoder gives libjpeg's default pixels (what PIL and cv2.imread
 give), its WebP decoder libwebp's (cv2.imread's colour mode), and its
@@ -50,7 +51,10 @@ CODEC_JPEG = 1
 _LAYOUTS = {"hwc": 0, "i420": 1, "grey": 2, "cmyk": 3}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fgpack.cpp"
-SOURCES = (SOURCE, SOURCE.with_name("mpeg4video.cpp"), SOURCE.with_name("vp9video.cpp"))
+SOURCES = tuple(SOURCE.with_name(n) for n in (
+    "fgpack.cpp", "mpeg4video.cpp", "vp9video.cpp", "mjpeg.cpp", "avi.cpp"))
+# headers the sources include: in the library's hash, not on the command line
+HEADERS = (SOURCE.with_name("jpeg_huffman.h"),)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 LINK_FLAGS = ("-lpthread",)
@@ -100,6 +104,14 @@ STATUS = {
     -42: "a VP9 form the port does not decode",
     -43: "a VP9 inter frame before the stream's first key frame",
     -44: "a VP9 frame changes the stream's frame size",
+    -45: "corrupt AVI data",
+    -46: "an OpenDML AVI's AVIX RIFF continuation (a file over 1 GB) is not supported",
+    -47: "more than one video stream",
+    -48: "no video stream",
+    -49: "corrupt Motion-JPEG data",
+    -50: "a Motion-JPEG form the port does not decode",
+    -51: "a Motion-JPEG frame changes the stream's frame size",
+    -52: "truncated Motion-JPEG data",
 }
 
 _LIB = None
@@ -107,7 +119,7 @@ _LOCK = threading.Lock()
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES)
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in SOURCES + HEADERS)
                             + " ".join(CXX_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libfgpack-{digest.hexdigest()[:16]}.so"
 
@@ -119,8 +131,9 @@ def compiler_version() -> str:
 
 
 def build_library(force: bool = False) -> str:
-    """Compile csrc/fgpack.cpp, csrc/mpeg4video.cpp and csrc/vp9video.cpp
-    into build/host (once per sources and flags);
+    """Compile SOURCES (csrc/fgpack.cpp, mpeg4video.cpp, vp9video.cpp,
+    mjpeg.cpp and avi.cpp) into build/host (once per sources, headers and
+    flags);
     returns the library's path.  The output is written under a temporary
     name and renamed, so a process loading it during another's build never
     sees half a file."""
@@ -196,6 +209,19 @@ def _load():
             "fgpack_vp9_stats": (ctypes.c_int, [ptr, i64p, i64]),
             "fgpack_vp9_error": (ctypes.c_int, [ptr, ctypes.c_char_p, i64]),
             "fgpack_vp9_free": (None, [ptr]),
+            "fgpack_mpeg4_codec_tag": (ctypes.c_int, [ptr, ctypes.c_char_p]),
+            "fgpack_avi_open": (ptr, [ctypes.c_char_p, i64, ctypes.POINTER(ctypes.c_int)]),
+            "fgpack_avi_info": (ctypes.c_int, [ptr, i64p, ctypes.c_char_p, ctypes.c_char_p]),
+            "fgpack_avi_packets": (ctypes.c_int, [ptr, i64p, i64p, u8p, u8p]),
+            "fgpack_avi_close": (None, [ptr]),
+            "fgpack_mjpeg_new": (ptr, []),
+            "fgpack_mjpeg_headers": (ctypes.c_int, [ptr, ctypes.c_char_p, i64, i64p]),
+            "fgpack_mjpeg_decode": (ctypes.c_int, [ptr, ctypes.c_char_p, i64, i64p]),
+            "fgpack_mjpeg_planes": (ctypes.c_int, [ptr, u8p, u8p, u8p]),
+            "fgpack_mjpeg_bgr": (ctypes.c_int, [ptr, u8p]),
+            "fgpack_mjpeg_stats": (ctypes.c_int, [ptr, i64p, i64]),
+            "fgpack_mjpeg_error": (ctypes.c_int, [ptr, ctypes.c_char_p, i64]),
+            "fgpack_mjpeg_free": (None, [ptr]),
             "fgpack_prefetch": (ctypes.c_int, [ptr, i64, i64]),
             "fgpack_close": (None, [ptr]),
         }

@@ -8,9 +8,11 @@ pickle step is optional:
         --annotations tapvid_kinetics.csv
 
 Clips in VP8 and VP9 (.webm/.mkv; VP9 profile 0, YouTube's usual
-Kinetics download) and MPEG-4 Part 2 (.mp4, what cv2's 'mp4v' writes)
-decode; a clip in a codec the port does not decode raises
-ValueError with the clip's path and codec; it is never skipped.
+Kinetics download), MPEG-4 Part 2 (.mp4, what cv2's 'mp4v' writes) and
+Motion-JPEG (.mp4 and .mkv, what cv2's 'MJPG' writes) decode; a clip in a
+codec the port does not decode raises ValueError with the clip's path and
+codec; it is never skipped.  The clips are looked up under VIDEO_EXTS, as
+the JAX reader looks them up (an .avi is never opened here).
 """
 
 from __future__ import annotations

@@ -3,9 +3,9 @@ the mmaction-derived pipeline of loading.py) for the dict sample protocol.
 
 The samplers draw from ``np.random.default_rng(seed)`` exactly as the JAX
 package does.  Decoding runs on the host through the port's own video
-reader (data_io/video.py: VP8 and VP9 in WebM/Matroska and MPEG-4 Part 2
-in MP4/MOV, cv2.VideoCapture's pixels bit for bit); other codecs raise
-ValueError naming the codec.  Frames come
+reader (data_io/video.py: VP8, VP9 and Motion-JPEG in WebM/Matroska,
+MPEG-4 Part 2 and Motion-JPEG in MP4/MOV and AVI, cv2.VideoCapture's pixels
+bit for bit); other codecs raise ValueError naming the codec.  Frames come
 out RGB (cv2's BGR with its channels reversed), resized where asked by
 image_io.resize_frames (cv2.resize INTER_LINEAR bit for bit); raw frame
 directories read through image_io.read_image (cv2.imread's pixels).

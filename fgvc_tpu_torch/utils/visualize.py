@@ -12,8 +12,10 @@ to cv2.imencode's with IMWRITE_JPEG_SAMPLING_FACTOR_444: 4:2:0 would halve
 the chroma of the one-pixel coloured tails) in an ISO-BMFF file: an 'mp4v'
 sample entry whose esds says objectTypeIndication 0x6C (ISO 10918-1), as
 FFmpeg's muxer stores MJPEG in MP4, so FFmpeg-based players
-(cv2.VideoCapture among them) read it.  ``read_video`` reads exactly
-such files back.  ``save_image`` writes ``.png`` (zlib, filter 0) or
+(cv2.VideoCapture among them) read it, and so does the port's own
+data_io.video.VideoReader (cv2.VideoCapture's pixels: FFmpeg's Motion-JPEG
+decoding and 4:4:4 conversion), which cli.demo --video opens it with.
+``read_video`` reads exactly such files back, as libjpeg decodes them.  ``save_image`` writes ``.png`` (zlib, filter 0) or
 ``.jpg`` (encode_jpeg at quality 95, cv2.imwrite's default).
 """
 
@@ -293,7 +295,8 @@ def mp4_mjpeg(samples: List[bytes], width: int, height: int, fps: float) -> byte
 
 def save_video(frames: np.ndarray, path: str, fps: int = 24) -> None:
     """Write (T, H, W, 3) uint8 RGB frames to an ``.mp4`` of Motion-JPEG
-    samples (encode_jpeg at quality 95, 4:4:4).  Other extensions raise
+    samples (encode_jpeg at quality 95, 4:4:4), which data_io.video's
+    VideoReader and cli.demo --video read back.  Other extensions raise
     ValueError: ``.gif`` needs a palette quantiser (PIL's) and other
     containers a video encoder, neither of which the port has."""
     if not path.lower().endswith(".mp4"):

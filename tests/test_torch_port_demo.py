@@ -312,12 +312,16 @@ def test_refusals(scene, tmp_path):
     for f in np.zeros((2, 32, 32, 3), np.uint8):
         writer.write(f)
     writer.release()
-    # cv2's MPEG-4 Part 2 clip, once refused here, runs; the port's own
-    # Motion-JPEG .mp4 (x.mp4 above) is refused by its codec's name
+    # cv2's MPEG-4 Part 2 clip, once refused here, runs, and so does the
+    # port's own Motion-JPEG .mp4 (clip_demo.mp4, read back); x.mp4 above,
+    # 21 rows high, stops the demo by its odd height
     out = str(tmp_path / "clip_demo.mp4")
     main(["--video", clip, "--grid", "2", "--size", "32", "--out", out, "--device", "cpu"])
     assert v.read_video(out)[0].shape == (2, 32, 32, 3)
-    with pytest.raises(SystemExit, match=r"mp4v \(JPEG\).*ROADMAP"):
+    again = str(tmp_path / "again.mp4")
+    main(["--video", out, "--grid", "2", "--size", "32", "--out", again, "--device", "cpu"])
+    assert v.read_video(again)[0].shape == (2, 32, 32, 3)
+    with pytest.raises(SystemExit, match=r"odd frame height 21.*ROADMAP"):
         main(["--video", str(tmp_path / "x.mp4"), "--device", "cpu"])
     assert "H.264" in VIDEO_REFUSAL
     with pytest.raises(SystemExit, match="exactly one of --frames / --video"):

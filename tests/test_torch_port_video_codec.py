@@ -298,11 +298,11 @@ def test_refused_streams(clips, tmp_path, case, match):
 @pytest.mark.parametrize("case,match", [("mp4v", r"'mp4v \(MPEG-4 Part 2\)'"), ("vp9", "'V_VP9'"),
                                         ("port-mjpeg", r"'mp4v \(JPEG\)'")])
 def test_refused_codecs_by_name(tmp_path, case, match):
-    """The port's own Motion-JPEG .mp4 raises ValueError naming the codec.
-    cv2's MPEG-4 Part 2 .mp4 (what the JAX tests write) and cv2's VP9 .webm,
-    refused by those names until the port had decoders for them, now read
-    under the names as cv2 reads them (tests/test_torch_port_video_mpeg4.py
-    and tests/test_torch_port_video_vp9.py hold the decoders to cv2 in
+    """cv2's MPEG-4 Part 2 .mp4 (what the JAX tests write), cv2's VP9 .webm
+    and the port's own Motion-JPEG .mp4, refused by those names until the
+    port had decoders for them, now read under the names as cv2 reads them
+    (tests/test_torch_port_video_mpeg4.py, tests/test_torch_port_video_vp9.py
+    and tests/test_torch_port_video_avi_mjpeg.py hold the decoders to cv2 in
     full)."""
     from fgvc_tpu_torch.data_io.video import VideoReader
     from fgvc_tpu_torch.utils import visualize
@@ -311,18 +311,16 @@ def test_refused_codecs_by_name(tmp_path, case, match):
     if case in ("mp4v", "vp9"):
         path = write_clip(tmp_path / f"c.{'mp4' if case == 'mp4v' else 'webm'}", frames,
                           "mp4v" if case == "mp4v" else "VP90")
-        ref, meta = cv2_read(path)
-        with VideoReader(path) as reader:
-            assert re.fullmatch(match, repr(reader.codec))
-            got = list(reader)
-            assert (reader.frame_count, reader.fps) == meta
-        assert len(got) == len(ref) == 4
-        assert all(np.array_equal(a, b) for a, b in zip(got, ref))
-        return
-    path = str(tmp_path / "c.mp4")
-    visualize.save_video(frames[..., ::-1], path)
-    with pytest.raises(ValueError, match=match):
-        VideoReader(path)
+    else:
+        path = str(tmp_path / "c.mp4")
+        visualize.save_video(frames[..., ::-1], path)
+    ref, meta = cv2_read(path)
+    with VideoReader(path) as reader:
+        assert re.fullmatch(match, repr(reader.codec))
+        got = list(reader)
+        assert (reader.frame_count, reader.fps) == meta
+    assert len(got) == len(ref) == 4
+    assert all(np.array_equal(a, b) for a, b in zip(got, ref))
 
 
 def test_corrupt_packet_raises(clips):
