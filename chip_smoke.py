@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,
                                     codecs,modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,
                                     profile,serve,export,doctor,train,realtrain,propmodes,dp,
-                                    bank,mp,ddp,reproduce,demo,video]
+                                    bank,mp,ddp,reproduce,demo,video,dataprep]
 
 Phases, each of which raises on failure (exit code != 0):
   card      the card's name and power limit (nvidia-smi);
@@ -368,8 +368,8 @@ Phases, each of which raises on failure (exit code != 0):
             (cv2.VideoCapture's, held by tests/test_torch_port_video_codec.py),
             host ms a frame for demux, VP8 decode and YUV -> BGR; (b) python
             -m fgvc_tpu_torch.cli.test's main --task kinetics --annotations
-            CSV --data-root DIR on a tree holding the clip under two video
-            ids, with 32 tracks each written by the phase, at the paper's
+            CSV --data-root DIR on a tree holding the clip under one video
+            id, with 32 tracks written by the phase, at the paper's
             settings (ResNet-18-d1, 256 x 256, seeded full-width weights):
             K1 (circle) launched once per frame propagated, metrics finite
             and equal exactly to run_task over per-video pickles of the
@@ -384,8 +384,8 @@ Phases, each of which raises on failure (exit code != 0):
             video packets; mp4v_qpel_dp_xvid_96x64.mp4: quarter-pel, data
             partitioning, XviD's IDCT) to their libavcodec plane pins and
             cv2 frame pins; (e)
-            --annotations over two copies of the mp4v clip, K1 (circle) 498
-            times, metrics equal to the pickle path's; (f) demo --video on
+            --annotations over the mp4v clip, K1 (circle) 249 times, metrics
+            equal to the pickle path's; (f) demo --video on
             its first 48 frames, K1 (circle) 47 times; (g)-(i) the same for
             VP9: (g) the committed VP9 WebM
             (tests/torch_port_fixtures/vp9_640x360_250f.webm, 250 frames,
@@ -397,9 +397,8 @@ Phases, each of which raises on failure (exit code != 0):
             adaptation; vp9_aq_errres_lossless_bilinear_96x64.mkv:
             segmentation with its temporal map, error resilience, lossless,
             the bilinear filter, show_existing_frame) to their libvpx plane
-            pins and cv2 frame pins; (h) --annotations over two copies of the
-            VP9 clip, K1 (circle) 498 times, metrics equal to the pickle
-            path's; (i) demo --video on its first 48 frames, K1 (circle) 47
+            pins and cv2 frame pins; (h) --annotations over the VP9 clip, K1
+            (circle) 249 times, metrics equal to the pickle path's; (i) demo --video on its first 48 frames, K1 (circle) 47
             times; (j) the committed AVI of cv2's XVID writer
             (tests/torch_port_fixtures/mp4v_640x360_48f.avi, the first 48
             frames of the VP8 clip's content) to its cv2 pins with host ms a
@@ -410,7 +409,27 @@ Phases, each of which raises on failure (exit code != 0):
             own save_video .mp4 (mjpg_444_320x180_24f.mp4: 24 frames, 4:4:4
             q95, swscale's full-chroma path) to its cv2 pins, then
             --annotations over two copies of it, K1 (circle) 46 times,
-            metrics equal to the pickle path's.
+            metrics equal to the pickle path's;
+  dataprep  the data-preparation tools (fgvc_tpu_torch/tools/data), no cv2:
+            (a) a YouTube-VOS tree written by the port's encoder (2 videos x
+            6 frames at 720 x 1280, q95, a seeded texture moving by whole
+            pixels) through python -m fgvc_tpu_torch.tools.data.prepare_ytv's
+            main --size 256 (INTER_AREA to 256 x 455) and (b) pack_frames
+            --codec jpeg over its output: the sha256 of each output tree
+            equal to DATAPREP_PINS, the JAX tools' (cv2's) on the same tree;
+            host ms a frame of the JPEG decode, resize_area, the encode and
+            the pack; (c) precompute_flow --iters 30 in both formats over the
+            256 x 455 tree with seeded RAFT weights at the official width
+            (batch-normed cnet) from a .pth under the official names, on the
+            card: every flow (256, 455, 2) and finite, every uint8 file a
+            256 x 455 JPEG; one pair's forward and backward flows against
+            the same function on the CPU (median |diff| <= 1e-3 px, max <=
+            1e-2 px, as phase raft); ms a flow at 256 x 456 (CUDA events),
+            the tool's peak device memory; (d) generate_tapvid_kinetics over
+            the committed VP8, mp4v and VP9 clips with 32 tracks each and a
+            CSV row of a missing clip: exit 0, three pickles, each video
+            equal to decode_video's and to the pin of the JAX tool's pickle,
+            points and occlusion equal to assemble_tracks'.
 The line before the last is a JSON object with each kernel's numbers; the last
 line is {"ok": true, "device": {...}}.  Without a CUDA card, or without the
 fgvc_tpu_torch package beside this file, it exits with an error.
@@ -4724,14 +4743,14 @@ VIDEO_IDS, VIDEO_TRACKS = ("clip_a", "clip_b"), 32
 VIDEO_DEMO_FRAMES, VIDEO_DEMO_GRID = 48, 8
 
 
-def write_video_csv(path, T, seed=0):
-    """TAP-Vid-Kinetics CSV rows for VIDEO_IDS: VIDEO_TRACKS points each,
+def write_video_csv(path, T, seed=0, ids=VIDEO_IDS):
+    """TAP-Vid-Kinetics CSV rows for `ids`: VIDEO_TRACKS points each,
     drifting slowly, visible at frame 0 (so 'first' queries start there)
     and occluded at five later frames."""
     rng = np.random.default_rng(seed)
     with open(path, "w") as f:
         f.write("video_id,point_id,frame,x,y,occluded\n")
-        for vid in VIDEO_IDS:
+        for vid in ids:
             for pid in range(VIDEO_TRACKS):
                 p0, vel = rng.uniform(0.1, 0.9, 2), rng.uniform(-1e-3, 1e-3, 2)
                 hidden = set(rng.integers(1, T, 5).tolist())
@@ -4777,7 +4796,7 @@ def _video_pins(fixture, pins, label, card_name, yuv=False):
 
 def _video_clip(records, card_name, tags, fixture, pins):
     """One committed clip through the video path: its pins on the host,
-    cli.test --task kinetics --annotations on two copies (K1 circle once a
+    cli.test --task kinetics --annotations (K1 circle once a
     frame propagated, metrics equal to the pickle path's), the demo's
     --video (K1 circle once a frame after the first); a part whose letter
     in `tags` is "-" is skipped."""
@@ -4791,8 +4810,9 @@ def _video_clip(records, card_name, tags, fixture, pins):
 
 
 def _video_annotations(records, tag, fixture, root, n):
-    """cli.test --task kinetics --annotations over two copies of the clip,
-    then run_task over pickles of the port's decode of it: equal metrics."""
+    """cli.test --task kinetics --annotations over the clip (two copies of
+    a short one, one of a 250-frame one), then run_task over pickles of the
+    port's decode of it: equal metrics."""
     import io
     import shutil
 
@@ -4804,13 +4824,16 @@ def _video_annotations(records, tag, fixture, root, n):
     from fgvc_tpu_torch.datasets.video_decode import decode_video
     from fgvc_tpu_torch.ops.cuda import topk_attention as k1
 
+    # a 250-frame clip runs under one id, a short one under two (the
+    # script's time limit cut the long clips' second copy)
+    ids = VIDEO_IDS if n <= VIDEO_DEMO_FRAMES else VIDEO_IDS[:1]
     clips = os.path.join(root, "clips")
     os.makedirs(clips)
-    for vid in VIDEO_IDS:
+    for vid in ids:
         shutil.copy(fixture, os.path.join(clips, vid + os.path.splitext(fixture)[1]))
     csv_path = os.path.join(root, "tapvid_kinetics.csv")
-    write_video_csv(csv_path, n)
-    expect = len(VIDEO_IDS) * (n - 1)  # one query group a video, at frame 0
+    write_video_csv(csv_path, n, ids=ids)
+    expect = len(ids) * (n - 1)  # one query group a video, at frame 0
     k1.reset_launches()
     out = io.StringIO()
     t0 = time.time()
@@ -4831,7 +4854,7 @@ def _video_annotations(records, tag, fixture, root, n):
     per_video = read_annotations(csv_path)
     pkl_root = os.path.join(root, "pickles")
     os.makedirs(pkl_root)
-    for vid in VIDEO_IDS:
+    for vid in ids:
         pts, occ = assemble_tracks(per_video[vid], len(video))
         with open(os.path.join(pkl_root, f"{vid}.pkl"), "wb") as f:
             pickle.dump({"video": video, "points": pts, "occluded": occ}, f)
@@ -4844,7 +4867,7 @@ def _video_annotations(records, tag, fixture, root, n):
     print(f"video ({tag}) metrics (random weights): " + json.dumps(
         {k: metrics[k] for k in ("average_pts_within_thresh", "average_jaccard",
                                  "occlusion_accuracy")}))
-    print(f"video ({tag}): cli.test --annotations on {len(VIDEO_IDS)} clips x {n} "
+    print(f"video ({tag}): cli.test --annotations on {len(ids)} clip(s) x {n} "
           f"frames, {VIDEO_TRACKS} tracks each: {expect} K1 circle launches, {cli_s:.2f} s "
           f"(model build, decode and resize to 256 x 256 included); metrics equal to "
           f"run_task over pickles of the port's decode ({pkl_s:.2f} s; decode_video with "
@@ -4888,12 +4911,250 @@ def run_video(records, card_name):
     print(f"video phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
 
 
+# ---------------------------------------------------------------------- #
+# phase dataprep: the data-preparation tools (fgvc_tpu_torch/tools/data)
+DATAPREP_VIDEOS, DATAPREP_T, DATAPREP_ORIG = 2, 6, (720, 1280)  # YouTube-VOS's frame size
+DATAPREP_SIZE, DATAPREP_ITERS = 256, 30   # the s256 tree; the reference's RAFT iterations
+# the sha256 of the output trees (tree_digest) and of each pickle's video,
+# made by tools/data/{prepare_ytv,pack_frames,generate_tapvid_kinetics}.py
+# (cv2) on the same inputs; tests/test_torch_port_dataprep.py holds them
+DATAPREP_PINS = {
+    "prepare_ytv": "1c2363af3ce533067ff0ce25c3d74ea9851d13da4e3c444f761eec42f61979d2",
+    "pack_frames": "4c0386450e2f11e6834e6f96f013388ac59463655d8a19242e3e50b5f26e406c",
+    "kinetics": {
+        "kin_vp8": "86be020419935ef4950ffc29a4194f75e759f575776ff1e56ee2086cc8a79141",
+        "kin_mp4v": "2a2e9dc5d4864b112636410453bfde7cb82eb037bd20e0d0576031f07b7856bd",
+        "kin_vp9": "14f541dffb702ab82d8c8e30f10a249f3d99c2015980b8cfc33b65ff5b4ce747",
+    },
+}
+# (video id, committed clip) for generate_tapvid_kinetics, and an id whose
+# clip is missing (skipped)
+DATAPREP_CLIPS = (("kin_vp8", "vp8_640x360_250f.webm"), ("kin_mp4v", "mp4v_640x360_250f.mp4"),
+                  ("kin_vp9", "vp9_640x360_250f.webm"))
+DATAPREP_MISSING = "kin_missing"
+
+
+def make_ytv_tree(root, n_videos=DATAPREP_VIDEOS, T=DATAPREP_T, orig=DATAPREP_ORIG, seed=0):
+    """A YouTube-VOS JPEGImages tree: n_videos directories of T frames named
+    as the dataset names them (every 5th: 00000.jpg, 00005.jpg, ...), each
+    frame a window of a seeded texture (codec_pin_frame, integer arithmetic
+    only) moved by whole pixels from frame to frame, encoded by the port's
+    encoder at quality 95: the same bytes on every machine."""
+    from fgvc_tpu_torch.data_io.fgpack import encode_jpeg
+
+    h, w = orig
+    for v in range(n_videos):
+        dy, dx = 1 + v, 3 - v
+        tex = codec_pin_frame(h + 4 * T, w + 4 * T, seed=seed + v)
+        out = os.path.join(root, f"video_{v:02d}")
+        os.makedirs(out)
+        for t in range(T):
+            with open(os.path.join(out, f"{5 * t:05d}.jpg"), "wb") as f:
+                f.write(encode_jpeg(tex[dy * t:dy * t + h, dx * t:dx * t + w], 95))
+
+
+def tree_digest(root):
+    """The sha256 of a directory tree: each file's path relative to `root`
+    and the sha256 of its bytes, in sorted order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    paths = sorted(p for p in glob.glob(os.path.join(root, "**", "*"), recursive=True)
+                   if os.path.isfile(p))
+    for p in paths:
+        with open(p, "rb") as f:
+            h.update(os.path.relpath(p, root).replace(os.sep, "/").encode() + b"\0"
+                     + hashlib.sha256(f.read()).digest())
+    return h.hexdigest()
+
+
+def write_kinetics_csv(path, T, seed=0):
+    """write_video_csv's rows for DATAPREP_CLIPS' ids, then one row of a
+    video whose clip is missing."""
+    write_video_csv(path, T, seed=seed, ids=[vid for vid, _ in DATAPREP_CLIPS])
+    with open(path, "a") as f:
+        f.write(f"{DATAPREP_MISSING},0,0,0.5,0.5,0\n")
+
+
+def _quiet(fn):
+    """fn() with its standard output kept; (result, the output)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn()
+    return result, out.getvalue()
+
+
+def _hold_pin(label, got, want):
+    print(f"dataprep {label}: sha256 {got[:16]}.. ({'equal to' if got == want else 'NOT'} "
+          "the JAX tool's, cv2's)", flush=True)
+    if got != want:
+        raise AssertionError(f"dataprep {label}: sha256 {got}, pinned {want}")
+
+
+def _dataprep_host(src, s256, packs, card_name):
+    """(a) and (b): prepare_ytv and pack_frames, pinned, with host ms a frame
+    of each stage."""
+    from fgvc_tpu_torch.data_io.fgpack import FgPack, encode_jpeg
+    from fgvc_tpu_torch.datasets.image_io import read_image, resize_area
+    from fgvc_tpu_torch.tools.data import pack_frames, prepare_ytv
+
+    n = DATAPREP_VIDEOS * DATAPREP_T
+    t0 = time.time()
+    _quiet(lambda: prepare_ytv.main(["--root", src, "--out", s256,
+                                     "--size", str(DATAPREP_SIZE)]))
+    prep_s = time.time() - t0
+    _hold_pin(f"(a) prepare_ytv --size {DATAPREP_SIZE}", tree_digest(s256),
+              DATAPREP_PINS["prepare_ytv"])
+    t0 = time.time()
+    _quiet(lambda: pack_frames.main(["--root", s256, "--out", packs, "--codec", "jpeg"]))
+    pack_s = time.time() - t0
+    _hold_pin("(b) pack_frames --codec jpeg", tree_digest(packs), DATAPREP_PINS["pack_frames"])
+    with FgPack(os.path.join(packs, "video_00.fgpack")) as pack:
+        if len(pack) != DATAPREP_T or pack[0].shape != (256, 455, 3):
+            raise AssertionError(f"dataprep (b): {len(pack)} records of {pack[0].shape}")
+    frame0 = sorted(glob.glob(os.path.join(src, "video_00", "*.jpg")))[0]
+    big = read_image(frame0)
+    small = resize_area(big, (256, 455))
+    ms = {"decode 720x1280": _host_ms(lambda: read_image(frame0), 1),
+          "resize_area to 256x455": _host_ms(lambda: resize_area(big, (256, 455)), 1),
+          "encode 256x455 q95": _host_ms(lambda: encode_jpeg(small, 95), 1)}
+    print(f"dataprep (a) prepare_ytv: {n} frames of {DATAPREP_ORIG[0]}x{DATAPREP_ORIG[1]} in "
+          f"{prep_s:.2f} s ({1e3 * prep_s / n:.2f} ms a frame); (b) pack_frames --codec jpeg "
+          f"{pack_s:.2f} s ({1e3 * pack_s / n:.2f} ms a frame, read and encode); host ms a "
+          f"frame ({card_name}, one thread): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()), flush=True)
+
+
+def _dataprep_flows(root, s256, card_name):
+    """(c): precompute_flow in both formats on the card, held to the CPU on
+    one pair, ms a flow and peak memory."""
+    import torch
+
+    from fgvc_tpu_torch.apis.test import build_raft_tracker
+    from fgvc_tpu_torch.data_io.flo import read_flo
+    from fgvc_tpu_torch.datasets.image_io import read_image
+    from fgvc_tpu_torch.tools.data import precompute_flow
+    from fgvc_tpu_torch.utils.profiler import events_ms
+
+    pth = make_raft_pth(os.path.join(root, "raft_seeded.pth"))
+    walls, peaks = {}, {}
+    for fmt in ("flo", "uint8"):
+        out_dir = os.path.join(root, f"flows_{fmt}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        _, text = _quiet(lambda: precompute_flow.main([
+            "--frames-root", s256, "--out", out_dir, "--checkpoint", pth,
+            "--iters", str(DATAPREP_ITERS), "--format", fmt]))
+        torch.cuda.synchronize()
+        walls[fmt] = time.time() - t0
+        peaks[fmt] = torch.cuda.max_memory_allocated() / 1e9
+        pairs = DATAPREP_VIDEOS * (DATAPREP_T - 1)
+        if f"done: {DATAPREP_VIDEOS} videos, {pairs} pairs" not in text:
+            raise AssertionError(f"dataprep (c) {fmt}: {text!r}")
+        files = sorted(glob.glob(os.path.join(out_dir, "*", "*")))
+        if len(files) != 2 * pairs:
+            raise AssertionError(f"dataprep (c) {fmt}: {len(files)} files for {pairs} pairs")
+        for path in files:
+            a = read_flo(path) if fmt == "flo" else read_image(path)
+            if a.shape != ((256, 455, 2) if fmt == "flo" else (256, 455, 3)) \
+                    or not np.isfinite(a).all():
+                raise AssertionError(f"dataprep (c): {path} {a.shape}")
+    # one pair, card against the CPU, and the tool's function timed on video 0
+    names = sorted(glob.glob(os.path.join(s256, "video_00", "*.jpg")))
+    video = precompute_flow.pad_to_8(np.stack([read_image(p) for p in names]))
+    base = os.path.splitext(os.path.basename(names[0]))[0]
+    card = [read_flo(os.path.join(root, "flows_flo", "video_00", f"{m}_{base}.flo"))
+            for m in ("forward", "backward")]
+    t0 = time.time()
+    cpu = build_raft_tracker(pth, iters=DATAPREP_ITERS, device="cpu").flows(video[:2])
+    cpu_s = time.time() - t0
+    diff = np.abs(np.stack(card) - np.stack(
+        [f[0, :, :256, :455].permute(1, 2, 0).numpy() for f in cpu]))
+    med, mx = float(np.median(diff)), float(diff.max())
+    tracker = build_raft_tracker(pth, iters=DATAPREP_ITERS, device="cuda")
+    tracker.flows(video)
+    n_flows = 2 * (len(names) - 1)
+    flows_ms = events_ms(lambda: tracker.flows(video), 3)
+    print(f"dataprep (c) precompute_flow --iters {DATAPREP_ITERS} on the card: flo "
+          f"{walls['flo']:.2f} s, uint8 {walls['uint8']:.2f} s for {DATAPREP_VIDEOS} videos x "
+          f"{DATAPREP_T - 1} pairs (model build and file I/O included); peak device memory "
+          f"{peaks['flo']:.3f} GB, {peaks['uint8']:.3f} GB; every flow (256, 455, 2) finite; "
+          f"video_00's {n_flows} flows at {video.shape[1]}x{video.shape[2]}: "
+          f"{flows_ms:.1f} ms = {flows_ms / n_flows:.3f} ms a flow (CUDA events) "
+          f"[{card_name}]", flush=True)
+    print(f"dataprep (c) pair {base} forward and backward, card vs CPU ({cpu_s:.1f} s on the "
+          f"CPU): median |diff| {med:.3e} px, max {mx:.3e} px (limits {RAFT_FLOW_MEDIAN_PX}, "
+          f"{RAFT_FLOW_MAX_PX}); |flow| up to {float(np.abs(np.stack(card)).max()):.2f} px",
+          flush=True)
+    if not (med <= RAFT_FLOW_MEDIAN_PX and mx <= RAFT_FLOW_MAX_PX):
+        raise AssertionError(f"dataprep (c): card vs CPU flow median {med}, max {mx} px")
+
+
+def _dataprep_kinetics(root, card_name):
+    """(d): generate_tapvid_kinetics over the committed clips."""
+    import hashlib
+    import shutil
+
+    from fgvc_tpu_torch.datasets.tapvid_kinetics import assemble_tracks, read_annotations
+    from fgvc_tpu_torch.datasets.video_decode import decode_video
+    from fgvc_tpu_torch.tools.data import generate_tapvid_kinetics
+
+    clips, out_dir = os.path.join(root, "clips"), os.path.join(root, "pickles")
+    os.makedirs(clips)
+    for vid, name in DATAPREP_CLIPS:
+        shutil.copy(os.path.join(ROOT, FIXTURE_DIR, name),
+                    os.path.join(clips, vid + os.path.splitext(name)[1]))
+    csv_path = os.path.join(root, "tapvid_kinetics.csv")
+    write_kinetics_csv(csv_path, 250)
+    t0 = time.time()
+    rc, text = _quiet(lambda: generate_tapvid_kinetics.main([
+        "--csv", csv_path, "--video-root", clips, "--out", out_dir]))
+    tool_s = time.time() - t0
+    if rc != 0 or f"wrote {len(DATAPREP_CLIPS)} video pickles" not in text:
+        raise AssertionError(f"dataprep (d): exit {rc}, {text!r}")
+    per_video = read_annotations(csv_path)
+    for vid, name in DATAPREP_CLIPS:
+        with open(os.path.join(out_dir, f"{vid}.pkl"), "rb") as f:
+            got = pickle.load(f)
+        video = decode_video(os.path.join(ROOT, FIXTURE_DIR, name), resize=(256, 256))
+        pts, occ = assemble_tracks(per_video[vid], len(video))
+        digest = hashlib.sha256(got["video"].tobytes()).hexdigest()
+        if not (np.array_equal(got["video"], video) and np.array_equal(got["points"], pts)
+                and np.array_equal(got["occluded"], occ)):
+            raise AssertionError(f"dataprep (d) {vid}: the pickle differs from decode_video's")
+        _hold_pin(f"(d) {vid} video {got['video'].shape}", digest,
+                  DATAPREP_PINS["kinetics"][vid])
+    print(f"dataprep (d) generate_tapvid_kinetics: {len(DATAPREP_CLIPS)} clips x 250 frames "
+          f"(VP8, mp4v, VP9) and one missing in {tool_s:.2f} s "
+          f"({1e3 * tool_s / (250 * len(DATAPREP_CLIPS)):.2f} ms a frame, decode and resize "
+          f"to 256 x 256) [{card_name}]", flush=True)
+
+
+def run_dataprep(card_name):
+    """Phase dataprep (see the module's docstring)."""
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dataprep_") as root:
+        src, s256 = os.path.join(root, "JPEGImages"), os.path.join(root, "JPEGImages_s256")
+        t0 = time.time()
+        make_ytv_tree(src)
+        print(f"dataprep: YouTube-VOS tree of {DATAPREP_VIDEOS} x {DATAPREP_T} frames written "
+              f"in {time.time() - t0:.2f} s", flush=True)
+        _dataprep_host(src, s256, os.path.join(root, "packs"), card_name)
+        _dataprep_flows(root, s256, card_name)
+        _dataprep_kinetics(root, card_name)
+    print(f"dataprep phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="card,build,kernel,e2e,plain,raft,decode,vos,vos_plain,"
                                         "codecs,modes,zoo,kinetics,jhmdb,badja,sp,passes,overlap,"
                                         "profile,serve,export,doctor,train,realtrain,"
-                                        "propmodes,dp,bank,mp,ddp,reproduce,demo,video",
+                                        "propmodes,dp,bank,mp,ddp,reproduce,demo,video,"
+                                        "dataprep",
                     help="comma-separated phases (the module's docstring says what each "
                          "does); all of them by default")
     args = ap.parse_args()
@@ -5079,6 +5340,9 @@ def main():
     if "video" in phases:
         phase("video")
         run_video(records, card_name)
+    if "dataprep" in phases:
+        phase("dataprep")
+        run_dataprep(card_name)
     if "export" in phases:
         phase("export")
         run_export(records)

@@ -5,13 +5,15 @@ port's host library (data_io/fgpack.py: its JPEG decoder equals libjpeg's,
 its WebP decoder libwebp's, its PNG decoder inflates with zlib and unfilters
 natively), as cv2.imread would
 return it, the EXIF orientation applied in colour mode;
-``read_png_indices`` gives a palette PNG's indices.  ``resize_frames`` and
-``resize_nearest`` equal cv2.resize with INTER_LINEAR (uint8) and
-INTER_NEAREST bit for bit, ``gaussian_blur`` cv2.GaussianBlur on uint8.
+``read_png_indices`` gives a palette PNG's indices.  ``resize_frames``,
+``resize_area`` and ``resize_nearest`` equal cv2.resize with INTER_LINEAR
+(uint8), INTER_AREA (uint8, shrinking) and INTER_NEAREST bit for bit,
+``gaussian_blur`` cv2.GaussianBlur on uint8.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 from typing import Tuple, Union
@@ -297,6 +299,79 @@ def resize_frames(frames: np.ndarray, size) -> np.ndarray:
         v = (((rows[y0] * b0) >> 16) + ((rows[y1] * b1) >> 16) + 2) >> 2
         out[t] = np.clip(v, 0, 255)
     return out
+
+
+def _area_taps(n_src: int, n_dst: int, scale: float):
+    """cv2's computeResizeAreaTab as (m, n_dst) source indices and float32
+    weights: the taps of each destination index in cv2's order (the partial
+    source pixel before the cell, the whole ones, the partial one after),
+    each weight its overlap over min(scale, n_src - start) in double, cast
+    to float32; destinations with fewer than m taps are padded with weight
+    0, which adds nothing."""
+    taps = []
+    for d in range(n_dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_src - f1)
+        s2 = min(math.floor(f2), n_src - 1)
+        s1 = min(math.ceil(f1), s2)
+        row = []
+        if s1 - f1 > 1e-3:
+            row.append((s1 - 1, (s1 - f1) / cell))
+        row += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            row.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        taps.append(row)
+    m = max(len(row) for row in taps)
+    index = np.zeros((m, n_dst), np.int64)
+    weight = np.zeros((m, n_dst), np.float32)
+    for d, row in enumerate(taps):
+        for k, (s, w) in enumerate(row):
+            index[k, d], weight[k, d] = s, np.float32(w)
+    return index, weight
+
+
+def resize_area(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """(H0, W0[, C]) uint8 -> (H, W[, C]) uint8, equal to cv2.resize(image,
+    (W, H), interpolation=cv2.INTER_AREA) bit for bit where neither side
+    grows.  Where both scales W0 / W and H0 / H lie within DBL_EPSILON of
+    whole numbers, cv2's fast path: integer sums of each cell, (sum + 2) >> 2
+    for 2 x 2 cells of 1, 3 or 4 channels, else rint(sum * float32(1 /
+    area)).  Otherwise cv2's resizeArea_: each source row's weighted sum
+    over the column taps in float32 (_area_taps, in cv2's order), then the
+    rows' weighted sum in float32, rounded half to even."""
+    image = np.asarray(image)
+    H, W = size
+    h0, w0 = image.shape[:2]
+    if image.dtype != np.uint8:
+        raise ValueError(f"resize_area takes uint8 images, got {image.dtype}")
+    if not (0 < H <= h0 and 0 < W <= w0):
+        raise ValueError(f"resize_area shrinks only: {h0}x{w0} -> {H}x{W}")
+    if (H, W) == (h0, w0):
+        return image.copy()
+    src = image if image.ndim == 3 else image[..., None]
+    scale_x, scale_y = 1.0 / (W / w0), 1.0 / (H / h0)
+    kx, ky = int(round(scale_x)), int(round(scale_y))
+    eps = np.finfo(np.float64).eps
+    if abs(scale_x - kx) < eps and abs(scale_y - ky) < eps:
+        sums = src.astype(np.int32).reshape(H, ky, W, kx, -1).sum(axis=(1, 3))
+        if kx == ky == 2 and src.shape[2] in (1, 3, 4):
+            out = (sums + 2) >> 2
+        else:
+            out = np.rint(sums.astype(np.float32) * (np.float32(1) / np.float32(kx * ky)))
+    else:
+        xi, xw = _area_taps(w0, W, scale_x)
+        yi, yw = _area_taps(h0, H, scale_y)
+        pixels = src.astype(np.float32)
+        rows = pixels[:, xi[0]] * xw[0][:, None]
+        for k in range(1, len(xi)):
+            rows = rows + pixels[:, xi[k]] * xw[k][:, None]
+        out = rows[yi[0]] * yw[0][:, None, None]
+        for k in range(1, len(yi)):
+            out = out + rows[yi[k]] * yw[k][:, None, None]
+        out = np.rint(out)
+    out = np.clip(out, 0, 255).astype(np.uint8)
+    return out if image.ndim == 3 else out[..., 0]
 
 
 def gaussian_kernel_q8(sigma: float) -> np.ndarray:

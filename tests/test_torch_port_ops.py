@@ -127,7 +127,9 @@ def test_port_imports_neither_jax_nor_fgvc_tpu():
     for entry in ("cli/serve.py", "cli/export.py", "cli/doctor.py", "core/export.py",
                   "cli/launch.py", "parallel/dist.py", "cli/reproduce.py", "cli/demo.py",
                   "utils/visualize.py", "datasets/video_decode.py",
-                  "datasets/tapvid_kinetics.py", "data_io/video.py"):
+                  "datasets/tapvid_kinetics.py", "data_io/video.py", "data_io/flo.py",
+                  "tools/data/prepare_ytv.py", "tools/data/pack_frames.py",
+                  "tools/data/precompute_flow.py", "tools/data/generate_tapvid_kinetics.py"):
         assert os.path.join(ROOT, "fgvc_tpu_torch", *entry.split("/")) in files
     offenders = []
     for path in files:
