@@ -277,8 +277,9 @@ Phases, each of which raises on failure (exit code != 0):
             cli.train on it for 4 steps at full width;
   propmodes the propagation modes beside the kernel (plain PyTorch: no
             attention kernel launches in them), seeded ResNet-18-d1 at full
-            width, DAVIS_TEST_CFG, e2e video 0 (48 frames at 256 x 256, 32
-            tracks, queries at frames 0, 10, 20) through run_task('davis'):
+            width, DAVIS_TEST_CFG, a 24-frame video made as the e2e pickles
+            are (256 x 256, 32 tracks, queries at frames 0, 10, 20) through
+            run_task('davis'):
             first one frame of 'tiled' against K1 on the same features (each
             query pixel within 1e-4 but K1's near-tie rows, at most 0.1%);
             (a) 'tiled' in each topk_impl against 'pallas' (K1), (b) 'dense'
@@ -360,6 +361,14 @@ Phases, each of which raises on failure (exit code != 0):
             an .mp4, which the port's VideoReader reads back ('mp4v (JPEG)',
             24 frames of 256 x 256, within a mean level of libjpeg's decode
             of the same samples) and --video tracks (K1 circle 23 times);
+            GIF: gif_fixture_frames() written by save_video byte for byte
+            the committed tests/torch_port_fixtures/gif_256x256_24f.gif
+            (PIL's writer through the JAX save_video; ms a frame to quantise
+            and to LZW-encode, the MB), that file decoded to cv2's pins (the
+            sha256 of its 23 frames, count, fps; ms a frame to decode), the
+            demo's own --out tracks.gif (K1 circle 23 times) read back, each
+            frame equal to its own palette's colours, and --video on it (K1
+            circle once a frame read back less one);
   video     video files as input, no cv2 on this machine: (a) the committed
             VP8 WebM (tests/torch_port_fixtures/vp8_640x360_250f.webm, 250
             frames at 640 x 360, 25 fps, libvpx through cv2) decoded on the
@@ -636,7 +645,7 @@ ZOO_SHAPES = {
 }
 
 
-_PHASE = {"name": None, "t": 0.0}
+_PHASE = {"name": None, "t": 0.0, "seconds": {}}
 
 
 def phase(name):
@@ -644,6 +653,7 @@ def phase(name):
     now = time.time()
     if _PHASE["name"] is not None:
         print(f"-- {_PHASE['name']} took {now - _PHASE['t']:.1f} s", flush=True)
+        _PHASE["seconds"][_PHASE["name"]] = round(now - _PHASE["t"], 1)
     _PHASE.update(name=name, t=now)
     if name is not None:
         print(f"== {name}", flush=True)
@@ -4199,6 +4209,9 @@ def _maybe_log(work_dir):
 # the cut of video 0 that propmodes runs on the card and on the CPU:
 # frames, and the side of its central square
 PROP_CUT_T, PROP_CUT_SIZE = 8, 128
+# propmodes' video: 24 frames made as the e2e pickles are (the e2e videos'
+# 48 cost the phase about 25 s more)
+PROP_T = 24
 
 
 @contextlib.contextmanager
@@ -4347,6 +4360,9 @@ def run_propmodes(data_root, card_name):
 
     t_phase = time.time()
     card = torch.device("cuda", torch.cuda.current_device())
+    data_root = os.path.join(data_root, "propmodes")
+    os.makedirs(data_root)
+    make_tapvid_pickles(data_root, n_videos=1, T=PROP_T)
     check_tiled_frame()
     # (a) 'tiled' in each topk_impl against K1
     k1_run = _prop_tapvid(data_root, "'pallas' (K1)", card_name)
@@ -4479,6 +4495,40 @@ def _prop_cut_card_vs_cpu(s, others, forward=True, tag="propmodes"):
 # ---------------------------------------------------------------------- #
 REPRO_TOL = 1e-6            # report.json against run_task on the same inputs
 DEMO_T, DEMO_ORIG, DEMO_SIZE, DEMO_GRID = 24, (480, 854), 256, 8
+# the committed GIF: gif_fixture_frames() through the JAX save_video (PIL's
+# writer, 24 fps), its frames as cv2 decodes them pinned in the .json
+GIF_FIXTURE = os.path.join("tests", "torch_port_fixtures", "gif_256x256_24f.gif")
+GIF_PINS = os.path.join("tests", "torch_port_fixtures", "gif_256x256_24f.json")
+
+
+def gif_fixture_frames(seed=0, T=24, size=256, points=16, tail=8, repeat=12):
+    """(T, size, size, 3) uint8 RGB frames drawn like the demo's output: a
+    smooth three-sine backdrop panning 2 px a frame, and `points` tracks of
+    seeded colours moving in straight lines, each a 5 x 5 square at its
+    current position with a one-pixel tail of its last `tail` positions;
+    frame `repeat` repeats the one before (PIL's writer merges it)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64)
+    freq = rng.uniform(0.01, 0.035, (3, 2))
+    phase = rng.uniform(0, 2 * np.pi, 3)
+    p0 = rng.uniform(24, size - 24, (points, 2))
+    vel = rng.uniform(-3, 3, (points, 2))
+    cols = rng.integers(0, 256, (points, 3), dtype=np.uint8)
+    frames = []
+    for t in range(T):
+        if t == repeat:
+            frames.append(frames[-1].copy())
+            continue
+        bg = 128 + 100 * np.sin(freq[:, :1, None] * (xx + 2 * t) + freq[:, 1:, None] * yy
+                                + phase[:, None, None])
+        f = np.ascontiguousarray(np.rint(bg).astype(np.uint8).transpose(1, 2, 0))
+        for p in range(points):
+            for s in range(max(0, t - tail), t + 1):
+                x, y = np.clip(np.rint(p0[p] + vel[p] * s), 0, size - 1).astype(int)
+                r = 2 if s == t else 0
+                f[max(0, y - r):y + r + 1, max(0, x - r):x + r + 1] = cols[p]
+        frames.append(f)
+    return np.stack(frames)
 
 
 def _exit_code(fn):
@@ -4706,7 +4756,75 @@ def run_demo(records, card_name, device="cuda"):
               f"{DEMO_SIZE}x{DEMO_SIZE}, {mjpeg_ms:.3f} host ms a frame [{card_name}], mean "
               f"|cv2-path - libjpeg| {gap:.4f}); --video on it: {DEMO_T - 1} K1 circle "
               f"launches, {video_s:.2f} s", flush=True)
+        _demo_gif(records, card_name, root, base, drawn, device)
     print(f"demo phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
+
+
+def _demo_gif(records, card_name, root, base, drawn, device):
+    """The demo phase's GIF part: (a) gif_fixture_frames written by
+    save_video, byte for byte the committed fixture (what PIL's writer gave
+    the JAX save_video), with the quantiser's and the LZW encoder's ms a
+    frame; (b) the fixture decoded to cv2's pins; (c) the demo's own
+    tracks.gif, every frame read back equal to the colours of its own
+    palette (`drawn`: the demo's frames rendered again from the same
+    tracks), frames equal to the one before merged as PIL merges them; (d)
+    demo --video on it, K1 circle once a frame propagated."""
+    from fgvc_tpu_torch.cli import demo
+    from fgvc_tpu_torch.data_io import gif
+    from fgvc_tpu_torch.data_io.video import VideoReader
+    from fgvc_tpu_torch.ops.cuda import topk_attention as k1
+    from fgvc_tpu_torch.utils import visualize
+
+    t_part = time.time()
+    with open(os.path.join(ROOT, GIF_PINS)) as f:
+        pins = json.load(f)
+    frames = gif_fixture_frames(pins["seed"])
+    out = os.path.join(root, "fixture.gif")
+    _, write_s = _timed(lambda: visualize.save_video(frames, out, pins["fps"]))
+    with open(out, "rb") as f, open(os.path.join(ROOT, GIF_FIXTURE), "rb") as g:
+        same, mb = f.read() == g.read(), os.path.getsize(out) / 1e6
+    if not same:
+        raise AssertionError(f"demo (gif): save_video's bytes differ from {GIF_FIXTURE}")
+    quantised, quant_s = _timed(lambda: [gif.quantize(f) for f in frames])
+    _, lzw_s = _timed(lambda: [gif.lzw_blocks(index) for _, index in quantised])
+    print(f"demo (gif): {len(frames)} frames of {frames.shape[2]}x{frames.shape[1]} "
+          f"(gif_fixture_frames({pins['seed']})) written by save_video in {write_s:.3f} s, byte "
+          f"for byte {GIF_FIXTURE} ({mb:.3f} MB); ms a frame ({card_name}): quantise "
+          f"{1e3 * quant_s / len(frames):.3f}, LZW-encode {1e3 * lzw_s / len(frames):.3f}",
+          flush=True)
+    _video_pins(GIF_FIXTURE, GIF_PINS, "demo (gif)", card_name)
+    tracks = os.path.join(root, "tracks.gif")
+    k1.reset_launches()
+    _, wall = _timed(lambda: demo.main([*base, "--grid", str(DEMO_GRID), "--out", tracks]))
+    if device == "cuda":
+        check_launches("demo --out tracks.gif", "highest", DEMO_T - 1, "banked")
+    _add_launches(records["K1_circle"], DEMO_T - 1)
+    kept = []
+    for palette, index in (gif.quantize(f) for f in drawn):
+        colours = np.frombuffer(palette, np.uint8).reshape(-1, 3)[index]
+        if not kept or not np.array_equal(colours, kept[-1]):
+            kept.append(colours)
+    with VideoReader(tracks) as reader:
+        back, count = list(reader), reader.frame_count
+        read_ms = 1e3 * sum(reader.timings.values()) / max(len(back), 1)
+    if count != len(kept) or len(back) != len(kept) or not all(
+            np.array_equal(a[..., ::-1], b) for a, b in zip(back, kept)):
+        raise AssertionError(f"demo (gif): tracks.gif read back as {len(back)} frames (count "
+                             f"{count}), not the {len(kept)} frames of its palettes' colours")
+    k1.reset_launches()
+    again = os.path.join(root, "tracks_again.gif")
+    _, video_s = _timed(lambda: demo.main(["--video", tracks, "--size", str(DEMO_SIZE),
+                                            "--grid", str(DEMO_GRID), "--out", again,
+                                            "--device", device]))
+    if device == "cuda":
+        check_launches("demo --video tracks.gif", "highest", len(kept) - 1, "banked")
+    _add_launches(records["K1_circle"], len(kept) - 1)
+    print(f"demo (gif): --out tracks.gif {DEMO_T - 1} K1 circle launches, CLI {wall:.2f} s, "
+          f"{os.path.getsize(tracks) / 1e6:.3f} MB, {len(back)} frames (of {DEMO_T}; "
+          f"{DEMO_T - len(kept)} merged) read back equal to their palettes' colours, "
+          f"{read_ms:.3f} host ms a frame [{card_name}]; --video on it: {len(kept) - 1} K1 "
+          f"circle launches, {video_s:.2f} s; the GIF part {time.time() - t_part:.1f} s",
+          flush=True)
 
 
 # ---------------------------------------------------------------------- #
@@ -5364,6 +5482,7 @@ def main():
         run_ddp(records["K1_circle"], card_name)
         print(f"ddp phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
     phase(None)
+    print("seconds by phase: " + json.dumps(_PHASE["seconds"]))
     print(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,13 @@
     python -m fgvc_tpu_torch.cli.demo --frames <dir> --mask first.png --out masks.mp4
     python -m fgvc_tpu_torch.cli.demo --video clip.webm [--stride S] \
         [--max-frames N] --grid 8 --out demo.mp4
+    python -m fgvc_tpu_torch.cli.demo --video demo.gif --grid 8 --out tracks.gif
 
 Frames (sorted *.jpg then *.png names) are read as cv2.imread reads them and
 resized to --size square (cv2's INTER_LINEAR, datasets/image_io.py), tracked
 with the label-propagation tracker (the top-k attention kernel) and rendered
-with per-point trajectory tails into an .mp4 of Motion-JPEG frames
-(utils/visualize.py).  --grid N queries an N x N grid instead of --points.
+with per-point trajectory tails into an .mp4 of Motion-JPEG frames, or a
+.gif with PIL's bytes where --out ends in .gif (utils/visualize.py).  --grid N queries an N x N grid instead of --points.
 --correspondence draws 64 seeded matches between the first two frames (the
 argmax of the softmax affinity of their features) into a .png or .jpg.
 --mask propagates a first-frame label map (read in grey, as
@@ -25,8 +26,9 @@ VideoInit, then VideoDecode of every --stride-th frame up to --max-frames,
 then the resize), as the JAX demo does with cv2; the port reads VP8, VP9
 and Motion-JPEG in WebM/Matroska, MPEG-4 Part 2 (cv2's and the JAX demo's
 'mp4v', in .mp4 or .avi) and Motion-JPEG (cv2's 'MJPG', and this demo's own
-.mp4 output) in MP4/MOV and AVI, and other codecs stop the demo with the
-codec's name.  Runs
+.mp4 output) in MP4/MOV and AVI, and GIF (the JAX demo's and this demo's
+.gif output among them), and other codecs stop the demo with the codec's
+name.  Runs
 on the CUDA card unless --device cpu is given.
 """
 
@@ -40,11 +42,11 @@ import os
 import numpy as np
 
 VIDEO_REFUSAL = (
-    "the port decodes VP8, VP9 (profile 0) and Motion-JPEG in WebM/Matroska and MPEG-4 "
-    "Part 2 and Motion-JPEG in MP4/MOV and AVI only; H.264, raw AVI video and the VP9, "
-    "MPEG-4 Part 2 and Motion-JPEG forms it names wait for decoders of its own (ROADMAP.md, "
-    "'video input'): convert the clip to VP8 or VP9 WebM, or to cv2's mp4v or MJPG, or "
-    "decode it to a directory of frames and pass --frames")
+    "the port decodes VP8, VP9 (profile 0) and Motion-JPEG in WebM/Matroska, MPEG-4 "
+    "Part 2 and Motion-JPEG in MP4/MOV and AVI, and GIF only; H.264, raw AVI video and the "
+    "VP9, MPEG-4 Part 2, Motion-JPEG and GIF forms it names wait for decoders of its own "
+    "(ROADMAP.md, 'video input'): convert the clip to VP8 or VP9 WebM, to cv2's mp4v or "
+    "MJPG, or to GIF, or decode it to a directory of frames and pass --frames")
 
 
 def load_frames(frame_dir: str, size: int) -> np.ndarray:
@@ -116,8 +118,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--frames", default=None, help="directory of jpg/png frames")
     p.add_argument("--video", default=None,
                    help="a video file (VP8, VP9 or Motion-JPEG in .webm/.mkv, MPEG-4 Part 2 "
-                        "or Motion-JPEG in .mp4/.mov/.avi, this demo's own .mp4 among them) "
-                        "decoded through the loading stages")
+                        "or Motion-JPEG in .mp4/.mov/.avi, or a .gif; this demo's own .mp4 "
+                        "and .gif among them) decoded through the loading stages")
     p.add_argument("--stride", type=int, default=1, help="temporal stride when decoding --video")
     p.add_argument("--max-frames", type=int, default=0,
                    help="cap decoded frames of --video (0 = all)")
@@ -126,7 +128,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--grid", type=int, default=0)
     p.add_argument("--query-frame", type=int, default=0)
     p.add_argument("--size", type=int, default=256)
-    p.add_argument("--out", default="demo.mp4")
+    p.add_argument("--out", default="demo.mp4",
+                   help="the rendered video: .gif (PIL's bytes, as the JAX demo writes it) or "
+                        ".mp4 (Motion-JPEG); .png or .jpg with --correspondence")
     p.add_argument("--correspondence", action="store_true")
     p.add_argument("--mask", default=None, metavar="PNG",
                    help="first-frame integer label mask: propagate it (VOS) and render "

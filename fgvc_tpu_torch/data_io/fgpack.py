@@ -6,12 +6,12 @@ Motion-JPEG decoding) are bound in data_io/video.py.
 
 The library is C++17 with pthread alone.  It is compiled with g++ at first
 use into ``build/host/libfgpack-<hash>.so`` at the root of the checkout
-(``build/`` is git-ignored; the hash covers the sources and the flags):
+(``build/`` is git-ignored; the hash covers the sources and the flags), one
+g++ for each source, all started together, then one to link:
 
-    g++ -O2 -std=c++17 -shared -fPIC -o build/host/libfgpack-<hash>.so \
-        fgvc_tpu_torch/csrc/fgpack.cpp fgvc_tpu_torch/csrc/mpeg4video.cpp \
-        fgvc_tpu_torch/csrc/vp9video.cpp fgvc_tpu_torch/csrc/mjpeg.cpp \
-        fgvc_tpu_torch/csrc/avi.cpp -lpthread
+    g++ -O2 -std=c++17 -fPIC -c fgvc_tpu_torch/csrc/<source>.cpp -o <source>.o
+        (fgpack.cpp, mpeg4video.cpp, vp9video.cpp, mjpeg.cpp, avi.cpp, gif.cpp)
+    g++ -shared -fPIC -o build/host/libfgpack-<hash>.so *.o -lpthread
 
 Its JPEG decoder gives libjpeg's default pixels (what PIL and cv2.imread
 give), its WebP decoder libwebp's (cv2.imread's colour mode), and its
@@ -52,7 +52,7 @@ _LAYOUTS = {"hwc": 0, "i420": 1, "grey": 2, "cmyk": 3}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fgpack.cpp"
 SOURCES = tuple(SOURCE.with_name(n) for n in (
-    "fgpack.cpp", "mpeg4video.cpp", "vp9video.cpp", "mjpeg.cpp", "avi.cpp"))
+    "fgpack.cpp", "mpeg4video.cpp", "vp9video.cpp", "mjpeg.cpp", "avi.cpp", "gif.cpp"))
 # headers the sources include: in the library's hash, not on the command line
 HEADERS = (SOURCE.with_name("jpeg_huffman.h"),)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
@@ -112,6 +112,9 @@ STATUS = {
     -50: "a Motion-JPEG form the port does not decode",
     -51: "a Motion-JPEG frame changes the stream's frame size",
     -52: "truncated Motion-JPEG data",
+    -53: "corrupt GIF data (not GIF87a/GIF89a, or blocks past the end of the file)",
+    -54: "truncated GIF image data (LZW codes past the image's sub-blocks)",
+    -55: "a GIF form the port does not decode",
 }
 
 _LIB = None
@@ -132,20 +135,42 @@ def compiler_version() -> str:
 
 def build_library(force: bool = False) -> str:
     """Compile SOURCES (csrc/fgpack.cpp, mpeg4video.cpp, vp9video.cpp,
-    mjpeg.cpp and avi.cpp) into build/host (once per sources, headers and
-    flags);
-    returns the library's path.  The output is written under a temporary
-    name and renamed, so a process loading it during another's build never
-    sees half a file."""
+    mjpeg.cpp, avi.cpp and gif.cpp), one g++ each in parallel, and link them
+    into build/host (once per sources, headers and flags); returns the
+    library's path.  Objects and library are written under temporary names
+    and the library renamed, so a process loading it during another's build
+    never sees half a file."""
     out = library_path()
     if out.exists() and not force:
         return str(out)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    proc = subprocess.run(["g++", *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES), *LINK_FLAGS],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {', '.join(p.name for p in SOURCES)}:\n{proc.stderr}")
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in SOURCES]
+    compile_flags = [f for f in CXX_FLAGS if f != "-shared"]
+    procs = []
+    try:
+        for src, obj in zip(SOURCES, objects):
+            procs.append(subprocess.Popen(["g++", *compile_flags, "-c", "-o", str(obj), str(src)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        failed = []
+        for src, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name}:\n{err}")
+        if failed:
+            raise RuntimeError("g++ failed for " + "\n".join(failed))
+        proc = subprocess.run(["g++", "-shared", "-fPIC", "-o", str(tmp), *map(str, objects),
+                               *LINK_FLAGS], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed to link {tmp.name}:\n{proc.stderr}")
+    finally:
+        for proc in procs:  # a compiler still running where a later one failed to start
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return str(out)
 
@@ -222,6 +247,20 @@ def _load():
             "fgpack_mjpeg_stats": (ctypes.c_int, [ptr, i64p, i64]),
             "fgpack_mjpeg_error": (ctypes.c_int, [ptr, ctypes.c_char_p, i64]),
             "fgpack_mjpeg_free": (None, [ptr]),
+            "fgpack_gif_quantize": (ctypes.c_int, [u8p, i64, u8p, i64p, u8p]),
+            "fgpack_gif_lzw": (ctypes.c_int, [u8p, i64, i64, ctypes.c_int, ctypes.POINTER(u8p),
+                                              i64p]),
+            "fgpack_gif_open": (ptr, [ctypes.c_char_p, i64, ctypes.POINTER(ctypes.c_int)]),
+            "fgpack_gif_info": (ctypes.c_int, [ptr, i64p]),
+            "fgpack_gif_packets": (ctypes.c_int, [ptr, i64p, i64p]),
+            "fgpack_gif_close": (None, [ptr]),
+            "fgpack_gif_new": (ptr, []),
+            "fgpack_gif_decode": (ctypes.c_int, [ptr, ctypes.c_char_p, i64, i64p]),
+            "fgpack_gif_planes": (ctypes.c_int, [ptr, u8p]),
+            "fgpack_gif_bgr": (ctypes.c_int, [ptr, u8p]),
+            "fgpack_gif_stats": (ctypes.c_int, [ptr, i64p, i64]),
+            "fgpack_gif_error": (ctypes.c_int, [ptr, ctypes.c_char_p, i64]),
+            "fgpack_gif_free": (None, [ptr]),
             "fgpack_prefetch": (ctypes.c_int, [ptr, i64, i64]),
             "fgpack_close": (None, [ptr]),
         }

@@ -1,7 +1,7 @@
 """Video files through the port's host library (csrc/fgpack.cpp,
-csrc/mpeg4video.cpp, csrc/vp9video.cpp, csrc/mjpeg.cpp and csrc/avi.cpp),
-without cv2, PyAV, decord or FFmpeg: what ``cv2.VideoCapture`` gives, for
-the files the port decodes.
+csrc/mpeg4video.cpp, csrc/vp9video.cpp, csrc/mjpeg.cpp, csrc/avi.cpp and
+csrc/gif.cpp), without cv2, PyAV, decord or FFmpeg: what
+``cv2.VideoCapture`` gives, for the files the port decodes.
 
 Read: VP8 and VP9 (profile 0: 8-bit 4:2:0, what YouTube-style .webm/.mkv
 clips and cv2.VideoWriter's 'VP90' fourcc carry) in WebM/Matroska; MPEG-4
@@ -10,7 +10,9 @@ and in AVI under the fourccs XVID, DIVX, DX50, FMP4 and MP4V (either case:
 what cv2.VideoWriter's 'XVID', 'DIVX', 'FMP4' and 'mp4v' write to .avi);
 Motion-JPEG in AVI ('MJPG'), in MP4/MOV (an ``mp4v`` entry whose esds
 names JPEG: cv2's 'MJPG' in .mp4, and the port's own
-utils/visualize.save_video) and in Matroska (``V_MJPEG``).  The WebM
+utils/visualize.save_video) and in Matroska (``V_MJPEG``); GIF87a and
+GIF89a (PIL's and save_video's .gif among them: FFmpeg's gif decoder's
+BGRA canvas with the alpha dropped, data_io/gif.py).  The WebM
 demuxer yields the video track's packets (SimpleBlock and BlockGroup,
 clusters of unknown size included); the MP4 demuxer the first video
 track's samples (stsz/stz2, stco/co64, stsc runs, stts, ctts, stss; an edit
@@ -34,7 +36,8 @@ come out as swscale converts them for cv2: its unscaled YUV 4:2:0 -> BGR24
 (its x86 SIMD arithmetic; for VP9 with the coefficients of the colour
 space and range the stream carries, for Motion-JPEG full-range BT.601),
 4:2:2 by the same arithmetic, and 4:4:4 on its full-chroma path, so
-``VideoReader.read`` equals ``cv2.VideoCapture.read`` bit for bit.
+``VideoReader.read`` equals ``cv2.VideoCapture.read`` bit for bit (a GIF's
+frames too, at any size).
 
 Refused with ValueError naming what was found: odd frame heights (cv2
 converts them on swscale's scaling path, which is not reproduced), other
@@ -49,9 +52,12 @@ does not decode (progressive, arithmetic-coded, lossless, hierarchical,
 12-bit, greyscale, CMYK/YCCK, RGB, other samplings, interlaced fields),
 laced Matroska blocks, compressed or encrypted tracks, several Matroska
 video tracks or AVI video streams, MP4 edit lists that drop samples,
-OpenDML AVIX continuations, other containers.
+OpenDML AVIX continuations, GIF forms FFmpeg would not decode whole (an
+image past the screen's edge or without a colour table, a minimum code
+size outside 1 to 11, LZW data running past its sub-blocks), other
+containers.
 
-    reader = VideoReader("clip.webm")     # VP8 or VP9; an mp4v .mp4; an .avi
+    reader = VideoReader("clip.webm")     # VP8 or VP9; an mp4v .mp4; an .avi; a .gif
     reader.frame_count, reader.fps        # cv2's CAP_PROP_FRAME_COUNT / _FPS
     for bgr in reader: ...                # (H, W, 3) uint8, cv2.read's pixels
 """
@@ -67,6 +73,7 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 import numpy as np
 
 from fgvc_tpu_torch.data_io.fgpack import _load, _status, _u8p
+from fgvc_tpu_torch.data_io.gif import is_gif, read_container
 
 EBML_MAGIC = b"\x1a\x45\xdf\xa3"
 # the first box types of the ISO-BMFF files the MP4 demuxer opens
@@ -79,12 +86,12 @@ AVI_TAGS = {"XVID": "mpeg4", "DIVX": "mpeg4", "DX50": "mpeg4", "FMP4": "mpeg4", 
             "MJPG": "mjpeg"}
 _AVI_CODECS = {"mpeg4": "MPEG-4 Part 2", "mjpeg": "Motion-JPEG"}
 READ_CODECS = ("V_VP8", "V_VP9", "V_MJPEG", MPEG4_PART2, MP4_JPEG,
-               *(f"{t} ({_AVI_CODECS[k]})" for t, k in AVI_TAGS.items()))
+               *(f"{t} ({_AVI_CODECS[k]})" for t, k in AVI_TAGS.items()), "gif")
 READS = ("VP8, VP9 and Motion-JPEG in WebM/Matroska, MPEG-4 Part 2 and Motion-JPEG in "
-         "MP4/MOV and AVI")
-# the WebM and MP4 codec names -> the decoder's kind (an AVI's from AVI_TAGS)
+         "MP4/MOV and AVI, and GIF")
+# the WebM, MP4 and GIF codec names -> the decoder's kind (an AVI's from AVI_TAGS)
 _KINDS = {"V_VP8": "vp8", "V_VP9": "vp9", "V_MJPEG": "mjpeg", MPEG4_PART2: "mpeg4",
-          MP4_JPEG: "mjpeg"}
+          MP4_JPEG: "mjpeg", "gif": "gif"}
 # the counters of fgpack_vp8_stats, in order (golden_updates and
 # altref_updates count refreshes and copies; the copies also by their source)
 VP8_FEATURES = (
@@ -137,6 +144,17 @@ MJPEG_FEATURES = (
     "frames_420", "frames_422", "frames_444", "frames_with_restarts", "frames_without_dht",
     "unscaled_420_conversions", "unscaled_422_conversions", "full_chroma_conversions",
 )
+# the counters of fgpack_gif_stats, in order: images decoded, interlaced,
+# with a local colour table, with a transparency index, smaller than the
+# screen; images by disposal method (none, in place, background, previous);
+# images whose LZW data ended before their last row
+GIF_FEATURES = (
+    "images", "interlaced_images", "local_table_images", "transparent_images",
+    "partial_images", "dispose_none", "dispose_in_place", "dispose_background",
+    "dispose_previous", "short_images",
+)
+# FFmpeg's gif demuxer counts time in hundredths of a second
+GIF_TICKS = 100
 # MPEG-4 systems object types (an esds's objectTypeIndication) of mp4v entries
 _OBJECT_TYPES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x60: "MPEG-2", 0x61: "MPEG-2",
                  0x6A: "MPEG-1", 0x6C: "JPEG"}
@@ -221,7 +239,13 @@ class VideoReader:
     stts counts), the fps its avg_frame_rate (the media timescale times
     that count over stts's total duration, av_reduce to INT_MAX).  AVI:
     the count is strh's dwLength (FFmpeg's nb_frames), the fps dwRate /
-    dwScale (av_reduce to INT_MAX).
+    dwScale (av_reduce to INT_MAX).  GIF: the count is every image in the
+    file (FFmpeg's nb_frames), the fps 100 over the delays' total (in
+    hundredths, 0 read as 10) divided by that count and truncated (100 over
+    the total for one image); where that comes to 0, 100 for a file of one
+    or two packets, and more packets are refused; images before the file's
+    first extension, the first image's apart, are counted and not shown, as
+    the gif parser leaves them in the first packet.
     `timings` accumulates seconds spent demuxing (once the file is in
     memory), decoding and converting.  Unsupported files raise ValueError
     naming the codec or the tool."""
@@ -242,11 +266,13 @@ class VideoReader:
             self._open_mp4()
         elif _is_avi(self.data):
             self._open_avi()
+        elif is_gif(self.data):
+            self._open_gif()
         else:
             raise ValueError(f"{self.name}: not a container the port reads ({READS})")
         self._kind = AVI_TAGS[self.codec_tag.upper()] if self.codec_tag else _KINDS[self.codec]
         self._features = {"vp8": VP8_FEATURES, "vp9": VP9_FEATURES, "mpeg4": MPEG4_FEATURES,
-                          "mjpeg": MJPEG_FEATURES}[self._kind]
+                          "mjpeg": MJPEG_FEATURES, "gif": GIF_FEATURES}[self._kind]
         self._fn = {k: getattr(self._lib, f"fgpack_{self._kind}_{k}")
                     for k in ("new", "decode", "planes", "bgr", "stats", "free")}
         if self._kind != "vp8":
@@ -395,6 +421,30 @@ class VideoReader:
         self.pts = (np.arange(len(self.sizes), dtype=np.int64) * 1_000_000_000 * scale) // rate
         self.frame_count = length  # 0 where strh has none, as cv2 reports it
 
+    def _open_gif(self):
+        try:
+            gif = read_container(self.data)
+        except ValueError as err:
+            raise ValueError(f"{self.name}: {err} (video codec 'gif')") from None
+        self.codec = "gif"
+        self.width, self.height = gif.width, gif.height
+        self.offsets, self.sizes = gif.offsets, gif.sizes
+        self.keys = (np.arange(len(gif.sizes)) == 0).astype(np.uint8)
+        self.dsi = b""
+        self.frame_count = gif.images
+        # gifdec: avg_frame_rate = 100 / (duration / nb_frames) in integers
+        ticks = gif.duration // gif.images if gif.images > 1 else gif.duration
+        if gif.images > 1 and not ticks and len(gif.sizes) > 2:
+            raise ValueError(
+                f"{self.name}: a GIF of {gif.images} images in {len(gif.sizes)} packets whose "
+                f"delays total {gif.duration} hundredths of a second: cv2 reports FFmpeg's "
+                "frame-rate estimate from the packets' timestamps for it (r_frame_rate), which "
+                "the port does not reproduce (video codec 'gif')")
+        # else where that is 0, FFmpeg has fewer than two timestamp steps to
+        # estimate from, and OpenCV takes 1 / time_base
+        num, den = av_reduce(GIF_TICKS, ticks, INT_MAX) if ticks > 0 else (GIF_TICKS, 1)
+        self.fps = num / den
+
     def _open_mp4(self):
         track = _Mp4(self._lib, self.data)
         if track.status != 0:
@@ -416,7 +466,7 @@ class VideoReader:
         self.frame_count = track.stts_samples or len(self.sizes)
 
     def _check_height(self):
-        if self.height % 2:
+        if self.height % 2 and self._kind != "gif":
             raise ValueError(
                 f"{self.name}: odd frame height {self.height}: cv2 converts such frames on "
                 "swscale's scaling path (bicubic chroma), which the port does not reproduce")
@@ -429,8 +479,8 @@ class VideoReader:
             buf = ctypes.create_string_buffer(512)
             self._fn["error"](self._dec, buf, 512)
             detail = buf.value.decode("latin-1")
-        if self._kind == "vp9":
-            detail += f"{' ' if detail else ''}(video codec 'V_VP9')"
+        if self._kind in ("vp9", "gif"):
+            detail += f"{' ' if detail else ''}(video codec {self.codec!r})"
         raise ValueError(f"{self.name}: {where}: {_status(rc)}" + (f": {detail}" if detail else ""))
 
     def packets(self) -> List[bytes]:
@@ -480,7 +530,9 @@ class VideoReader:
         """The last frame's Y (H, W), U and V ((H + 1) // 2, (W + 1) // 2)
         planes (a Motion-JPEG frame's at its own sampling: (H, W / 2) for
         4:2:2, (H, W) for 4:4:4); Y is what cv2 returns with
-        CAP_PROP_CONVERT_RGB = 0."""
+        CAP_PROP_CONVERT_RGB = 0.  A GIF has no YUV planes: see canvas()."""
+        if self._kind == "gif":
+            raise ValueError(f"{self.name}: a GIF has no YUV planes; canvas() gives its BGRA")
         h, w = self.height, self.width
         vs, hs = self._chroma
         y = np.empty((h, w), np.uint8)
@@ -490,10 +542,22 @@ class VideoReader:
             raise ValueError(f"{self.name}: no decoded frame")
         return y, u, v
 
+    def canvas(self) -> np.ndarray:
+        """A GIF's last frame as its (H, W, 4) BGRA canvas, which is what cv2
+        returns with CAP_PROP_CONVERT_RGB = 0."""
+        if self._kind != "gif":
+            raise ValueError(f"{self.name}: canvas() is a GIF's; {self.codec} has planes()")
+        bgra = np.empty((self.height, self.width, 4), np.uint8)
+        if self._dec is None or self._fn["planes"](self._dec, _u8p(bgra)) != 0:
+            raise ValueError(f"{self.name}: no decoded frame")
+        return bgra
+
     def features(self) -> Dict[str, int]:
-        """How many frames, VOPs, macroblocks or blocks so far used each
-        feature of the codec (VP8_FEATURES, VP9_FEATURES, MPEG4_FEATURES or
-        MJPEG_FEATURES)."""
+        """How many frames, VOPs, macroblocks, blocks or images so far used
+        each feature of the codec (VP8_FEATURES, VP9_FEATURES,
+        MPEG4_FEATURES, MJPEG_FEATURES or GIF_FEATURES)."""
+        if self._dec is None:
+            raise ValueError(f"{self.name}: the reader is closed")
         out = (ctypes.c_int64 * len(self._features))()
         self._fn["stats"](self._dec, out, len(self._features))
         return dict(zip(self._features, (int(v) for v in out)))

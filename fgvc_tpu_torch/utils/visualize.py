@@ -15,7 +15,11 @@ FFmpeg's muxer stores MJPEG in MP4, so FFmpeg-based players
 (cv2.VideoCapture among them) read it, and so does the port's own
 data_io.video.VideoReader (cv2.VideoCapture's pixels: FFmpeg's Motion-JPEG
 decoding and 4:4:4 conversion), which cli.demo --video opens it with.
-``read_video`` reads exactly such files back, as libjpeg decodes them.  ``save_image`` writes ``.png`` (zlib, filter 0) or
+A path ending in ``.gif`` (the JAX save_video's case-sensitive test) gets
+the bytes PIL's GIF writer gives the JAX save_video (data_io/gif.py:
+median-cut palettes, delta frames with transparency, LZW), which
+VideoReader reads back as cv2 does.
+``read_video`` reads exactly such .mp4 files back, as libjpeg decodes them.  ``save_image`` writes ``.png`` (zlib, filter 0) or
 ``.jpg`` (encode_jpeg at quality 95, cv2.imwrite's default).
 """
 
@@ -29,6 +33,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 
 from fgvc_tpu_torch.data_io.fgpack import encode_jpeg
+from fgvc_tpu_torch.data_io.gif import encode_gif
 
 JPEG_QUALITY = 95
 
@@ -294,18 +299,25 @@ def mp4_mjpeg(samples: List[bytes], width: int, height: int, fps: float) -> byte
 
 
 def save_video(frames: np.ndarray, path: str, fps: int = 24) -> None:
-    """Write (T, H, W, 3) uint8 RGB frames to an ``.mp4`` of Motion-JPEG
-    samples (encode_jpeg at quality 95, 4:4:4), which data_io.video's
-    VideoReader and cli.demo --video read back.  Other extensions raise
-    ValueError: ``.gif`` needs a palette quantiser (PIL's) and other
-    containers a video encoder, neither of which the port has."""
-    if not path.lower().endswith(".mp4"):
+    """Write (T, H, W, 3) uint8 RGB frames to a ``.gif`` (a path ending in
+    exactly that: the bytes PIL writes for the JAX save_video, frames of
+    int(1000 / fps) ms) or an ``.mp4`` of Motion-JPEG samples (encode_jpeg
+    at quality 95, 4:4:4); data_io.video's VideoReader and cli.demo --video
+    read both back.  Other extensions raise ValueError: they need a video
+    encoder the port does not have."""
+    is_gif = path.endswith(".gif")
+    if not (is_gif or path.lower().endswith(".mp4")):
         raise ValueError(
-            f"{path}: the port writes .mp4 (Motion-JPEG) only; .gif needs a palette "
-            "quantiser (PIL's) and other formats a video encoder, neither of which it has")
+            f"{path}: the port writes .gif (PIL's bytes) and .mp4 (Motion-JPEG) only; other "
+            "formats need a video encoder it does not have")
     frames = np.asarray(frames, np.uint8)
     if frames.ndim != 4 or frames.shape[0] == 0 or frames.shape[3] != 3:
         raise ValueError(f"save_video needs (T >= 1, H, W, 3) frames, got {frames.shape}")
+    if is_gif:
+        data = encode_gif(frames, duration=int(1000 / fps))
+        with open(path, "wb") as f:
+            f.write(data)
+        return
     samples = [encode_jpeg(f, JPEG_QUALITY, sampling="444") for f in frames]
     with open(path, "wb") as f:
         f.write(mp4_mjpeg(samples, frames.shape[2], frames.shape[1], fps))

@@ -402,11 +402,12 @@ def test_fixtures_and_chip_smoke_pins_hold_for_pil_and_cv2():
     from fgvc_tpu_torch.datasets.image_io import read_image
 
     smoke = _chip_smoke()
-    # the image fixtures (the VP8, MPEG-4 Part 2, VP9 and Motion-JPEG clips
-    # and their digests have their own tests, tests/test_torch_port_video_{
-    # codec,mpeg4,libavcodec,vp9,vp9_libvpx,avi_mjpeg}.py)
+    # the image fixtures (the VP8, MPEG-4 Part 2, VP9, Motion-JPEG and GIF
+    # clips and their digests have their own tests, tests/test_torch_port_video_{
+    # codec,mpeg4,libavcodec,vp9,vp9_libvpx,avi_mjpeg}.py and
+    # tests/test_torch_port_gif.py)
     names = sorted(n for n in os.listdir(FIXTURES)
-                   if not n.startswith(("vp8_", "mp4v_", "vp9_", "mjpg_")))
+                   if not n.startswith(("vp8_", "mp4v_", "vp9_", "mjpg_", "gif_")))
     assert names == sorted(smoke.FIXTURE_PINS)
     assert sum(os.path.getsize(os.path.join(FIXTURES, n)) for n in names) < 300_000
     for name in names:

@@ -17,7 +17,8 @@ fgvc_tpu/utils/visualize.py, which draws with cv2), on the CPU:
   frame at PSNR >= 35 dB against the rendered frame) and by the port's own
   reader (samples byte-equal to encode_jpeg of the rendered frames at
   4:4:4, which equals cv2.imencode's);
-* .gif and other extensions raise, and --video raises its message.
+* other extensions than .gif and .mp4 (.GIF among them: the JAX writer's
+  test is case-sensitive) raise, and --video raises its message.
 """
 
 import dataclasses
@@ -291,7 +292,7 @@ def test_refusals(scene, tmp_path):
     from fgvc_tpu_torch.utils import visualize as v
 
     frames = np.zeros((2, 16, 16, 3), np.uint8)
-    for name in ("x.gif", "x.avi", "x.webm"):
+    for name in ("x.GIF", "x.avi", "x.webm"):
         with pytest.raises(ValueError, match=r"\.mp4"):
             v.save_video(frames, str(tmp_path / name))
     with pytest.raises(ValueError, match="T >= 1"):
