@@ -52,7 +52,8 @@ Phases, each of which raises on failure (exit code != 0):
             same rule, timed and bounded; and K1 at the zoo's shapes (C = 384
             at 32 x 32, dino_vit_s8; C = 768 at 32 x 32, dino_vit_b8; C = 144
             at 8 x 8, one partial tile, hrnet_w18; square at 60 x 110 x 768 Cv
-            5, dino_vit_b8 on VOS) in 'float32', timed and bounded, and in
+            5, dino_vit_b8 on VOS; square at 20 x 20 x 384 Cv 15,
+            dino_vit_s16 on JHMDB) in 'float32', timed and bounded, and in
             'high' and 'bfloat16' by the same rule;
   e2e       run_task('davis') (the CLI's path) on two synthetic TAP-Vid
             pickles (48 frames, 256 x 256, 32 tracks) with seeded random
@@ -89,8 +90,9 @@ Phases, each of which raises on failure (exit code != 0):
             does, three moving objects) with seeded random weights, once
             banked and once with save_mem: K1 (square) launches must equal the
             frames propagated on the banked run and K2's on the save_mem run,
-            the other kernel 0; J&F finite; the two runs' label maps agree on
-            >= 99.99% of pixels;
+            the other kernel 0; J&F finite, and mean_iou (core/metrics/iou)
+            over video 0's label maps printed beside it; the two runs' label
+            maps agree on >= 99.99% of pixels;
   vos_plain one of those videos cut to 8 frames, banked and save_mem, again
             with the propagation forced through the plain versions on the
             card: label maps agree with the kernels' on >= 99.999% of pixels
@@ -156,7 +158,11 @@ Phases, each of which raises on failure (exit code != 0):
             110 x 768; each frame's rows beyond 1e-4 of the plain version
             on the same inputs all near-tie rows, label maps >= 99.99% equal
             to the plain version's end to end); then swin_tiny on JHMDB's
-            320 x 320 must raise the JAX failure's ValueError;
+            320 x 320 must raise the JAX failure's ValueError; then
+            run_task('jhmdb', backbone='dino_vit_s16') on the jhmdb phase's
+            tree at the dataset's size (K1 square at 20 x 20 x 384, Cv 15):
+            launches one per frame propagated, PCK finite, video 0 through
+            K1 and the plain version (median |diff| <= 1e-3 px);
   kinetics  run_task('kinetics', query_mode='strided') on one synthetic
             TAP-Vid-Kinetics shard (250 frames stored at 360 x 640, resized
             to 256 x 256 by the reader; 32 tracks visible throughout, so
@@ -418,7 +424,18 @@ Phases, each of which raises on failure (exit code != 0):
             own save_video .mp4 (mjpg_444_320x180_24f.mp4: 24 frames, 4:4:4
             q95, swscale's full-chroma path) to its cv2 pins, then
             --annotations over two copies of it, K1 (circle) 46 times,
-            metrics equal to the pickle path's;
+            metrics equal to the pickle path's; (m)-(p) odd frame heights,
+            which cv2 converts on swscale's scaling path
+            (csrc/swscale.cpp): the committed 24-frame VP8 WebM at 256 x 143
+            (cv2's libvpx, its key-frame headers cut to 143 rows), to its
+            cv2 pins, then --annotations over two copies of it, K1 (circle)
+            46 times, metrics equal to the pickle path's; the VP9 WebM in
+            BT.709 at 256 x 143 (libvpx), the mp4v MP4 at 255 x 143 (cv2's
+            writer, the VOL cut; full chroma, sited left) and the 12-frame
+            Motion-JPEG 4:2:2 AVI at 256 x 143 (PIL's JPEGs) to their cv2
+            pins; then host ms to convert a 640 x 359 frame on the scaling
+            path beside a 640 x 360 one on the unscaled path (BT.601 4:2:0,
+            seeded planes);
   dataprep  the data-preparation tools (fgvc_tpu_torch/tools/data), no cv2:
             (a) a YouTube-VOS tree written by the port's encoder (2 videos x
             6 frames at 720 x 1280, q95, a seeded texture moving by whole
@@ -642,6 +659,9 @@ ZOO_SHAPES = {
     "K1_circle_dino_b8": ("dino_vit_b8", 32, 32, 768, CV, "circle"),
     "K1_circle_hrnet": ("hrnet_w18", 8, 8, 144, CV, "circle"),
     "K1_square_vos_b8": ("dino_vit_b8", VOS_H // 4, VOS_W // 4, 768, VOS_CV, "square"),
+    # JHMDB's 320 x 320 input at stride 16 (the ResNet's 160 x 160 over 8)
+    "K1_square_jhmdb_s16": ("dino_vit_s16", JHMDB_H // 8, JHMDB_W // 8, 384, JHMDB_CV,
+                            "square"),
 }
 
 
@@ -1404,6 +1424,7 @@ def run_vos(ds, records, precision="highest"):
 
     from fgvc_tpu_torch.apis.test import build_tracker, eval_vos
     from fgvc_tpu_torch.config import DAVIS_TEST_CFG
+    from fgvc_tpu_torch.core.metrics.iou import mean_iou
     from fgvc_tpu_torch.ops.cuda import topk_attention as k1
 
     expect = sum(len(v) - 1 for v in ds.videos)
@@ -1433,6 +1454,13 @@ def run_vos(ds, records, precision="highest"):
         records[record_key("unbanked" if save_mem else "square", kernel_mode)]["launches"] = expect
         out[path] = (res["J&F-Mean"], [ds.preds[i] for i in range(len(ds))], peak)
         if path == "banked":
+            iou = mean_iou(list(ds.preds[0]), list(ds.gt[0]), num_classes=VOS_OBJECTS + 1)
+            print(f"vos {mode} video 0: mean_iou over its {len(ds.gt[0])} label maps (background "
+                  f"and {VOS_OBJECTS} objects) mIoU {iou['mIoU']:.6f}, IoU "
+                  f"{np.round(iou['IoU'], 6).tolist()}, beside J&F-Mean "
+                  f"{res['J&F-Mean']:.6f} of both videos", flush=True)
+            if not np.isfinite(iou["mIoU"]):
+                raise AssertionError(f"vos {mode}: mIoU is not finite: {iou}")
             s = ds[0]
             by_kernel, wall_ms = device_ms_by_kernel(lambda: tracker.track_masks(
                 s["video"], s["first_mask"], tuple(s["original_shape"]), s["num_objects"]))
@@ -2439,7 +2467,7 @@ def _fmt_ms(ms):
 
 
 def run_kinetics(data_root, record):
-    """run_task('kinetics', query_mode='strided') on one 250-frame video
+    """run_task('kinetics', query_mode='strided') on one KIN_T-frame video
     stored at 360 x 640 (the host resize to 256 x 256 runs): K1 (circle)
     launches one per frame of each query group; metrics finite.  Then the
     last three query groups (the short ones) through K1 and through its
@@ -2500,7 +2528,7 @@ def run_kinetics(data_root, record):
         raise AssertionError(f"kinetics: median trajectory difference {med} px > {TRAJ_TOL_PX}")
 
 
-def run_zoo(data_root, records):
+def run_zoo(data_root, jhmdb_root, records):
     """run_task('davis', backbone=NAME) for each entry of ZOO_ENTRIES at its
     published width with seeded weights, on video 0 of the e2e pickles (48
     frames, 256 x 256, 32 tracks, query groups at frames 0, 10 and 20): K1
@@ -2517,8 +2545,9 @@ def run_zoo(data_root, records):
     frame's rows are near-tie rows, and the kernel phase's 0.1% share does
     not apply); and the label maps against the plain version's end to end
     on >= 99.99% of pixels (each row that flips decodes to 64 pixels and
-    carries to later frames).  Last, swin_tiny on JHMDB's 320 x 320 must raise the ValueError of the
-    JAX module's failure (stage 2 at 20 x 20, window 8)."""
+    carries to later frames).  Then swin_tiny on JHMDB's 320 x 320 must raise the ValueError of the
+    JAX module's failure (stage 2 at 20 x 20, window 8).  Last, dino_vit_s16
+    on the JHMDB tree through run_keypoints (K1 square at 20 x 20 x 384)."""
     import torch
 
     from fgvc_tpu_torch.apis.test import build_tracker, eval_vos, run_task
@@ -2533,7 +2562,7 @@ def run_zoo(data_root, records):
     qt = qp[:, 0].astype(int)
     expect = int(sum(T - t - 1 for t in np.unique(qt)))
     record_of = {entry: key for key, (entry, *_rest) in ZOO_SHAPES.items()
-                 if key != "K1_square_vos_b8"}
+                 if key.startswith("K1_circle")}
     for name in ZOO_ENTRIES:
         k1.reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -2644,6 +2673,8 @@ def run_zoo(data_root, records):
             raise AssertionError(f"zoo swin_tiny: unexpected message {e}") from e
     else:
         raise AssertionError("zoo swin_tiny on JHMDB's 320 x 320 ran; JAX fails there")
+    run_keypoints("jhmdb", jhmdb_root, records["K1_square_jhmdb_s16"], [JHMDB_T] * JHMDB_VIDEOS,
+                  JHMDB_ORIG, backbone="dino_vit_s16")
 
 
 def encode_png(path, img, palette=None):
@@ -2743,12 +2774,12 @@ def make_badja_tree(root, T=BADJA_T, orig=BADJA_ORIG, every=BADJA_EVERY, seed=0)
     return len(entries)
 
 
-def run_keypoints(task, root, record, n_frames, decode_hw):
-    """run_task(task) ('jhmdb' or 'badja') on the tree's files: K1 (square)
-    launches one per frame propagated, PCK finite; then video 0 profiled
-    (K1 device ms per launch) and propagated again through the plain
-    version on the same features: median |diff| <= 1e-3 px, PCK of both
-    printed."""
+def run_keypoints(task, root, record, n_frames, decode_hw, backbone="resnet18_d1"):
+    """run_task(task) ('jhmdb' or 'badja') on the tree's files with
+    `backbone` (ResNet-18-d1 or a zoo entry): K1 (square) launches one per frame
+    propagated, PCK finite; then video 0 profiled (K1 device ms per launch)
+    and propagated again through the plain version on the same features:
+    median |diff| <= 1e-3 px, PCK of both printed."""
     import torch
 
     from fgvc_tpu_torch.apis.test import TASK_CONFIGS, build_tracker, run_task
@@ -2757,28 +2788,29 @@ def run_keypoints(task, root, record, n_frames, decode_hw):
     from fgvc_tpu_torch.ops.cuda import topk_attention as k1
 
     ds = JhmdbDataset(root, root) if task == "jhmdb" else BadjaDataset(root, root)
+    label = task if backbone == "resnet18_d1" else f"zoo {task} {backbone}"
     expect = sum(n - 1 for n in n_frames)
     k1.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    metrics = run_task(task, root, device="cuda", seed=0)
+    metrics = run_task(task, root, device="cuda", seed=0, backbone=backbone)
     torch.cuda.synchronize()
     dt = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
-    check_launches(task, "highest", expect, "banked")
+    check_launches(label, "highest", expect, "banked")
     if not all(np.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f"{task}: PCK not finite: {metrics}")
+        raise AssertionError(f"{label}: PCK not finite: {metrics}")
     record["launches"] = (record["launches"] or 0) + expect
-    print(f"{task} PCK (random weights): " + json.dumps(metrics))
-    print(f"{task}: {len(ds)} video(s), {sum(n_frames)} frames in {dt:.2f} s = "
+    print(f"{label} PCK (random weights): " + json.dumps(metrics))
+    print(f"{label}: {len(ds)} video(s), {sum(n_frames)} frames in {dt:.2f} s = "
           f"{sum(n_frames) / dt:.2f} frames/s (model build, data reading and scoring "
           f"included); {expect} K1 launches; peak device memory {peak:.2f} GB", flush=True)
 
     t0 = time.time()
     s = ds[0]
-    print(f"{task} video 0 read from its files (the port's decoders) in "
+    print(f"{label} video 0 read from its files (the port's decoders) in "
           f"{time.time() - t0:.2f} s", flush=True)
-    tracker = build_tracker(TASK_CONFIGS[task], seed=0, device="cuda")
+    tracker = build_tracker(TASK_CONFIGS[task], seed=0, device="cuda", backbone=backbone)
     feats = tracker.extract_features(s["video"])
     args = (s["video"], s["ref_maps"], tuple(s["original_shape"]))
     ms = _kernel_ms_per_launch(lambda: tracker.track_heatmaps(*args, feats=feats),
@@ -2796,14 +2828,14 @@ def run_keypoints(task, root, record, n_frames, decode_hw):
     else:
         pck = [ds.evaluate([o], indices=[0]) for o in (out_k, out_p)]
     dpck = max(abs(pck[0][k] - pck[1][k]) for k in pck[0])
-    print(f"{task} video 0 ({n_frames[0]} frames, decode {decode_hw}): K1 device "
+    print(f"{label} video 0 ({n_frames[0]} frames, decode {decode_hw}): K1 device "
           f"{_fmt_ms(ms)} per launch (torch.profiler); propagation+decode {1e3 * t_k:.1f} ms "
           f"with K1, {1e3 * t_p:.1f} ms with the plain version; coordinates median |diff| "
           f"{med:.3e} px, max {diff.max():.3e} px (median limit {TRAJ_TOL_PX}); PCK "
           f"{json.dumps(pck[0])} vs plain {json.dumps(pck[1])} (largest |diff| {dpck})",
           flush=True)
     if not med <= TRAJ_TOL_PX:
-        raise AssertionError(f"{task}: median coordinate difference {med} px > {TRAJ_TOL_PX}")
+        raise AssertionError(f"{label}: median coordinate difference {med} px > {TRAJ_TOL_PX}")
     return metrics
 
 
@@ -4843,7 +4875,12 @@ VIDEO_CLIPS = tuple((tags, os.path.join("tests", "torch_port_fixtures", name + e
                                             ("ghi", "vp9_640x360_250f", ".webm"),
                                             ("j-j", "mp4v_640x360_48f", ".avi"),
                                             ("k-k", "mjpg_640x360_48f", ".avi"),
-                                            ("ll-", "mjpg_444_320x180_24f", ".mp4")))
+                                            ("ll-", "mjpg_444_320x180_24f", ".mp4"),
+                                            # odd heights: swscale's scaling path
+                                            ("mm-", "vp8_256x143_24f", ".webm"),
+                                            ("n--", "vp9_bt709_256x143_24f", ".webm"),
+                                            ("o--", "mp4v_255x143_24f", ".mp4"),
+                                            ("p--", "mjpg_422_256x143_12f", ".avi")))
 # tools cv2's writers do not use, pinned to their encoder's own decoder's
 # planes and to cv2's frames, by the clip they precede: MPEG-4 Part 2 from
 # libavcodec (B-VOPs, 4MV, AC prediction and video packets; quarter-pel, data
@@ -5012,6 +5049,33 @@ def _video_demo(records, tag, fixture, root, frames):
           f"{os.path.getsize(demo_out) / 1e6:.3f} MB", flush=True)
 
 
+def _video_convert_ms(card_name, width=640, reps=20):
+    """Host ms to convert one BT.601 4:2:0 frame to BGR (csrc/swscale.cpp)
+    at an odd height (swscale's scaling path) beside the even height above
+    it (the unscaled path), on seeded planes."""
+    from fgvc_tpu_torch.data_io.fgpack import _load, _u8p
+
+    lib = _load()
+    rng = np.random.default_rng(0)
+    ms = {}
+    for h in (359, 360):
+        y = rng.integers(0, 256, (h, width), dtype=np.uint8)
+        u, v = (rng.integers(0, 256, ((h + 1) // 2, width // 2), dtype=np.uint8)
+                for _ in range(2))
+        out = np.empty((h, width, 3), np.uint8)
+
+        def convert():
+            path = lib.fgpack_yuv_to_bgr24(_u8p(y), _u8p(u), _u8p(v), width, width // 2, h,
+                                           width, 2, 0, 0, 0, _u8p(out))
+            if path != (1 if h % 2 else 0):
+                raise AssertionError(f"video convert {width}x{h}: path {path}")
+
+        ms[h] = _host_ms(convert, 1, reps=reps)
+    print(f"video convert: host ms a BT.601 4:2:0 frame to BGR ({card_name}): {width} x 359 "
+          f"(scaling path) {ms[359]:.3f}, {width} x 360 (unscaled path) {ms[360]:.3f}",
+          flush=True)
+
+
 def run_video(records, card_name):
     """Phase video (see the module's docstring)."""
     t_phase = time.time()
@@ -5026,6 +5090,7 @@ def run_video(records, card_name):
         print(f"video ({''.join(dict.fromkeys(tags.replace('-', '')))}) "
               f"{time.time() - t_clip:.1f} s [{card_name}]",
               flush=True)
+    _video_convert_ms(card_name)
     print(f"video phase {time.time() - t_phase:.1f} s [{card_name}]", flush=True)
 
 
@@ -5387,20 +5452,20 @@ def main():
             phase("modes")
             run_modes_tapvid(data_root, records)
             run_modes_vos(records)
+        jhmdb_root = os.path.join(data_root, "jhmdb")
+        if {"jhmdb", "sp", "reproduce", "zoo"} & set(phases):
+            os.makedirs(jhmdb_root)
+            make_jhmdb_tree(jhmdb_root)
         if "zoo" in phases:
             phase("zoo")
             t_zoo = time.time()
-            run_zoo(data_root, records)
+            run_zoo(data_root, jhmdb_root, records)
             print(f"zoo phase {time.time() - t_zoo:.1f} s", flush=True)
         if "kinetics" in phases:
             phase("kinetics")
             with tempfile.TemporaryDirectory(prefix="chip_smoke_kinetics_") as kin_root:
                 make_kinetics_pickle(kin_root)
                 run_kinetics(kin_root, records["K1_circle"])
-        jhmdb_root = os.path.join(data_root, "jhmdb")
-        if {"jhmdb", "sp", "reproduce"} & set(phases):
-            os.makedirs(jhmdb_root)
-            make_jhmdb_tree(jhmdb_root)
         badja_root = os.path.join(data_root, "badja")
 
         def badja_tree():

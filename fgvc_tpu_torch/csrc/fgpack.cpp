@@ -38,10 +38,10 @@
 //     timestamps and key flags), a VP8 decoder that carries one state across
 //     a stream's frames (the key-frame code above plus RFC 6386's inter
 //     frames: references, motion vectors, sub-pixel prediction, per-reference
-//     loop-filter deltas, saved probabilities, hidden frames) and FFmpeg
-//     swscale's unscaled YUV 4:2:0 -> BGR24 (what cv2.VideoCapture.read
-//     gives), which csrc/mpeg4video.cpp's MP4 demuxer and MPEG-4 Part 2
-//     decoder and csrc/vp9video.cpp's VP9 decoder (compiled into the same
+//     loop-filter deltas, saved probabilities, hidden frames), its frames
+//     converted to BGR24 by csrc/swscale.cpp (FFmpeg swscale's arithmetic,
+//     what cv2.VideoCapture.read gives), which csrc/mpeg4video.cpp,
+//     csrc/vp9video.cpp and csrc/mjpeg.cpp (compiled into the same
 //     library) share.
 //
 // Pack file layout (little endian), the JAX package's FGPK v2:
@@ -73,6 +73,11 @@
 #include <vector>
 
 #include "jpeg_huffman.h"
+
+extern "C" int fgpack_yuv_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v,
+                                   int64_t ystride, int64_t cstride, int64_t h, int64_t w,
+                                   int chroma, int matrix, int full_range, int siting,
+                                   uint8_t* dst);
 
 namespace {
 
@@ -2417,6 +2422,7 @@ enum {
 
 struct Vp8Decoder {
   int width = 0, height = 0, mb_w = 0, mb_h = 0;
+  int siting = 0;  // the container's chroma location (fgpack_yuv_to_bgr24's siting)
   BoolReader br;       // the first partition: header and modes
   BoolReader parts[8];  // the token partitions
   int num_parts = 1;
@@ -4032,22 +4038,6 @@ int decode_webp(const uint8_t* buf, size_t n, uint8_t* dst, int h, int w, int ch
   return kOk;
 }
 
-// ---- YUV 4:2:0 -> BGR24 as FFmpeg's swscale converts at the same size ----
-// swscale's unscaled yuv2rgb in its x86 SIMD form (yuv_2_rgb.asm): luma
-// and chroma scaled by 8 and offset, multiplied by 13-bit fixed-point
-// BT.601 limited-range coefficients keeping the high 16 bits (pmulhw), sums
-// saturated to 0..255; each chroma sample serves a 2 x 2 block.  This is
-// what cv2.VideoCapture.read gives for an even height (an odd one takes
-// swscale's scaling path).  The coefficients are roundToInt16(c << 13) of
-// ff_yuv2rgb_coeffs' BT.601 row {104597, 132201, 25675, 53279} and
-// cy = 65536 * 255 / 219.  fgpack_i420_to_bgr24 below converts; the VP8
-// and the MPEG-4 Part 2 decoders (csrc/mpeg4video.cpp) both call it, the
-// VP9 decoder (csrc/vp9video.cpp) calls fgpack_yuv420_to_bgr24 with its
-// stream's colour space.
-constexpr int kSwsY = 9539, kSwsVr = 13075, kSwsUb = 16525, kSwsUg = -3209, kSwsVg = -6660;
-
-inline int mulhi16(int a, int b) { return (a * b) >> 16; }
-
 }  // namespace webp
 
 // ---- Matroska / WebM: the video track's packets ----------------------------
@@ -4059,7 +4049,9 @@ constexpr uint32_t kEbml = 0x1A45DFA3, kSegment = 0x18538067, kInfo = 0x1549A966
                    kAttachments = 0x1941A469, kTimecodeScale = 0x2AD7B1, kDuration = 0x4489,
                    kTrackEntry = 0xAE, kTrackNumber = 0xD7, kTrackType = 0x83, kCodecId = 0x86,
                    kDefaultDuration = 0x23E383, kVideo = 0xE0, kPixelWidth = 0xB0,
-                   kPixelHeight = 0xBA, kContentEncodings = 0x6D80, kTimecode = 0xE7,
+                   kPixelHeight = 0xBA, kColour = 0x55B0, kChromaSitingHorz = 0x55B7,
+                   kChromaSitingVert = 0x55B8, kTransferCharacteristics = 0x55BA,
+                   kPrimaries = 0x55BB, kContentEncodings = 0x6D80, kTimecode = 0xE7,
                    kSimpleBlock = 0xA3, kBlockGroup = 0xA0, kBlock = 0xA1, kReferenceBlock = 0xFB;
 constexpr uint64_t kUnknown = ~0ull;
 
@@ -4071,6 +4063,11 @@ struct Packet {
 struct Stream {
   std::string codec;
   int64_t width = 0, height = 0, default_duration = 0, timecode_scale = 1000000;
+  // the Colour element's chroma siting as matroskadec maps it to an
+  // AVChromaLocation (0 unspecified, 1 left, 2 center, 3 topleft, 4 top),
+  // and its Primaries and TransferCharacteristics (2, unspecified, where
+  // it states none)
+  int64_t chroma_location = 0, primaries = 2, transfer = 2;
   double duration = -1;  // the Segment's Duration in TimecodeScale units, -1 without one
   uint64_t track = 0;
   std::vector<Packet> packets;
@@ -4161,7 +4158,8 @@ struct Parser {
     bool unknown;
     while (pos < end && element(pos, end, eid, a, e, unknown)) {
       if (eid == kTrackEntry) {
-        uint64_t number = 0, type = 0, dd = 0, w = 0, h = 0;
+        uint64_t number = 0, type = 0, dd = 0, w = 0, h = 0, horz = 0, vert = 0, prim = 2,
+                 trc = 2;
         bool encoded = false;
         std::string codec;
         size_t p = a, ca, ce;
@@ -4178,6 +4176,17 @@ struct Parser {
             while (q < ce && element(q, ce, vid, va, ve, unknown)) {
               if (vid == kPixelWidth) w = uint_at(va, ve);
               if (vid == kPixelHeight) h = uint_at(va, ve);
+              if (vid == kColour) {
+                size_t r = va, ka, ke;
+                uint32_t kid;
+                while (r < ve && element(r, ve, kid, ka, ke, unknown)) {
+                  if (kid == kChromaSitingHorz) horz = uint_at(ka, ke);
+                  if (kid == kChromaSitingVert) vert = uint_at(ka, ke);
+                  if (kid == kPrimaries) prim = uint_at(ka, ke);
+                  if (kid == kTransferCharacteristics) trc = uint_at(ka, ke);
+                  r = ke;
+                }
+              }
               q = ve;
             }
           }
@@ -4192,6 +4201,13 @@ struct Parser {
           s->default_duration = static_cast<int64_t>(dd);
           s->width = static_cast<int64_t>(w);
           s->height = static_cast<int64_t>(h);
+          // av_chroma_location_pos_to_enum(((horz - 1) << 7, (vert - 1) << 7):
+          // 1 is left or top, 2 half-way; 0 (undetermined) or past 2 leaves
+          // the location unspecified
+          if (horz >= 1 && horz <= 2 && vert >= 1 && vert <= 2)
+            s->chroma_location = vert == 2 ? (horz == 1 ? 1 : 2) : (horz == 1 ? 3 : 4);
+          s->primaries = static_cast<int64_t>(std::min<uint64_t>(prim, 255));
+          s->transfer = static_cast<int64_t>(std::min<uint64_t>(trc, 255));
           if (encoded) return kErrMkvEncoding;
         }
       }
@@ -4531,84 +4547,6 @@ int fgpack_decode_webp(const uint8_t* buf, int64_t nbytes, uint8_t* dst, int64_t
                            static_cast<int>(w), channels);
 }
 
-// ---- video: YUV 4:2:0 -> BGR24, swscale's unscaled conversion -----------
-// Planes of a decoded frame (luma stride ystride, chroma cstride) to
-// (h, w, 3) BGR with the converter's coefficients c = {y, vr, ub, ug, vg,
-// y offset} (BT.601 limited range: {kSwsY, kSwsVr, kSwsUb, kSwsUg, kSwsVg,
-// 128}; csrc/vp9video.cpp derives the other colour spaces' and full range's).
-void fgpack_yuv420_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v, int64_t ystride,
-                            int64_t cstride, int64_t h, int64_t w, const int32_t* c, uint8_t* dst) {
-  using webp::clip8;
-  using webp::mulhi16;
-  for (int64_t r = 0; r < h; ++r) {
-    const uint8_t* py = y + r * ystride;
-    const uint8_t* pu = u + (r >> 1) * cstride;
-    const uint8_t* pv = v + (r >> 1) * cstride;
-    uint8_t* o = dst + r * w * 3;
-    for (int64_t x = 0; x < w; ++x, o += 3) {
-      const int cu = pu[x >> 1] * 8 - 1024, cv = pv[x >> 1] * 8 - 1024;
-      const int yy = mulhi16(py[x] * 8 - c[5], c[0]);
-      o[0] = clip8(yy + mulhi16(cu, c[2]));
-      o[1] = clip8(yy + mulhi16(cu, c[3]) + mulhi16(cv, c[4]));
-      o[2] = clip8(yy + mulhi16(cv, c[1]));
-    }
-  }
-}
-
-// Planes at any of the yuvj samplings FFmpeg's mjpeg decoder gives
-// (chroma: 2 4:2:0, 1 4:2:2, 0 4:4:4) to (h, w, 3) BGR, as cv2's swscale
-// converts them: 4:2:0 as above; 4:2:2 by the same arithmetic with one
-// chroma row a row; 4:4:4 on swscale's scaling path at scale 1, where
-// FFmpeg forces full horizontal chroma for input whose chroma is not
-// subsampled (yuv2rgb_full_1's yuv2rgb_write_full: 15-bit samples times 4,
-// the same 13-bit coefficients, 30-bit sums clipped, the top 8 bits).
-void fgpack_yuv_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v, int64_t ystride,
-                         int64_t cstride, int64_t h, int64_t w, int chroma, const int32_t* c,
-                         uint8_t* dst) {
-  using webp::clip8;
-  using webp::mulhi16;
-  if (chroma == 2) {
-    fgpack_yuv420_to_bgr24(y, u, v, ystride, cstride, h, w, c, dst);
-    return;
-  }
-  for (int64_t r = 0; r < h; ++r) {
-    const uint8_t* py = y + r * ystride;
-    const uint8_t* pu = u + r * cstride;
-    const uint8_t* pv = v + r * cstride;
-    uint8_t* o = dst + r * w * 3;
-    if (chroma == 1) {
-      for (int64_t x = 0; x < w; ++x, o += 3) {
-        const int cu = pu[x >> 1] * 8 - 1024, cv = pv[x >> 1] * 8 - 1024;
-        const int yy = mulhi16(py[x] * 8 - c[5], c[0]);
-        o[0] = clip8(yy + mulhi16(cu, c[2]));
-        o[1] = clip8(yy + mulhi16(cu, c[3]) + mulhi16(cv, c[4]));
-        o[2] = clip8(yy + mulhi16(cv, c[1]));
-      }
-      continue;
-    }
-    for (int64_t x = 0; x < w; ++x, o += 3) {
-      const int yy = ((py[x] << 9) - (c[5] << 6)) * c[0] + (1 << 21);
-      const int cu = (pu[x] - 128) * 512, cv = (pv[x] - 128) * 512;
-      const uint32_t rgb[3] = {static_cast<uint32_t>(yy) + static_cast<uint32_t>(cu * c[2]),
-                               static_cast<uint32_t>(yy) + static_cast<uint32_t>(cv * c[4]) +
-                                   static_cast<uint32_t>(cu * c[3]),
-                               static_cast<uint32_t>(yy) + static_cast<uint32_t>(cv * c[1])};
-      for (int k = 0; k < 3; ++k) {
-        const int32_t s = static_cast<int32_t>(rgb[k]);
-        o[k] = static_cast<uint8_t>((s < 0 ? 0 : s > 0x3FFFFFFF ? 0x3FFFFFFF : s) >> 22);
-      }
-    }
-  }
-}
-
-// The BT.601 limited-range conversion (the VP8 and MPEG-4 Part 2 frames').
-void fgpack_i420_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v, int64_t ystride,
-                          int64_t cstride, int64_t h, int64_t w, uint8_t* dst) {
-  static const int32_t kBt601[6] = {webp::kSwsY,  webp::kSwsVr, webp::kSwsUb,
-                                    webp::kSwsUg, webp::kSwsVg, 128};
-  fgpack_yuv420_to_bgr24(y, u, v, ystride, cstride, h, w, kBt601, dst);
-}
-
 // ---- video: a Matroska/WebM file's packets, a VP8 stream's frames -------
 
 // Parse a Matroska/WebM file held in memory (the caller keeps `buf` alive
@@ -4627,9 +4565,11 @@ void* fgpack_webm_open(const uint8_t* buf, int64_t nbytes, int* status) {
 }
 
 // {width, height, packets, DefaultDuration (ns, 0 without one),
-// TimecodeScale (ns)} into out[0..4], the Segment's Duration (TimecodeScale
-// units, -1 without one) into *duration and the CodecID (NUL-terminated,
-// cut to cap - 1 bytes) into codec.
+// TimecodeScale (ns), the Colour element's chroma location (an
+// AVChromaLocation), Primaries, TransferCharacteristics} into out[0..7],
+// the Segment's Duration (TimecodeScale units, -1 without one) into
+// *duration and the CodecID (NUL-terminated, cut to cap - 1 bytes) into
+// codec.
 int fgpack_webm_info(void* handle, int64_t* out, double* duration, char* codec, int64_t cap) {
   const auto* s = static_cast<const mkv::Stream*>(handle);
   out[0] = s->width;
@@ -4637,6 +4577,9 @@ int fgpack_webm_info(void* handle, int64_t* out, double* duration, char* codec, 
   out[2] = static_cast<int64_t>(s->packets.size());
   out[3] = s->default_duration;
   out[4] = s->timecode_scale;
+  out[5] = s->chroma_location;
+  out[6] = s->primaries;
+  out[7] = s->transfer;
   *duration = s->duration;
   if (cap > 0) {
     const size_t n = std::min(s->codec.size(), static_cast<size_t>(cap - 1));
@@ -4665,6 +4608,14 @@ void fgpack_webm_close(void* handle) { delete static_cast<mkv::Stream*>(handle);
 // A VP8 decoder whose state lives across the packets of one stream.
 void* fgpack_vp8_new() { return new webp::Vp8Decoder(); }
 
+// The chroma location the container states (an AVChromaLocation), which
+// the conversion of an odd-height frame reads.
+int fgpack_vp8_siting(void* handle, int siting) {
+  if (siting < 0 || siting > 6) return kErrArgs;
+  static_cast<webp::Vp8Decoder*>(handle)->siting = siting;
+  return kOk;
+}
+
 // Decode one packet; out gets {shown, width, height, key frame}.
 int fgpack_vp8_decode(void* handle, const uint8_t* data, int64_t nbytes, int64_t* out) {
   auto* d = static_cast<webp::Vp8Decoder*>(handle);
@@ -4692,13 +4643,15 @@ int fgpack_vp8_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
   return kOk;
 }
 
-// The last decoded frame as (h, w, 3) BGR, swscale's unscaled conversion.
+// The last decoded frame as (h, w, 3) BGR, as swscale converts it for cv2
+// (csrc/swscale.cpp; BT.601, limited range).
 int fgpack_vp8_bgr(void* handle, uint8_t* dst) {
   const auto* d = static_cast<const webp::Vp8Decoder*>(handle);
   if (!d->shown) return kErrArgs;
-  fgpack_i420_to_bgr24(d->shown->y.data(), d->shown->u.data(), d->shown->v.data(), d->mb_w * 16,
-                       d->mb_w * 8, d->height, d->width, dst);
-  return kOk;
+  const int rc = fgpack_yuv_to_bgr24(d->shown->y.data(), d->shown->u.data(), d->shown->v.data(),
+                                     d->mb_w * 16, d->mb_w * 8, d->height, d->width, 2, 0, 0,
+                                     d->siting, dst);
+  return rc < 0 ? rc : kOk;
 }
 
 // The stream's feature counts so far (the kStat enum), n of them.

@@ -18,7 +18,7 @@
 // jpeg_huffman.h's, which fgpack.cpp's libjpeg-exact decoder uses too.
 //
 // Frames come out as swscale converts each yuvj format to BGR24 for cv2,
-// with BT.601 full-range coefficients (fgpack.cpp's converters).
+// with BT.601 full-range coefficients (csrc/swscale.cpp).
 //
 // Refused by name: progressive (SOF2), lossless and hierarchical (SOF3,
 // SOF5-SOF7), arithmetic-coded (SOF9-SOF15, DAC) and 12-bit frames, grey
@@ -38,9 +38,10 @@
 #include "jpeg_huffman.h"
 
 extern "C" void fgpack_simple_idct_put(uint8_t* dst, int64_t stride, int16_t* blk);
-extern "C" void fgpack_yuv_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v,
-                                    int64_t ystride, int64_t cstride, int64_t h, int64_t w,
-                                    int chroma, const int32_t* c, uint8_t* dst);
+extern "C" int fgpack_yuv_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v,
+                                   int64_t ystride, int64_t cstride, int64_t h, int64_t w,
+                                   int chroma, int matrix, int full_range, int siting,
+                                   uint8_t* dst);
 
 namespace {
 
@@ -61,10 +62,12 @@ enum Status {
 // the feature counters (fgpack_mjpeg_stats; data_io/video.py's
 // MJPEG_FEATURES): frames by sampling, frames with a restart interval,
 // frames decoded by the standard Huffman tables (no DHT of their own), and
-// frames converted by each of swscale's paths
+// frames converted by each of swscale's paths (unscaled 4:2:0 and 4:2:2 at
+// an even height; full chroma for 4:4:4 and at an odd width and height;
+// scaled, a chroma sample for two pixels, at an odd height)
 enum Stat {
   kStat420 = 0, kStat422, kStat444, kStatRestart, kStatNoDht, kStatUnscaled420,
-  kStatUnscaled422, kStatFullChroma, kMjpegStats
+  kStatUnscaled422, kStatFullChroma, kStatScaled, kMjpegStats
 };
 
 enum Chroma { k444 = 0, k422 = 1, k420 = 2 };  // log2 of the chroma's subsampling
@@ -452,11 +455,12 @@ int fgpack_mjpeg_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
 int fgpack_mjpeg_bgr(void* handle, uint8_t* dst) {
   auto* d = static_cast<Decoder*>(handle);
   if (!d->shown) return kErrArgs;
-  static const int32_t kBt601Full[6] = {8192, 11485, 14516, -2819, -5850, 0};
-  fgpack_yuv_to_bgr24(d->out[0].data(), d->out[1].data(), d->out[2].data(), d->out_stride[0],
-                      d->out_stride[1], d->height, d->width, d->chroma, kBt601Full, dst);
-  ++d->stats[d->chroma == k420 ? kStatUnscaled420 : d->chroma == k422 ? kStatUnscaled422
-                                                                        : kStatFullChroma];
+  const int path = fgpack_yuv_to_bgr24(d->out[0].data(), d->out[1].data(), d->out[2].data(),
+                                       d->out_stride[0], d->out_stride[1], d->height, d->width,
+                                       d->chroma, 0, 1, 0, dst);
+  if (path < 0) return path;
+  ++d->stats[path == 2 ? kStatFullChroma : path == 1 ? kStatScaled
+             : d->chroma == k420 ? kStatUnscaled420 : kStatUnscaled422];
   return kOk;
 }
 

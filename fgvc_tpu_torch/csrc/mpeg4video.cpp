@@ -28,8 +28,9 @@
 //     estimation, studio profiles, packed DivX B-frames and old libavcodec
 //     builds (FFmpeg turns on workarounds for them) are refused by name.
 //
-// Frames come out as swscale's unscaled YUV 4:2:0 -> BGR24 of fgpack.cpp
-// (fgpack_i420_to_bgr24), the converter the VP8 decoder uses too.
+// Frames come out as swscale converts them for cv2 (csrc/swscale.cpp's
+// fgpack_yuv_to_bgr24, BT.601 limited range, the chroma co-sited left as
+// FFmpeg's decoder reports it).
 
 #include <algorithm>
 #include <cstdint>
@@ -40,9 +41,12 @@
 #include <string>
 #include <vector>
 
-extern "C" void fgpack_i420_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v,
-                                     int64_t ystride, int64_t cstride, int64_t h, int64_t w,
-                                     uint8_t* dst);
+extern "C" int fgpack_yuv_to_bgr24(const uint8_t* y, const uint8_t* u, const uint8_t* v,
+                                   int64_t ystride, int64_t cstride, int64_t h, int64_t w,
+                                   int chroma, int matrix, int full_range, int siting,
+                                   uint8_t* dst);
+extern "C" int fgpack_sws_matrix_row(int colorspace);
+extern "C" int fgpack_sws_colour_managed(int primaries, int transfer);
 
 namespace {
 
@@ -83,6 +87,9 @@ struct Sample {
 struct Track {
   std::string entry;  // the sample entry's type ('mp4v', 'avc1', ...)
   int object_type = -1;  // an mp4v entry's esds objectTypeIndication
+  // the sample entry's colr box (nclx or nclc) as mov_read_colr reads it:
+  // primaries, transfer, matrix (2, unspecified, without one), full range
+  int colr[4] = {2, 2, 2, 0};
   std::vector<uint8_t> dsi;  // its DecoderSpecificInfo
   int64_t width = 0, height = 0, timescale = 0;
   int64_t stts_samples = 0, stts_duration = 0;  // FFmpeg's nb_frames, duration_for_fps
@@ -186,6 +193,13 @@ struct Parser {
       if (child(buf, entry.start + 78, entry.end, tag("esds"), &e)) {
         const int rc = esds(e, t);
         if (rc != kOk) return rc;
+      }
+      Box c;
+      if (child(buf, entry.start + 78, entry.end, tag("colr"), &c) && c.end - c.start >= 10 &&
+          (rb32(buf + c.start) == tag("nclx") || rb32(buf + c.start) == tag("nclc"))) {
+        for (int i = 0; i < 3; ++i) t->colr[i] = rb16(buf + c.start + 4 + 2 * i);
+        if (rb32(buf + c.start) == tag("nclx") && c.end - c.start >= 11)
+          t->colr[3] = buf[c.start + 10] >> 7;
       }
     }
     // stts: decode times; FFmpeg's nb_frames and duration_for_fps
@@ -794,6 +808,9 @@ struct Picture {
 
 struct Decoder {
   const Tables& t = tables();
+  // the conversion's colour space (fgpack_yuv_to_bgr24's matrix) and range:
+  // the container's, then the visual object's colour description
+  int matrix = 0, full_range = 0;
   // the VOL and what the headers say of the stream
   bool have_vol = false;
   int vo_type = 0, vol_control = 0, low_delay = 0, time_res = 0, time_bits = 0;
@@ -1039,11 +1056,16 @@ int decode_visual_object(Decoder* d, Bits& gb) {
     gb.skip(3);
     const int full = gb.get1();
     if (full) return tool(d, "full-range video (video_range = 1)");
-    if (gb.get1()) {  // colour_description
-      gb.skip(16);
-      const int matrix = gb.get(8);
-      if (matrix != 1 && matrix != 2 && matrix != 5 && matrix != 6)
-        return tool(d, "matrix_coefficients " + std::to_string(matrix));
+    d->full_range = 0;  // FFmpeg sets the range from video_range
+    if (gb.get1()) {  // colour_description, which FFmpeg passes on to the frame
+      const int primaries = gb.get(8), transfer = gb.get(8), matrix = gb.get(8);
+      if (fgpack_sws_colour_managed(primaries, transfer))
+        return tool(d, "colour_primaries " + std::to_string(primaries) +
+                           " with transfer_characteristics " + std::to_string(transfer) +
+                           " (cv2's swscale colour-manages them)");
+      const int row = fgpack_sws_matrix_row(matrix);
+      if (row < 0) return tool(d, "matrix_coefficients " + std::to_string(matrix));
+      d->matrix = row;
     }
   }
   return kOk;
@@ -2389,8 +2411,9 @@ void* fgpack_mp4_open(const uint8_t* buf, int64_t nbytes, int* status) {
 
 // {sample-entry width, height, samples, media timescale, stts samples,
 // stts duration, esds object type (-1 without one), DecoderSpecificInfo
-// bytes} into out[0..7], the sample entry's type (NUL-terminated, cut to
-// cap - 1 bytes) into entry.
+// bytes, the colr box's primaries, transfer, matrix and full range} into
+// out[0..11], the sample entry's type (NUL-terminated, cut to cap - 1
+// bytes) into entry.
 int fgpack_mp4_info(void* handle, int64_t* out, char* entry, int64_t cap) {
   const auto* t = static_cast<const mp4::Track*>(handle);
   out[0] = t->width;
@@ -2401,6 +2424,7 @@ int fgpack_mp4_info(void* handle, int64_t* out, char* entry, int64_t cap) {
   out[5] = t->stts_duration;
   out[6] = t->object_type;
   out[7] = static_cast<int64_t>(t->dsi.size());
+  for (int i = 0; i < 4; ++i) out[8 + i] = t->colr[i];
   if (cap > 0) {
     const size_t n = std::min(t->entry.size(), static_cast<size_t>(cap - 1));
     std::memcpy(entry, t->entry.data(), n);
@@ -2440,6 +2464,18 @@ int fgpack_mpeg4_headers(void* handle, const uint8_t* data, int64_t nbytes, int6
   out[0] = d->have_vol ? d->width : 0;
   out[1] = d->have_vol ? d->height : 0;
   return rc;
+}
+
+// The colour space (an AVColorSpace) and range (1 full) a container states,
+// which a visual object's colour description overrides; kErrArgs for a
+// colour space fgpack_sws_matrix_row has no row for.
+int fgpack_mpeg4_colour(void* handle, int colorspace, int full_range) {
+  auto* d = static_cast<m4v::Decoder*>(handle);
+  const int row = fgpack_sws_matrix_row(colorspace);
+  if (row < 0) return kErrArgs;
+  d->matrix = row;
+  d->full_range = full_range != 0;
+  return kOk;
 }
 
 // The container's codec tag (an AVI stream's fourcc; the rules FFmpeg
@@ -2482,13 +2518,14 @@ int fgpack_mpeg4_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v) {
   return kOk;
 }
 
-// The last frame out as (h, w, 3) BGR, swscale's unscaled conversion.
+// The last frame out as (h, w, 3) BGR, as swscale converts it for cv2.
 int fgpack_mpeg4_bgr(void* handle, uint8_t* dst) {
   const auto* d = static_cast<const m4v::Decoder*>(handle);
   if (!d->shown) return kErrArgs;
-  fgpack_i420_to_bgr24(d->shown->y.data(), d->shown->u.data(), d->shown->v.data(), d->mb_w * 16,
-                       d->mb_w * 8, d->height, d->width, dst);
-  return kOk;
+  const int rc = fgpack_yuv_to_bgr24(d->shown->y.data(), d->shown->u.data(), d->shown->v.data(),
+                                     d->mb_w * 16, d->mb_w * 8, d->height, d->width, 2,
+                                     d->matrix, d->full_range, 1, dst);
+  return rc < 0 ? rc : kOk;
 }
 
 // The stream's feature counts so far (the kStat enum), n of them.

@@ -10,7 +10,8 @@ use into ``build/host/libfgpack-<hash>.so`` at the root of the checkout
 g++ for each source, all started together, then one to link:
 
     g++ -O2 -std=c++17 -fPIC -c fgvc_tpu_torch/csrc/<source>.cpp -o <source>.o
-        (fgpack.cpp, mpeg4video.cpp, vp9video.cpp, mjpeg.cpp, avi.cpp, gif.cpp)
+        (fgpack.cpp, swscale.cpp, mpeg4video.cpp, vp9video.cpp, mjpeg.cpp, avi.cpp,
+         gif.cpp)
     g++ -shared -fPIC -o build/host/libfgpack-<hash>.so *.o -lpthread
 
 Its JPEG decoder gives libjpeg's default pixels (what PIL and cv2.imread
@@ -52,7 +53,8 @@ _LAYOUTS = {"hwc": 0, "i420": 1, "grey": 2, "cmyk": 3}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fgpack.cpp"
 SOURCES = tuple(SOURCE.with_name(n) for n in (
-    "fgpack.cpp", "mpeg4video.cpp", "vp9video.cpp", "mjpeg.cpp", "avi.cpp", "gif.cpp"))
+    "fgpack.cpp", "swscale.cpp", "mpeg4video.cpp", "vp9video.cpp", "mjpeg.cpp", "avi.cpp",
+    "gif.cpp"))
 # headers the sources include: in the library's hash, not on the command line
 HEADERS = (SOURCE.with_name("jpeg_huffman.h"),)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
@@ -134,8 +136,8 @@ def compiler_version() -> str:
 
 
 def build_library(force: bool = False) -> str:
-    """Compile SOURCES (csrc/fgpack.cpp, mpeg4video.cpp, vp9video.cpp,
-    mjpeg.cpp, avi.cpp and gif.cpp), one g++ each in parallel, and link them
+    """Compile SOURCES (csrc/fgpack.cpp, swscale.cpp, mpeg4video.cpp,
+    vp9video.cpp, mjpeg.cpp, avi.cpp and gif.cpp), one g++ each in parallel, and link them
     into build/host (once per sources, headers and flags); returns the
     library's path.  Objects and library are written under temporary names
     and the library renamed, so a process loading it during another's build
@@ -208,12 +210,15 @@ def _load():
             "fgpack_webm_packets": (ctypes.c_int, [ptr, i64p, i64p, i64p, u8p]),
             "fgpack_webm_close": (None, [ptr]),
             "fgpack_vp8_new": (ptr, []),
+            "fgpack_vp8_siting": (ctypes.c_int, [ptr, ctypes.c_int]),
             "fgpack_vp8_decode": (ctypes.c_int, [ptr, ctypes.c_char_p, i64, i64p]),
             "fgpack_vp8_planes": (ctypes.c_int, [ptr, u8p, u8p, u8p]),
             "fgpack_vp8_bgr": (ctypes.c_int, [ptr, u8p]),
             "fgpack_vp8_stats": (ctypes.c_int, [ptr, i64p, i64]),
             "fgpack_vp8_free": (None, [ptr]),
-            "fgpack_i420_to_bgr24": (None, [u8p, u8p, u8p, i64, i64, i64, i64, u8p]),
+            "fgpack_yuv_to_bgr24": (ctypes.c_int, [u8p, u8p, u8p, i64, i64, i64, i64,
+                                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_int, u8p]),
             "fgpack_mp4_open": (ptr, [ctypes.c_char_p, i64, ctypes.POINTER(ctypes.c_int)]),
             "fgpack_mp4_info": (ctypes.c_int, [ptr, i64p, ctypes.c_char_p, i64]),
             "fgpack_mp4_packets": (ctypes.c_int, [ptr, i64p, i64p, i64p, u8p, u8p]),
@@ -227,6 +232,7 @@ def _load():
             "fgpack_mpeg4_error": (ctypes.c_int, [ptr, ctypes.c_char_p, i64]),
             "fgpack_mpeg4_free": (None, [ptr]),
             "fgpack_vp9_new": (ptr, []),
+            "fgpack_vp9_siting": (ctypes.c_int, [ptr, ctypes.c_int]),
             "fgpack_vp9_peek": (ctypes.c_int, [ctypes.c_char_p, i64, i64p]),
             "fgpack_vp9_decode": (ctypes.c_int, [ptr, ctypes.c_char_p, i64, i64p]),
             "fgpack_vp9_planes": (ctypes.c_int, [ptr, u8p, u8p, u8p]),
@@ -235,6 +241,9 @@ def _load():
             "fgpack_vp9_error": (ctypes.c_int, [ptr, ctypes.c_char_p, i64]),
             "fgpack_vp9_free": (None, [ptr]),
             "fgpack_mpeg4_codec_tag": (ctypes.c_int, [ptr, ctypes.c_char_p]),
+            "fgpack_mpeg4_colour": (ctypes.c_int, [ptr, ctypes.c_int, ctypes.c_int]),
+            "fgpack_sws_matrix_row": (ctypes.c_int, [ctypes.c_int]),
+            "fgpack_sws_colour_managed": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
             "fgpack_avi_open": (ptr, [ctypes.c_char_p, i64, ctypes.POINTER(ctypes.c_int)]),
             "fgpack_avi_info": (ctypes.c_int, [ptr, i64p, ctypes.c_char_p, ctypes.c_char_p]),
             "fgpack_avi_packets": (ctypes.c_int, [ptr, i64p, i64p, u8p, u8p]),

@@ -32,17 +32,20 @@ under an XviD or DivX fourcc; VOL headers in band or in extradata); the
 Motion-JPEG decoder's planes equal FFmpeg's mjpeg decoder's (baseline and
 extended Huffman frames sampled 4:2:0, 4:2:2 or 4:4:4, restart intervals,
 frames without DHT by the standard tables, FFmpeg's simple IDCT).  Frames
-come out as swscale converts them for cv2: its unscaled YUV 4:2:0 -> BGR24
-(its x86 SIMD arithmetic; for VP9 with the coefficients of the colour
-space and range the stream carries, for Motion-JPEG full-range BT.601),
-4:2:2 by the same arithmetic, and 4:4:4 on its full-chroma path, so
-``VideoReader.read`` equals ``cv2.VideoCapture.read`` bit for bit (a GIF's
-frames too, at any size).
+come out as swscale converts them for cv2 (csrc/swscale.cpp; for VP9 with
+the coefficients of the colour space and range the stream carries, for
+Motion-JPEG full-range BT.601): 4:2:0 and 4:2:2 at an even height by its
+unscaled YUV -> BGR24 (its x86 SIMD arithmetic), 4:4:4 and odd heights by
+its scaling path at scale 1 (bicubic chroma, its x86 and C output
+stages), so ``VideoReader.read`` equals ``cv2.VideoCapture.read`` bit for
+bit at any frame size (a GIF's frames too).  What the files state of colour
+is read as cv2's FFmpeg reads it: a Matroska track's chroma siting (VP8 and
+VP9), an MP4 sample entry's colr colour space and range (mp4v), an MPEG-4
+Part 2 visual object's colour description over it.
 
-Refused with ValueError naming what was found: odd frame heights (cv2
-converts them on swscale's scaling path, which is not reproduced), other
-codecs (``V_MPEG4/ISO/AVC``, ``avc1``, an AVI's ``H264`` or raw ``I420``,
-MP4 JPEG sample entries other than mp4v's, ...), VP9 forms the decoder
+Refused with ValueError naming what was found: other codecs
+(``V_MPEG4/ISO/AVC``, ``avc1``, an AVI's ``H264`` or raw ``I420``, MP4 JPEG
+sample entries other than mp4v's, ...), VP9 forms the decoder
 does not decode (profiles 1-3, a frame size that changes mid-stream,
 intra-only frames, the reserved colour space), MPEG-4 Part 2 tools the
 decoder does not decode (interlaced VOPs, sprites and GMC, shape coding,
@@ -50,8 +53,13 @@ N-bit, scalability, reversible VLC, NEWPRED, reduced resolution, packed
 DivX B-frames, streams signed by an old libavcodec), Motion-JPEG forms it
 does not decode (progressive, arithmetic-coded, lossless, hierarchical,
 12-bit, greyscale, CMYK/YCCK, RGB, other samplings, interlaced fields),
-laced Matroska blocks, compressed or encrypted tracks, several Matroska
-video tracks or AVI video streams, MP4 edit lists that drop samples,
+primaries or a transfer curve that swscale colour-manages (a Matroska
+Colour element's, an MP4 colr box's, an MPEG-4 Part 2 colour
+description's: wide gamuts, log, PQ, HLG), colour spaces swscale has no
+coefficients for or that the port does not convert (FCC, YCgCo, BT.2020
+constant luminance), laced Matroska blocks, compressed or encrypted
+tracks, several Matroska video tracks or AVI video streams, MP4 edit lists
+that drop samples,
 OpenDML AVIX continuations, GIF forms FFmpeg would not decode whole (an
 image past the screen's edge or without a colour table, a minimum code
 size outside 1 to 11, LZW data running past its sub-blocks), other
@@ -143,6 +151,7 @@ MPEG4_FEATURES = (
 MJPEG_FEATURES = (
     "frames_420", "frames_422", "frames_444", "frames_with_restarts", "frames_without_dht",
     "unscaled_420_conversions", "unscaled_422_conversions", "full_chroma_conversions",
+    "scaled_conversions",
 )
 # the counters of fgpack_gif_stats, in order: images decoded, interlaced,
 # with a local colour table, with a transparency index, smaller than the
@@ -207,12 +216,13 @@ class _Mp4:
         if not handle:
             return
         try:
-            info = (ctypes.c_int64 * 8)()
+            info = (ctypes.c_int64 * 12)()
             entry = ctypes.create_string_buffer(16)
             lib.fgpack_mp4_info(handle, info, entry, 16)
             self.name = entry.value.decode("latin-1")
             (self.width, self.height, n, self.timescale, self.stts_samples,
-             self.stts_duration, oti, n_dsi) = (int(v) for v in info)
+             self.stts_duration, oti, n_dsi) = (int(v) for v in info[:8])
+            self.colr = tuple(int(v) for v in info[8:])  # primaries, transfer, matrix, full
             if oti >= 0:
                 self.name += f" ({_OBJECT_TYPES.get(oti, f'object type 0x{oti:02x}')})"
             self.offsets, self.sizes = np.zeros(n, np.int64), np.zeros(n, np.int64)
@@ -260,6 +270,8 @@ class VideoReader:
         self._dec = None
         t0 = time.perf_counter()
         self.codec_tag = ""  # an AVI stream's fourcc (the MPEG-4 decoder's tag rules read it)
+        self.siting = 0  # the chroma location a Matroska track states (an AVChromaLocation)
+        self._colr = None  # an mp4v track's colr (colour space, full range)
         if self.data[:4] == EBML_MAGIC:
             self._open_webm()
         elif _is_mp4(self.data):
@@ -278,11 +290,15 @@ class VideoReader:
         if self._kind != "vp8":
             self._fn["error"] = getattr(self._lib, f"fgpack_{self._kind}_error")
         self._dec = self._fn["new"]()
+        if self._kind in ("vp8", "vp9") and self.siting:
+            getattr(self._lib, f"fgpack_{self._kind}_siting")(self._dec, self.siting)
         self._next = 0
         self._flushed = False
         self._out = (ctypes.c_int64 * 4)()
         self._chroma = (1, 1)  # the chroma planes' subsampling (log2, vertical and horizontal)
         if self._kind == "mpeg4":
+            if self._colr:
+                self._lib.fgpack_mpeg4_colour(self._dec, *self._colr)
             size = (ctypes.c_int64 * 2)()
             self._lib.fgpack_mpeg4_codec_tag(self._dec, self.codec_tag.encode("latin-1"))
             self._check(self._lib.fgpack_mpeg4_headers(self._dec, self.dsi, len(self.dsi), size),
@@ -291,12 +307,21 @@ class VideoReader:
                 self.width, self.height = int(size[0]), int(size[1])
         elif self._kind == "mjpeg":
             self._mjpeg_header()
-        self._check_height()
         self.timings = {"demux": time.perf_counter() - t0, "decode": 0.0, "convert": 0.0}
 
     def _refuse(self, codec: str):
         raise ValueError(f"{self.name}: video codec {codec!r} is not decoded by the port "
                          f"(it reads {READS})")
+
+    def _refuse_colour_managed(self, primaries: int, transfer: int, where: str):
+        """cv2 converts a frame whose stated primaries or transfer are
+        outside fgpack_sws_colour_managed's sets through swscale's colour
+        management (another gamut or curve), which the port does not."""
+        if self._lib.fgpack_sws_colour_managed(primaries, transfer):
+            raise ValueError(
+                f"{self.name}: {where} states primaries {primaries} and transfer "
+                f"{transfer}, which cv2 converts through swscale's colour management; the "
+                f"port does not (video codec {self.codec!r})")
 
     def _open_webm(self):
         status = ctypes.c_int()
@@ -304,7 +329,7 @@ class VideoReader:
         if not handle:
             raise ValueError(f"{self.name}: {_status(status.value)}")
         try:
-            info = (ctypes.c_int64 * 5)()
+            info = (ctypes.c_int64 * 8)()
             duration = ctypes.c_double()
             codec = ctypes.create_string_buffer(64)
             self._lib.fgpack_webm_info(handle, info, ctypes.byref(duration), codec, 64)
@@ -316,6 +341,11 @@ class VideoReader:
                 self._refuse(self.codec)
             self.width, self.height, n = int(info[0]), int(info[1]), int(info[2])
             default_duration, scale = int(info[3]), int(info[4])
+            # cv2 converts VP8 and VP9 frames from the chroma siting the
+            # Colour element states (it shows at odd heights only), and
+            # Motion-JPEG's from the decoder's own centred siting
+            self._refuse_colour_managed(int(info[6]), int(info[7]), "the track's Colour element")
+            self.siting = int(info[5]) if self.codec != "V_MJPEG" else 0
             self.offsets = np.zeros(n, np.int64)
             self.sizes = np.zeros(n, np.int64)
             self.pts = np.zeros(n, np.int64)
@@ -453,6 +483,16 @@ class VideoReader:
         self.codec = track.name
         if self.codec not in (MPEG4_PART2, MP4_JPEG):
             self._refuse(self.codec)
+        # cv2 converts an mp4v frame in the colour space and range of the
+        # sample entry's colr box (a VOL's colour description overrides
+        # them); the Motion-JPEG decoder sets its own
+        primaries, transfer, matrix, full = track.colr
+        self._refuse_colour_managed(primaries, transfer, "the sample entry's colr box")
+        if self.codec == MPEG4_PART2 and self._lib.fgpack_sws_matrix_row(matrix) < 0:
+            raise ValueError(f"{self.name}: the sample entry's colr box states matrix "
+                             f"{matrix}, which the port does not convert (video codec "
+                             f"{self.codec!r})")
+        self._colr = (matrix, full) if self.codec == MPEG4_PART2 else None
         self.width, self.height = track.width, track.height
         self.offsets, self.sizes, self.keys = track.offsets, track.sizes, track.keys
         self.pts = (track.cts * 1_000_000_000) // max(track.timescale, 1)
@@ -464,12 +504,6 @@ class VideoReader:
         else:
             self.fps = 0.0
         self.frame_count = track.stts_samples or len(self.sizes)
-
-    def _check_height(self):
-        if self.height % 2 and self._kind != "gif":
-            raise ValueError(
-                f"{self.name}: odd frame height {self.height}: cv2 converts such frames on "
-                "swscale's scaling path (bicubic chroma), which the port does not reproduce")
 
     def _check(self, rc: int, where: str):
         if rc == 0:
@@ -513,7 +547,6 @@ class VideoReader:
         self.width, self.height = int(self._out[1]), int(self._out[2])
         if self._kind == "mjpeg":  # 0 4:4:4, 1 4:2:2, 2 4:2:0
             self._chroma = (int(self._out[3] == 2), int(self._out[3] > 0))
-        self._check_height()
         return True
 
     def read(self) -> Optional[np.ndarray]:
@@ -522,8 +555,9 @@ class VideoReader:
             return None
         t0 = time.perf_counter()
         frame = np.empty((self.height, self.width, 3), np.uint8)
-        self._fn["bgr"](self._dec, _u8p(frame))
+        rc = self._fn["bgr"](self._dec, _u8p(frame))
         self.timings["convert"] += time.perf_counter() - t0
+        self._check(rc, f"the conversion of frame {self._next - 1}")
         return frame
 
     def planes(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -146,11 +146,11 @@ def upsample(logits: torch.Tensor, full_hw: Tuple[int, int]) -> torch.Tensor:
 def resize_maps(maps: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     """(h0, w0, P) -> (h, w, P) as jax.image.resize(..., 'bilinear') does:
     half-pixel centres, and a triangle filter widened by the scale where it
-    shrinks an axis (antialiasing, which a plain bilinear downscale lacks)."""
-    return F.interpolate(
-        maps.permute(2, 0, 1)[None], size=hw, mode="bilinear", align_corners=False,
-        antialias=True,
-    )[0].permute(1, 2, 0)
+    shrinks an axis (antialiasing, which a plain bilinear downscale lacks),
+    by its weight matrices (ops/misc): a Gaussian's peak on the decode grid
+    is a plateau of exact ties, which the frame-0 top-5 soft-argmax breaks
+    as JAX does only where the values are JAX's to the bit."""
+    return resize_bilinear(maps.permute(2, 0, 1), hw).permute(1, 2, 0)
 
 
 def decode_labels(logits: torch.Tensor, full_hw: Tuple[int, int]) -> torch.Tensor:

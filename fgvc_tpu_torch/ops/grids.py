@@ -1,4 +1,4 @@
-"""Gaussian query heatmaps and top-k soft-argmax decoding
+"""Coordinate grids, Gaussian query heatmaps and top-k soft-argmax decoding
 (fgvc_tpu/ops/grids.py).  Points are (x, y) in full-resolution pixels."""
 
 from __future__ import annotations
@@ -6,6 +6,15 @@ from __future__ import annotations
 import torch
 
 from fgvc_tpu_torch.ops.topk import top_k, topk_segmented
+
+
+def coords_grid(height: int, width: int, dtype: torch.dtype = torch.float32,
+                device=None) -> torch.Tensor:
+    """(height, width, 2) pixel coordinates, channel 0 = x, channel 1 = y
+    (the reference's channel order, channels last)."""
+    ys, xs = torch.meshgrid(torch.arange(height, dtype=dtype, device=device),
+                            torch.arange(width, dtype=dtype, device=device), indexing="ij")
+    return torch.stack([xs, ys], dim=-1)
 
 
 def draw_gaussian_maps(

@@ -9,13 +9,14 @@
   the scale where it shrinks an axis.  F.interpolate's plain 'bicubic'
   (a = -0.75, edge taps clamped, no widening) is another function;
   ``antialias=True`` selects the one JAX computes, going up and down.
-* ``resize_bilinear``: jax.image.resize(..., 'bilinear') going up (the
-  tracker's decode, HRNet's fusion), by its per-axis weight matrices
-  (``bilinear_weights``).  Past the last input centre a weight row holds
-  one tap of weight 1, so the bottom and right borders are exact copies of
-  the last row and column, as in JAX; F.interpolate computes them as
-  l0 * x + l1 * x, which can be an ulp off, and a decode's top-k over a
-  plateau of such values picks other pixels than JAX's over exact ties.
+* ``resize_bilinear``: jax.image.resize(..., 'bilinear') (the tracker's
+  decode and its keypoint maps, HRNet's fusion), by its per-axis weight
+  matrices (``bilinear_weights``; antialiased where an axis shrinks).  Past
+  the last input centre a weight row holds one tap of weight 1, so the
+  bottom and right borders are exact copies of the last row and column, as
+  in JAX; F.interpolate computes them as l0 * x + l1 * x, which can be an
+  ulp off, and a decode's top-k over a plateau of such values picks other
+  pixels than JAX's over exact ties.
 """
 
 from __future__ import annotations
@@ -62,24 +63,27 @@ def resize_bicubic(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 @functools.lru_cache(maxsize=64)
 def bilinear_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
     """(n_in, n_out) float32 weights of jax.image.resize(..., 'bilinear')
-    along one axis with n_out >= n_in: the triangle kernel at each output's
-    half-pixel centre, normalised over the taps inside the input; the same
-    weights as jit-compiled jax.image.resize to float32 rounding.  Cached
-    per device: a copy from the host on every decode would make the host
-    wait for the card's queue each frame."""
+    along one axis: the triangle kernel at each output's half-pixel centre
+    (widened by n_in / n_out where the axis shrinks: its antialiasing),
+    normalised over the taps inside the input; the same weights as
+    jit-compiled jax.image.resize to float32 rounding.  Cached per device:
+    a copy from the host on every decode would make the host wait for the
+    card's queue each frame."""
     # the sample positions as XLA computes them: (i + 0.5) * inv_scale - 0.5
     # in one fused multiply-add (one rounding), inv_scale a float32
     inv_scale = float(torch.tensor(1.0 / (n_out / n_in), dtype=torch.float32))
     sample = ((torch.arange(n_out, dtype=torch.float64) + 0.5) * inv_scale - 0.5).float()
     dist = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs()
+    if inv_scale > 1.0:
+        dist = dist / inv_scale
     w = torch.clamp_min(1.0 - dist, 0.0)
     total = w.sum(0, keepdim=True)
     return (w / torch.where(total != 0, total, torch.ones_like(total))).to(device)
 
 
 def resize_bilinear(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-    """(..., h, w) -> (..., H, W) with H >= h and W >= w, as
-    jax.image.resize(..., 'bilinear') on the last two axes."""
+    """(..., h, w) -> (..., H, W) as jax.image.resize(..., 'bilinear') on the
+    last two axes."""
     wy = bilinear_weights(x.shape[-2], int(hw[0]), x.device)
     wx = bilinear_weights(x.shape[-1], int(hw[1]), x.device)
     return torch.einsum("...hw,hH,wW->...HW", x, wy, wx)

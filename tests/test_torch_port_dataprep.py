@@ -16,9 +16,10 @@ fgvc_tpu_torch/data_io/flo.py) against the JAX package's tools
   equal cv2.imencode of the JAX tool's quantisation applied to the port's
   own flows; the same shards; an orbax path and a missing card refused;
 * ``generate_tapvid_kinetics`` on cv2-written mp4v and VP80 clips and a CSV
-  row whose clip is missing: equal pickles and the same last line; a clip
-  the JAX tool decodes and the port refuses (an odd frame height) is named
-  on stderr, the other pickles are written, and the tool exits 1;
+  row whose clip is missing: equal pickles and the same last line; an
+  odd-height clip's pickle equal too; a clip the JAX tool decodes and the
+  port refuses (raw I420 in AVI) is named on stderr, the other pickles are
+  written, and the tool exits 1;
 * chip_smoke.py's dataprep pins are what the JAX tools (cv2) and the port's
   tools write on the phase's inputs.
 
@@ -392,9 +393,9 @@ def write_csv(path, ids, T=10, seed=0):
 
 @pytest.fixture(scope="module")
 def kinetics_clips(tmp_path_factory):
-    """cv2-written clips (mp4v .mp4 at 64 x 48, VP80 .webm at 48 x 32) and
-    an mp4v .mp4 whose VOL says 100 x 59 (cv2 decodes it, the port refuses
-    the odd height), by video id."""
+    """cv2-written clips (mp4v .mp4 at 64 x 48, VP80 .webm at 48 x 32), an
+    mp4v .mp4 whose VOL says 100 x 59 and a raw I420 .avi (cv2 decodes it,
+    the port refuses the codec), by video id."""
     base = tmp_path_factory.mktemp("kinetics")
     mp4v = codec.write_clip(base / "kin_mp4v.mp4", mpeg4.content("pan", 64, 48, 10, seed=1),
                             "mp4v")
@@ -412,7 +413,9 @@ def kinetics_clips(tmp_path_factory):
     odd.parent.mkdir()
     odd.write_bytes(mpeg4.build_mp4(samples, mpeg4.rewrite_vol(dsi, odd_height), 100, 59))
     os.remove(even)
-    return {"kin_mp4v": mp4v, "kin_vp8": vp8, "kin_odd": str(odd)}
+    i420 = codec.write_clip(base / "odd" / "kin_i420.avi", mpeg4.content("pan", 64, 48, 10, seed=4),
+                            "I420")
+    return {"kin_mp4v": mp4v, "kin_vp8": vp8, "kin_odd": str(odd), "kin_i420": i420}
 
 
 def _pickles(out):
@@ -451,26 +454,31 @@ def test_generate_tapvid_kinetics_equals_jax_tool(kinetics_clips, tmp_path, monk
 
 def test_generate_tapvid_kinetics_names_a_refused_clip_and_exits_1(kinetics_clips, tmp_path,
                                                                    monkeypatch, capsys):
+    """The odd-height clip gets its pickle equal to the JAX tool's; a raw
+    I420 AVI under a .mp4 name (cv2 reads it, the port refuses the codec)
+    is named and the tool exits 1."""
     import shutil
 
     from fgvc_tpu_torch.tools.data import generate_tapvid_kinetics
 
     clips = tmp_path / "clips"
     clips.mkdir()
-    for vid in ("kin_mp4v", "kin_odd"):
+    for vid in ("kin_mp4v", "kin_odd", "kin_i420"):
         shutil.copy(kinetics_clips[vid], clips / f"{vid}.mp4")
-    write_csv(tmp_path / "k.csv", ["kin_odd", "kin_mp4v"])
+    write_csv(tmp_path / "k.csv", ["kin_odd", "kin_i420", "kin_mp4v"])
     args = ["--csv", tmp_path / "k.csv", "--video-root", clips, "--size", 32]
     jax_tool("generate_tapvid_kinetics", args + ["--out", tmp_path / "jax"], monkeypatch)
-    assert capsys.readouterr().out.startswith("wrote 2 video pickles")  # cv2 reads both
+    assert capsys.readouterr().out.startswith("wrote 3 video pickles")  # cv2 reads all three
     rc = generate_tapvid_kinetics.main([str(a) for a in args] + ["--out", str(tmp_path / "port")])
     captured = capsys.readouterr()
     assert rc == 1
-    assert captured.out.startswith("wrote 1 video pickles")
-    assert "kin_odd" in captured.err and "odd frame height 59" in captured.err
+    assert captured.out.startswith("wrote 2 video pickles")
+    assert "kin_i420" in captured.err and "video codec 'I420'" in captured.err
+    assert "kin_odd" not in captured.err
     jax = _pickles(tmp_path / "jax")
     assert jax["kin_odd"]["video"].shape[0] == 10
-    _assert_pickles_equal(_pickles(tmp_path / "port"), {"kin_mp4v": jax["kin_mp4v"]})
+    _assert_pickles_equal(_pickles(tmp_path / "port"),
+                          {vid: jax[vid] for vid in ("kin_mp4v", "kin_odd")})
 
 
 # ---- chip_smoke.py's dataprep pins ----------------------------------------

@@ -313,17 +313,24 @@ def test_refusals(scene, tmp_path):
     for f in np.zeros((2, 32, 32, 3), np.uint8):
         writer.write(f)
     writer.release()
-    # cv2's MPEG-4 Part 2 clip, once refused here, runs, and so does the
-    # port's own Motion-JPEG .mp4 (clip_demo.mp4, read back); x.mp4 above,
-    # 21 rows high, stops the demo by its odd height
+    # cv2's MPEG-4 Part 2 clip runs, and so does the port's own Motion-JPEG
+    # .mp4 (clip_demo.mp4, read back); x.mp4 above is 21 rows high: its
+    # frame is cv2's (swscale's scaling path) and the demo runs on it
     out = str(tmp_path / "clip_demo.mp4")
     main(["--video", clip, "--grid", "2", "--size", "32", "--out", out, "--device", "cpu"])
     assert v.read_video(out)[0].shape == (2, 32, 32, 3)
     again = str(tmp_path / "again.mp4")
     main(["--video", out, "--grid", "2", "--size", "32", "--out", again, "--device", "cpu"])
     assert v.read_video(again)[0].shape == (2, 32, 32, 3)
-    with pytest.raises(SystemExit, match=r"odd frame height 21.*ROADMAP"):
-        main(["--video", str(tmp_path / "x.mp4"), "--device", "cpu"])
+    from fgvc_tpu.cli.demo import load_video as jax_load_video
+    from fgvc_tpu_torch.cli.demo import load_video
+
+    np.testing.assert_array_equal(load_video(str(tmp_path / "x.mp4"), 32),
+                                  jax_load_video(str(tmp_path / "x.mp4"), 32))
+    odd_out = str(tmp_path / "odd_demo.mp4")
+    main(["--video", str(tmp_path / "x.mp4"), "--grid", "2", "--size", "32", "--out", odd_out,
+          "--device", "cpu"])
+    assert v.read_video(odd_out)[0].shape == (1, 32, 32, 3)
     assert "H.264" in VIDEO_REFUSAL
     with pytest.raises(SystemExit, match="exactly one of --frames / --video"):
         main(["--video", "clip.mp4", "--frames", scene["frames"], "--device", "cpu"])

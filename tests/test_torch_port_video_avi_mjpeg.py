@@ -373,12 +373,25 @@ def _sof(jpeg: bytes, marker=None, precision=None) -> bytes:
     return bytes(b)
 
 
+@pytest.mark.parametrize("sampling", [2, 1, 0], ids=["420", "422", "444"])
+def test_odd_height_equals_cv2(tmp_path, sampling):
+    """PIL's JPEGs of 96 x 63 in AVI: swscale's scaling path (bicubic
+    chroma rows for 4:2:0, the chroma as it is for 4:2:2, full chroma for
+    4:4:4) equals cv2, counted by the path taken."""
+    frames = codec.clip_frames(96, 64, 3, seed=2)
+    path = tmp_path / "odd.avi"
+    path.write_bytes(build_avi(pil_jpegs(frames[:, :63], 80, sampling), 96, 63))
+    feats = assert_reads_as_cv2(str(path), expect_frames=3)
+    conv = "full_chroma_conversions" if sampling == 0 else "scaled_conversions"
+    assert feats[conv] == 3 and feats["unscaled_420_conversions"] == 0
+
+
 REFUSALS = {
     "avix": "AVIX", "i420": "'I420'", "h264": "'H264'", "two-video-streams": "more than one video",
     "interlaced": "interlaced Motion-JPEG", "progressive": "progressive Motion-JPEG",
     "arithmetic": "arithmetic-coded", "lossless": "lossless Motion-JPEG", "12-bit": "12-bit",
     "greyscale": "greyscale Motion-JPEG", "not-avi-riff": "not a container",
-    "odd-height": "odd frame height 63", "mp4-jpeg-entry": "video codec 'jpeg",
+    "mp4-jpeg-entry": "video codec 'jpeg",
 }
 
 
@@ -414,8 +427,6 @@ def test_refusals_name_what_was_found(case):
             buf = io.BytesIO()
             Image.fromarray(f[..., 0]).save(buf, "JPEG")
             jpegs.append(buf.getvalue())
-    elif case == "odd-height":
-        jpegs, h = pil_jpegs(frames[:, :63], 80, 2), 63
     data = build_avi(jpegs, w, h, **kw)
     if case == "not-avi-riff":
         data = data[:8] + b"WAVE" + data[12:]

@@ -191,18 +191,21 @@ def _uint(eid: int, v: int) -> bytes:
 
 
 def build_mkv(packets, keys, w, h, codec=b"V_VP8", unknown=True, block_groups=True,
-              lacing=False, encoding=False, video_tracks=1, doc_type=b"webm"):
+              lacing=False, encoding=False, video_tracks=1, doc_type=b"webm", colour=None):
     """A Matroska file of the packets (40 ms apart) in clusters of 8:
     unknown-size Segment and Clusters, BlockGroups (ReferenceBlock on
-    inter frames) or SimpleBlocks, and the refusal cases' variants."""
+    inter frames) or SimpleBlocks, and the refusal cases' variants;
+    `colour` maps the IDs of a Colour element's children (ChromaSitingHorz
+    0x55B7, ...) to the values it states."""
     head = _el(0x1A45DFA3, _uint(0x4286, 1) + _uint(0x42F7, 1) + _uint(0x42F2, 4)
                + _uint(0x42F3, 8) + _el(0x4282, doc_type) + _uint(0x4287, 2) + _uint(0x4285, 2))
     info = _el(0x1549A966, _uint(0x2AD7B1, 1_000_000) + _el(0x4489, struct.pack(">d", 40.0 * len(packets)))
                + _el(0x4D80, b"fgvc") + _el(0x5741, b"fgvc"))
+    colour = b"" if colour is None else _el(0x55B0, b"".join(_uint(k, v) for k, v in colour.items()))
     entries = b""
     for t in range(video_tracks):
         entry = (_uint(0xD7, t + 1) + _uint(0x73C5, t + 1) + _uint(0x83, 1) + _el(0x86, codec)
-                 + _uint(0x23E383, 40_000_000) + _el(0xE0, _uint(0xB0, w) + _uint(0xBA, h)))
+                 + _uint(0x23E383, 40_000_000) + _el(0xE0, _uint(0xB0, w) + _uint(0xBA, h) + colour))
         if encoding:
             entry += _el(0x6D80, _el(0x6240, _uint(0x5031, 0) + _uint(0x5032, 1) + _uint(0x5033, 0)
                                       + _el(0x5034, _uint(0x4254, 3) + _el(0x4255, b"\x00"))))
@@ -256,24 +259,30 @@ def _resized(packets, keys, w, h):
             for p, k in zip(packets, keys)]
 
 
-def test_odd_width_equals_cv2_and_odd_height_is_refused(clips, tmp_path):
+def test_odd_width_equals_cv2_and_odd_height_equals_cv2(clips, tmp_path):
     """An odd width (a key-frame header of 97 on 100 x 60's macroblocks)
     converts on swscale's unscaled path and equals cv2 bit for bit; an odd
-    height takes swscale's scaling path and is refused by name."""
+    height takes swscale's scaling path (bicubic chroma rows; full chroma
+    at an odd width too) and equals cv2 as well, the luma plane as
+    CAP_PROP_CONVERT_RGB = 0 gives it."""
     from fgvc_tpu_torch.data_io.video import VideoReader
 
     with VideoReader(clips["100x60"]) as src:
         packets, keys = src.packets(), src.keys
-    path = tmp_path / "odd.mkv"
-    path.write_bytes(build_mkv(_resized(packets, keys, 97, 60), keys, 97, 60))
-    ref, _ = cv2_read(path)
-    with VideoReader(str(path)) as reader:
-        got = list(reader)
-    assert len(got) == len(ref) and got[0].shape == (60, 97, 3)
-    assert all(np.array_equal(a, b) for a, b in zip(got, ref))
-    for w, h in ((99, 59), (100, 57)):
-        with pytest.raises(ValueError, match=f"odd frame height {h}"):
-            VideoReader(build_mkv(_resized(packets, keys, w, h), keys, w, 60))
+    for w, h in ((97, 60), (99, 59), (100, 57)):
+        path = tmp_path / f"odd_{w}x{h}.mkv"
+        path.write_bytes(build_mkv(_resized(packets, keys, w, h), keys, w, h))
+        ref, meta = cv2_read(path)
+        grey, _ = cv2_read(path, convert_rgb=False)
+        with VideoReader(str(path)) as reader:
+            got, luma = [], []
+            for frame in reader:
+                got.append(frame)
+                luma.append(reader.planes()[0])
+            assert (reader.frame_count, reader.fps) == meta
+        assert len(got) == len(ref) == len(packets) and got[0].shape == (h, w, 3)
+        assert all(np.array_equal(a, b) for a, b in zip(got, ref)), (w, h)
+        assert all(np.array_equal(a, b.reshape(a.shape)) for a, b in zip(luma, grey)), (w, h)
 
 
 @pytest.mark.parametrize("case,match", [

@@ -183,14 +183,16 @@ def _descr(tag: int, payload: bytes) -> bytes:
 
 def build_mp4(samples, dsi, w, h, timescale=25, durations=None, cts=None, keys=None,
               per_chunk=(1 << 30,), co64=False, stz2=False, elst=None, ftyp=True,
-              object_type=0x20):
+              object_type=0x20, colr=None):
     """An MP4 of mp4v samples (one video track): `durations` per sample
     (stts, run-length coded), composition offsets `cts` (ctts) and `keys`
     (stss) where given, chunks of `per_chunk` samples (stsc runs cycle
     through the tuple), co64 / stz2 in place of stco / stsz, no
     DecoderSpecificInfo where `dsi` is empty (the VOL in band), an edit list
-    of (segment duration, media time) entries, and a QuickTime-style file
-    without ftyp (mdat first)."""
+    of (segment duration, media time) entries, a QuickTime-style file
+    without ftyp (mdat first), and a sample entry's colr box of `colr`
+    (primaries, transfer, matrix[, full range]): nclx with the range, nclc
+    without."""
     n = len(samples)
     durations = list(durations or [1] * n)
     counts = []
@@ -220,7 +222,10 @@ def build_mp4(samples, dsi, w, h, timescale=25, durations=None, cts=None, keys=N
         + (_descr(5, dsi) if dsi else b"")) + _descr(6, b"\x02")))
     entry = _box(b"mp4v", bytes(6) + struct.pack(">H", 1) + bytes(16)
                  + struct.pack(">HHIIIH", w, h, 0x480000, 0x480000, 0, 1) + bytes(32)
-                 + struct.pack(">Hh", 0x18, -1) + esds)
+                 + struct.pack(">Hh", 0x18, -1) + esds
+                 + (b"" if colr is None else _box(b"colr", (b"nclx" if len(colr) > 3 else b"nclc")
+                                                  + struct.pack(">HHH", *colr[:3])
+                                                  + bytes([colr[3] << 7] if len(colr) > 3 else b""))))
     runs = []
     for d in durations:
         if runs and runs[-1][1] == d:
@@ -378,10 +383,11 @@ def rewrite_vol(header: bytes, edit) -> bytes:
     return header[:start] + new + header[start + fields["end"] // 8:]
 
 
-def test_odd_width_equals_cv2_and_odd_height_is_refused(clips, tmp_path):
+def test_odd_width_equals_cv2_and_odd_height_equals_cv2(clips, tmp_path):
     """A VOL width of 97 on 100 x 60's macroblocks decodes and converts on
-    swscale's unscaled path equal to cv2; an odd height (VOL 100 x 59) is
-    refused by name, as for VP8."""
+    swscale's unscaled path equal to cv2; an odd height (VOL 100 x 59)
+    converts on swscale's scaling path from chroma co-sited left (as
+    FFmpeg's decoder reports it) equal to cv2 too."""
     from fgvc_tpu_torch.data_io.video import VideoReader
 
     with VideoReader(clips["100x60-pan"]) as src:
@@ -396,8 +402,11 @@ def test_odd_width_equals_cv2_and_odd_height_is_refused(clips, tmp_path):
     path = tmp_path / "odd.mp4"
     path.write_bytes(build_mp4(samples, size(97, 60), 97, 60))
     assert_reads_as_cv2(str(path), expect_frames=len(samples))
-    with pytest.raises(ValueError, match="odd frame height 59"):
-        VideoReader(build_mp4(samples, size(100, 59), 100, 59))
+    path = tmp_path / "odd_height.mp4"
+    path.write_bytes(build_mp4(samples, size(100, 59), 100, 59))
+    assert_reads_as_cv2(str(path), expect_frames=len(samples))
+    with VideoReader(str(path)) as reader:
+        assert (reader.width, reader.height) == (100, 59)
 
 
 # ---- the committed fixture --------------------------------------------------

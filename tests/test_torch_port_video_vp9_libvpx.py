@@ -11,8 +11,9 @@ quantisation modes (segmentation, its temporal map prediction), lossless
 adaptation), the regular, smooth and sharp filters of switchable frames
 and bilinear frames (a fixed-filter frame header rewritten to it),
 show_existing_frame packets, the colour spaces and ranges cv2 converts with
-other coefficients; what is refused (profiles 1-3, intra-only frames, a size
-change, the reserved colour space, odd heights) by name; the two committed
+other coefficients; an odd height (swscale's scaling path); what is
+refused (profiles 1-3, intra-only frames, a size change, the reserved
+colour space) by name; the two committed
 tool fixtures against their libvpx and cv2 digests.
 
     python tests/test_torch_port_video_vp9_libvpx.py   # remakes the two fixtures and JSONs
@@ -354,25 +355,36 @@ def test_odd_width_equals_libvpx_and_cv2(vpx, tmp_path):
     assert all(np.array_equal(a[0], b[0]) for a, b in zip(planes, vpx.decode(packets)))
 
 
+def test_odd_height_equals_libvpx_and_cv2(vpx, tmp_path):
+    """libvpx's 96 x 63 stream: the planes equal libvpx's and the frames,
+    on swscale's scaling path, cv2's."""
+    packets = vpx.encode(codec.clip_frames(W, 63, 3, seed=2))
+    path = tmp_path / "odd.mkv"
+    path.write_bytes(mkv(packets, W, 63))
+    ref, meta = codec.cv2_read(path)
+    frames, planes, got_meta, _ = port_read(str(path))
+    assert got_meta == meta and frames[0].shape == (63, W, 3) and len(frames) == len(ref) == 3
+    assert all(np.array_equal(a, b) for a, b in zip(frames, ref))
+    for got, want in zip(planes, vpx.decode(packets)):
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("case,match", [
     ("profile-1", "VP9 profile 1"), ("profile-2-later", "VP9 profile 2"),
     ("intra-only", "intra-only"), ("size-change", "a size change"),
-    ("reserved-colour", "reserved VP9 colour space"), ("odd-height", "odd frame height 63"),
+    ("reserved-colour", "reserved VP9 colour space"),
     ("not-key-first", "not a key frame"), ("corrupt", "corrupt VP9")])
 def test_refused_forms_are_named(vpx, case, match):
     """Each VP9 form the port does not decode raises ValueError naming it:
     libvpx streams with the form's header bits rewritten (the profile bits
     of the first or a later key frame; an inter frame's show_frame cleared
     and intra_only set), a second key frame of another size, libvpx's
-    reserved colour space, an odd height, a stream opening on an inter
-    frame, a key frame cut after its header."""
+    reserved colour space, a stream opening on an inter frame, a key frame
+    cut after its header."""
     from fgvc_tpu_torch.data_io.video import VideoReader
 
     frames = codec.clip_frames(W, H, 6, seed=2)
-    if case == "odd-height":
-        packets, h = vpx.encode(codec.clip_frames(W, 63, 3, seed=2)), 63
-    else:
-        packets, h = vpx.encode(frames), H
+    packets = vpx.encode(frames)
     if case == "profile-1":
         packets[0] = set_bits(packets[0], 2, 1, 1)
     elif case == "profile-2-later":
@@ -388,7 +400,7 @@ def test_refused_forms_are_named(vpx, case, match):
     elif case == "corrupt":
         packets[0] = packets[0][:12]
     with pytest.raises(ValueError, match=match):
-        with VideoReader(mkv(packets, W, h)) as reader:
+        with VideoReader(mkv(packets, W, H)) as reader:
             list(reader)
 
 
